@@ -8,17 +8,17 @@ Phases (each raises on failure, so any failure exits non-zero):
   2. build every kernel from `panoswintransformerobjectdetection_torch/csrc`;
   3. each kernel against its twin at the flagship's shapes, f32 and bf16,
      with its median time, the twin's time and a library call's time;
-  4. the flagship (PanoSwin-T Faster R-CNN, random weights from seed 0, BN
-     folded, bf16) `simple_test` on 2 x 512 x 1024 frames: one warm-up, then
-     timed requests with the kernels' launch counts read around them; a
-     small-input check of the card's path against the CPU path;
+  4. a small-input f32 check of the card's path against the CPU path; then
+     the flagship (PanoSwin-T Faster R-CNN, random weights from seed 0, BN
+     folded, bf16) `simple_test` on 2 x 512 x 1024 frames with PyTorch's
+     TF32 defaults back: one warm-up, then timed requests with the kernels'
+     launch counts read around them;
   5. a JSON line per kernel, then the result line.
 Without a CUDA card it exits with an error and prints no result.
 """
 
 import json
 import statistics
-import subprocess
 import sys
 import time
 
@@ -30,12 +30,6 @@ BF16_OPS_PER_S = 989e12         # dense bf16 tensor-core rate, same source
 BF16_ULPS = 4 * 2.0 ** -8       # bf16 tolerance: 4 units in the last place of max|ref|
 B, H, W = 2, 512, 1024
 REQUESTS = 5
-
-
-def gpu_identity() -> str:
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
 def time_ms(fn, reps: int) -> float:
@@ -96,7 +90,8 @@ def kernel_k1(dev, stem):
     rec = {}
     for dt in (torch.float32, torch.bfloat16):
         args = [x.to(dt).to(dev)] + [t.to(dev) for t in (w0, b0, w1, b1)]
-        got = stem.stem_conv(*args)
+        packed = stem.stem_weights(*args[1:], dt)
+        got = stem.stem_conv(args[0], packed)
         ref = stem.stem_conv_plain(*args)
         torch.cuda.synchronize()
         scale = float(ref.float().abs().max())
@@ -112,7 +107,7 @@ def kernel_k1(dev, stem):
                 h0 = torch.relu(conv(xn, w0b, b0b, padding=1))
                 return torch.relu(conv(h0, w1b, b1b, padding=1))
 
-            ms = time_ms(lambda: stem.stem_conv(*args), 20)
+            ms = time_ms(lambda: stem.stem_conv(args[0], packed), 20)
             plain_ms = time_ms(lambda: stem.stem_conv_plain(*args), 5)
             library_ms = time_ms(library, 20)
             nbytes = (x.numel() + B * c1 * H * W) * 2
@@ -193,7 +188,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    from panoswintransformerobjectdetection_torch.flagship import build_flagship
+    from panoswintransformerobjectdetection_torch.device import gpu_identity
+    from panoswintransformerobjectdetection_torch.flagship import build_flagship, flagship_inputs
     from panoswintransformerobjectdetection_torch.ops import cuda_build
     from panoswintransformerobjectdetection_torch.ops import roi_align as ra
     from panoswintransformerobjectdetection_torch.ops import stem_conv as stem
@@ -202,9 +198,10 @@ def main() -> int:
     dev = torch.device("cuda")
     print(f"[1] card: {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}, "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}; nvidia-smi: {ident}")
+    tf32_defaults = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    print("    TF32 is off for cuDNN convolutions and matmuls in this run")
+    print("    TF32 is off for cuDNN convolutions and matmuls in phases 3 and 4's checks")
 
     seconds = cuda_build.build_all()
     print(f"[2] built {', '.join(cuda_build.SOURCES)} for sm_90a in {seconds:.1f} s")
@@ -222,11 +219,11 @@ def main() -> int:
 
     print("[4] flagship simple_test, bf16, BN folded, random weights (seed 0)")
     reference_check(dev, build_flagship)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32_defaults
+    print(f"    timed requests with PyTorch's TF32 defaults: cuDNN {tf32_defaults[0]}, "
+          f"matmul {tf32_defaults[1]}")
     model = build_flagship(compute_dtype=torch.bfloat16, device=dev, seed=0)
-    rng = np.random.default_rng(0)
-    images = torch.from_numpy(rng.random((B, H, W, 3)).astype(np.float32)).to(dev)
-    img_shapes = torch.tensor([[float(H), float(W)]] * B, device=dev)
-    scale_factors = torch.ones((B, 4), device=dev)
+    images, img_shapes, scale_factors = flagship_inputs(B, dev)
     model.simple_test(images, img_shapes, scale_factors)       # warm-up
     torch.cuda.synchronize()
     stem.stem_conv.launches = 0

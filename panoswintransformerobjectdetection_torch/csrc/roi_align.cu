@@ -114,7 +114,7 @@ __device__ void axis_taps(float start, float bin, int size, int o, int* idx, flo
 
 template <typename T>
 __global__ void roi_align_kernel(RoiLevels levels, const float* __restrict__ rois,
-                                 T* __restrict__ out, int C, int w_first,
+                                 T* __restrict__ out, int batch, int C, int w_first,
                                  float finest_scale) {
   // [axis][bin][tap]; axis 0 = y (rows), 1 = x (columns)
   __shared__ int s_idx[2][O][K];
@@ -140,14 +140,20 @@ __global__ void roi_align_kernel(RoiLevels levels, const float* __restrict__ roi
     const int size = axis == 0 ? levels.height[lvl] : levels.width[lvl];
     axis_taps<T>(start, bin, size, o, s_idx[axis][o], s_w[axis][o]);
     if (t == 0) {
+      // an index outside [0, batch), or NaN, pools zeros (as the twin does)
+      const float b = roi[0];
       s_level = lvl;
-      s_batch = int(roi[0]);
+      s_batch = (b >= 0.f && b < float(batch)) ? int(b) : -1;
     }
   }
   __syncthreads();
 
   const int c = blockIdx.y * THREADS + t;
   if (c >= C) return;
+  if (s_batch < 0) {
+    for (int q = 0; q < O * O; ++q) out[(size_t(r) * O * O + q) * C + c] = from_f<T>(0.f);
+    return;
+  }
   const int lvl = s_level;
   const int Hl = levels.height[lvl], Wl = levels.width[lvl];
   const T* f = static_cast<const T*>(levels.feat[lvl]) + size_t(s_batch) * Hl * Wl * C + c;
@@ -179,11 +185,12 @@ __global__ void roi_align_kernel(RoiLevels levels, const float* __restrict__ roi
 }  // namespace
 
 // levels: the level maps (B, Hl, Wl, C) contiguous, all of one dtype;
-// rois (R, 5) float32 (batch, x1, y1, x2, y2) in image pixels; out
-// (R, 7, 7, C).  dtype 0 = float32, 1 = bfloat16.  w_first = 1 contracts
-// the W axis first (wide maps).
+// rois (R, 5) float32 (batch index, x1, y1, x2, y2) in image pixels, where
+// a RoI whose index lies outside [0, batch) pools zeros; out (R, 7, 7, C).
+// dtype 0 = float32, 1 = bfloat16.  w_first = 1 contracts the W axis first
+// (wide maps).
 extern "C" int roi_align_launch(const RoiLevels* levels, const void* rois, void* out, int R,
-                                int C, int dtype, int w_first, float finest_scale,
+                                int batch, int C, int dtype, int w_first, float finest_scale,
                                 void* stream) {
   if (levels->num_levels < 1 || levels->num_levels > MAX_LEVELS) return int(cudaErrorInvalidValue);
   if (R == 0) return 0;
@@ -191,11 +198,11 @@ extern "C" int roi_align_launch(const RoiLevels* levels, const void* rois, void*
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* r = static_cast<const float*>(rois);
   if (dtype == 0)
-    roi_align_kernel<float><<<grid, THREADS, 0, s>>>(*levels, r, static_cast<float*>(out), C,
-                                                     w_first, finest_scale);
+    roi_align_kernel<float><<<grid, THREADS, 0, s>>>(*levels, r, static_cast<float*>(out),
+                                                     batch, C, w_first, finest_scale);
   else if (dtype == 1)
     roi_align_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
-        *levels, r, static_cast<__nv_bfloat16*>(out), C, w_first, finest_scale);
+        *levels, r, static_cast<__nv_bfloat16*>(out), batch, C, w_first, finest_scale);
   else
     return int(cudaErrorInvalidValue);
   return int(cudaGetLastError());

@@ -1,5 +1,7 @@
-"""Device choice for the port's entry points: the card unless asked otherwise."""
+"""Device choice for the port's entry points (the card unless asked
+otherwise) and the card's identity for reports."""
 
+import subprocess
 from typing import Optional, Union
 
 import torch
@@ -18,3 +20,11 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
                 "port on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def gpu_identity() -> str:
+    """The card's name and power limit, as `nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader` prints them (first card)."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip().splitlines()[0]

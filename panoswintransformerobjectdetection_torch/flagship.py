@@ -7,14 +7,18 @@ depths 2-2-2-2, heads 1-1-1-2, window 4, FPN width 16): the JAX package's
 own tiny flagship has depths 1-1-1-1, which would run PitchAttention only.
 """
 
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn as nn
 
 from .device import resolve_device
 from .models.detectors import PanoFasterRCNN
 from .runtime.checkpoint import fold_batchnorm
+
+# The equirectangular frame size that `bench.py` runs the flagship at.
+FRAME_H, FRAME_W = 512, 1024
 
 
 def flagship_config(tiny: bool = False) -> dict:
@@ -60,3 +64,13 @@ def build_flagship(tiny: bool = False, compute_dtype: Optional[torch.dtype] = No
     init_weights(model, seed)
     model.load_state_dict(fold_batchnorm(model.state_dict()))
     return model.to(dev).eval()
+
+
+def flagship_inputs(batch: int, device: Union[str, torch.device], seed: int = 0
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(images, img_shapes, scale_factors) of one request: `batch` frames of
+    FRAME_H x FRAME_W uniform in [0, 1) from `seed`, on `device`."""
+    rng = np.random.default_rng(seed)
+    images = torch.from_numpy(rng.random((batch, FRAME_H, FRAME_W, 3)).astype(np.float32))
+    img_shapes = torch.tensor([[float(FRAME_H), float(FRAME_W)]] * batch)
+    return images.to(device), img_shapes.to(device), torch.ones((batch, 4), device=device)

@@ -7,7 +7,7 @@ default test configuration.  Submodule names follow the reference's
 state-dict keys (`backbone.`, `neck.`, `rpn_head.`, `roi_head.bbox_head.`).
 """
 
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -28,6 +28,14 @@ def default_test_cfg() -> dict:
                 "min_bbox_size": 0},
         "rcnn": {"score_thr": 0.05, "iou_threshold": 0.5, "max_per_img": 100},
     }
+
+
+# The stages of one `simple_test` request, in order.
+STAGES = ("stem", "backbone", "fpn", "proposals", "roi_align", "bbox_head", "detections")
+
+
+def _run_stage(name: str, fn: Callable):
+    return fn()
 
 
 class RoIHead(nn.Module):
@@ -90,22 +98,30 @@ class PanoFasterRCNN(nn.Module):
         return roi_align(feats[:nlvl], rois, self.featmap_strides)
 
     @torch.no_grad()
-    def simple_test(self, images, img_shapes, scale_factors=None) -> DetResult:
+    def simple_test(self, images, img_shapes, scale_factors=None,
+                    stage: Callable = _run_stage) -> DetResult:
         """images (B, H, W, 3) float; img_shapes (B, 2) (h, w); scale_factors
         (B, 4) or None.  Inputs are moved to the model's device.  Returns a
-        DetResult of (B, K) slots; only `mask`ed slots hold detections."""
+        DetResult of (B, K) slots; only `mask`ed slots hold detections.
+
+        Each of the request's stages (`STAGES`, in order) runs as
+        `stage(name, fn)`, which calls `fn()` and returns its result; a
+        profiler passes one that also times it.
+        """
         dev = self.device
         images = torch.as_tensor(images, device=dev)
         img_shapes = torch.as_tensor(img_shapes, dtype=torch.float32, device=dev)
         if scale_factors is not None:
             scale_factors = torch.as_tensor(scale_factors, dtype=torch.float32, device=dev)
-        feats = self.extract_feat(images)
-        props = self.proposals(feats, img_shapes)
+        x = stage("stem", lambda: self.backbone.patch_embed(images))
+        feats = stage("backbone", lambda: self.backbone.forward_from_embed(x))
+        feats = stage("fpn", lambda: self.neck(feats))
+        props = stage("proposals", lambda: self.proposals(feats, img_shapes))
         B, P, _ = props.boxes.shape
         rois = self.rois(props)
-        cls, reg = self.roi_head.bbox_head(self.roi_features(feats, rois))
-        return bbox_head_detections(cls.reshape(B, P, -1), reg.reshape(B, P, -1),
-                                    rois.reshape(B, P, 5),
-                                    img_shapes, target_stds=self.rcnn_target_stds,
-                                    roi_mask=props.mask, scale_factors=scale_factors,
-                                    **self.test_cfg["rcnn"])
+        roi_feats = stage("roi_align", lambda: self.roi_features(feats, rois))
+        cls, reg = stage("bbox_head", lambda: self.roi_head.bbox_head(roi_feats))
+        return stage("detections", lambda: bbox_head_detections(
+            cls.reshape(B, P, -1), reg.reshape(B, P, -1), rois.reshape(B, P, 5), img_shapes,
+            target_stds=self.rcnn_target_stds, roi_mask=props.mask,
+            scale_factors=scale_factors, **self.test_cfg["rcnn"]))

@@ -16,7 +16,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.stem_conv import BN_EPS, fold_bn, patch_projection, stem_conv
+from ..ops.stem_conv import (BN_EPS, StemWeights, fold_bn, patch_projection, stem_conv,
+                              stem_weights)
 
 
 def dense(layer: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -64,7 +65,8 @@ class ConvStemPatchEmbed(nn.Module):
     keys are `proj.{0,1,3,4,6}`.
 
     Eval path: BatchNorm's running statistics are folded into the two 3x3
-    convs and both run through kernel K1 (`ops/stem_conv.py`) at any H, W.
+    convs, once (`kernel_weights`), and both run through kernel K1
+    (`ops/stem_conv.py`) at any H, W.
     Input (B, H, W, 3) NHWC; output (B, H/ps, W/ps, embed_dim).
     """
 
@@ -79,15 +81,28 @@ class ConvStemPatchEmbed(nn.Module):
             nn.Conv2d(2 * d3, embed_dim, patch_size, stride=patch_size))
         self.norm = LayerNorm(embed_dim)
         self.dtype = dtype
+        self._kernel_key = self._kernel_weights = None
 
-    def folded(self):
-        """(w0, b0, w1, b1) with the BatchNorm statistics folded in."""
-        out = []
-        for ci, bi in ((0, 1), (3, 4)):
-            conv, bn = self.proj[ci], self.proj[bi]
-            out += fold_bn(conv.weight, conv.bias, bn.weight, bn.bias,
-                           bn.running_mean, bn.running_var, bn.eps)
-        return out
+    def kernel_weights(self, dtype: torch.dtype) -> StemWeights:
+        """The two 3x3 convs with BatchNorm's running statistics folded in,
+        laid out for K1 at compute type `dtype`.  Made at the first eval
+        call and kept until a stem parameter or statistic changes in place
+        (`load_state_dict`, an optimiser step) or the module is moved."""
+        pairs = [(self.proj[ci], self.proj[bi]) for ci, bi in ((0, 1), (3, 4))]
+        tensors = [[conv.weight, conv.bias, bn.weight, bn.bias, bn.running_mean,
+                    bn.running_var] for conv, bn in pairs]
+        key = (dtype, *(t._version for ts in tensors for t in ts))
+        if self._kernel_key != key:
+            with torch.no_grad():
+                folded = [t for ts, (_, bn) in zip(tensors, pairs)
+                          for t in fold_bn(*ts, bn.eps)]
+                self._kernel_weights = stem_weights(*folded, dtype)
+            self._kernel_key = key
+        return self._kernel_weights
+
+    def _apply(self, *args, **kwargs):
+        self._kernel_key = self._kernel_weights = None     # moved or cast: lay out again
+        return super()._apply(*args, **kwargs)
 
     def forward(self, x):
         if self.training:
@@ -96,8 +111,7 @@ class ConvStemPatchEmbed(nn.Module):
         x = x.to(self.dtype or x.dtype)
         B, H, W, _ = x.shape
         x = F.pad(x, (0, 0, 0, (-W) % ps, 0, (-H) % ps))
-        w0, b0, w1, b1 = self.folded()
-        h1 = stem_conv(x, w0, b0, w1, b1)
+        h1 = stem_conv(x, self.kernel_weights(x.dtype))
         x = patch_projection(h1, self.proj[6].weight, self.proj[6].bias)
         x = self.norm(x)
         return x.to(self.dtype or x.dtype)

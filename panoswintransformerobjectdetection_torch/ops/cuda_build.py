@@ -14,7 +14,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -24,6 +24,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_functions: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -80,6 +81,18 @@ def library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_target(name)))
         _loaded[name] = lib
     return lib
+
+
+def function(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+    """The C entry point `symbol` of `csrc/<name>.cu`, returning an int
+    status; its argument types are set once, when it is first looked up."""
+    fn = _functions.get((name, symbol))
+    if fn is None:
+        fn = getattr(library(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _functions[(name, symbol)] = fn
+    return fn
 
 
 def check(status: int, what: str) -> None:

@@ -42,6 +42,11 @@ class _RoiLevels(ctypes.Structure):
                 ("num_levels", ctypes.c_int)]
 
 
+_LAUNCH_ARGTYPES = [ctypes.POINTER(_RoiLevels), ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_float, ctypes.c_void_p]
+
+
 def _div(a: torch.Tensor, d: float) -> torch.Tensor:
     """IEEE a / d.  PyTorch's CUDA division by a Python scalar multiplies by
     the reciprocal, which rounds differently from the kernel's division."""
@@ -96,10 +101,19 @@ def _axis_taps(start, bin_sz, size, dtype):
     return col.long(), torch.where(first, w, zero)
 
 
+def batch_index(rois: torch.Tensor, batch: int):
+    """(R,) int64 image index of each RoI and (R,) bool: whether it lies in
+    [0, batch).  An index outside (or NaN) reads image 0 and pools zeros."""
+    b = rois[:, 0]
+    valid = (b >= 0) & (b < batch)
+    return torch.where(valid, b, torch.zeros_like(b)).long(), valid
+
+
 def _roi_taps(feats, rois, strides):
     """Per-RoI level, batch index and the merged taps of both axes."""
     L = len(feats)
     lvl = roi_levels(rois, L)
+    bidx, valid = batch_index(rois, feats[0].shape[0])
     dev = rois.device
     inv = torch.tensor([1.0 / float(s) for s in strides[:L]], dtype=torch.float32,
                        device=dev)[lvl]
@@ -110,7 +124,7 @@ def _roi_taps(feats, rois, strides):
                         heights, dtype)
     xs, xw = _axis_taps(rois[:, 1] * inv - 0.5, _div((rois[:, 3] - rois[:, 1]) * inv, OUT_SIZE),
                         widths, dtype)
-    return lvl, rois[:, 0].long(), (ys, yw), (xs, xw)
+    return lvl, bidx, valid, (ys, yw), (xs, xw)
 
 
 def tap_rows(feats: Sequence[torch.Tensor], rois: torch.Tensor,
@@ -122,7 +136,7 @@ def tap_rows(feats: Sequence[torch.Tensor], rois: torch.Tensor,
     int64, w1 (R, 7i, 4k1) and w2 (R, 7j, 4k2) float32, where i runs over
     the bins of the axis contracted first (x for wide maps, else y).
     """
-    lvl, bidx, (ys, yw), (xs, xw) = _roi_taps(feats, rois, strides)
+    lvl, bidx, _, (ys, yw), (xs, xw) = _roi_taps(feats, rois, strides)
     sizes = [f.shape[0] * f.shape[1] * f.shape[2] for f in feats]
     offsets = torch.tensor([0] + sizes[:-1], device=rois.device).cumsum(0)[lvl]
     Hl = torch.tensor([f.shape[1] for f in feats], device=rois.device)[lvl]
@@ -145,7 +159,8 @@ def roi_align_plain(feats: Sequence[torch.Tensor], rois: torch.Tensor,
     """Plain PyTorch twin of the kernel.
 
     feats: L <= 4 maps (B, Hl, Wl, C) of one dtype; rois: (R, 5) float32
-    (batch, x1, y1, x2, y2) in image pixels.  Returns (R, 7, 7, C).
+    (batch, x1, y1, x2, y2) in image pixels.  Returns (R, 7, 7, C); a RoI
+    whose batch index lies outside [0, B) gets zeros.
     """
     C = feats[0].shape[-1]
     dtype = feats[0].dtype
@@ -163,7 +178,8 @@ def roi_align_plain(feats: Sequence[torch.Tensor], rois: torch.Tensor,
     for k2 in range(w2.shape[-1]):
         p = w2[:, None, :, k2, None] * t[:, :, :, k2]
         u = p if u is None else u + p               # (R, 7i, 7j, C)
-    u = u.to(dtype)
+    _, valid = batch_index(rois, feats[0].shape[0])
+    u = torch.where(valid[:, None, None, None], u.to(dtype), torch.zeros((), dtype=dtype))
     if _w_first(feats):
         u = u.transpose(1, 2)
     return u.reshape(R, OUT_SIZE, OUT_SIZE, C)
@@ -204,14 +220,10 @@ def roi_align(feats: Sequence[torch.Tensor], rois: torch.Tensor,
         levels.width[i] = f.shape[2]
         levels.inv_stride[i] = 1.0 / float(s)
     levels.num_levels = L
-    fn = cuda_build.library("roi_align").roi_align_launch
-    fn.argtypes = [ctypes.POINTER(_RoiLevels), ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = cuda_build.function("roi_align", "roi_align_launch", _LAUNCH_ARGTYPES)
     stream = torch.cuda.current_stream(rois.device).cuda_stream
-    status = fn(ctypes.byref(levels), rois.data_ptr(), out.data_ptr(), R, C,
-                _DTYPE_CODE[dtype], int(_w_first(feats)), float(FINEST_SCALE), stream)
+    status = fn(ctypes.byref(levels), rois.data_ptr(), out.data_ptr(), R, feats[0].shape[0],
+                C, _DTYPE_CODE[dtype], int(_w_first(feats)), float(FINEST_SCALE), stream)
     cuda_build.check(status, "roi_align kernel launch")
     roi_align.launches += 1
     return out

@@ -4,12 +4,14 @@ Counterpart of `panoswintransformerobjectdetection_tpu/ops/stem_conv.py`.
 `stem_conv` computes h1 = relu(conv3x3(relu(conv3x3(x, w0) + b0), w1) + b1)
 with BatchNorm folded into (w, b): on a CUDA tensor through the hand-written
 kernel `csrc/stem_conv.cu`, on a CPU tensor through its plain twin
-`stem_conv_plain`.  Both accumulate in f32 with f32 biases and round h0 and
+`stem_conv_plain`.  `stem_weights` lays the weights out for both once, so a
+caller that keeps the result pays nothing for it per call.  Both accumulate in f32 with f32 biases and round h0 and
 h1 to the compute type, as the Pallas kernel does.  The 4x4/4 projection
 (`patch_projection`) is a library convolution in both packages.
 """
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -44,45 +46,69 @@ def stem_conv_plain(x, w0, b0, w1, b1):
     return torch.relu(h1).to(dt)
 
 
-def stem_conv(x, w0, b0, w1, b1):
-    """K1: the fused two-convolution stem.  Same contract as `stem_conv_plain`.
+class StemWeights(NamedTuple):
+    """The stem's folded weights in both versions' layouts, made once.
+
+    w0 (c0, 3, 3, 3) and w1 (c1, c0, 3, 3) OIHW with float32 biases b0, b1,
+    as the twin takes them; w0k (9, 3, c0) and w1k (9, c0, c1p) for the
+    kernel: [tap, cin, cout] in the compute type, the output channel
+    fastest and c1 zero-padded to c1p, a multiple of 16.
+    """
+    w0: torch.Tensor
+    b0: torch.Tensor
+    w1: torch.Tensor
+    b1: torch.Tensor
+    w0k: torch.Tensor
+    w1k: torch.Tensor
+
+
+def stem_weights(w0, b0, w1, b1, dtype) -> StemWeights:
+    """Lay out (w0, b0, w1, b1) for `stem_conv` at compute type `dtype`."""
+    c0, c1 = w0.shape[0], w1.shape[0]
+    if w0.shape[1:] != (3, 3, 3) or w1.shape[1:] != (c0, 3, 3) or b0.shape != (c0,) \
+            or b1.shape != (c1,):
+        raise ValueError(f"stem_weights: bad shapes w0 {tuple(w0.shape)}, b0 {tuple(b0.shape)}, "
+                         f"w1 {tuple(w1.shape)}, b1 {tuple(b1.shape)}")
+    if any(t.device != w0.device for t in (b0, w1, b1)):
+        raise ValueError("stem_weights: weights and biases on different devices")
+    c1p = -(-c1 // 16) * 16
+    w0k = w0.to(dtype).permute(2, 3, 1, 0).reshape(9, 3, c0).contiguous()
+    w1k = torch.zeros((9, c0, c1p), dtype=dtype, device=w1.device)
+    w1k[:, :, :c1] = w1.to(dtype).permute(2, 3, 1, 0).reshape(9, c0, c1)
+    return StemWeights(w0, b0.float().contiguous(), w1, b1.float().contiguous(), w0k, w1k)
+
+
+_LAUNCH_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+
+def stem_conv(x, weights: StemWeights):
+    """K1: the fused two-convolution stem of x (B, H, W, 3) in the compute
+    type, with weights from `stem_weights` at that type.  Returns h1
+    (B, c1, H, W) in x.dtype, as `stem_conv_plain` does.
 
     A CPU tensor takes the twin; a CUDA tensor launches the kernel or raises.
     """
     if x.device.type == "cpu":
-        return stem_conv_plain(x, w0, b0, w1, b1)
+        return stem_conv_plain(x, weights.w0, weights.b0, weights.w1, weights.b1)
     if x.device.type != "cuda":
         raise ValueError(f"stem_conv: unsupported device {x.device}")
     dt = x.dtype
-    if dt not in _DTYPE_CODE:
-        raise TypeError(f"stem_conv: dtype {dt} is not float32 or bfloat16")
-    if x.dim() != 4 or w0.dim() != 4 or w1.dim() != 4:
-        raise ValueError("stem_conv: x, w0 and w1 must be 4-D")
-    B, H, W, cin = x.shape
-    c0, c1 = w0.shape[0], w1.shape[0]
-    if (cin != 3 or w0.shape[1:] != (3, 3, 3) or w1.shape[1:] != (c0, 3, 3)
-            or b0.shape != (c0,) or b1.shape != (c1,)):
-        raise ValueError(f"stem_conv: bad shapes x {tuple(x.shape)}, w0 {tuple(w0.shape)}, "
-                         f"b0 {tuple(b0.shape)}, w1 {tuple(w1.shape)}, b1 {tuple(b1.shape)}")
-    if any(t.device != x.device for t in (w0, b0, w1, b1)):
-        raise ValueError("stem_conv: weights and biases must be on the input's device")
-    c1p = -(-c1 // 16) * 16
+    if dt not in _DTYPE_CODE or weights.w0k.dtype != dt:
+        raise TypeError(f"stem_conv: input {dt} with weights laid out for {weights.w0k.dtype}; "
+                        "float32 or bfloat16")
+    if x.dim() != 4 or x.shape[-1] != 3:
+        raise ValueError(f"stem_conv: x must be (B, H, W, 3), got {tuple(x.shape)}")
+    if weights.w0k.device != x.device:
+        raise ValueError("stem_conv: weights must be on the input's device")
+    B, H, W, _ = x.shape
+    c0, c1, c1p = weights.w0.shape[0], weights.w1.shape[0], weights.w1k.shape[2]
     x = x.contiguous()
-    # [tap, cin, cout] with the output channel fastest
-    w0k = w0.to(dt).permute(2, 3, 1, 0).reshape(9, 3, c0).contiguous()
-    w1k = torch.zeros((9, c0, c1p), dtype=dt, device=x.device)
-    w1k[:, :, :c1] = w1.to(dt).permute(2, 3, 1, 0).reshape(9, c0, c1)
-    b0f = b0.float().contiguous()
-    b1f = b1.float().contiguous()
     out = torch.empty((B, c1, H, W), dtype=dt, device=x.device)
-    lib = cuda_build.library("stem_conv")
-    fn = lib.stem_conv_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = cuda_build.function("stem_conv", "stem_conv_launch", _LAUNCH_ARGTYPES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    status = fn(x.data_ptr(), w0k.data_ptr(), b0f.data_ptr(), w1k.data_ptr(),
-                b1f.data_ptr(), out.data_ptr(), B, H, W, c0, c1, c1p,
-                _DTYPE_CODE[dt], stream)
+    status = fn(x.data_ptr(), weights.w0k.data_ptr(), weights.b0.data_ptr(),
+                weights.w1k.data_ptr(), weights.b1.data_ptr(), out.data_ptr(),
+                B, H, W, c0, c1, c1p, _DTYPE_CODE[dt], stream)
     cuda_build.check(status, "stem_conv kernel launch")
     stem_conv.launches += 1
     return out

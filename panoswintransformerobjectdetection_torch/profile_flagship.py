@@ -1,33 +1,32 @@
 """Where the flagship's `simple_test` spends its time on one CUDA card.
 
-    python -m panoswintransformerobjectdetection_torch.profile_flagship [--batch 2] [--reps 5]
+    python -m panoswintransformerobjectdetection_torch.profile_flagship
 
 Builds the flagship (PanoSwin-T Faster R-CNN, random weights from seed 0,
-stem BatchNorm folded, bf16) and runs `simple_test` on B x 512 x 1024
-frames.  It prints:
-  - each stage's host time, the stages run one after another with a
-    `torch.cuda.synchronize()` around each (median over `--reps` requests);
-  - from `torch.profiler` over `--reps` whole requests: the request's wall
-    time, the device's busy time (union of kernel intervals) and idle
-    share, and the kernels with the most device time;
+stem BatchNorm folded, bf16) and runs `simple_test` on 2 x 512 x 1024
+frames with PyTorch's default TF32 settings.  It prints:
+  - each stage's host time (`models/detectors.STAGES`), with a
+    `torch.cuda.synchronize()` around each stage (median over 5 requests);
+  - from `torch.profiler` over 5 whole requests: the request's wall time,
+    the device's busy time (union of kernel intervals) and idle share, and
+    the kernels with the most device time;
   - the card's name and power limit from `nvidia-smi`.
 Without a CUDA card it exits with an error.
 """
 
-import argparse
 import statistics
-import subprocess
 import sys
 import time
 from collections import defaultdict
 
-import numpy as np
 import torch
 
-from .flagship import build_flagship
-from .models.roi_head import bbox_head_detections
+from .device import gpu_identity
+from .flagship import build_flagship, flagship_inputs
 
-H, W = 512, 1024
+BATCH = 2
+REPS = 5
+TOP_KERNELS = 15
 
 
 def _timed(fn):
@@ -36,27 +35,6 @@ def _timed(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
-
-
-def stage_times(model, images, img_shapes, scale_factors):
-    """One request, stage by stage: {stage: seconds}, synchronised."""
-    t = {}
-    bb = model.backbone
-    x, t["stem (K1 + projection + norm)"] = _timed(lambda: bb.patch_embed(images))
-    feats, t["backbone stages (attention, MLP, merging)"] = _timed(
-        lambda: bb.forward_from_embed(x))
-    feats, t["FPN"] = _timed(lambda: model.neck(feats))
-    props, t["RPN head + proposals (top-k, decode, NMS)"] = _timed(
-        lambda: model.proposals(feats, img_shapes))
-    rois = model.rois(props)
-    roi_feats, t["RoIAlign (K3)"] = _timed(lambda: model.roi_features(feats, rois))
-    (cls, reg), t["bbox head (2 FC)"] = _timed(lambda: model.roi_head.bbox_head(roi_feats))
-    B, P = props.mask.shape
-    _, t["detections (decode, multiclass NMS)"] = _timed(lambda: bbox_head_detections(
-        cls.reshape(B, P, -1), reg.reshape(B, P, -1), rois.reshape(B, P, 5), img_shapes,
-        target_stds=model.rcnn_target_stds, roi_mask=props.mask,
-        scale_factors=scale_factors, **model.test_cfg["rcnn"]))
-    return t
 
 
 def kernel_summary(prof):
@@ -82,64 +60,53 @@ def kernel_summary(prof):
     return busy * 1e-6, dict(per_name)
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--batch", type=int, default=2)
-    ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--top", type=int, default=15)
-    args = ap.parse_args(argv)
+def main() -> int:
     if not torch.cuda.is_available():
         print("profile_flagship: no CUDA device is available", file=sys.stderr)
         return 1
-    ident = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                            "--format=csv,noheader"], capture_output=True, text=True,
-                           check=True, timeout=60).stdout.strip().splitlines()[0]
+    ident = gpu_identity()
     dev = torch.device("cuda")
-    B = args.batch
     model = build_flagship(compute_dtype=torch.bfloat16, device=dev, seed=0)
-    rng = np.random.default_rng(0)
-    images = torch.from_numpy(rng.random((B, H, W, 3)).astype(np.float32)).to(dev)
-    img_shapes = torch.tensor([[float(H), float(W)]] * B, device=dev)
-    scale_factors = torch.ones((B, 4), device=dev)
+    inputs = flagship_inputs(BATCH, dev)
+    per_stage = defaultdict(list)
 
-    with torch.no_grad():
-        model.simple_test(images, img_shapes, scale_factors)        # warm-up
-        latency = statistics.median(
-            _timed(lambda: model.simple_test(images, img_shapes, scale_factors))[1]
-            for _ in range(args.reps))
-        per_stage = defaultdict(list)
-        for _ in range(args.reps):
-            for k, v in stage_times(model, images, img_shapes, scale_factors).items():
-                per_stage[k].append(v)
-        print(f"flagship simple_test, B={B} x {H}x{W}, bf16, stages run one by one "
-              f"(median of {args.reps}, host clock, synchronised); card {ident}")
-        total = 0.0
-        for k, v in per_stage.items():
-            med = statistics.median(v)
-            total += med
-            print(f"  {k:45s} {med * 1e3:9.3f} ms")
-        print(f"  {'sum of stages':45s} {total * 1e3:9.3f} ms")
+    def timed_stage(name, fn):
+        out, seconds = _timed(fn)
+        per_stage[name].append(seconds)
+        return out
 
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    model.simple_test(*inputs)                                  # warm-up
+    latency = statistics.median(_timed(lambda: model.simple_test(*inputs))[1]
+                                for _ in range(REPS))
+    for _ in range(REPS):
+        model.simple_test(*inputs, stage=timed_stage)
+    print(f"flagship simple_test, B={BATCH} x 512x1024, bf16, each stage synchronised "
+          f"(median of {REPS}, host clock); card {ident}")
+    total = 0.0
+    for name, v in per_stage.items():
+        med = statistics.median(v)
+        total += med
+        print(f"  {name:12s} {med * 1e3:9.3f} ms")
+    print(f"  {'sum':12s} {total * 1e3:9.3f} ms; the request unsynchronised "
+          f"{latency * 1e3:.3f} ms (median of {REPS})")
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(REPS):
+            model.simple_test(*inputs)
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            for _ in range(args.reps):
-                model.simple_test(images, img_shapes, scale_factors)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+        wall = time.perf_counter() - t0
     busy, per_name = kernel_summary(prof)
-    n = args.reps
-    print(f"torch.profiler over {n} requests: wall {wall / n * 1e3:.3f} ms a request "
-          f"(profiler on), device busy {busy / n * 1e3:.3f} ms a request, "
+    print(f"torch.profiler over {REPS} requests: wall {wall / REPS * 1e3:.3f} ms a request "
+          f"(profiler on), device busy {busy / REPS * 1e3:.3f} ms a request, "
           f"idle share {1 - busy / wall:.4f} with the profiler on and "
-          f"{1 - busy / n / latency:.4f} against the unprofiled request "
-          f"({latency * 1e3:.3f} ms, median of {n}); card {ident}")
+          f"{1 - busy / REPS / latency:.4f} against the unprofiled request; card {ident}")
     if not per_name:
         print("  the profiler recorded no device events: device times not measured")
-    top = sorted(per_name.items(), key=lambda kv: -kv[1][1])[:args.top]
-    for name, (count, sec) in top:
-        print(f"  {sec / n * 1e3:9.3f} ms  {count // n:5d}x  {name[:110]}")
+    for name, (count, sec) in sorted(per_name.items(), key=lambda kv: -kv[1][1])[:TOP_KERNELS]:
+        print(f"  {sec / REPS * 1e3:9.3f} ms  {count // REPS:5d}x  {name[:110]}")
     print(ident)
     return 0
 

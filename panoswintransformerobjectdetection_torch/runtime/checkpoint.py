@@ -15,7 +15,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from ..ops.stem_conv import BN_EPS
+from ..ops.stem_conv import BN_EPS, fold_bn
 
 
 def _t(a) -> torch.Tensor:
@@ -114,19 +114,20 @@ def fold_batchnorm(state_dict: Dict[str, torch.Tensor],
                    eps: float = BN_EPS) -> Dict[str, torch.Tensor]:
     """Fold the stem's eval BatchNorms into the convs before them.
 
-    As `runtime/checkpoint.py:409 fold_batchnorm` of the JAX package does:
-    W' = W * g/s, b' = beta + (b - mean) * g/s with s = sqrt(var + eps), and
-    the BatchNorm is left as the identity (var = 1 - eps).  Returns a new dict.
+    As `runtime/checkpoint.py:409 fold_batchnorm` of the JAX package does,
+    with the stem's own formula (`ops/stem_conv.fold_bn`); the BatchNorm is
+    left as the identity (var = 1 - eps).  Returns a new dict.
     """
     sd = dict(state_dict)
     for conv, bn in (("proj.0", "proj.1"), ("proj.3", "proj.4")):
         c = f"backbone.patch_embed.{conv}"
         b = f"backbone.patch_embed.{bn}"
-        f = sd[b + ".weight"] / torch.sqrt(sd[b + ".running_var"] + eps)
-        sd[c + ".weight"] = sd[c + ".weight"] * f[:, None, None, None]
-        sd[c + ".bias"] = sd[b + ".bias"] + (sd[c + ".bias"] - sd[b + ".running_mean"]) * f
-        sd[b + ".weight"] = torch.ones_like(f)
-        sd[b + ".bias"] = torch.zeros_like(f)
-        sd[b + ".running_mean"] = torch.zeros_like(f)
-        sd[b + ".running_var"] = torch.ones_like(f) - eps
+        sd[c + ".weight"], sd[c + ".bias"] = fold_bn(
+            sd[c + ".weight"], sd[c + ".bias"], sd[b + ".weight"], sd[b + ".bias"],
+            sd[b + ".running_mean"], sd[b + ".running_var"], eps)
+        ones = torch.ones_like(sd[b + ".weight"])
+        sd[b + ".weight"] = ones
+        sd[b + ".bias"] = torch.zeros_like(ones)
+        sd[b + ".running_mean"] = torch.zeros_like(ones)
+        sd[b + ".running_var"] = ones - eps
     return sd

@@ -23,7 +23,7 @@ from panoswintransformerobjectdetection_tpu.runtime.checkpoint import convert_de
 from panoswintransformerobjectdetection_torch.flagship import flagship_config
 from panoswintransformerobjectdetection_torch.models import roi_head as troi
 from panoswintransformerobjectdetection_torch.models import rpn_head as trpn
-from panoswintransformerobjectdetection_torch.models.detectors import PanoFasterRCNN
+from panoswintransformerobjectdetection_torch.models.detectors import STAGES, PanoFasterRCNN
 from panoswintransformerobjectdetection_torch.runtime.checkpoint import from_jax_variables
 
 B, H, W = 2, 32, 64
@@ -142,6 +142,23 @@ def test_simple_test_end_to_end(setup):
     _same_slots(got, setup["ref"]["dets"])
     assert torch.all(got.scores[~got.mask] == -1e10)
     assert torch.all(got.labels[~got.mask] == -1)
+
+
+def test_simple_test_stage_hook(setup):
+    """Each stage runs once through the hook, in `STAGES` order, and the
+    hook changes nothing in the result."""
+    seen = []
+
+    def stage(name, fn):
+        seen.append(name)
+        return fn()
+
+    port = setup["port"]
+    got = port.simple_test(setup["images"], setup["img_shapes"], stage=stage)
+    ref = port.simple_test(setup["images"], setup["img_shapes"])
+    assert tuple(seen) == STAGES
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
 
 
 def test_convert_detector_rebuilds_jax_tree(setup):

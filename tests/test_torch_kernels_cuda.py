@@ -44,7 +44,7 @@ def test_stem_kernel_matches_twin(cuda_device, dtype, shape):
     b0, b1 = torch.randn(c0, generator=g), torch.randn(c1, generator=g)
     args = [t.to(cuda_device) for t in (x, w0, b0, w1, b1)]
     before = stem.stem_conv.launches
-    got = stem.stem_conv(*args)
+    got = stem.stem_conv(args[0], stem.stem_weights(*args[1:], dtype))
     torch.cuda.synchronize()
     assert stem.stem_conv.launches == before + 1
     ref = stem.stem_conv_plain(*args).float().cpu().numpy()
@@ -92,13 +92,30 @@ def test_roi_align_kernel_matches_twin(cuda_device, dtype, wide):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_kernel_bad_batch_index(cuda_device, dtype):
+    """A RoI whose batch index lies outside [0, B), or is NaN, pools zeros
+    in the kernel as in the twin, and the other RoIs are untouched."""
+    feats, rois = _roi_case(3, P=8)
+    rois[[1, 5, 9], 0] = [2.0, -1.0, np.nan]
+    tf = [torch.from_numpy(f).to(dtype).to(cuda_device) for f in feats]
+    tr = torch.from_numpy(rois).to(cuda_device)
+    got = ra.roi_align(tf, tr, STRIDES)
+    assert torch.equal(got, ra.roi_align_plain(tf, tr, STRIDES))
+    assert not got[[1, 5, 9]].any() and got[[0, 2, 8]].any()
+
+
+@pytest.mark.cuda
 def test_wrappers_refuse_bad_input(cuda_device):
-    x = torch.rand((1, 8, 8, 3), device=cuda_device, dtype=torch.float16)
+    x = torch.rand((1, 8, 8, 3), device=cuda_device)
     w0, w1 = torch.rand((2, 3, 3, 3), device=cuda_device), torch.rand((4, 2, 3, 3), device=cuda_device)
+    b0, b1 = torch.rand(2, device=cuda_device), torch.rand(4, device=cuda_device)
+    with pytest.raises(TypeError):      # float16, and weights laid out for another type
+        stem.stem_conv(x.half(), stem.stem_weights(w0, b0, w1, b1, torch.float16))
     with pytest.raises(TypeError):
-        stem.stem_conv(x, w0, torch.rand(2, device=cuda_device), w1, torch.rand(4, device=cuda_device))
+        stem.stem_conv(x, stem.stem_weights(w0, b0, w1, b1, torch.bfloat16))
     with pytest.raises(ValueError):     # weights left on the host
-        stem.stem_conv(x.float(), w0.cpu(), torch.rand(2), w1.cpu(), torch.rand(4))
+        stem.stem_conv(x, stem.stem_weights(w0.cpu(), b0.cpu(), w1.cpu(), b1.cpu(), torch.float32))
     feats = [torch.rand((1, 8, 16, 4), device=cuda_device)]
     with pytest.raises(TypeError):
         ra.roi_align(feats, torch.zeros((1, 5), dtype=torch.float64, device=cuda_device), STRIDES)

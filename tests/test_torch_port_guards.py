@@ -58,7 +58,8 @@ def test_cpu_tensors_take_the_twins():
     s0, r0 = stem_conv.stem_conv.launches, roi_align.roi_align.launches
     args = (torch.rand(1, 8, 8, 3), torch.rand(2, 3, 3, 3), torch.rand(2),
             torch.rand(4, 2, 3, 3), torch.rand(4))
-    assert torch.equal(stem_conv.stem_conv(*args), stem_conv.stem_conv_plain(*args))
+    packed = stem_conv.stem_weights(*args[1:], torch.float32)
+    assert torch.equal(stem_conv.stem_conv(args[0], packed), stem_conv.stem_conv_plain(*args))
     feats = [torch.rand(1, 8 // s, 16 // s, 4) for s in (1, 2, 4, 8)]
     rois = torch.tensor([[0.0, 1.0, 2.0, 20.0, 12.0]])
     out = roi_align.roi_align(feats, rois, (4, 8, 16, 32))

@@ -101,3 +101,17 @@ def test_roi_levels_rule():
     rois = torch.from_numpy(np.stack([np.zeros_like(s), np.zeros_like(s),
                                       np.zeros_like(s), s, s], 1))
     assert tra.roi_levels(rois, 4).tolist() == [0, 0, 0, 1, 2, 3]
+
+
+def test_bad_batch_index_pools_zeros():
+    """A RoI whose batch index lies outside [0, B), or is NaN, gets zeros;
+    the kernel does the same on the card (`test_torch_kernels_cuda.py`)."""
+    feats, rois = _case(4, P=6)
+    tf = [torch.from_numpy(f) for f in feats]
+    bad = rois.copy()
+    bad[[1, 5, 9], 0] = [2.0, -1.0, np.nan]
+    got = tra.roi_align(tf, torch.from_numpy(bad), STRIDES)
+    ref = tra.roi_align(tf, torch.from_numpy(rois), STRIDES)
+    keep = [i for i in range(len(rois)) if i not in (1, 5, 9)]
+    assert not got[[1, 5, 9]].any()
+    assert torch.equal(got[keep], ref[keep])

@@ -20,7 +20,10 @@ import torch
 from panoswintransformerobjectdetection_tpu.models import layers as jlayers
 from panoswintransformerobjectdetection_tpu.ops import stem_conv as jstem
 from panoswintransformerobjectdetection_torch.models.layers import ConvStemPatchEmbed
+from panoswintransformerobjectdetection_torch.flagship import flagship_config
+from panoswintransformerobjectdetection_torch.models.detectors import PanoFasterRCNN
 from panoswintransformerobjectdetection_torch.ops import stem_conv as tstem
+from panoswintransformerobjectdetection_torch.runtime.checkpoint import fold_batchnorm
 
 BF16_ULPS = 4 * 2.0 ** -8
 
@@ -57,8 +60,8 @@ def test_twin_matches_pallas_interpret(dtype):
 
     tdt = getattr(torch, dtype)
     xt = torch.from_numpy(x).to(tdt)
-    h1 = tstem.stem_conv(xt, _oihw(w0), torch.from_numpy(b0), _oihw(w1),
-                         torch.from_numpy(b1))
+    h1 = tstem.stem_conv(xt, tstem.stem_weights(_oihw(w0), torch.from_numpy(b0), _oihw(w1),
+                                                torch.from_numpy(b1), tdt))
     got = tstem.patch_projection(h1, _oihw(wp), torch.from_numpy(bp))
     assert h1.shape == (B, c1, H, W) and h1.dtype == tdt
     assert got.shape == (B, H // 4, W // 4, ce) and got.dtype == tdt
@@ -130,3 +133,48 @@ def test_fold_bn_matches_batchnorm():
                              bn.running_mean, bn.running_var)
         np.testing.assert_allclose(torch.nn.functional.conv2d(x, w, b, padding=1).numpy(),
                                    bn(conv(x)).numpy(), atol=1e-5)
+
+
+def _random_bn_stem(mod, seed):
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for bi in (1, 4):
+            bn = mod.proj[bi]
+            bn.weight.uniform_(0.5, 1.5, generator=g)
+            bn.bias.normal_(generator=g)
+            bn.running_mean.normal_(generator=g)
+            bn.running_var.uniform_(0.5, 2.0, generator=g)
+
+
+def test_stem_kernel_weights_made_once():
+    """The folded, laid-out weights are kept across calls and made again
+    after load_state_dict or an in-place change of a statistic."""
+    mod = ConvStemPatchEmbed(4, 24).eval()
+    _random_bn_stem(mod, 0)
+    x = torch.rand((1, 8, 16, 3), generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        y0 = mod(x)
+        kw = mod.kernel_weights(torch.float32)
+        assert mod(x).equal(y0) and mod.kernel_weights(torch.float32) is kw
+        sd = mod.state_dict()
+        sd["proj.4.running_mean"] = sd["proj.4.running_mean"] + 1.0
+        mod.load_state_dict(sd)
+        y1 = mod(x)
+        assert mod.kernel_weights(torch.float32) is not kw and not y1.equal(y0)
+        kw = mod.kernel_weights(torch.float32)
+        mod.proj[1].weight.mul_(2.0)
+        assert mod.kernel_weights(torch.float32) is not kw
+        assert mod.kernel_weights(torch.bfloat16).w1k.dtype == torch.bfloat16
+
+
+def test_fold_batchnorm_keeps_the_stem():
+    """Folding the state dict's stem BatchNorms leaves the stem's output
+    unchanged (float32 atol 1e-5: the fold rounds once more)."""
+    model = PanoFasterRCNN(**flagship_config(tiny=True)).eval()
+    _random_bn_stem(model.backbone.patch_embed, 2)
+    x = torch.rand((1, 16, 32, 3), generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        ref = model.backbone.patch_embed(x)
+        model.load_state_dict(fold_batchnorm(model.state_dict()))
+        got = model.backbone.patch_embed(x)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-5)
