@@ -1,5 +1,6 @@
 """Drive the PyTorch port on one CUDA card: build its kernels, hold each
-against its plain PyTorch twin, run the flagship detector, report.
+against its plain PyTorch twin, run the flagship detector in its
+configurations, report.
 
     python3 chip_smoke.py
 
@@ -7,12 +8,16 @@ Phases (each raises on failure, so any failure exits non-zero):
   1. environment: the card's name and power limit; TF32 off for f32 checks;
   2. build every kernel from `panoswintransformerobjectdetection_torch/csrc`;
   3. each kernel against its twin at the flagship's shapes, f32 and bf16,
-     with its median time, the twin's time and a library call's time;
-  4. a small-input f32 check of the card's path against the CPU path; then
-     the flagship (PanoSwin-T Faster R-CNN, random weights from seed 0, BN
-     folded, bf16) `simple_test` on 2 x 512 x 1024 frames with PyTorch's
-     TF32 defaults back: one warm-up, then timed requests with the kernels'
-     launch counts read around them;
+     with its median time, the twin's time and a library call's time (K2 at
+     all four stage shapes; K5's entry point checked at a small shape);
+  4. small-input f32 checks of the card's path against the CPU path, plain
+     and fused attention; then the flagship (PanoSwin-T Faster R-CNN, random
+     weights from seed 0, BN folded, bf16) `simple_test` on 2 x 512 x 1024
+     frames with PyTorch's TF32 defaults back: the plain and the fused-
+     attention flagship alternate request by request, each request with the
+     kernels' launch counts reset just before it and read just after; the
+     two backbones' outputs are compared; one request of the planar
+     configuration (`pano_mode=False`, fused attention);
   5. a JSON line per kernel, then the result line.
 Without a CUDA card it exits with an error and prints no result.
 """
@@ -30,6 +35,15 @@ BF16_OPS_PER_S = 989e12         # dense bf16 tensor-core rate, same source
 BF16_ULPS = 4 * 2.0 ** -8       # bf16 tolerance: 4 units in the last place of max|ref|
 B, H, W = 2, 512, 1024
 REQUESTS = 5
+# K2 at the flagship's four stages, B = 2: (windows n = B * nW, heads, nW);
+# O = 7 * 7 tokens, head width 32 at every stage.
+ATTENTION_STAGES = ((1406, 3, 703), (380, 6, 190), (100, 12, 50), (30, 24, 15))
+TOKENS, HEAD_DIM = 49, 32
+K2_PER_REQUEST = 2 + 2 + 6 + 2          # one launch per block
+# Fused against plain backbone, bf16: the routes round differently (q scaled
+# in bf16 or the f32 product scaled; softmax or e / sum), and each of the 12
+# blocks carries the difference on: 16 bf16 units of max|ref|.
+BACKBONE_TOL_UNITS = 16
 
 
 def time_ms(fn, reps: int) -> float:
@@ -161,19 +175,102 @@ def kernel_k3(dev, ra):
     return rec
 
 
-def reference_check(dev, build_flagship):
+def attention_inputs(dev, dtype, n, h, nW, seed):
+    """q, k, v as views of an (n, O, 3, h, d) projection, as the model
+    passes them, and an f32 bias (nW, h, O, O)."""
+    g = torch.Generator().manual_seed(seed)
+    qkv = torch.randn((n, TOKENS, 3, h, HEAD_DIM), generator=g).to(dtype).to(dev)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    return q, k, v, torch.randn((nW, h, TOKENS, TOKENS), generator=g).to(dev)
+
+
+def attention_tol(ref, dtype):
+    scale = float(ref.float().abs().max())
+    return 1e-5 * max(1.0, scale) if dtype == torch.float32 else BF16_ULPS * scale
+
+
+def attention_times(fa, entry, q, k, v, bias):
+    """(kernel ms, twin ms, SDPA ms, bound ms, bound_by) in bf16.  SDPA gets
+    4-D (n, h, O, d) views and the bias cast to bf16 and repeated over the
+    batch outside the timing (a 4-D mask cannot repeat every nW windows as
+    a view): the port never calls it."""
+    n, h, O, d = q.shape
+    nW = bias.shape[0]
+    scale = d ** -0.5
+    mask = bias.to(q.dtype).expand(n // nW, nW, h, O, O).reshape(n, h, O, O)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ms = time_ms(lambda: entry(q, k, v, bias, scale), 20)
+    plain_ms = time_ms(lambda: fa.window_attention_plain(q, k, v, bias, scale), 10)
+    library_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=mask, scale=scale), 20)
+    nbytes = 4 * q.numel() * q.element_size() + bias.numel() * 4
+    ops = 4 * n * h * O * O * d
+    by_bytes = nbytes / HBM_BYTES_PER_S >= ops / BF16_OPS_PER_S
+    bound = max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3
+    return ms, plain_ms, library_ms, bound, "bytes" if by_bytes else "operations"
+
+
+def kernel_k2(dev, fa):
+    rec = {}
+    for stage, (n, h, nW) in enumerate(ATTENTION_STAGES):
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v, bias = attention_inputs(dev, dt, n, h, nW, 4 + stage)
+            got = fa.packed_window_attention(q, k, v, bias, HEAD_DIM ** -0.5)
+            ref = fa.window_attention_plain(q, k, v, bias, HEAD_DIM ** -0.5)
+            torch.cuda.synchronize()
+            err = check(f"K2 window_attention {str(dt)[6:]} stage {stage} (n {n}, h {h}, "
+                        f"O {TOKENS}, d {HEAD_DIM}, nW {nW})", got, ref, attention_tol(ref, dt))
+            if dt != torch.bfloat16:
+                continue
+            ms, plain_ms, library_ms, bound, by = attention_times(
+                fa, fa.packed_window_attention, q, k, v, bias)
+            print(f"  K2 bf16 stage {stage}: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, "
+                  f"SDPA {library_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+            if stage == 0:
+                rec = {"name": "window_attention (K2)", "route": "cuda",
+                       "source": "panoswintransformerobjectdetection_torch/csrc/window_attention.cu",
+                       "replaces": "panoswintransformerobjectdetection_tpu/ops/fused_attention.py:88",
+                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                       "bound_by": by, "library_ms": library_ms}
+    return rec
+
+
+def kernel_k5(dev, fa):
+    """K5's entry point (`fused_window_attention`) runs K2's kernel: checked
+    at a small shape with an odd window count, timed at stage 0."""
+    err = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v, bias = attention_inputs(dev, dt, 10, 3, 5, 8)
+        got = fa.fused_window_attention(q, k, v, bias, HEAD_DIM ** -0.5)
+        ref = fa.window_attention_plain(q, k, v, bias, HEAD_DIM ** -0.5)
+        torch.cuda.synchronize()
+        err = max(err, check(f"K5 fused_window_attention {str(dt)[6:]} (n 10, h 3, O 49, "
+                             f"d 32, nW 5)", got, ref, attention_tol(ref, dt)))
+    n, h, nW = ATTENTION_STAGES[0]
+    ms, plain_ms, library_ms, bound, by = attention_times(
+        fa, fa.fused_window_attention, *attention_inputs(dev, torch.bfloat16, n, h, nW, 4))
+    print(f"  K5 bf16 stage 0: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, "
+          f"SDPA {library_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+    return {"name": "fused_window_attention (K5)", "route": "cuda",
+            "source": "panoswintransformerobjectdetection_torch/csrc/window_attention.cu",
+            "replaces": "panoswintransformerobjectdetection_tpu/ops/fused_attention.py:27",
+            "shares_kernel_of": "window_attention (K2)", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": library_ms}
+
+
+def reference_check(dev, build_flagship, **config):
     """Small input, f32: the card's path (kernels) against the CPU path
     (twins) of the same model, stage by stage."""
     x = torch.rand((1, 64, 128, 3), generator=torch.Generator().manual_seed(3))
     shapes = torch.tensor([[64.0, 128.0]])
-    gpu = build_flagship(device=dev, seed=1)
-    cpu = build_flagship(device="cpu", seed=1)
+    gpu = build_flagship(device=dev, seed=1, **config)
+    cpu = build_flagship(device="cpu", seed=1, **config)
     with torch.no_grad():
         fg = gpu.extract_feat(x.to(dev))
         fc = cpu.extract_feat(x)
         for i, (a, b) in enumerate(zip(fg, fc)):
             tol = 1e-3 * max(1.0, float(b.abs().max()))
-            check(f"flagship f32 64x128 FPN level {i}, card vs CPU", a.cpu(), b, tol)
+            check(f"flagship {config or ''} f32 64x128 FPN level {i}, card vs CPU", a.cpu(), b,
+                  tol)
         rois = cpu.rois(cpu.proposals(fc, shapes))
         rg = gpu.roi_features([f.to(dev) for f in fc], rois.to(dev))
         rc = cpu.roi_features(fc, rois)
@@ -184,6 +281,43 @@ def reference_check(dev, build_flagship):
               1e-3 * max(1.0, float(cc.abs().max())))
 
 
+def check_detections(det, what):
+    K = det.mask.shape[1]
+    for t, shape in ((det.boxes, (B, K, 4)), (det.scores, (B, K)), (det.labels, (B, K)),
+                     (det.mask, (B, K))):
+        if tuple(t.shape) != shape:
+            raise AssertionError(f"{what}: DetResult field has shape {tuple(t.shape)}, "
+                                 f"not {shape}")
+    m = det.mask
+    if not (m.any() and torch.isfinite(det.boxes).all() and torch.isfinite(det.scores).all()
+            and ((det.labels[m] >= 0) & (det.labels[m] < 5)).all()
+            and ((det.scores[m] > 0.05) & (det.scores[m] <= 1)).all()):
+        raise AssertionError(f"{what}: detections are empty, not finite or out of range")
+    return int(m.sum())
+
+
+def timed_request(model, inputs, counters):
+    """One synchronised `simple_test`: (DetResult, seconds, launches), with
+    every kernel's count set to 0 just before and read just after."""
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    det = model.simple_test(*inputs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return det, seconds, {name: fn.launches for name, fn in counters.items()}
+
+
+def expect_launches(launches, expected, what):
+    """`expected`: kernel -> exact count per request, or None for "at least once"."""
+    for name, want in expected.items():
+        got = launches[name]
+        if (want is None and got == 0) or (want is not None and got != want):
+            raise AssertionError(f"{what}: {name} launched {got} times in a request, "
+                                 f"expected {'at least 1' if want is None else want}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -191,6 +325,7 @@ def main() -> int:
     from panoswintransformerobjectdetection_torch.device import gpu_identity
     from panoswintransformerobjectdetection_torch.flagship import build_flagship, flagship_inputs
     from panoswintransformerobjectdetection_torch.ops import cuda_build
+    from panoswintransformerobjectdetection_torch.ops import fused_attention as fa
     from panoswintransformerobjectdetection_torch.ops import roi_align as ra
     from panoswintransformerobjectdetection_torch.ops import stem_conv as stem
 
@@ -214,51 +349,68 @@ def main() -> int:
           "1e-4 * max(1, max|ref|) (sums in another order); bf16 4 units of 2**-8 * "
           "max|ref| (another f32 sum order can flip the bf16 rounding of an h0 value, "
           "and h1's own rounding adds one).  K3 tolerance 0: kernel and twin do the "
-          "same operations in the same order")
-    records = [kernel_k1(dev, stem), kernel_k3(dev, ra)]
+          "same operations in the same order.  K2 and K5: f32 1e-5 * max(1, max|ref|); "
+          "bf16 4 units of 2**-8 * max|ref| (another sum order can flip the bf16 "
+          "rounding of p, which moves an output by about one unit)")
+    records = [kernel_k1(dev, stem), kernel_k2(dev, fa), kernel_k3(dev, ra),
+               kernel_k5(dev, fa)]
 
     print("[4] flagship simple_test, bf16, BN folded, random weights (seed 0)")
     reference_check(dev, build_flagship)
+    reference_check(dev, build_flagship, fused_attention=True)
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32_defaults
     print(f"    timed requests with PyTorch's TF32 defaults: cuDNN {tf32_defaults[0]}, "
           f"matmul {tf32_defaults[1]}")
-    model = build_flagship(compute_dtype=torch.bfloat16, device=dev, seed=0)
-    images, img_shapes, scale_factors = flagship_inputs(B, dev)
-    model.simple_test(images, img_shapes, scale_factors)       # warm-up
-    torch.cuda.synchronize()
-    stem.stem_conv.launches = 0
-    ra.roi_align.launches = 0
-    latencies = []
+    counters = {"stem_conv (K1)": stem.stem_conv, "roi_align (K3)": ra.roi_align,
+                "window_attention (K2)": fa.window_attention}
+    inputs = flagship_inputs(B, dev)
+    models = {"plain": build_flagship(compute_dtype=torch.bfloat16, device=dev, seed=0),
+              "fused": build_flagship(compute_dtype=torch.bfloat16, device=dev, seed=0,
+                                      fused_attention=True)}
+    expected = {"plain": {"stem_conv (K1)": None, "roi_align (K3)": None,
+                          "window_attention (K2)": 0},
+                "fused": {"stem_conv (K1)": None, "roi_align (K3)": None,
+                          "window_attention (K2)": K2_PER_REQUEST}}
+    with torch.no_grad():
+        feats = {name: m.backbone(inputs[0]) for name, m in models.items()}
+    for i, (a, b) in enumerate(zip(feats["fused"], feats["plain"])):
+        scale = float(b.abs().max())
+        check(f"fused vs plain backbone, bf16, stage {i} (max|ref| {scale:.3f})", a, b,
+              BACKBONE_TOL_UNITS * 2.0 ** -8 * scale)
+    for model in models.values():
+        model.simple_test(*inputs)                                 # warm-up
+    latencies = {name: [] for name in models}
+    launches = {name: {c: 0 for c in counters} for name in models}
+    dets = {}
     for _ in range(REQUESTS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        det = model.simple_test(images, img_shapes, scale_factors)
-        torch.cuda.synchronize()
-        latencies.append(time.perf_counter() - t0)
-    launches = {"stem_conv (K1)": stem.stem_conv.launches,
-                "roi_align (K3)": ra.roi_align.launches}
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"{name} never launched on the main path")
-    K = det.mask.shape[1]
-    for t, shape in ((det.boxes, (B, K, 4)), (det.scores, (B, K)), (det.labels, (B, K)),
-                     (det.mask, (B, K))):
-        if tuple(t.shape) != shape:
-            raise AssertionError(f"DetResult field has shape {tuple(t.shape)}, not {shape}")
-    m = det.mask
-    if not (m.any() and torch.isfinite(det.boxes).all() and torch.isfinite(det.scores).all()
-            and ((det.labels[m] >= 0) & (det.labels[m] < 5)).all()
-            and ((det.scores[m] > 0.05) & (det.scores[m] <= 1)).all()):
-        raise AssertionError("flagship detections are empty, not finite or out of range")
-    med = statistics.median(latencies)
-    print(f"    {REQUESTS} requests of {B} frames: latency ms "
-          f"{[round(t * 1e3, 3) for t in latencies]}, median {med * 1e3:.3f} ms, "
-          f"{B / med:.3f} images/s, {int(m.sum())} detections in the last request; "
-          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-          f"launches during the requests {launches}; card {ident}")
+        for name, model in models.items():
+            dets[name], sec, counts = timed_request(model, inputs, counters)
+            expect_launches(counts, expected[name], f"{name} flagship")
+            latencies[name].append(sec)
+            for c, v in counts.items():
+                launches[name][c] += v
+    for name in models:
+        found = check_detections(dets[name], f"{name} flagship")
+        med = statistics.median(latencies[name])
+        print(f"    {name}: {REQUESTS} requests of {B} frames, alternating with the other "
+              f"configuration: latency ms {[round(t * 1e3, 3) for t in latencies[name]]}, "
+              f"median {med * 1e3:.3f} ms, {B / med:.3f} images/s, {found} detections in the "
+              f"last request; launches during the requests {launches[name]}; card {ident}")
+    del models, feats
+    planar = build_flagship(compute_dtype=torch.bfloat16, device=dev, seed=0,
+                            fused_attention=True, pano_mode=False)
+    planar.simple_test(*inputs)                                    # warm-up
+    det, sec, counts = timed_request(planar, inputs, counters)
+    expect_launches(counts, expected["fused"], "planar fused flagship")
+    found = check_detections(det, "planar fused flagship")
+    print(f"    planar (pano_mode=False), fused attention: one request {sec * 1e3:.3f} ms, "
+          f"{found} detections, launches {counts}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card {ident}")
 
     for rec in records:
-        rec["launches"] = launches[rec["name"]]
+        path = "fused" if "attention" in rec["name"] else "plain"
+        key = rec.get("shares_kernel_of", rec["name"])
+        rec["launches"] = launches[path][key]
     print(json.dumps({"kernels": records}))
     print(ident)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

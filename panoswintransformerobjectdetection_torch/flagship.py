@@ -5,6 +5,12 @@ Same configuration as `_flagship` in `__graft_entry__.py` (embed 96, depths
 runs.  `tiny=True` gives an even-depth small variant for the tests (embed 6,
 depths 2-2-2-2, heads 1-1-1-2, window 4, FPN width 16): the JAX package's
 own tiny flagship has depths 1-1-1-1, which would run PitchAttention only.
+
+Two options of the JAX backbone select the other configurations that run:
+`fused_attention=True` sends every block's attention through kernel K2
+(`ops/fused_attention.py`), and `pano_mode=False` is the planar
+configuration (`configs/panoswin/faster_rcnn_panoswin_tiny_planar_streetwin.py`).
+Both keep the JAX defaults, and every mode has the same parameters.
 """
 
 from typing import Optional, Tuple, Union
@@ -21,7 +27,8 @@ from .runtime.checkpoint import fold_batchnorm
 FRAME_H, FRAME_W = 512, 1024
 
 
-def flagship_config(tiny: bool = False) -> dict:
+def flagship_config(tiny: bool = False, fused_attention: bool = False,
+                    pano_mode: bool = True) -> dict:
     if tiny:
         backbone = {"embed_dim": 6, "depths": (2, 2, 2, 2), "num_heads": (1, 1, 1, 2),
                     "window_size": 4, "ape": True}
@@ -30,6 +37,7 @@ def flagship_config(tiny: bool = False) -> dict:
         backbone = {"embed_dim": 96, "depths": (2, 2, 6, 2), "num_heads": (3, 6, 12, 24),
                     "window_size": 7, "ape": True}
         neck = {"in_channels": (96, 192, 384, 768), "out_channels": 256, "num_outs": 5}
+    backbone.update(fused_attention=fused_attention, pano_mode=pano_mode)
     return {"backbone": backbone, "neck": neck, "num_classes": 5}
 
 
@@ -56,11 +64,14 @@ def init_weights(model: nn.Module, seed: int = 0) -> None:
 
 def build_flagship(tiny: bool = False, compute_dtype: Optional[torch.dtype] = None,
                    device: Optional[Union[str, torch.device]] = None,
-                   seed: int = 0) -> PanoFasterRCNN:
+                   seed: int = 0, fused_attention: bool = False,
+                   pano_mode: bool = True) -> PanoFasterRCNN:
     """The flagship in eval mode on `device` (the card unless "cpu" is asked
-    for), with random weights from `seed` and the stem's BatchNorm folded."""
+    for), with random weights from `seed` and the stem's BatchNorm folded.
+    The weights depend on `seed` alone, not on the two options."""
     dev = resolve_device(device)
-    model = PanoFasterRCNN(**flagship_config(tiny), compute_dtype=compute_dtype)
+    model = PanoFasterRCNN(**flagship_config(tiny, fused_attention, pano_mode),
+                           compute_dtype=compute_dtype)
     init_weights(model, seed)
     model.load_state_dict(fold_batchnorm(model.state_dict()))
     return model.to(dev).eval()

@@ -1,11 +1,11 @@
-"""Window partition and the pano window transition for PanoSwin attention.
+"""Window partition, the window transitions and the planar shift mask for
+PanoSwin attention.
 
 Counterpart of `panoswintransformerobjectdetection_tpu/ops/windows.py`
 (`window_partition`, `window_reverse`, `make_relative_position_index`,
-`window_transition`, `window_transition_reverse`).  The JAX package's
-one-hot `table_lookup` exists only because the TPU serialises gathers; here
-a table is indexed directly (`table[rel_index]`).  Only the pano mode is
-ported: the flagship runs no planar blocks.
+`swin_attention_mask`, `window_transition`, `window_transition_reverse`).
+The JAX package's one-hot `table_lookup` exists only because the TPU
+serialises gathers; here a table is indexed directly (`table[rel_index]`).
 """
 
 import numpy as np
@@ -44,9 +44,37 @@ def make_relative_position_index(window_size: int) -> np.ndarray:
     return rel.sum(-1)
 
 
-def window_transition(x: torch.Tensor, shift_size: int) -> torch.Tensor:
-    """Pano shift of a (..., H, W, C) map: roll W by +shift, pad an odd width
-    by one zero column, ew2ns pole rotation, roll H by +shift."""
+def swin_attention_mask(Hp: int, Wp: int, window_size: int, shift_size: int,
+                        neg: float = -100.0, device=None) -> torch.Tensor:
+    """Planar shifted-window mask: (nW, O, O) float32 with 0 / `neg` entries.
+
+    The stock Swin construction: the padded Hp x Wp map is cut into 3 x 3
+    regions at -ws and -shift along each axis, and a query and a key of one
+    window see each other only if they lie in the same region.
+    """
+    ws, ss = window_size, shift_size
+
+    def region(n):
+        r = torch.zeros(n, dtype=torch.int64, device=device)
+        r[n - ws:] = 1
+        r[n - ss:] = 2
+        return r
+
+    img = region(Hp)[:, None] * 3 + region(Wp)[None, :]
+    m = window_partition(img[None, :, :, None], ws).reshape(-1, ws * ws)
+    diff = m[:, None, :] - m[:, :, None]
+    return torch.where(diff != 0, neg, 0.0).float()
+
+
+def window_transition(x: torch.Tensor, shift_size: int, pano_mode: bool) -> torch.Tensor:
+    """Forward shift of a (..., H, W, C) map.
+
+    planar: 2-D roll by -shift (stock Swin cyclic shift).
+    pano: roll W by +shift, pad an odd width by one zero column, ew2ns pole
+    rotation, roll H by +shift.
+    """
+    if not pano_mode:
+        return torch.roll(x, shifts=(-shift_size, -shift_size), dims=(-3, -2))
     x = torch.roll(x, shifts=shift_size, dims=-2)
     if x.shape[-2] % 2:
         x = F.pad(x, (0, 0, 0, 1))
@@ -54,9 +82,11 @@ def window_transition(x: torch.Tensor, shift_size: int) -> torch.Tensor:
     return torch.roll(x, shifts=shift_size, dims=-3)
 
 
-def window_transition_reverse(x: torch.Tensor, shift_size: int,
+def window_transition_reverse(x: torch.Tensor, shift_size: int, pano_mode: bool,
                               width_was_odd: bool = False) -> torch.Tensor:
-    """Inverse of `window_transition`; `width_was_odd` drops the pad column."""
+    """Inverse of `window_transition`; `width_was_odd` drops the pano pad column."""
+    if not pano_mode:
+        return torch.roll(x, shifts=(shift_size, shift_size), dims=(-3, -2))
     x = torch.roll(x, shifts=-shift_size, dims=-3)
     x = ns2we(x)
     if width_was_odd:

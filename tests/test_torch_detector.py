@@ -6,7 +6,9 @@ JAX function returns every stage of `simple_test`.  Each port stage is fed
 the JAX stage before it, so that one NMS decision near a threshold cannot
 cascade into the next comparison.  Tolerances: dense stages atol 1e-4;
 proposals and detections must keep the same slots (`mask` equal, labels
-equal) with boxes within 1e-3 pixels and scores within 1e-5.
+equal) with boxes within 1e-3 pixels and scores within 1e-5.  The port's
+fused-attention detector (kernel K2's twin in every block) is held to the
+same JAX reference with the same tolerances.
 """
 
 import numpy as np
@@ -142,6 +144,17 @@ def test_simple_test_end_to_end(setup):
     _same_slots(got, setup["ref"]["dets"])
     assert torch.all(got.scores[~got.mask] == -1e10)
     assert torch.all(got.labels[~got.mask] == -1)
+
+
+def test_simple_test_fused_attention(setup):
+    """`fused_attention=True` with the same weights: the JAX package's fused
+    and plain backbones agree to 3e-5 (`tests/test_fused_attention.py`), so
+    the plain JAX reference serves."""
+    port = PanoFasterRCNN(**flagship_config(tiny=True, fused_attention=True)).eval()
+    port.load_state_dict(setup["port"].state_dict())
+    assert all(blk.attn.fused for layer in port.backbone.layers for blk in layer.blocks)
+    got = port.simple_test(setup["images"], setup["img_shapes"])
+    _same_slots(got, setup["ref"]["dets"])
 
 
 def test_simple_test_stage_hook(setup):

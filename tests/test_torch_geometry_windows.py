@@ -1,5 +1,5 @@
-"""PyTorch port vs JAX: uv grid, haversine, window layout and the pano
-window transition, odd widths included.  Layout ops must match exactly;
+"""PyTorch port vs JAX: uv grid, haversine, window layout, the pano and
+planar window transitions, odd widths included, and the planar shift mask.  Layout ops must match exactly;
 trigonometry (haversine) within 1e-6, since XLA and PyTorch may differ in
 the last bit of sin/cos/arcsin."""
 
@@ -67,11 +67,11 @@ def test_relative_position_index_exact(ws):
 def test_window_transition_roundtrip_exact(shape, shift):
     """Forward shift matches JAX; the reverse matches JAX and undoes it."""
     x = _rand(shape)
-    got = twin.window_transition(torch.from_numpy(x), shift)
+    got = twin.window_transition(torch.from_numpy(x), shift, True)
     ref = jwin.window_transition(jnp.asarray(x), shift, True)
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     odd = bool(shape[2] % 2)
-    back = twin.window_transition_reverse(got, shift, width_was_odd=odd)
+    back = twin.window_transition_reverse(got, shift, True, width_was_odd=odd)
     ref_back = jwin.window_transition_reverse(ref, shift, True, width_was_odd=odd)
     np.testing.assert_array_equal(back.numpy(), np.asarray(ref_back))
     np.testing.assert_array_equal(back.numpy(), x)
@@ -80,6 +80,25 @@ def test_window_transition_roundtrip_exact(shape, shift):
 def test_window_transition_unbatched_uv():
     """The uv side-band rides through the transition without a batch dim."""
     uv = tsphere.make_uv_grid(6, 9)
-    got = twin.window_transition(uv, 2)
+    got = twin.window_transition(uv, 2, True)
     ref = jwin.window_transition(jsphere.make_uv_grid(6, 9), 2, True)
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("shape,shift", [((2, 8, 8, 3), 2), ((1, 14, 21, 2), 3)])
+def test_planar_window_transition_exact(shape, shift):
+    x = _rand(shape)
+    got = twin.window_transition(torch.from_numpy(x), shift, False)
+    ref = jwin.window_transition(jnp.asarray(x), shift, False)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    back = twin.window_transition_reverse(got, shift, False)
+    np.testing.assert_array_equal(back.numpy(), np.asarray(
+        jwin.window_transition_reverse(ref, shift, False)))
+    np.testing.assert_array_equal(back.numpy(), x)
+
+
+@pytest.mark.parametrize("args", [(8, 8, 4, 2), (8, 24, 4, 2), (4, 4, 4, 2), (14, 21, 7, 3)])
+def test_swin_attention_mask_exact(args):
+    got = twin.swin_attention_mask(*args)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), jwin.swin_attention_mask(*args))

@@ -9,12 +9,16 @@ Tolerances: K1 float32 1e-4 * max(1, max|ref|) (sums in another order);
 bfloat16 4 * 2**-8 * max|ref|, since a different f32 summation order can
 flip the rounding of an h0 value and h1's own rounding adds one unit.  K3
 must be exact: kernel and twin do the same operations in the same order.
+K2 float32 1e-5 * max(1, max|ref|) (sums in another order); bfloat16
+4 * 2**-8 * max|ref|, since another f32 summation order can flip the bf16
+rounding of p, which moves an output by about one unit.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from panoswintransformerobjectdetection_torch.ops import fused_attention as fa
 from panoswintransformerobjectdetection_torch.ops import roi_align as ra
 from panoswintransformerobjectdetection_torch.ops import stem_conv as stem
 
@@ -121,3 +125,72 @@ def test_wrappers_refuse_bad_input(cuda_device):
         ra.roi_align(feats, torch.zeros((1, 5), dtype=torch.float64, device=cuda_device), STRIDES)
     with pytest.raises(ValueError):
         ra.roi_align(feats, torch.zeros((1, 4), device=cuda_device), STRIDES)
+
+
+def _attention_case(seed, B, nW, h, O, d, dtype, device):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn((B * nW, h, O, d), generator=g).to(dtype).to(device)
+               for _ in range(3))
+    return q, k, v, torch.randn((nW, h, O, O), generator=g).to(device)
+
+
+def _attention_tol(ref, dtype):
+    scale = float(ref.float().abs().max())
+    return 1e-5 * max(1.0, scale) if dtype == torch.float32 else 4 * 2.0 ** -8 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("O", [49, 16, 9])
+@pytest.mark.parametrize("d", [32, 8])
+def test_window_attention_kernel_matches_twin(cuda_device, dtype, O, d):
+    """An odd window count (nW = 5), ragged O against the warp's 32 keys."""
+    q, k, v, bias = _attention_case(0, 2, 5, 3, O, d, dtype, cuda_device)
+    before = fa.window_attention.launches
+    got = fa.window_attention(q, k, v, bias, d ** -0.5)
+    torch.cuda.synchronize()
+    assert fa.window_attention.launches == before + 1
+    ref = fa.window_attention_plain(q, k, v, bias, d ** -0.5)
+    assert got.dtype == dtype and got.shape == ref.shape
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0, atol=_attention_tol(ref, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_attention_kernel_strided_views(cuda_device, dtype):
+    """q, k, v as views of the model's (n, O, 3, h, d) projection and a bias
+    broadcast over the windows (stride 0), through both entry points."""
+    n, O, h, d, nW = 10, 49, 3, 32, 5
+    g = torch.Generator().manual_seed(1)
+    qkv = torch.randn((n, O, 3, h, d), generator=g).to(dtype).to(cuda_device)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    bias = torch.randn((1, h, O, O), generator=g).to(cuda_device).expand(nW, h, O, O)
+    before = fa.window_attention.launches
+    got = fa.packed_window_attention(q, k, v, bias, d ** -0.5)
+    got5 = fa.fused_window_attention(q, k, v, bias, d ** -0.5)
+    torch.cuda.synchronize()
+    assert fa.window_attention.launches == before + 2
+    ref = fa.window_attention_plain(q.contiguous(), k.contiguous(), v.contiguous(),
+                                    bias.contiguous(), d ** -0.5)
+    assert torch.equal(got, got5)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0, atol=_attention_tol(ref, dtype))
+    assert got.transpose(1, 2).is_contiguous()      # (n, O, h, d), as the projection reads it
+
+
+@pytest.mark.cuda
+def test_window_attention_refuses_bad_input(cuda_device):
+    q, k, v, bias = _attention_case(2, 1, 2, 2, 16, 8, torch.float32, cuda_device)
+    with pytest.raises(TypeError):      # float16
+        fa.window_attention(q.half(), k.half(), v.half(), bias, 1.0)
+    with pytest.raises(TypeError):      # a bias that is not float32
+        fa.window_attention(q, k, v, bias.bfloat16(), 1.0)
+    with pytest.raises(ValueError):     # bias of the wrong shape
+        fa.window_attention(q, k, v, bias[:, :, :8], 1.0)
+    with pytest.raises(ValueError):     # nW does not divide n
+        fa.window_attention(q[:1], k[:1], v[:1], bias, 1.0)
+    big = torch.zeros((2, 1, 65, 8), device=cuda_device)
+    with pytest.raises(ValueError):     # O > 64
+        fa.window_attention(big, big, big, torch.zeros((1, 1, 65, 65), device=cuda_device), 1.0)
+    with pytest.raises(ValueError):     # channels not contiguous
+        qt = q.transpose(2, 3)
+        fa.window_attention(qt, qt, qt, torch.zeros((2, 2, 8, 8), device=cuda_device), 1.0)

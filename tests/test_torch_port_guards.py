@@ -13,7 +13,7 @@ import torch
 
 import panoswintransformerobjectdetection_torch as port
 from panoswintransformerobjectdetection_torch.flagship import build_flagship
-from panoswintransformerobjectdetection_torch.ops import roi_align, stem_conv
+from panoswintransformerobjectdetection_torch.ops import fused_attention, roi_align, stem_conv
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_DIR = Path(port.__file__).resolve().parent
@@ -55,7 +55,8 @@ def test_default_device_is_the_card(monkeypatch):
 
 def test_cpu_tensors_take_the_twins():
     """On the CPU a wrapper runs its plain twin and counts no launch."""
-    s0, r0 = stem_conv.stem_conv.launches, roi_align.roi_align.launches
+    wa = fused_attention.window_attention
+    s0, r0, a0 = stem_conv.stem_conv.launches, roi_align.roi_align.launches, wa.launches
     args = (torch.rand(1, 8, 8, 3), torch.rand(2, 3, 3, 3), torch.rand(2),
             torch.rand(4, 2, 3, 3), torch.rand(4))
     packed = stem_conv.stem_weights(*args[1:], torch.float32)
@@ -64,12 +65,20 @@ def test_cpu_tensors_take_the_twins():
     rois = torch.tensor([[0.0, 1.0, 2.0, 20.0, 12.0]])
     out = roi_align.roi_align(feats, rois, (4, 8, 16, 32))
     assert out.shape == (1, 7, 7, 4)
-    assert (stem_conv.stem_conv.launches, roi_align.roi_align.launches) == (s0, r0)
+    q, k, v = (torch.rand(4, 2, 9, 8) for _ in range(3))
+    bias = torch.rand(2, 2, 9, 9)
+    plain = fused_attention.window_attention_plain(q, k, v, bias, 0.5)
+    for entry in (wa, fused_attention.fused_window_attention,
+                  fused_attention.packed_window_attention):
+        assert torch.equal(entry(q, k, v, bias, 0.5), plain)
+    assert (stem_conv.stem_conv.launches, roi_align.roi_align.launches, wa.launches) == (
+        s0, r0, a0)
 
 
 def test_modules_list_covers_the_slice():
     names = set(_modules())
-    for sub in ("geometry.sphere", "ops.windows", "ops.stem_conv", "ops.roi_align", "ops.nms",
+    for sub in ("geometry.sphere", "ops.windows", "ops.stem_conv", "ops.roi_align",
+                "ops.fused_attention", "ops.nms",
                 "models.panoswin", "models.fpn", "models.rpn_head", "models.roi_head",
                 "models.detectors", "core.anchors", "core.bbox", "runtime.checkpoint",
                 "flagship"):
