@@ -18,7 +18,16 @@ Phases (each raises on failure, so any failure exits non-zero):
      kernels' launch counts reset just before it and read just after; the
      two backbones' outputs are compared; one request of the planar
      configuration (`pano_mode=False`, fused attention);
-  5. a JSON line per kernel, then the result line.
+  5. training: the dense RoI route (K4 on every level) against the direct one
+     (K3) on the card, values and map gradients; one `forward_train` +
+     backward at 64 x 128 in f32 on the card against the CPU, same sampler
+     noise, no DropPath: the five outputs and every parameter's gradient;
+     then the flagship's training step at full width (bf16, AdamW, lr 1e-4,
+     2 frames of 512 x 1024 with 32 boxes each): 1 warm-up and 5 timed
+     steps on the direct route, one step on the dense route from the same
+     weights and noise, one step with fused attention, each step with the
+     launch counts reset just before it and read just after;
+  6. a JSON line per kernel, then the result line.
 Without a CUDA card it exits with an error and prints no result.
 """
 
@@ -40,6 +49,12 @@ REQUESTS = 5
 ATTENTION_STAGES = ((1406, 3, 703), (380, 6, 190), (100, 12, 50), (30, 24, 15))
 TOKENS, HEAD_DIM = 49, 32
 K2_PER_REQUEST = 2 + 2 + 6 + 2          # one launch per block
+TRAIN_STEPS = 5
+TRAIN_ROIS = 128 + 512              # sampled RoIs an image: positives' cap + samples
+# Feature maps of the four RoI levels as the dense route's kernel sees them:
+# transposed, since the maps are wider than tall, so stage one contracts W.
+CROP_LEVELS = ((W // 4, H // 4), (W // 8, H // 8), (W // 16, H // 16), (W // 32, H // 32))
+F32_OPS_PER_S = 67e12               # f32 outside the tensor cores, same source
 # Fused against plain backbone, bf16: the routes round differently (q scaled
 # in bf16 or the f32 product scaled; softmax or e / sum), and each of the 12
 # blocks carries the difference on: 16 bf16 units of max|ref|.
@@ -257,6 +272,274 @@ def kernel_k5(dev, fa):
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": library_ms}
 
 
+def kernel_k4(dev, ra):
+    """K4 against its twin at the four levels of the flagship's training
+    step (B 2, P 640, o 7, C 256), random weights.  Tolerance: f32 1e-5 *
+    max(1, max|ref|) * sqrt(Hl) (sums of Hl products in another order than
+    cuBLAS takes them); bf16 2 units of 2**-8 * max|ref| (one flip in the
+    stage-one rounding, one in the result)."""
+    C, P = 256, TRAIN_ROIS
+    rec = {}
+    for level, (Hl, Wl) in enumerate(CROP_LEVELS):
+        g = torch.Generator().manual_seed(20 + level)
+        feat = torch.randn((B, Hl, Wl, C), generator=g)
+        Wy = torch.randn((B, P, 7, Hl), generator=g) * 0.3
+        Wx = torch.randn((B, P, 7, Wl), generator=g) * 0.3
+        for dt in (torch.float32, torch.bfloat16):
+            args = [t.to(dt).to(dev) for t in (feat, Wy, Wx)]
+            got = ra.dense_crop(*args)
+            ref = ra.dense_crop_plain(*args)
+            torch.cuda.synchronize()
+            scale = float(ref.float().abs().max())
+            tol = 1e-5 * max(1.0, scale) * Hl ** 0.5 if dt == torch.float32 else \
+                2 * 2.0 ** -8 * scale
+            err = check(f"K4 dense_crop {str(dt)[6:]} level {level} (B {B}, P {P}, Hl {Hl}, "
+                        f"Wl {Wl}, C {C})", got, ref, tol)
+            del got, ref
+            if dt != torch.bfloat16:
+                continue
+
+            def library():
+                t = torch.einsum("bpoh,bhwc->bpowc", args[1], args[0])
+                return torch.einsum("bpxw,bpowc->bpoxc", args[2], t)
+
+            ms = time_ms(lambda: ra.dense_crop(*args), 10)
+            plain_ms = time_ms(lambda: ra.dense_crop_plain(*args), 3)
+            library_ms = time_ms(library, 10)
+            nbytes = 2 * (sum(a.numel() for a in args) + B * P * 49 * C)
+            ops = 2 * B * P * 7 * Hl * Wl * C + 2 * B * P * 49 * Wl * C
+            by_bytes = nbytes / HBM_BYTES_PER_S >= ops / BF16_OPS_PER_S
+            bound = max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3
+            print(f"  K4 bf16 level {level}: kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TFLOP/s; "
+                  f"the f32 rate of the CUDA cores would allow "
+                  f"{ops / F32_OPS_PER_S * 1e3:.4f} ms), twin {plain_ms:.4f} ms, bf16 einsum pair "
+                  f"{library_ms:.4f} ms, bound {bound:.4f} ms "
+                  f"({'bytes' if by_bytes else 'operations'})")
+            if level == 0:
+                rec = {"name": "dense_crop (K4)", "route": "cuda",
+                       "source": "panoswintransformerobjectdetection_torch/csrc/dense_crop.cu",
+                       "replaces": "panoswintransformerobjectdetection_tpu/ops/roi_align_pallas.py:52",
+                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                       "bound_by": "bytes" if by_bytes else "operations",
+                       "library_ms": library_ms}
+        del args
+    return rec
+
+
+def level_maps(rng, dev, dt, C=256):
+    return [torch.from_numpy(rng.standard_normal((B, H // s, W // s, C)).astype(np.float32))
+            .to(dt).to(dev) for s in (4, 8, 16, 32)]
+
+
+def kernel_k3_backward(dev, ra):
+    """K3's backward against autograd through the twin on 2 x 48 RoIs, then
+    timed at the training step's 2 x 640.  Tolerance: f32 1e-5 * max(1,
+    max|ref|) (atomic adds in any order); bf16 2 units of 2**-8 * max|ref|
+    (the f32 sum is rounded once, after adds in another order)."""
+    strides = (4, 8, 16, 32)
+    C = 256
+    shapes = [(B, H // s, W // s, C) for s in strides]
+    rec = {}
+    for dt in (torch.float32, torch.bfloat16):
+        rng = np.random.default_rng(30)
+        rois = rpn_like_rois(rng, 48).to(dev)
+        cot = torch.from_numpy(rng.standard_normal((rois.shape[0], 7, 7, C)).astype(np.float32))
+        cot = cot.to(dt).to(dev)
+        got = ra.roi_align_backward(cot, rois, shapes, dt, strides)
+        ref = ra.roi_align_backward_plain(cot, rois, shapes, dt, strides)
+        torch.cuda.synchronize()
+        err = 0.0
+        for level, (a, b) in enumerate(zip(got, ref)):
+            scale = float(b.float().abs().max())
+            tol = 1e-5 * max(1.0, scale) if dt == torch.float32 else 2 * 2.0 ** -8 * scale
+            err = max(err, check(f"K3 backward {str(dt)[6:]} level {level}, 2 x 48 RoIs "
+                                 f"(max|ref| {scale:.3f})", a, b, tol))
+        del got, ref
+        if dt != torch.bfloat16:
+            continue
+        rois = rpn_like_rois(rng, TRAIN_ROIS).to(dev)
+        cot = torch.randn((rois.shape[0], 7, 7, C), device=dev).to(dt)
+        ms = time_ms(lambda: ra.roi_align_backward(cot, rois, shapes, dt, strides), 20)
+        plain_ms = time_ms(lambda: ra.roi_align_backward_plain(cot, rois, shapes, dt, strides), 2)
+        nbytes = 2 * (cot.numel() + sum(int(np.prod(s)) for s in shapes)) + rois.numel() * 4
+        ops = rois.shape[0] * 49 * C * (16 + 4) * 2
+        bound = max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3
+        rec = {"name": "roi_align_backward (K3 backward)", "route": "cuda",
+               "source": "panoswintransformerobjectdetection_torch/csrc/roi_align.cu",
+               "replaces": "panoswintransformerobjectdetection_tpu/ops/roi_align.py:356",
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+               "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / BF16_OPS_PER_S
+               else "operations", "library_ms": None}
+        print(f"  K3 backward bf16, 2 x {TRAIN_ROIS} RoIs: kernel with zeroing and cast "
+              f"{ms:.4f} ms, autograd through the twin {plain_ms:.4f} ms, no single PyTorch "
+              f"call computes it, bound {bound:.4f} ms")
+    return rec
+
+
+def dense_against_direct(dev, ra):
+    """The two RoI routes on the card, 2 x 640 RoIs on the flagship's maps:
+    values and map gradients.  Tolerance: f32 1e-4 * max(1, max|ref|) (the
+    dense route sums with fused multiply-adds and adds its zeros); bf16 2
+    units of 2**-8 * max|ref| for values and 4 for gradients (flips of the
+    stage-one rounding, forward and backward)."""
+    strides = (4, 8, 16, 32)
+    for dt in (torch.float32, torch.bfloat16):
+        rng = np.random.default_rng(40)
+        rois = rpn_like_rois(rng, TRAIN_ROIS).to(dev)
+        base = level_maps(rng, dev, dt)
+        cot = torch.randn((rois.shape[0], 7, 7, 256), device=dev).to(dt)
+        outs, grads = [], []
+        for fn in (ra.roi_align, ra.multilevel_roi_align_dense):
+            feats = [f.clone().requires_grad_() for f in base]
+            out = fn(feats, rois, strides)
+            out.backward(cot)
+            outs.append(out.detach())
+            grads.append([f.grad for f in feats])
+        torch.cuda.synchronize()
+        unit = 1e-4 if dt == torch.float32 else 2.0 ** -8
+        scale = float(outs[0].float().abs().max())
+        check(f"dense vs direct RoIAlign {str(dt)[6:]}, values", outs[1], outs[0],
+              unit * max(1.0, scale) if dt == torch.float32 else 2 * unit * scale)
+        for level, (a, b) in enumerate(zip(grads[1], grads[0])):
+            scale = float(b.float().abs().max())
+            check(f"dense vs direct RoIAlign {str(dt)[6:]}, gradient of level {level}", a, b,
+                  unit * max(1.0, scale) if dt == torch.float32 else 4 * unit * scale)
+
+
+def train_reference_check(dev, build_flagship, flagship_train_batch):
+    """64 x 128, f32, TF32 off: one `forward_train` + backward on the card
+    (kernels) against the CPU (twins), same weights, same sampler noise (one
+    CPU generator seed), no DropPath.  Tolerance: outputs 1e-4 relative;
+    each parameter's gradient 1e-5 + 2e-3 * max|g| (f32 sums in another
+    order through every layer, and cuDNN's and cuBLAS's own algorithms)."""
+    grads, outs = {}, {}
+    for where in (dev, torch.device("cpu")):
+        model = build_flagship(device=where, seed=1, train=True, drop_path_rate=0.0)
+        batch = flagship_train_batch(1, where, seed=3, height=64, width=128, num_gt=4)
+        batch["gt_boxes"] = torch.tensor([[[4., 2., 44., 34.], [30., 10., 70., 42.],
+                                           [60., 20., 100., 52.], [84., 30., 124., 62.]]],
+                                         device=where)
+        out = model.forward_train(**batch, generator=torch.Generator().manual_seed(5))
+        sum(v for k, v in out.items() if "loss" in k).backward()
+        outs[where.type] = {k: float(v.detach()) for k, v in out.items()}
+        grads[where.type] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    for k, ref in outs["cpu"].items():
+        got = outs["cuda"][k]
+        ok = abs(got - ref) <= 1e-4 * max(1.0, abs(ref))
+        print(f"  forward_train f32 64x128 {k}: card {got:.7f}, CPU {ref:.7f}: "
+              f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise AssertionError(f"forward_train {k}: card {got} against CPU {ref}")
+    worst = (0.0, "")
+    for name, ref in grads["cpu"].items():
+        scale = float(ref.abs().max())
+        err = float((grads["cuda"][name] - ref).abs().max())
+        if scale > 1e-4:        # a conv bias before a BatchNorm has gradient 0 but for noise
+            worst = max(worst, (err / scale, name))
+        if not err <= 1e-5 + 2e-3 * scale:
+            raise AssertionError(f"gradient of {name}: card against CPU {err}, max|g| {scale}")
+    print(f"  gradients of {len(grads['cpu'])} parameters, card vs CPU: all within 1e-5 + "
+          f"2e-3 * max|g|; worst, among those with max|g| > 1e-4, {worst[0]:.3g} of max|g| "
+          f"({worst[1]}): ok")
+
+
+def train_step_counted(step, batch, counters, **noise):
+    """One synchronised training step: (metrics as floats, seconds, launches)."""
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = step(batch, **noise)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    metrics = {k: float(v) for k, v in metrics.items()}
+    if not all(np.isfinite(v) for v in metrics.values()) or not metrics["grad_norm"] > 0:
+        raise AssertionError(f"training step: a loss or the gradient norm is not finite: "
+                             f"{metrics}")
+    return metrics, seconds, {name: fn.launches for name, fn in counters.items()}
+
+
+def seeded_noise(model, seed):
+    """Sampler noise and DropPath masks from CPU generators of `seed`, so that
+    two models get the same draws."""
+    model.backbone.set_drop_path_generator(torch.Generator().manual_seed(seed + 1))
+    return {"generator": torch.Generator().manual_seed(seed)}
+
+
+def training_path(dev, ident, build_flagship, flagship_train_batch, counters):
+    """The flagship's training step at full width; returns launches per
+    kernel over the steps that count for it."""
+    from panoswintransformerobjectdetection_torch.runtime.optim import make_optimizer
+    from panoswintransformerobjectdetection_torch.runtime.train import make_train_step
+
+    def trainer(**options):
+        model = build_flagship(compute_dtype=torch.bfloat16, device=dev, seed=0, train=True,
+                               **options)
+        optimizer, scheduler = make_optimizer(model, base_lr=1e-4)
+        return model, make_train_step(model, optimizer, scheduler)
+
+    zero = {name: 0 for name in counters}
+    k3 = {"roi_align (K3)": 1, "roi_align_backward (K3 backward)": 1}
+    batch = flagship_train_batch(B, dev)
+    torch.cuda.reset_peak_memory_stats()
+    model, step = trainer()
+    before = {n: t.detach().clone() for n, t in model.state_dict().items()}
+    first, _, counts = train_step_counted(step, batch, counters, **seeded_noise(model, 50))
+    expect_launches(counts, {**zero, **k3}, "training step, direct route")
+    model.backbone.set_drop_path_generator(None)
+    gen = torch.Generator(device=dev).manual_seed(51)
+    times, total = [], dict(zero)
+    for _ in range(TRAIN_STEPS):
+        metrics, sec, counts = train_step_counted(step, batch, counters, generator=gen)
+        expect_launches(counts, {**zero, **k3}, "training step, direct route")
+        times.append(sec)
+        for c, v in counts.items():
+            total[c] += v
+    bad = [n for n, p in model.named_parameters() if p.grad is None
+           or not torch.isfinite(p.grad).all()]
+    after = model.state_dict()
+    still = [n for n, p in model.named_parameters() if torch.equal(before[n], after[n])]
+    stats = [n for n in before if "running_" in n and torch.equal(before[n], after[n])]
+    if bad or still or stats:
+        raise AssertionError(f"training: gradients missing or not finite {bad[:5]}, parameters "
+                             f"that did not move {still[:5]}, statistics that did not move "
+                             f"{stats}")
+    med = statistics.median(times)
+    print(f"    direct route (K3 forward and backward): {TRAIN_STEPS} steps of {B} frames after "
+          f"1 warm-up: ms {[round(t * 1e3, 3) for t in times]}, median {med * 1e3:.3f} ms, "
+          f"{B / med:.3f} images/s; last step {metrics}; every gradient finite, every "
+          f"parameter and running statistic moved; launches over the {TRAIN_STEPS} steps "
+          f"{total}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"card {ident}")
+    del model, step, before, after
+
+    # dense route: the same weights, batch, noise and DropPath masks as the
+    # direct route's first step.  bf16: the routes' RoI features differ by
+    # rounding flips, which the heads' losses see: 2% of each loss and of the
+    # gradient norm, 0.01 of the accuracy.
+    model, step = trainer(roi_align="dense")
+    dense, sec, counts = train_step_counted(step, batch, counters, **seeded_noise(model, 50))
+    expect_launches(counts, {**zero, "dense_crop (K4)": 4}, "training step, dense route")
+    total["dense_crop (K4)"] = counts["dense_crop (K4)"]
+    for k, ref in first.items():
+        ok = abs(dense[k] - ref) <= (0.01 if k == "acc" else 0.02 * max(abs(ref), 1e-3))
+        print(f"    dense route (K4 x 4) {k}: {dense[k]:.6f}, direct {ref:.6f}: "
+              f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise AssertionError(f"dense training step: {k} {dense[k]} against {ref}")
+    print(f"    dense route: one step {sec * 1e3:.3f} ms (its first), launches {counts}")
+    del model, step
+
+    model, step = trainer(fused_attention=True)
+    fused, sec, counts = train_step_counted(step, batch, counters, **seeded_noise(model, 50))
+    expect_launches(counts, {**zero, **k3, "window_attention (K2)": K2_PER_REQUEST},
+                    "training step, fused attention")
+    print(f"    fused attention (K2 forward, backward through its twin): one step "
+          f"{sec * 1e3:.3f} ms (its first), loss {fused['loss']:.6f} (plain {first['loss']:.6f}), "
+          f"launches {counts}")
+    return total
+
+
 def reference_check(dev, build_flagship, **config):
     """Small input, f32: the card's path (kernels) against the CPU path
     (twins) of the same model, stage by stage."""
@@ -323,7 +606,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     from panoswintransformerobjectdetection_torch.device import gpu_identity
-    from panoswintransformerobjectdetection_torch.flagship import build_flagship, flagship_inputs
+    from panoswintransformerobjectdetection_torch.flagship import (build_flagship,
+                                                                   flagship_inputs,
+                                                                   flagship_train_batch)
     from panoswintransformerobjectdetection_torch.ops import cuda_build
     from panoswintransformerobjectdetection_torch.ops import fused_attention as fa
     from panoswintransformerobjectdetection_torch.ops import roi_align as ra
@@ -353,24 +638,29 @@ def main() -> int:
           "bf16 4 units of 2**-8 * max|ref| (another sum order can flip the bf16 "
           "rounding of p, which moves an output by about one unit)")
     records = [kernel_k1(dev, stem), kernel_k2(dev, fa), kernel_k3(dev, ra),
-               kernel_k5(dev, fa)]
+               kernel_k5(dev, fa), kernel_k4(dev, ra), kernel_k3_backward(dev, ra)]
+    dense_against_direct(dev, ra)
 
-    print("[4] flagship simple_test, bf16, BN folded, random weights (seed 0)")
+    print("[4] flagship simple_test, bf16, BN folded, random weights (seed 0); before it "
+          "the f32 checks of the card's path against the CPU's, training included")
     reference_check(dev, build_flagship)
     reference_check(dev, build_flagship, fused_attention=True)
+    train_reference_check(dev, build_flagship, flagship_train_batch)
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32_defaults
     print(f"    timed requests with PyTorch's TF32 defaults: cuDNN {tf32_defaults[0]}, "
           f"matmul {tf32_defaults[1]}")
     counters = {"stem_conv (K1)": stem.stem_conv, "roi_align (K3)": ra.roi_align,
-                "window_attention (K2)": fa.window_attention}
+                "window_attention (K2)": fa.window_attention,
+                "dense_crop (K4)": ra.dense_crop,
+                "roi_align_backward (K3 backward)": ra.roi_align_backward}
     inputs = flagship_inputs(B, dev)
     models = {"plain": build_flagship(compute_dtype=torch.bfloat16, device=dev, seed=0),
               "fused": build_flagship(compute_dtype=torch.bfloat16, device=dev, seed=0,
                                       fused_attention=True)}
-    expected = {"plain": {"stem_conv (K1)": None, "roi_align (K3)": None,
-                          "window_attention (K2)": 0},
-                "fused": {"stem_conv (K1)": None, "roi_align (K3)": None,
-                          "window_attention (K2)": K2_PER_REQUEST}}
+    inference = {"stem_conv (K1)": None, "roi_align (K3)": None, "dense_crop (K4)": 0,
+                 "roi_align_backward (K3 backward)": 0}
+    expected = {"plain": {**inference, "window_attention (K2)": 0},
+                "fused": {**inference, "window_attention (K2)": K2_PER_REQUEST}}
     with torch.no_grad():
         feats = {name: m.backbone(inputs[0]) for name, m in models.items()}
     for i, (a, b) in enumerate(zip(feats["fused"], feats["plain"])):
@@ -407,10 +697,21 @@ def main() -> int:
           f"{found} detections, launches {counts}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card {ident}")
 
+    del planar, det
+    print(f"[5] flagship training step, bf16 compute, f32 parameters, AdamW lr 1e-4, {B} x "
+          f"{H} x {W}, 32 boxes a frame, PyTorch's TF32 defaults")
+    launches["train"] = training_path(dev, ident, build_flagship, flagship_train_batch,
+                                      counters)
+
     for rec in records:
-        path = "fused" if "attention" in rec["name"] else "plain"
         key = rec.get("shares_kernel_of", rec["name"])
+        if key in ("dense_crop (K4)", "roi_align_backward (K3 backward)"):
+            path = "train"
+        else:
+            path = "fused" if "attention" in rec["name"] else "plain"
         rec["launches"] = launches[path][key]
+        if key == "roi_align (K3)":
+            rec["launches_training"] = launches["train"][key]
     print(json.dumps({"kernels": records}))
     print(ident)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

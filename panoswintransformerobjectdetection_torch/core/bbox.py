@@ -1,13 +1,48 @@
-"""DeltaXYWH box decoding and clipping (mmdet v2 numerics).
+"""Box overlaps, DeltaXYWH encoding and decoding, clipping (mmdet v2 numerics).
 
-Counterpart of `delta_decode` and `clip_boxes` in
-`panoswintransformerobjectdetection_tpu/core/bbox.py`.
+Counterpart of `bbox_overlaps`, `delta_encode`, `delta_decode` and
+`clip_boxes` in `panoswintransformerobjectdetection_tpu/core/bbox.py`.
 """
 
 import math
 from typing import Sequence
 
 import torch
+
+
+def bbox_overlaps(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """All-pairs IoU: (..., N, 4), (..., M, 4) -> (..., N, M); areas are not
+    clamped, the union is clamped at `eps`."""
+    lt = torch.maximum(a[..., :, None, :2], b[..., None, :, :2])
+    rb = torch.minimum(a[..., :, None, 2:], b[..., None, :, 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    overlap = wh[..., 0] * wh[..., 1]
+    area_a = (a[..., 2] - a[..., 0]) * (a[..., 3] - a[..., 1])
+    area_b = (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
+    union = area_a[..., :, None] + area_b[..., None, :] - overlap
+    return overlap / union.clamp(min=eps)
+
+
+def delta_encode(proposals: torch.Tensor, gt: torch.Tensor,
+                 means: Sequence[float] = (0., 0., 0., 0.),
+                 stds: Sequence[float] = (1., 1., 1., 1.)) -> torch.Tensor:
+    """(..., 4) xyxy boxes and their targets -> normalised (dx, dy, dw, dh).
+    Widths and heights are clamped at 1e-6, so a padded or degenerate box
+    stays finite."""
+    eps = 1e-6
+    px = (proposals[..., 0] + proposals[..., 2]) * 0.5
+    py = (proposals[..., 1] + proposals[..., 3]) * 0.5
+    pw = (proposals[..., 2] - proposals[..., 0]).clamp(min=eps)
+    ph = (proposals[..., 3] - proposals[..., 1]).clamp(min=eps)
+    gx = (gt[..., 0] + gt[..., 2]) * 0.5
+    gy = (gt[..., 1] + gt[..., 3]) * 0.5
+    gw = (gt[..., 2] - gt[..., 0]).clamp(min=eps)
+    gh = (gt[..., 3] - gt[..., 1]).clamp(min=eps)
+    d = torch.stack([(gx - px) / pw, (gy - py) / ph, torch.log(gw / pw), torch.log(gh / ph)],
+                    dim=-1)
+    means = torch.tensor(means, dtype=d.dtype, device=d.device)
+    stds = torch.tensor(stds, dtype=d.dtype, device=d.device)
+    return (d - means) / stds
 
 
 def delta_decode(rois: torch.Tensor, deltas: torch.Tensor,

@@ -33,6 +33,17 @@
 // Fourteen threads first work out the RoI's level and the merged taps of
 // the 7 bins of each axis (up to 4 distinct columns per bin) into shared
 // memory; then each thread walks the 49 output bins.
+//
+// Backward (`roi_align_backward_kernel`): the function is linear in the
+// maps, so the maps' gradient is the transposed gather, a scatter-add of
+// grad_out[r, i, j, c] * w1 * w2 into the RoI's level.  Same blocks, same
+// taps; every nonzero tap is one f32 `atomicAdd` into f32 gradient maps,
+// which the wrapper zeroes before and casts to the feature type after.  As
+// autograd through the twin does, it rounds the stage-one gradient w2 * d
+// to the feature type.  RoIs overlap, so the atomics are needed, and their
+// order changes the last bits of a sum from run to run.  It is bound by
+// bytes (grad_out in, the level gradients out); the atomics' traffic in L2
+// is what it really pays.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -112,18 +123,19 @@ __device__ void axis_taps(float start, float bin, int size, int o, int* idx, flo
   }
 }
 
-template <typename T>
-__global__ void roi_align_kernel(RoiLevels levels, const float* __restrict__ rois,
-                                 T* __restrict__ out, int batch, int C, int w_first,
-                                 float finest_scale) {
-  // [axis][bin][tap]; axis 0 = y (rows), 1 = x (columns)
-  __shared__ int s_idx[2][O][K];
-  __shared__ float s_w[2][O][K];
-  __shared__ int s_level;
-  __shared__ int s_batch;
+// A RoI's level, image and merged taps, in shared memory.
+struct RoiTaps {
+  int idx[2][O][K];     // [axis][bin][tap]; axis 0 = y (rows), 1 = x (columns)
+  float w[2][O][K];
+  int level;
+  int batch;            // -1: the index lies outside [0, batch), or is NaN
+};
 
-  const int r = blockIdx.x;
-  const float* roi = rois + size_t(r) * 5;
+// Fills `taps` for the block's RoI with its first 14 threads and
+// synchronises the block.
+template <typename T>
+__device__ void roi_taps(const RoiLevels& levels, const float* roi, int batch,
+                         float finest_scale, RoiTaps& taps) {
   const int t = threadIdx.x;
   if (t < 2 * O) {
     const float x1 = roi[1], y1 = roi[2], x2 = roi[3], y2 = roi[4];
@@ -138,15 +150,28 @@ __global__ void roi_align_kernel(RoiLevels levels, const float* __restrict__ roi
     const float start = __fsub_rn(__fmul_rn(lo, inv), 0.5f);
     const float bin = __fdiv_rn(__fmul_rn(extent, inv), float(O));
     const int size = axis == 0 ? levels.height[lvl] : levels.width[lvl];
-    axis_taps<T>(start, bin, size, o, s_idx[axis][o], s_w[axis][o]);
+    axis_taps<T>(start, bin, size, o, taps.idx[axis][o], taps.w[axis][o]);
     if (t == 0) {
       // an index outside [0, batch), or NaN, pools zeros (as the twin does)
       const float b = roi[0];
-      s_level = lvl;
-      s_batch = (b >= 0.f && b < float(batch)) ? int(b) : -1;
+      taps.level = lvl;
+      taps.batch = (b >= 0.f && b < float(batch)) ? int(b) : -1;
     }
   }
   __syncthreads();
+}
+
+template <typename T>
+__global__ void roi_align_kernel(RoiLevels levels, const float* __restrict__ rois,
+                                 T* __restrict__ out, int batch, int C, int w_first,
+                                 float finest_scale) {
+  __shared__ RoiTaps taps;
+  const int r = blockIdx.x;
+  const int t = threadIdx.x;
+  roi_taps<T>(levels, rois + size_t(r) * 5, batch, finest_scale, taps);
+  auto& s_idx = taps.idx;
+  auto& s_w = taps.w;
+  const int s_level = taps.level, s_batch = taps.batch;
 
   const int c = blockIdx.y * THREADS + t;
   if (c >= C) return;
@@ -182,6 +207,44 @@ __global__ void roi_align_kernel(RoiLevels levels, const float* __restrict__ roi
   }
 }
 
+template <typename T>
+__global__ void roi_align_backward_kernel(RoiLevels levels, const float* __restrict__ rois,
+                                          const T* __restrict__ grad_out, int batch, int C,
+                                          int w_first, float finest_scale) {
+  __shared__ RoiTaps taps;
+  const int r = blockIdx.x;
+  const int t = threadIdx.x;
+  roi_taps<T>(levels, rois + size_t(r) * 5, batch, finest_scale, taps);
+  const int c = blockIdx.y * THREADS + t;
+  if (c >= C || taps.batch < 0) return;
+  const int lvl = taps.level;
+  const int Hl = levels.height[lvl], Wl = levels.width[lvl];
+  // levels.feat holds the f32 gradient maps here
+  float* g = static_cast<float*>(const_cast<void*>(levels.feat[lvl])) +
+             size_t(taps.batch) * Hl * Wl * C + c;
+  const int a1 = w_first ? 1 : 0, a2 = 1 - a1;
+  for (int i = 0; i < O; ++i) {
+    for (int j = 0; j < O; ++j) {
+      const int oy = w_first ? j : i, ox = w_first ? i : j;
+      const float d = to_f(grad_out[((size_t(r) * O + oy) * O + ox) * C + c]);
+#pragma unroll
+      for (int k2 = 0; k2 < K; ++k2) {
+        const float w2 = taps.w[a2][j][k2];
+        if (w2 == 0.f) continue;
+        const float dt = round_t<T>(__fmul_rn(w2, d));
+#pragma unroll
+        for (int k1 = 0; k1 < K; ++k1) {
+          const float w1 = taps.w[a1][i][k1];
+          if (w1 == 0.f) continue;
+          const int i1 = taps.idx[a1][i][k1], i2 = taps.idx[a2][j][k2];
+          const int row = w_first ? i2 : i1, col = w_first ? i1 : i2;
+          atomicAdd(g + (size_t(row) * Wl + col) * C, __fmul_rn(w1, dt));
+        }
+      }
+    }
+  }
+}
+
 }  // namespace
 
 // levels: the level maps (B, Hl, Wl, C) contiguous, all of one dtype;
@@ -203,6 +266,30 @@ extern "C" int roi_align_launch(const RoiLevels* levels, const void* rois, void*
   else if (dtype == 1)
     roi_align_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
         *levels, r, static_cast<__nv_bfloat16*>(out), batch, C, w_first, finest_scale);
+  else
+    return int(cudaErrorInvalidValue);
+  return int(cudaGetLastError());
+}
+
+// The maps' gradient.  levels: float32 gradient maps (B, Hl, Wl, C),
+// contiguous and zeroed by the caller, which this adds into; grad_out
+// (R, 7, 7, C) of the feature type `dtype`; the rest as above.
+extern "C" int roi_align_backward_launch(const RoiLevels* levels, const void* rois,
+                                         const void* grad_out, int R, int batch, int C,
+                                         int dtype, int w_first, float finest_scale,
+                                         void* stream) {
+  if (levels->num_levels < 1 || levels->num_levels > MAX_LEVELS) return int(cudaErrorInvalidValue);
+  if (R == 0) return 0;
+  dim3 grid(R, (C + THREADS - 1) / THREADS);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* r = static_cast<const float*>(rois);
+  if (dtype == 0)
+    roi_align_backward_kernel<float><<<grid, THREADS, 0, s>>>(
+        *levels, r, static_cast<const float*>(grad_out), batch, C, w_first, finest_scale);
+  else if (dtype == 1)
+    roi_align_backward_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
+        *levels, r, static_cast<const __nv_bfloat16*>(grad_out), batch, C, w_first,
+        finest_scale);
   else
     return int(cudaErrorInvalidValue);
   return int(cudaGetLastError());

@@ -1,24 +1,40 @@
-"""Two-stage detector, inference: backbone -> FPN -> RPN -> RoIAlign -> head.
+"""Two-stage detector: backbone -> FPN -> RPN -> RoIAlign -> head.
 
 Counterpart of the `TwoStageDetector` subset that the flagship uses in
 `panoswintransformerobjectdetection_tpu/models/detectors.py` (registered
-there as `PanoFasterRCNN`): `extract_feat` and `simple_test` with the
-default test configuration.  Submodule names follow the reference's
-state-dict keys (`backbone.`, `neck.`, `rpn_head.`, `roi_head.bbox_head.`).
+there as `PanoFasterRCNN`): `extract_feat`, `simple_test` with the default
+test configuration and `forward_train` with the default training
+configuration (random sampler, L1 box loss).  Submodule names follow the
+reference's state-dict keys (`backbone.`, `neck.`, `rpn_head.`,
+`roi_head.bbox_head.`).
 """
 
-from typing import Callable, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 
 from ..core.anchors import AnchorGenerator
+from ..core.sampler import sampler_noise
 from ..ops.nms import DetResult
-from ..ops.roi_align import roi_align
+from ..ops.roi_align import multilevel_roi_align_dense, roi_align
 from .fpn import FPN
 from .panoswin import PanoSwinTransformer
-from .roi_head import Shared2FCBBoxHead, bbox_head_detections
-from .rpn_head import RPNHead, rpn_proposals
+from .roi_head import (Shared2FCBBoxHead, bbox_head_detections, bbox_head_loss,
+                       sample_rois_for_training)
+from .rpn_head import RPNHead, rpn_loss, rpn_proposals
+
+
+def default_train_cfg() -> dict:
+    """`configs/_base_/models/faster_rcnn_panoswin_fpn.py:64-101`."""
+    return {
+        "rpn": {"pos_iou_thr": 0.7, "neg_iou_thr": 0.3, "min_pos_iou": 0.3,
+                "num_samples": 256, "pos_fraction": 0.5},
+        "rpn_proposal": {"nms_pre": 2000, "max_per_img": 1000, "iou_threshold": 0.7,
+                         "min_bbox_size": 0},
+        "rcnn": {"pos_iou_thr": 0.5, "neg_iou_thr": 0.5, "min_pos_iou": 0.5,
+                 "num_samples": 512, "pos_fraction": 0.25},
+    }
 
 
 def default_test_cfg() -> dict:
@@ -32,9 +48,14 @@ def default_test_cfg() -> dict:
 
 # The stages of one `simple_test` request, in order.
 STAGES = ("stem", "backbone", "fpn", "proposals", "roi_align", "bbox_head", "detections")
+# The stages of one `forward_train`, in order.
+TRAIN_STAGES = ("stem", "backbone", "fpn", "rpn_head", "rpn_loss", "proposals", "sampling",
+                "roi_align", "bbox_head", "bbox_loss")
+# Options of the training configuration that are not ported yet.
+_UNPORTED_RCNN = ("sampler", "reg_loss", "reg_loss_weight")
 
 
-def _run_stage(name: str, fn: Callable):
+def run_stage(name: str, fn: Callable):
     return fn()
 
 
@@ -54,8 +75,14 @@ class PanoFasterRCNN(nn.Module):
                  featmap_strides: Sequence[int] = (4, 8, 16, 32),
                  rpn_target_stds: Sequence[float] = (1.0, 1.0, 1.0, 1.0),
                  rcnn_target_stds: Sequence[float] = (0.1, 0.1, 0.2, 0.2),
-                 test_cfg: Optional[dict] = None, compute_dtype: Optional[torch.dtype] = None):
+                 train_cfg: Optional[dict] = None, test_cfg: Optional[dict] = None,
+                 compute_dtype: Optional[torch.dtype] = None, roi_align: str = "direct"):
+        """`roi_align`: "direct" pools the RoIs with kernel K3, "dense" with
+        the interpolation-matrix route and kernel K4 on each level
+        (`ops/roi_align.py`); both compute the same function."""
         super().__init__()
+        if roi_align not in ("direct", "dense"):
+            raise ValueError(f"roi_align must be 'direct' or 'dense', got {roi_align!r}")
         self.backbone = PanoSwinTransformer(**backbone, dtype=compute_dtype)
         neck = dict(neck or {"in_channels": (96, 192, 384, 768), "out_channels": 256,
                              "num_outs": 5})
@@ -69,7 +96,16 @@ class PanoFasterRCNN(nn.Module):
         self.featmap_strides = tuple(featmap_strides)
         self.rpn_target_stds = tuple(rpn_target_stds)
         self.rcnn_target_stds = tuple(rcnn_target_stds)
+        self.num_classes = num_classes
+        self.train_cfg = train_cfg or default_train_cfg()
         self.test_cfg = test_cfg or default_test_cfg()
+        self.roi_align = roi_align
+        unported = [k for k in _UNPORTED_RCNN if k in self.train_cfg["rcnn"]]
+        if unported:
+            raise NotImplementedError(
+                f"train_cfg['rcnn'] options {unported}: OHEM, ScoreHLR and combined "
+                "samplers, PISA and the IoU box losses are not ported yet (ROADMAP.md, "
+                "Queue 1, item 17)")
 
     @property
     def device(self) -> torch.device:
@@ -78,11 +114,13 @@ class PanoFasterRCNN(nn.Module):
     def extract_feat(self, images):
         return self.neck(self.backbone(images))
 
+    def _anchors(self, cls_scores):
+        return self.anchor_gen.grid_anchors([tuple(c.shape[1:3]) for c in cls_scores],
+                                            device=cls_scores[0].device)
+
     def proposals(self, feats, img_shapes):
         cls_scores, bbox_preds = self.rpn_head(feats)
-        anchors = self.anchor_gen.grid_anchors([tuple(c.shape[1:3]) for c in cls_scores],
-                                               device=feats[0].device)
-        return rpn_proposals(cls_scores, bbox_preds, anchors, img_shapes,
+        return rpn_proposals(cls_scores, bbox_preds, self._anchors(cls_scores), img_shapes,
                              target_stds=self.rpn_target_stds, **self.test_cfg["rpn"])
 
     @staticmethod
@@ -94,12 +132,78 @@ class PanoFasterRCNN(nn.Module):
                          dim=-1).reshape(B * P, 5)
 
     def roi_features(self, feats, rois):
+        """rois (B * P, 5), grouped by image -> (B * P, 7, 7, C)."""
         nlvl = min(len(self.featmap_strides), len(feats))
+        if self.roi_align == "dense":
+            return multilevel_roi_align_dense(feats[:nlvl], rois, self.featmap_strides)
         return roi_align(feats[:nlvl], rois, self.featmap_strides)
+
+    def forward_train(self, images, img_shapes, gt_boxes, gt_labels, gt_valid,
+                      noise: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None,
+                      generator: Optional[torch.Generator] = None,
+                      stage: Callable = run_stage) -> Dict[str, torch.Tensor]:
+        """images (B, H, W, 3); img_shapes (B, 2) unpadded (h, w); gt_boxes
+        (B, G, 4) xyxy; gt_labels (B, G); gt_valid (B, G) bool.  Inputs are
+        moved to the model's device.  Returns `loss_rpn_cls`,
+        `loss_rpn_bbox`, `loss_cls`, `loss_bbox` and `acc`.
+
+        The two samplers' uniform noise is `noise["rpn"]`, two (B, anchors)
+        tensors, and `noise["rcnn"]`, two (B, G + proposals) tensors; what is
+        not handed in is drawn from `generator` (`core/sampler.sampler_noise`).
+        The proposals are constants of the RoI stage: the RPN gets gradient
+        from its own loss alone.  The module must be in train mode: the stem
+        then runs with live BatchNorm, whereas the eval stem runs kernel K1,
+        which has no backward.  Each stage (`TRAIN_STAGES`) runs as
+        `stage(name, fn)`, as in `simple_test`.
+        """
+        if not self.training:
+            raise RuntimeError("forward_train needs train mode (call .train()): the eval "
+                               "stem runs kernel K1, which has no backward")
+        dev = self.device
+        noise = dict(noise or {})
+        images = torch.as_tensor(images, device=dev)
+        img_shapes = torch.as_tensor(img_shapes, dtype=torch.float32, device=dev)
+        gt_boxes = torch.as_tensor(gt_boxes, dtype=torch.float32, device=dev)
+        gt_labels = torch.as_tensor(gt_labels, device=dev).long()
+        gt_valid = torch.as_tensor(gt_valid, device=dev).bool()
+        tc = self.train_cfg
+        B = images.shape[0]
+
+        def draw(name, n):
+            if name not in noise:
+                noise[name] = sampler_noise((B, n), generator, dev)
+            return tuple(t.to(dev) for t in noise[name])
+
+        x = stage("stem", lambda: self.backbone.patch_embed(images))
+        feats = stage("backbone", lambda: self.backbone.forward_from_embed(x))
+        feats = stage("fpn", lambda: self.neck(feats))
+        cls_scores, bbox_preds = stage("rpn_head", lambda: self.rpn_head(feats))
+        level_anchors = self._anchors(cls_scores)
+        anchors = torch.cat(level_anchors)
+        out = stage("rpn_loss", lambda: rpn_loss(
+            cls_scores, bbox_preds, anchors, gt_boxes, gt_valid, draw("rpn", anchors.shape[0]),
+            target_stds=self.rpn_target_stds, **tc["rpn"]))
+
+        def proposals():
+            with torch.no_grad():
+                return rpn_proposals(cls_scores, bbox_preds, level_anchors, img_shapes,
+                                     target_stds=self.rpn_target_stds, **tc["rpn_proposal"])
+
+        props = stage("proposals", proposals)
+        samples = stage("sampling", lambda: sample_rois_for_training(
+            draw("rcnn", gt_boxes.shape[1] + props.boxes.shape[1]), props.boxes, props.mask,
+            gt_boxes, gt_labels, gt_valid, self.num_classes,
+            target_stds=self.rcnn_target_stds, **tc["rcnn"]))
+        flat_rois = samples.rois.reshape(-1, 5)
+        roi_feats = stage("roi_align", lambda: self.roi_features(feats, flat_rois))
+        cls, reg = stage("bbox_head", lambda: self.roi_head.bbox_head(roi_feats))
+        out.update(stage("bbox_loss", lambda: bbox_head_loss(cls, reg, samples,
+                                                             self.num_classes)))
+        return out
 
     @torch.no_grad()
     def simple_test(self, images, img_shapes, scale_factors=None,
-                    stage: Callable = _run_stage) -> DetResult:
+                    stage: Callable = run_stage) -> DetResult:
         """images (B, H, W, 3) float; img_shapes (B, 2) (h, w); scale_factors
         (B, 4) or None.  Inputs are moved to the model's device.  Returns a
         DetResult of (B, K) slots; only `mask`ed slots hold detections.

@@ -1,13 +1,14 @@
-"""Shared building blocks: dtype-following Linear/Conv, LayerNorm, Mlp, the
-conv stem and PatchMerging.
+"""Shared building blocks: dtype-following Linear/Conv, LayerNorm, Mlp,
+DropPath, the conv stem and PatchMerging.
 
 Counterpart of `panoswintransformerobjectdetection_tpu/models/layers.py`.
 Parameters are kept in float32; `dtype` is the compute type of a layer, as
 flax's `dtype=` is: input, weight and bias are cast to it and the result is
 in it.  With no compute type the result follows the input and the float32
 parameters (float32 here).  LayerNorm always returns float32, as flax's
-does with float32 parameters.  This slice is inference only: modules run
-their eval path.
+does with float32 parameters.  In train mode the stem runs its two 3x3
+convs with live BatchNorm and DropPath drops residual branches; in eval
+mode the stem goes through kernel K1 and DropPath is the identity.
 """
 
 from typing import Optional
@@ -59,6 +60,46 @@ class Mlp(nn.Module):
         return dense(self.fc2, x, self.dtype)
 
 
+class DropPath(nn.Module):
+    """Per-sample stochastic depth: in train mode a sample's branch is kept
+    with probability 1 - rate and scaled by 1 / (1 - rate); the identity in
+    eval mode or at rate 0.  The keep mask is drawn from `generator` (the
+    default generator of the input's device when None) on the generator's
+    own device."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x):
+        if self.rate == 0.0 or not self.training:
+            return x
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+        where = self.generator.device if self.generator is not None else x.device
+        mask = (torch.rand(shape, generator=self.generator, device=where) < keep).to(x.device)
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def batch_norm_train(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    """Train-mode BatchNorm on NCHW `x` with flax's numerics: statistics in
+    float32 over (B, H, W), the variance as mean(x^2) - mean(x)^2, the
+    result in float32, and the running statistics moved by `bn.momentum`
+    towards the batch's mean and its *biased* variance
+    (`torch.nn.BatchNorm2d` would store the unbiased one).  The running
+    statistics are updated in place."""
+    xf = x.float()
+    mean = xf.mean(dim=(0, 2, 3))
+    var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
+    with torch.no_grad():
+        bn.running_mean.mul_(1.0 - bn.momentum).add_(mean, alpha=bn.momentum)
+        bn.running_var.mul_(1.0 - bn.momentum).add_(var, alpha=bn.momentum)
+        bn.num_batches_tracked.add_(1)
+    scale = torch.rsqrt(var + bn.eps) * bn.weight
+    return (xf - mean[:, None, None]) * scale[:, None, None] + bn.bias[:, None, None]
+
+
 class ConvStemPatchEmbed(nn.Module):
     """3-conv patch stem: (3x3 conv, BN, ReLU) x 2, then the patch-stride conv,
     then LayerNorm.  `proj` is the reference's Sequential, so its state-dict
@@ -66,7 +107,9 @@ class ConvStemPatchEmbed(nn.Module):
 
     Eval path: BatchNorm's running statistics are folded into the two 3x3
     convs, once (`kernel_weights`), and both run through kernel K1
-    (`ops/stem_conv.py`) at any H, W.
+    (`ops/stem_conv.py`) at any H, W.  Train path: the three convs in the
+    compute type with live BatchNorm (`batch_norm_train`), as the JAX module
+    does with `train=True`; K1 is not on it and needs no backward.
     Input (B, H, W, 3) NHWC; output (B, H/ps, W/ps, embed_dim).
     """
 
@@ -105,14 +148,18 @@ class ConvStemPatchEmbed(nn.Module):
         return super()._apply(*args, **kwargs)
 
     def forward(self, x):
-        if self.training:
-            raise NotImplementedError("ConvStemPatchEmbed: only the eval path is ported")
         ps = self.patch_size
         x = x.to(self.dtype or x.dtype)
         B, H, W, _ = x.shape
         x = F.pad(x, (0, 0, 0, (-W) % ps, 0, (-H) % ps))
-        h1 = stem_conv(x, self.kernel_weights(x.dtype))
-        x = patch_projection(h1, self.proj[6].weight, self.proj[6].bias)
+        if self.training:
+            x = x.permute(0, 3, 1, 2)
+            x = torch.relu(batch_norm_train(self.proj[1], conv(self.proj[0], x, self.dtype)))
+            x = torch.relu(batch_norm_train(self.proj[4], conv(self.proj[3], x, self.dtype)))
+            x = conv(self.proj[6], x, self.dtype).permute(0, 2, 3, 1)
+        else:
+            h1 = stem_conv(x, self.kernel_weights(x.dtype))
+            x = patch_projection(h1, self.proj[6].weight, self.proj[6].bias)
         x = self.norm(x)
         return x.to(self.dtype or x.dtype)
 

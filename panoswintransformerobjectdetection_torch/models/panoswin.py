@@ -1,4 +1,4 @@
-"""PanoSwin Transformer backbone, inference, pano and planar modes.
+"""PanoSwin Transformer backbone, pano and planar modes.
 
 Counterpart of `panoswintransformerobjectdetection_tpu/models/panoswin.py`
 (`sphere_bias`, `prepare_window_uv`, `WindowAttention`, `PanoSwinBlock`,
@@ -13,8 +13,10 @@ the JAX package:
   - fused (`fused_attention=True`): the mask folded into the bias, then
     kernel K2 (`ops/fused_attention.packed_window_attention`), which scales
     the f32 product.
-Only even depths are ported: an odd depth ends its stage with a
-PitchAttention block, which is a later slice.
+In train mode the stem runs with live BatchNorm and every block's two
+residual branches go through DropPath, whose rate rises linearly over the
+blocks to `drop_path_rate`.  Only even depths are ported: an odd depth ends
+its stage with a PitchAttention block, which is a later slice.
 """
 
 from typing import Optional, Sequence
@@ -28,7 +30,7 @@ from ..ops.fused_attention import packed_window_attention
 from ..ops.windows import (make_relative_position_index, swin_attention_mask,
                            window_partition, window_reverse, window_transition,
                            window_transition_reverse)
-from .layers import ConvStemPatchEmbed, LayerNorm, Mlp, PatchMerging, dense
+from .layers import ConvStemPatchEmbed, DropPath, LayerNorm, Mlp, PatchMerging, dense
 
 
 def sphere_bias(alpha_table, beta_table, rel_index, hav: Optional[torch.Tensor]):
@@ -102,7 +104,7 @@ class PanoSwinBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, window_size: int, shift_size: int,
                  mlp_ratio: float = 4.0, dtype=None, pano_mode: bool = True,
-                 fused: bool = False):
+                 fused: bool = False, drop_path: float = 0.0):
         super().__init__()
         self.window_size = window_size
         self.shift_size = shift_size
@@ -111,6 +113,8 @@ class PanoSwinBlock(nn.Module):
         self.attn = WindowAttention(dim, window_size, num_heads, dtype, fused)
         self.norm2 = LayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
+        self.drop_path1 = DropPath(drop_path)
+        self.drop_path2 = DropPath(drop_path)
         self.dtype = dtype
 
     def forward(self, x, hav=None, mask=None):
@@ -133,8 +137,8 @@ class PanoSwinBlock(nn.Module):
         y = y[:, :SH, :SW]
         if pano:
             y = window_transition_reverse(y, shift, True, width_was_odd=bool(W % 2))
-        x = x + y[:, :H, :W]
-        return x + self.mlp(self.norm2(x))
+        x = x + self.drop_path1(y[:, :H, :W])
+        return x + self.drop_path2(self.mlp(self.norm2(x)))
 
 
 class BasicLayer(nn.Module):
@@ -142,7 +146,8 @@ class BasicLayer(nn.Module):
 
     def __init__(self, dim: int, depth: int, num_heads: int, window_size: int,
                  mlp_ratio: float = 4.0, downsample: bool = True, dtype=None,
-                 pano_mode: bool = True, fused: bool = False):
+                 pano_mode: bool = True, fused: bool = False,
+                 drop_path: Sequence[float] = ()):
         super().__init__()
         if depth % 2:
             raise NotImplementedError(
@@ -153,7 +158,7 @@ class BasicLayer(nn.Module):
         self.blocks = nn.ModuleList(
             PanoSwinBlock(dim, num_heads, window_size,
                           0 if i % 2 == 0 else window_size // 2, mlp_ratio, dtype,
-                          pano_mode, fused)
+                          pano_mode, fused, drop_path[i] if drop_path else 0.0)
             for i in range(depth))
         self.downsample = PatchMerging(dim, dtype) if downsample else None
 
@@ -190,7 +195,9 @@ class PanoSwinTransformer(nn.Module):
     `pano_mode=False` gives planar Swin semantics (beta table only, cyclic
     shift, shifted-window mask, a zero uv grid); `ape`'s encoder then stays
     in the state dict but is not applied.  `fused_attention=True` runs every
-    block's attention through kernel K2.
+    block's attention through kernel K2.  `drop_path_rate` is the last
+    block's DropPath rate (train mode only); `set_drop_path_generator` gives
+    every DropPath one explicit generator.
     """
 
     def __init__(self, patch_size: int = 4, embed_dim: int = 96,
@@ -198,20 +205,28 @@ class PanoSwinTransformer(nn.Module):
                  num_heads: Sequence[int] = (3, 6, 12, 24), window_size: int = 7,
                  mlp_ratio: float = 4.0, ape: bool = False,
                  out_indices: Sequence[int] = (0, 1, 2, 3), pano_mode: bool = True,
-                 fused_attention: bool = False, dtype=None):
+                 fused_attention: bool = False, drop_path_rate: float = 0.2, dtype=None):
         super().__init__()
         self.patch_embed = ConvStemPatchEmbed(patch_size, embed_dim, dtype)
         self.abs_encoder = nn.Linear(5, embed_dim) if ape else None
         self.pano_mode = pano_mode
         n = len(depths)
+        total = sum(depths)
+        dpr = [drop_path_rate * i / max(total - 1, 1) for i in range(total)]
+        starts = [sum(depths[:i]) for i in range(n)]
         self.layers = nn.ModuleList(
             BasicLayer(embed_dim * 2 ** i, depths[i], num_heads[i], window_size,
                        mlp_ratio, downsample=i < n - 1, dtype=dtype, pano_mode=pano_mode,
-                       fused=fused_attention)
+                       fused=fused_attention, drop_path=dpr[starts[i]:starts[i] + depths[i]])
             for i in range(n))
         self.out_indices = tuple(out_indices)
         for i in self.out_indices:
             self.add_module(f"norm{i}", LayerNorm(embed_dim * 2 ** i))
+
+    def set_drop_path_generator(self, generator: Optional[torch.Generator]) -> None:
+        for m in self.modules():
+            if isinstance(m, DropPath):
+                m.generator = generator
 
     def forward(self, images):
         return self.forward_from_embed(self.patch_embed(images))

@@ -1,18 +1,24 @@
-"""Shared2FC bbox head and the test-time detection step.
+"""Shared2FC bbox head, its training targets and loss, and the test-time
+detection step.
 
-Counterpart of `Shared2FCBBoxHead` and `bbox_head_detections` in
+Counterpart of `Shared2FCBBoxHead`, `RoISamples`, `sample_rois_for_training`,
+`bbox_head_loss` (the default branch: random sampler, L1) and
+`bbox_head_detections` in
 `panoswintransformerobjectdetection_tpu/models/roi_head.py`.  `shared_fcs.0`
 keeps the reference's weight layout, which reads the RoI feature flattened
 channel-first (C, h, w); the JAX head flattens (h, w, C) with a permuted
 weight (`runtime/checkpoint.py:219 _fc_from_chw`).
 """
 
-from typing import Sequence
+from typing import Dict, NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 
-from ..core.bbox import clip_boxes, delta_decode
+from ..core import losses
+from ..core.assigner import max_iou_assign
+from ..core.bbox import bbox_overlaps, clip_boxes, delta_decode, delta_encode
+from ..core.sampler import random_sample
 from ..ops.nms import DetResult, multiclass_nms
 from .layers import dense
 
@@ -37,6 +43,72 @@ class Shared2FCBBoxHead(nn.Module):
             x = torch.relu(dense(fc, x, self.dtype))
         return (dense(self.fc_cls, x, self.dtype).float(),
                 dense(self.fc_reg, x, self.dtype).float())
+
+
+class RoISamples(NamedTuple):
+    rois: torch.Tensor           # (B, S, 5) sampled rois (batch index in column 0)
+    labels: torch.Tensor         # (B, S) int64: class, or num_classes for background
+    label_weights: torch.Tensor  # (B, S)
+    bbox_targets: torch.Tensor   # (B, S, 4)
+    bbox_weights: torch.Tensor   # (B, S)
+
+
+@torch.no_grad()
+def sample_rois_for_training(noise: Tuple[torch.Tensor, torch.Tensor], proposals, prop_mask,
+                             gt_boxes, gt_labels, gt_valid, num_classes: int,
+                             *, pos_iou_thr: float = 0.5, neg_iou_thr: float = 0.5,
+                             min_pos_iou: float = 0.5, num_samples: int = 512,
+                             pos_fraction: float = 0.25,
+                             target_means: Sequence[float] = (0., 0., 0., 0.),
+                             target_stds: Sequence[float] = (0.1, 0.1, 0.2, 0.2)) -> RoISamples:
+    """Assign and sample the RCNN's rois of each image, with the ground
+    truth appended as proposals.  proposals (B, P, 4); prop_mask (B, P);
+    gt_boxes (B, G, 4); noise: two (B, G + P) uniform tensors.  Every image
+    gets int(num_samples * pos_fraction) + num_samples slots: positives
+    first, then negatives; `label_weights` marks the slots that are filled.
+    """
+    B = proposals.shape[0]
+    cand = torch.cat([gt_boxes, proposals], dim=1)                       # (B, G+P, 4)
+    cand_valid = torch.cat([gt_valid, prop_mask], dim=1)
+    ious = bbox_overlaps(gt_boxes, cand)                                 # (B, G, G+P)
+    ious = torch.where(cand_valid[:, None, :], ious, torch.full_like(ious, -1.0))
+    assigned, _ = max_iou_assign(ious, gt_valid, pos_iou_thr, neg_iou_thr, min_pos_iou,
+                                 match_low_quality=False)
+    assigned = torch.where(cand_valid, assigned, torch.full_like(assigned, -1))
+    s = random_sample(noise, assigned, num_samples, pos_fraction)
+
+    inds = torch.cat([s.pos_inds, s.neg_inds], dim=1)                    # (B, pos_cap+num)
+    pos_m = torch.cat([s.pos_mask, torch.zeros_like(s.neg_mask)], dim=1)
+    sel_m = torch.cat([s.pos_mask, s.neg_mask], dim=1)
+    boxes = torch.gather(cand, 1, inds[..., None].expand(-1, -1, 4))
+    gt_idx = (torch.gather(assigned, 1, inds) - 1).clamp(min=0)
+    labels = torch.where(pos_m, torch.gather(gt_labels.long(), 1, gt_idx),
+                         torch.full_like(gt_idx, num_classes))
+    matched = torch.gather(gt_boxes, 1, gt_idx[..., None].expand(-1, -1, 4))
+    targets = delta_encode(boxes, matched, target_means, target_stds)
+    targets = torch.where(pos_m[..., None], targets, torch.zeros_like(targets))
+    bidx = torch.arange(B, dtype=boxes.dtype, device=boxes.device)[:, None, None]
+    rois = torch.cat([bidx.expand(B, boxes.shape[1], 1), boxes], dim=-1)
+    return RoISamples(rois, labels, sel_m.float(), targets, pos_m.float())
+
+
+def bbox_head_loss(cls_logits, bbox_pred, samples: RoISamples,
+                   num_classes: int) -> Dict[str, torch.Tensor]:
+    """Softmax cross entropy over the sampled rois and L1 on the positive
+    rows' deltas of their own class, both divided by the number of sampled
+    rois; `acc` is the share of sampled rois classified right."""
+    B, S = samples.labels.shape
+    cls_logits = cls_logits.reshape(B, S, -1)
+    num_sampled = samples.label_weights.sum()
+    loss_cls = losses.cross_entropy(cls_logits, samples.labels, weight=samples.label_weights,
+                                    avg_factor=num_sampled)
+    acc = losses.accuracy(cls_logits, samples.labels, samples.label_weights)
+    lab = samples.labels.clamp(0, num_classes - 1)
+    pred = bbox_pred.reshape(B, S, num_classes, 4)
+    pred = torch.gather(pred, 2, lab[..., None, None].expand(-1, -1, 1, 4))[:, :, 0]
+    loss_bbox = losses.l1_loss(pred, samples.bbox_targets,
+                               weight=samples.bbox_weights[..., None], avg_factor=num_sampled)
+    return {"loss_cls": loss_cls, "loss_bbox": loss_bbox, "acc": acc}
 
 
 def bbox_head_detections(cls_logits, bbox_pred, rois, img_shapes, *, score_thr=0.05,

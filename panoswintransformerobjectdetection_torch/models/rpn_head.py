@@ -1,18 +1,23 @@
-"""RPN head and proposal generation.
+"""RPN head, its training loss and proposal generation.
 
-Counterpart of `RPNHead` and `rpn_proposals` in
-`panoswintransformerobjectdetection_tpu/models/rpn_head.py`: per level the
-top `nms_pre` anchors by objectness, decode and clip, NMS per (image, level),
-then the top `max_per_img` of the union.
+Counterpart of `RPNHead`, `flatten_levels`, `rpn_loss` and `rpn_proposals`
+in `panoswintransformerobjectdetection_tpu/models/rpn_head.py`.  Proposals:
+per level the top `nms_pre` anchors by objectness, decode and clip, NMS per
+(image, level), then the top `max_per_img` of the union.  Loss: anchors
+assigned by MaxIoU, sampled at random, sigmoid cross entropy and L1; the
+batch is a leading dimension where the JAX package uses `vmap`.
 """
 
-from typing import NamedTuple, Sequence
+from typing import Dict, NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..core.bbox import clip_boxes, delta_decode
+from ..core import losses
+from ..core.assigner import max_iou_assign
+from ..core.bbox import bbox_overlaps, clip_boxes, delta_decode, delta_encode
+from ..core.sampler import random_sample
 from ..ops.nms import NEG_INF, nms, top_k_stable
 from .layers import conv
 
@@ -36,6 +41,50 @@ class RPNHead(nn.Module):
             cls_out.append(conv(self.rpn_cls, t, self.dtype).float().permute(0, 2, 3, 1))
             reg_out.append(conv(self.rpn_reg, t, self.dtype).float().permute(0, 2, 3, 1))
         return tuple(cls_out), tuple(reg_out)
+
+
+def flatten_levels(cls_scores, bbox_preds):
+    """Per-level NHWC maps -> (B, N) logits and (B, N, 4) deltas over all levels."""
+    B = cls_scores[0].shape[0]
+    return (torch.cat([c.reshape(B, -1) for c in cls_scores], dim=1),
+            torch.cat([r.reshape(B, -1, 4) for r in bbox_preds], dim=1))
+
+
+def rpn_loss(cls_scores, bbox_preds, anchors: torch.Tensor, gt_boxes: torch.Tensor,
+             gt_valid: torch.Tensor, noise: Tuple[torch.Tensor, torch.Tensor],
+             *, pos_iou_thr: float = 0.7, neg_iou_thr: float = 0.3, min_pos_iou: float = 0.3,
+             num_samples: int = 256, pos_fraction: float = 0.5, neg_pos_ub: int = -1,
+             target_means: Sequence[float] = (0., 0., 0., 0.),
+             target_stds: Sequence[float] = (1., 1., 1., 1.),
+             loss_cls_weight: float = 1.0,
+             loss_bbox_weight: float = 1.0) -> Dict[str, torch.Tensor]:
+    """anchors (N, 4) of all levels; gt_boxes (B, G, 4); gt_valid (B, G);
+    noise: two (B, N) uniform tensors for the sampler (`core/sampler.py`).
+    Targets are built without gradient; both losses are divided by the
+    number of sampled anchors."""
+    cls_flat, reg_flat = flatten_levels(cls_scores, bbox_preds)
+    with torch.no_grad():
+        ious = bbox_overlaps(gt_boxes, anchors)                          # (B, G, N)
+        assigned, _ = max_iou_assign(ious, gt_valid, pos_iou_thr, neg_iou_thr, min_pos_iou,
+                                     match_low_quality=True)
+        s = random_sample(noise, assigned, num_samples, pos_fraction, neg_pos_ub=neg_pos_ub)
+        gt_idx = (torch.gather(assigned, 1, s.pos_inds) - 1).clamp(min=0)
+        pos_gts = torch.gather(gt_boxes, 1, gt_idx[..., None].expand(-1, -1, 4))
+        pos_targets = delta_encode(anchors[s.pos_inds], pos_gts, target_means, target_stds)
+        pos_w = s.pos_mask.float()
+        neg_w = s.neg_mask.float()
+        num_total = pos_w.sum() + neg_w.sum()
+    pos_logits = torch.gather(cls_flat, 1, s.pos_inds)
+    neg_logits = torch.gather(cls_flat, 1, s.neg_inds)
+    loss_cls = (losses.binary_cross_entropy(pos_logits, torch.ones_like(pos_logits),
+                                            weight=pos_w, avg_factor=num_total)
+                + losses.binary_cross_entropy(neg_logits, torch.zeros_like(neg_logits),
+                                              weight=neg_w, avg_factor=num_total))
+    pos_deltas = torch.gather(reg_flat, 1, s.pos_inds[..., None].expand(-1, -1, 4))
+    loss_bbox = losses.l1_loss(pos_deltas, pos_targets, weight=pos_w[..., None],
+                               avg_factor=num_total)
+    return {"loss_rpn_cls": loss_cls * loss_cls_weight,
+            "loss_rpn_bbox": loss_bbox * loss_bbox_weight}
 
 
 class Proposals(NamedTuple):

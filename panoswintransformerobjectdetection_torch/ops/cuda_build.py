@@ -19,7 +19,7 @@ from typing import Dict, Sequence, Tuple
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
-SOURCES = ("stem_conv", "roi_align", "window_attention")
+SOURCES = ("stem_conv", "roi_align", "window_attention", "dense_crop")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

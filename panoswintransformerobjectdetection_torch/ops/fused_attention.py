@@ -26,6 +26,7 @@ import ctypes
 import torch
 
 from . import cuda_build
+from .autograd import backward_through_plain
 
 MAX_TOKENS = 64        # O, tokens per window
 MAX_HEAD_DIM = 64      # d
@@ -114,13 +115,8 @@ class _PackedWindowAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        inputs = [t.detach().requires_grad_(need)
-                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
-        with torch.enable_grad():
-            out = window_attention_plain(*inputs, ctx.scale)
-        wanted = [t for t in inputs if t.requires_grad]
-        grads = iter(torch.autograd.grad(out, wanted, grad))
-        return (*(next(grads) if t.requires_grad else None for t in inputs), None)
+        return (*backward_through_plain(window_attention_plain, ctx.saved_tensors,
+                                        ctx.needs_input_grad, grad, ctx.scale), None)
 
 
 def packed_window_attention(q, k, v, bias, scale: float):

@@ -1,15 +1,26 @@
-"""Multilevel RoIAlign (kernel K3): each RoI pooled from its own FPN level.
+"""Multilevel RoIAlign: each RoI pooled from its own FPN level, by two routes.
 
 Counterpart of `multilevel_roi_align` in
 `panoswintransformerobjectdetection_tpu/ops/roi_align.py` with its detector
 settings: `sampling_ratio=2`, `aligned=True`, `finest_scale=56`.  The JAX
 package expresses the pooling as interpolation-matrix GEMMs over whole
 maps, with a windowed Pallas kernel and a dense fallback, because the TPU
-serialises gathers.  Here the function is computed directly: per axis and
-bin at most four distinct taps, gathered from the RoI's own level.  On a
-CUDA tensor that is the kernel `csrc/roi_align.cu`; on a CPU tensor the
+serialises gathers.
+
+Direct route (`roi_align`, kernel K3): per axis and bin at most four
+distinct taps, gathered from the RoI's own level.  On a CUDA tensor that is
+the kernel `csrc/roi_align.cu`, forward and backward (the gradient of the
+maps is a scatter-add, `roi_align_backward`); on a CPU tensor the
 vectorised twin `roi_align_plain`, which does the same arithmetic in the
-same order.
+same order, with autograd through it.
+
+Dense route (`multilevel_roi_align_dense`, kernel K4): the JAX package's
+formulation, which its gradients and its CPU path go through: dense
+per-RoI interpolation matrices (`_axis_weights`) and, per level,
+`dense_crop`: out = Wx . round(Wy . F).  On a CUDA tensor `dense_crop` is
+the kernel `csrc/dense_crop.cu` (its backward goes through the twin, as
+the JAX custom VJP goes through the einsum pair); on a CPU tensor the twin
+`dense_crop_plain`.  Both routes compute the same function.
 
 The numerics that the JAX path fixes and both versions reproduce: the
 weight of a tap column is (1/2) * sum of its sample weights, rounded to the
@@ -25,6 +36,7 @@ from typing import Sequence
 import torch
 
 from . import cuda_build
+from .autograd import backward_through_plain
 
 OUT_SIZE = 7
 SAMPLES = 2          # fixed sample grid per bin side (sampling_ratio=2)
@@ -45,6 +57,7 @@ class _RoiLevels(ctypes.Structure):
 _LAUNCH_ARGTYPES = [ctypes.POINTER(_RoiLevels), ctypes.c_void_p, ctypes.c_void_p,
                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                     ctypes.c_float, ctypes.c_void_p]
+_CROP_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def _div(a: torch.Tensor, d: float) -> torch.Tensor:
@@ -54,7 +67,9 @@ def _div(a: torch.Tensor, d: float) -> torch.Tensor:
 
 
 def _w_first(feats) -> bool:
-    return sum(f.shape[2] for f in feats) > sum(f.shape[1] for f in feats)
+    """Whether the levels (maps, or their shapes) are wider than tall in total."""
+    shapes = [getattr(f, "shape", f) for f in feats]
+    return sum(s[2] for s in shapes) > sum(s[1] for s in shapes)
 
 
 def roi_levels(rois: torch.Tensor, num_levels: int,
@@ -166,8 +181,9 @@ def roi_align_plain(feats: Sequence[torch.Tensor], rois: torch.Tensor,
     dtype = feats[0].dtype
     R = rois.shape[0]
     rows, w1, w2 = tap_rows(feats, rois, strides)
-    table = torch.cat([f.reshape(-1, C) for f in feats])
-    g = table[rows].float()                         # (R, 7i, 4k1, 7j, 4k2, C)
+    # upcast before the gather: autograd then sums a map's gradient in f32
+    table = torch.cat([f.reshape(-1, C) for f in feats]).float()
+    g = table[rows]                                 # (R, 7i, 4k1, 7j, 4k2, C)
     # stage one over k1 in the kernel's order, then stage two over k2
     t = None
     for k1 in range(w1.shape[-1]):
@@ -185,26 +201,34 @@ def roi_align_plain(feats: Sequence[torch.Tensor], rois: torch.Tensor,
     return u.reshape(R, OUT_SIZE, OUT_SIZE, C)
 
 
-def roi_align(feats: Sequence[torch.Tensor], rois: torch.Tensor,
-              strides: Sequence[int] = (4, 8, 16, 32)) -> torch.Tensor:
-    """K3.  Same contract as `roi_align_plain`.
+def _level_struct(tensors, strides) -> _RoiLevels:
+    levels = _RoiLevels()
+    for i, (f, s) in enumerate(zip(tensors, strides)):
+        levels.feat[i] = f.data_ptr()
+        levels.height[i] = f.shape[1]
+        levels.width[i] = f.shape[2]
+        levels.inv_stride[i] = 1.0 / float(s)
+    levels.num_levels = len(tensors)
+    return levels
 
-    A CPU tensor takes the twin; a CUDA tensor launches the kernel or raises.
-    """
-    feats = list(feats)
-    if rois.device.type == "cpu":
-        return roi_align_plain(feats, rois, strides)
-    if rois.device.type != "cuda":
-        raise ValueError(f"roi_align: unsupported device {rois.device}")
+
+def _check_rois(rois, what):
+    if rois.dtype != torch.float32:
+        raise TypeError(f"{what}: rois {rois.dtype}, not float32")
+    if rois.dim() != 2 or rois.shape[1] != 5:
+        raise ValueError(f"{what}: rois must be (R, 5), got {tuple(rois.shape)}")
+
+
+def _roi_align_forward(feats, rois, strides) -> torch.Tensor:
+    """Launch K3's forward kernel on CUDA tensors."""
     L = len(feats)
     dtype = feats[0].dtype
     C = feats[0].shape[-1]
     if not 1 <= L <= MAX_LEVELS or len(strides) < L:
         raise ValueError(f"roi_align: {L} levels with strides {tuple(strides)}")
-    if dtype not in _DTYPE_CODE or rois.dtype != torch.float32:
-        raise TypeError(f"roi_align: features {dtype}, rois {rois.dtype}")
-    if rois.dim() != 2 or rois.shape[1] != 5:
-        raise ValueError(f"roi_align: rois must be (R, 5), got {tuple(rois.shape)}")
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"roi_align: features {dtype}")
+    _check_rois(rois, "roi_align")
     if any(f.dim() != 4 or f.shape[0] != feats[0].shape[0] for f in feats):
         raise ValueError("roi_align: levels must be (B, H, W, C) with one batch size")
     if any(f.dtype != dtype or f.shape[-1] != C or f.device != rois.device for f in feats):
@@ -213,13 +237,7 @@ def roi_align(feats: Sequence[torch.Tensor], rois: torch.Tensor,
     rois = rois.contiguous()
     R = rois.shape[0]
     out = torch.empty((R, OUT_SIZE, OUT_SIZE, C), dtype=dtype, device=rois.device)
-    levels = _RoiLevels()
-    for i, (f, s) in enumerate(zip(feats, strides)):
-        levels.feat[i] = f.data_ptr()
-        levels.height[i] = f.shape[1]
-        levels.width[i] = f.shape[2]
-        levels.inv_stride[i] = 1.0 / float(s)
-    levels.num_levels = L
+    levels = _level_struct(feats, strides)
     fn = cuda_build.function("roi_align", "roi_align_launch", _LAUNCH_ARGTYPES)
     stream = torch.cuda.current_stream(rois.device).cuda_stream
     status = fn(ctypes.byref(levels), rois.data_ptr(), out.data_ptr(), R, feats[0].shape[0],
@@ -229,4 +247,229 @@ def roi_align(feats: Sequence[torch.Tensor], rois: torch.Tensor,
     return out
 
 
+def roi_align_backward_plain(grad_out: torch.Tensor, rois: torch.Tensor,
+                             shapes: Sequence[Sequence[int]], dtype: torch.dtype,
+                             strides: Sequence[int] = (4, 8, 16, 32)):
+    """Plain version of K3's backward: autograd through `roi_align_plain`.
+    The function is linear in the maps, so their values are not needed."""
+    feats = [torch.zeros(tuple(s), dtype=dtype, device=rois.device, requires_grad=True)
+             for s in shapes]
+    with torch.enable_grad():
+        out = roi_align_plain(feats, rois, strides)
+    return torch.autograd.grad(out, feats, grad_out.to(dtype))
+
+
+def roi_align_backward(grad_out: torch.Tensor, rois: torch.Tensor,
+                       shapes: Sequence[Sequence[int]], dtype: torch.dtype,
+                       strides: Sequence[int] = (4, 8, 16, 32)):
+    """K3's backward: the gradient of the level maps (B, Hl, Wl, C), of
+    `shapes` and `dtype`, given grad_out (R, 7, 7, C): every tap's
+    grad_out * w1 * w2 added to its pixel of the RoI's own level.  The sums
+    are taken in float32 (atomics, in an order that changes from run to
+    run) and cast once.  The rois get no gradient.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    or raises.
+    """
+    if grad_out.device.type == "cpu":
+        return roi_align_backward_plain(grad_out, rois, shapes, dtype, strides)
+    if grad_out.device.type != "cuda":
+        raise ValueError(f"roi_align_backward: unsupported device {grad_out.device}")
+    L = len(shapes)
+    B, C = shapes[0][0], shapes[0][3]
+    R = rois.shape[0]
+    if not 1 <= L <= MAX_LEVELS or len(strides) < L:
+        raise ValueError(f"roi_align_backward: {L} levels with strides {tuple(strides)}")
+    if dtype not in _DTYPE_CODE or grad_out.dtype != dtype:
+        raise TypeError(f"roi_align_backward: maps {dtype}, gradient {grad_out.dtype}")
+    _check_rois(rois, "roi_align_backward")
+    if tuple(grad_out.shape) != (R, OUT_SIZE, OUT_SIZE, C) or rois.device != grad_out.device:
+        raise ValueError(f"roi_align_backward: gradient {tuple(grad_out.shape)} on "
+                         f"{grad_out.device} for {R} rois on {rois.device}, C = {C}")
+    if any(len(s) != 4 or s[0] != B or s[3] != C for s in shapes):
+        raise ValueError("roi_align_backward: levels must be (B, H, W, C) with one B and C")
+    grad_out = grad_out.contiguous()
+    rois = rois.contiguous()
+    sizes = [s[0] * s[1] * s[2] * s[3] for s in shapes]
+    flat = torch.zeros(sum(sizes), dtype=torch.float32, device=grad_out.device)
+    grads = [g.view(tuple(s)) for g, s in zip(flat.split(sizes), shapes)]
+    levels = _level_struct(grads, strides)
+    fn = cuda_build.function("roi_align", "roi_align_backward_launch", _LAUNCH_ARGTYPES)
+    stream = torch.cuda.current_stream(rois.device).cuda_stream
+    status = fn(ctypes.byref(levels), rois.data_ptr(), grad_out.data_ptr(), R, B, C,
+                _DTYPE_CODE[dtype], int(_w_first(shapes)), float(FINEST_SCALE), stream)
+    cuda_build.check(status, "roi_align backward kernel launch")
+    roi_align_backward.launches += 1
+    return tuple(g.to(dtype) for g in grads)
+
+
+roi_align_backward.launches = 0
+
+
+class _RoIAlign(torch.autograd.Function):
+    """K3 on the card: forward kernel, backward kernel."""
+
+    @staticmethod
+    def forward(ctx, rois, strides, *feats):
+        ctx.strides = tuple(strides)
+        ctx.shapes = [tuple(f.shape) for f in feats]
+        ctx.dtype = feats[0].dtype
+        ctx.save_for_backward(rois)
+        return _roi_align_forward(list(feats), rois, strides)
+
+    @staticmethod
+    def backward(ctx, grad):
+        rois, = ctx.saved_tensors
+        grads = roi_align_backward(grad, rois, ctx.shapes, ctx.dtype, ctx.strides)
+        return (None, None, *grads)
+
+
+def roi_align(feats: Sequence[torch.Tensor], rois: torch.Tensor,
+              strides: Sequence[int] = (4, 8, 16, 32)) -> torch.Tensor:
+    """K3.  Same contract as `roi_align_plain`.  Differentiable in the maps
+    (`roi_align_backward`), not in the rois.
+
+    A CPU tensor takes the twin; a CUDA tensor launches the kernel or raises.
+    """
+    feats = list(feats)
+    if rois.device.type == "cpu":
+        return roi_align_plain(feats, rois.detach(), strides)
+    if rois.device.type != "cuda":
+        raise ValueError(f"roi_align: unsupported device {rois.device}")
+    return _RoIAlign.apply(rois.detach(), tuple(strides), *feats)
+
+
 roi_align.launches = 0
+
+
+# ------------------------------------------------------------- dense route
+
+def _axis_weights(v1, bin_sz, size, n_cols: int, dtype) -> torch.Tensor:
+    """Dense interpolation matrix of each RoI along one axis, (R, 7, n_cols).
+
+    v1 (R,) start coordinate on the RoI's own level, bin_sz (R,) bin
+    extent, size (R,) float extent of that level.  W[r, i, col] = 1/2 * the
+    sum over bin i's two samples and their two taps of the tap weight where
+    the tap's column is col; taps clamped to the border, samples outside
+    (-1, size) zeroed.  Rounded to `dtype`.
+    """
+    o = torch.arange(OUT_SIZE, dtype=torch.float32, device=v1.device)
+    off = (torch.arange(SAMPLES, dtype=torch.float32, device=v1.device) + 0.5) / SAMPLES
+    v = v1[:, None, None] + bin_sz[:, None, None] * (o[None, :, None] + off[None, None, :])
+    sizef = size[:, None, None]
+    inside = ((v > -1.0) & (v < sizef)).float()
+    vc = torch.minimum(torch.clamp(v, min=0.0), sizef - 1)
+    v0 = torch.floor(vc)
+    v1i = torch.minimum(v0 + 1, sizef - 1)
+    w1 = (vc - v0) * inside
+    w0 = (1.0 - (vc - v0)) * inside
+    cols = torch.arange(n_cols, dtype=torch.float32, device=v1.device)
+    W = (cols == v0[..., None]) * w0[..., None] + (cols == v1i[..., None]) * w1[..., None]
+    return _div(W.sum(dim=2), SAMPLES).to(dtype)
+
+
+def dense_crop_plain(feat: torch.Tensor, Wy: torch.Tensor, Wx: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch twin of K4: out[b,p,i,x,c] = sum_w Wx[b,p,x,w] *
+    round(sum_h Wy[b,p,i,h] * feat[b,h,w,c]), both sums in float32, the
+    stage-one product and the result rounded to feat's type.
+
+    feat (B, Hl, Wl, C); Wy (B, P, o, Hl); Wx (B, P, o, Wl), all of one
+    dtype.  Returns (B, P, o, o, C).
+    """
+    t = torch.einsum("bpoh,bhwc->bpowc", Wy.float(), feat.float()).to(feat.dtype)
+    return torch.einsum("bpxw,bpowc->bpoxc", Wx.float(), t.float()).to(feat.dtype)
+
+
+def _dense_crop_forward(feat, Wy, Wx) -> torch.Tensor:
+    """Launch K4 on CUDA tensors."""
+    if feat.dtype not in _DTYPE_CODE or Wy.dtype != feat.dtype or Wx.dtype != feat.dtype:
+        raise TypeError(f"dense_crop: feat {feat.dtype}, Wy {Wy.dtype}, Wx {Wx.dtype}; "
+                        "float32 or bfloat16, all one type")
+    if feat.dim() != 4 or Wy.dim() != 4 or Wx.dim() != 4:
+        raise ValueError("dense_crop: feat (B, Hl, Wl, C), Wy (B, P, o, Hl), Wx (B, P, o, Wl)")
+    B, Hl, Wl, C = feat.shape
+    P, o = Wy.shape[1], Wy.shape[2]
+    if tuple(Wy.shape) != (B, P, o, Hl) or tuple(Wx.shape) != (B, P, o, Wl) or o != OUT_SIZE:
+        raise ValueError(f"dense_crop: feat {tuple(feat.shape)}, Wy {tuple(Wy.shape)}, "
+                         f"Wx {tuple(Wx.shape)}; o must be {OUT_SIZE}")
+    if Wy.device != feat.device or Wx.device != feat.device:
+        raise ValueError("dense_crop: feat, Wy and Wx on different devices")
+    feat, Wy, Wx = feat.contiguous(), Wy.contiguous(), Wx.contiguous()
+    out = torch.empty((B, P, o, o, C), dtype=feat.dtype, device=feat.device)
+    if out.numel():
+        fn = cuda_build.function("dense_crop", "dense_crop_launch", _CROP_ARGTYPES)
+        stream = torch.cuda.current_stream(feat.device).cuda_stream
+        status = fn(feat.data_ptr(), Wy.data_ptr(), Wx.data_ptr(), out.data_ptr(), B, P, Hl,
+                    Wl, C, o, _DTYPE_CODE[feat.dtype], stream)
+        cuda_build.check(status, "dense_crop kernel launch")
+    dense_crop.launches += 1
+    return out
+
+
+class _DenseCrop(torch.autograd.Function):
+    """K4 on the card: forward kernel, backward through the twin's einsums."""
+
+    @staticmethod
+    def forward(ctx, feat, Wy, Wx):
+        ctx.save_for_backward(feat, Wy, Wx)
+        return _dense_crop_forward(feat, Wy, Wx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return backward_through_plain(dense_crop_plain, ctx.saved_tensors,
+                                      ctx.needs_input_grad, grad)
+
+
+def dense_crop(feat: torch.Tensor, Wy: torch.Tensor, Wx: torch.Tensor) -> torch.Tensor:
+    """K4.  Same contract as `dense_crop_plain`; differentiable in all three.
+
+    A CPU tensor takes the twin; a CUDA tensor launches the kernel or raises.
+    """
+    if feat.device.type == "cpu":
+        return dense_crop_plain(feat, Wy, Wx)
+    if feat.device.type != "cuda":
+        raise ValueError(f"dense_crop: unsupported device {feat.device}")
+    return _DenseCrop.apply(feat, Wy, Wx)
+
+
+dense_crop.launches = 0
+
+
+def multilevel_roi_align_dense(feats: Sequence[torch.Tensor], rois: torch.Tensor,
+                               strides: Sequence[int] = (4, 8, 16, 32)) -> torch.Tensor:
+    """The dense route: same values as `roi_align`, through `dense_crop` on
+    every level.  The rois must be grouped by image in batch order, R = B *
+    P, as `rois.reshape(B * P, 5)` builds them: column 0 is not read.
+    Wide maps are transposed, so that stage one contracts W.
+    """
+    feats = list(feats)
+    L = len(feats)
+    B, C = feats[0].shape[0], feats[0].shape[-1]
+    R = rois.shape[0]
+    if R % B:
+        raise ValueError(f"multilevel_roi_align_dense: {R} rois for {B} images; the rois "
+                         "must be grouped by image, R = B * P")
+    if _w_first(feats):
+        out = multilevel_roi_align_dense([f.transpose(1, 2) for f in feats],
+                                         rois[:, [0, 2, 1, 4, 3]], strides)
+        return out.transpose(1, 2)
+    dtype = feats[0].dtype
+    dev = rois.device
+    rois = rois.detach()
+    lvl = roi_levels(rois, L)
+    inv = torch.tensor([1.0 / float(s) for s in strides[:L]], dtype=torch.float32,
+                       device=dev)[lvl]
+    heights = torch.tensor([f.shape[1] for f in feats], dtype=torch.float32, device=dev)[lvl]
+    widths = torch.tensor([f.shape[2] for f in feats], dtype=torch.float32, device=dev)[lvl]
+    Wy_all = _axis_weights(rois[:, 2] * inv - 0.5, _div((rois[:, 4] - rois[:, 2]) * inv, OUT_SIZE),
+                           heights, max(f.shape[1] for f in feats), dtype)
+    Wx_all = _axis_weights(rois[:, 1] * inv - 0.5, _div((rois[:, 3] - rois[:, 1]) * inv, OUT_SIZE),
+                           widths, max(f.shape[2] for f in feats), dtype)
+    out = torch.zeros((R, OUT_SIZE, OUT_SIZE, C), dtype=dtype, device=dev)
+    for l, feat in enumerate(feats):
+        Hl, Wl = feat.shape[1], feat.shape[2]
+        sel = (lvl == l).to(dtype)
+        Wy = (Wy_all[:, :, :Hl] * sel[:, None, None]).reshape(B, R // B, OUT_SIZE, Hl)
+        Wx = Wx_all[:, :, :Wl].reshape(B, R // B, OUT_SIZE, Wl)
+        out = out + dense_crop(feat, Wy, Wx).reshape(R, OUT_SIZE, OUT_SIZE, C)
+    return out

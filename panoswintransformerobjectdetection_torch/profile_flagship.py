@@ -1,6 +1,7 @@
-"""Where the flagship's `simple_test` spends its time on one CUDA card.
+"""Where the flagship's `simple_test` and its training step spend their time
+on one CUDA card.
 
-    python -m panoswintransformerobjectdetection_torch.profile_flagship
+    python -m panoswintransformerobjectdetection_torch.profile_flagship [inference|train]
 
 Builds the flagship (PanoSwin-T Faster R-CNN, random weights from seed 0,
 stem BatchNorm folded, bf16) with plain and with fused attention (kernel
@@ -14,6 +15,11 @@ PyTorch's default TF32 settings.  For each configuration it prints:
     of their intervals) and idle share, and the kernels with the most
     device time;
   - the card's name and power limit from `nvidia-smi`.
+Then the training step (`runtime/train.make_train_step`: bf16 compute, AdamW,
+2 frames with 32 boxes each, direct RoI route) in the same two ways: each
+stage of `forward_train` (`TRAIN_STAGES`), the backward and the optimizer
+(`STEP_STAGES`) synchronised, and `torch.profiler` over 3 whole steps.
+With `inference` or `train` as the argument only that half runs.
 Without a CUDA card it exits with an error.
 """
 
@@ -26,7 +32,9 @@ from collections import defaultdict
 import torch
 
 from .device import gpu_identity
-from .flagship import build_flagship, flagship_inputs
+from .flagship import build_flagship, flagship_inputs, flagship_train_batch
+from .runtime.optim import make_optimizer
+from .runtime.train import make_train_step
 
 BATCH = 2
 REPS = 5
@@ -43,10 +51,13 @@ def _timed(fn):
 
 
 def kernel_summary(prof):
-    """(busy seconds, {kernel name: (count, seconds)}) from the device events."""
+    """(busy seconds, {kernel name: (count, seconds)}) from the device events.
+    Annotations mirrored onto the device's timeline (`Optimizer.step#...`)
+    span the gaps between their kernels and are left out."""
     spans, per_name = [], defaultdict(lambda: [0, 0.0])
     for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        if evt.device_type != torch.autograd.DeviceType.CUDA or \
+                getattr(evt, "is_user_annotation", False) or evt.name.startswith("Optimizer."):
             continue
         start, end = evt.time_range.start, evt.time_range.end      # microseconds
         spans.append((start, end))
@@ -65,8 +76,8 @@ def kernel_summary(prof):
     return busy * 1e-6, dict(per_name)
 
 
-def stage_table(label, per_stage, latency, ident):
-    print(f"flagship simple_test, {label}, B={BATCH} x 512x1024, bf16, each stage "
+def stage_table(label, per_stage, latency, ident, what="simple_test"):
+    print(f"flagship {what}, {label}, B={BATCH} x 512x1024, bf16, each stage "
           f"synchronised (median of {REPS}, host clock); card {ident}")
     total = 0.0
     for name, v in per_stage.items():
@@ -77,35 +88,74 @@ def stage_table(label, per_stage, latency, ident):
           f"{latency * 1e3:.3f} ms (median of {REPS})")
 
 
-def device_summary(label, model, inputs, latency, ident):
-    """`torch.profiler` over REPS requests of one configuration."""
+def device_summary(label, run, latency, ident, reps=REPS, unit="request"):
+    """`torch.profiler` over `reps` calls of `run` (one request, or one step)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(REPS):
-            model.simple_test(*inputs)
+        for _ in range(reps):
+            run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy, per_name = kernel_summary(prof)
-    launches = sum(count for count, _ in per_name.values()) / REPS
-    print(f"torch.profiler over {REPS} requests, {label}: wall {wall / REPS * 1e3:.3f} ms a "
-          f"request (profiler on), {launches:.1f} device kernels and copies a request, "
-          f"device busy {busy / REPS * 1e3:.3f} ms a request, "
+    launches = sum(count for count, _ in per_name.values()) / reps
+    print(f"torch.profiler over {reps} {unit}s, {label}: wall {wall / reps * 1e3:.3f} ms a "
+          f"{unit} (profiler on), {launches:.1f} device kernels and copies a {unit}, "
+          f"device busy {busy / reps * 1e3:.3f} ms a {unit}, "
           f"idle share {1 - busy / wall:.4f} with the profiler on and "
-          f"{1 - busy / REPS / latency:.4f} against the unprofiled request; card {ident}")
+          f"{1 - busy / reps / latency:.4f} against the unprofiled {unit}; card {ident}")
     if not per_name:
         print("  the profiler recorded no device events: device times not measured")
     for name, (count, sec) in sorted(per_name.items(), key=lambda kv: -kv[1][1])[:TOP_KERNELS]:
-        print(f"  {sec / REPS * 1e3:9.3f} ms  {count // REPS:5d}x  {name[:110]}")
+        print(f"  {sec / reps * 1e3:9.3f} ms  {count // reps:5d}x  {name[:110]}")
+
+
+def profile_training(ident, dev):
+    """Stage times and the device's share of the flagship's training step."""
+    model = build_flagship(compute_dtype=torch.bfloat16, device=dev, seed=0, train=True)
+    step = make_train_step(model, *make_optimizer(model, base_lr=1e-4))
+    batch = flagship_train_batch(BATCH, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    per_stage, latency = defaultdict(list), []
+
+    def timed_stage(name, fn):
+        out, seconds = _timed(fn)
+        per_stage[name].append(seconds)
+        return out
+
+    step(batch, generator=gen)                                  # warm-up
+    for _ in range(REPS):
+        latency.append(_timed(lambda: step(batch, generator=gen))[1])
+    for _ in range(REPS):
+        step(batch, generator=gen, stage=timed_stage)
+    med = statistics.median(latency)
+    label = "training step, direct RoI route"
+    stage_table(label, per_stage, med, ident, what="train step")
+    print(f"  {BATCH / med:.3f} images/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    device_summary(label, lambda: step(batch, generator=gen), med, ident, reps=3, unit="step")
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_flagship: no CUDA device is available", file=sys.stderr)
         return 1
+    what = sys.argv[1] if len(sys.argv) > 1 else "all"
+    if what not in ("all", "inference", "train"):
+        print(f"profile_flagship: unknown argument {what!r}", file=sys.stderr)
+        return 2
     ident = gpu_identity()
     dev = torch.device("cuda")
+    if what != "train":
+        profile_inference(ident, dev)
+    if what != "inference":
+        profile_training(ident, dev)
+    print(ident)
+    return 0
+
+
+def profile_inference(ident, dev):
     inputs = flagship_inputs(BATCH, dev)
     models = {label: build_flagship(compute_dtype=torch.bfloat16, device=dev, seed=0, **options)
               for label, options in CONFIGS}
@@ -130,9 +180,7 @@ def main() -> int:
     for label, model in models.items():
         med = statistics.median(latency[label])
         stage_table(label, per_stage[label], med, ident)
-        device_summary(label, model, inputs, med, ident)
-    print(ident)
-    return 0
+        device_summary(label, functools.partial(model.simple_test, *inputs), med, ident)
 
 
 if __name__ == "__main__":

@@ -1,9 +1,10 @@
 """PanoSwin backbone of the PyTorch port vs JAX, stage by stage.
 
 Even-depth tiny configuration (embed 6, depths 2-2-2-2, heads 1-1-1-2,
-window 4, absolute encoder) with the JAX init carried across by
-`from_jax_backbone`; every mode has the same parameters, so one init serves
-the pano and the planar backbone.  A 32 x 96 input gives widths 24, 12, 6,
+window 4, absolute encoder) with the JAX init of the tiny detector's
+backbone (`torch_port_common.tiny_detector`, the same configuration)
+carried across by `from_jax_backbone`; every mode has the same parameters,
+so one init serves the pano and the planar backbone.  A 32 x 96 input gives widths 24, 12, 6,
 3, so the last stage runs the odd-width pad of the pano transition and the
 planar stages pad 2 x 6 and 1 x 3 up to whole windows.  float32: atol 1e-4
 (flax and torch LayerNorm take the variance differently, about 1e-6 apart,
@@ -27,6 +28,7 @@ from panoswintransformerobjectdetection_tpu.models.panoswin import (
     PanoSwinTransformer as JaxBackbone)
 from panoswintransformerobjectdetection_torch.models.panoswin import PanoSwinTransformer
 from panoswintransformerobjectdetection_torch.runtime.checkpoint import from_jax_backbone
+from torch_port_common import quick_jit, single_torch_thread, tiny_detector  # noqa: F401
 
 CFG = {"embed_dim": 6, "depths": (2, 2, 2, 2), "num_heads": (1, 1, 1, 2),
        "window_size": 4, "ape": True}
@@ -37,15 +39,16 @@ def jax_backbone():
     """(variables, x, reference(pano_mode, dtype)): each JAX backbone is
     applied once per mode and dtype."""
     x = np.random.default_rng(0).random((2, 32, 96, 3)).astype(np.float32)
-    mod = JaxBackbone(**CFG, drop_path_rate=0.0)
-    variables = jax.jit(mod.init)(jax.random.PRNGKey(0), jnp.asarray(x[:1]))
+    detector = tiny_detector()["variables"]
+    variables = {"params": detector["params"]["backbone_m"],
+                 "batch_stats": detector["batch_stats"]["backbone_m"]}
     refs = {}
 
     def reference(pano_mode, dtype):
         if (pano_mode, dtype) not in refs:
             jmod = JaxBackbone(**CFG, drop_path_rate=0.0, pano_mode=pano_mode,
                                dtype=jnp.dtype(dtype))
-            refs[pano_mode, dtype] = jax.jit(jmod.apply)(variables, jnp.asarray(x))
+            refs[pano_mode, dtype] = quick_jit(jmod.apply, variables, jnp.asarray(x))
         return refs[pano_mode, dtype]
 
     return variables, x, reference

@@ -1,6 +1,7 @@
 """The PyTorch port's tiny flagship detector vs JAX, stage by stage, in f32.
 
-The JAX `PanoFasterRCNN` (even-depth tiny configuration) is initialised,
+The JAX `PanoFasterRCNN` (even-depth tiny configuration) is initialised
+once for all the port's test modules (`torch_port_common.tiny_detector`),
 its variables are carried across with `from_jax_variables`, and one jitted
 JAX function returns every stage of `simple_test`.  Each port stage is fed
 the JAX stage before it, so that one NMS decision near a threshold cannot
@@ -17,7 +18,6 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from panoswintransformerobjectdetection_tpu.models import DETECTORS, build
 from panoswintransformerobjectdetection_tpu.models.detectors import default_test_cfg
 from panoswintransformerobjectdetection_tpu.models.roi_head import bbox_head_detections
 from panoswintransformerobjectdetection_tpu.models.rpn_head import rpn_proposals
@@ -26,17 +26,9 @@ from panoswintransformerobjectdetection_torch.flagship import flagship_config
 from panoswintransformerobjectdetection_torch.models import roi_head as troi
 from panoswintransformerobjectdetection_torch.models import rpn_head as trpn
 from panoswintransformerobjectdetection_torch.models.detectors import STAGES, PanoFasterRCNN
-from panoswintransformerobjectdetection_torch.runtime.checkpoint import from_jax_variables
+from torch_port_common import quick_jit, single_torch_thread, tiny_detector  # noqa: F401
 
 B, H, W = 2, 32, 64
-
-
-def _jax_detector():
-    cfg = flagship_config(tiny=True)
-    backbone = dict(cfg["backbone"], type="PanoSwinTransformer", drop_path_rate=0.0)
-    neck = dict(cfg["neck"], type="FPN")
-    return build(DETECTORS, {"type": "PanoFasterRCNN", "backbone": backbone, "neck": neck,
-                             "num_classes": cfg["num_classes"]})
 
 
 def _stages(m, images, img_shapes):
@@ -60,16 +52,15 @@ def _stages(m, images, img_shapes):
 
 @pytest.fixture(scope="module")
 def setup():
-    det = _jax_detector()
+    td = tiny_detector()
+    det, variables = td["det"], td["variables"]
     images = np.random.default_rng(0).random((B, H, W, 3)).astype(np.float32)
     img_shapes = np.array([[H, W]] * B, np.float32)
-    variables = jax.jit(det.init)(jax.random.PRNGKey(0), jnp.asarray(images[:1]))
-    ref = jax.jit(lambda v, x, s: det.apply(v, x, s, method=_stages))(
-        variables, jnp.asarray(images), jnp.asarray(img_shapes))
+    ref = quick_jit(lambda v, x, s: det.apply(v, x, s, method=_stages),
+                    variables, jnp.asarray(images), jnp.asarray(img_shapes))
     ref = jax.tree.map(lambda a: torch.tensor(np.asarray(a)), ref)
     port = PanoFasterRCNN(**flagship_config(tiny=True)).eval()
-    port.load_state_dict(from_jax_variables(jax.tree.map(np.asarray, variables["params"]),
-                                            jax.tree.map(np.asarray, variables["batch_stats"])))
+    port.load_state_dict(td["state_dict"])
     return {"variables": variables, "images": torch.from_numpy(images),
             "img_shapes": torch.from_numpy(img_shapes), "ref": ref, "port": port}
 

@@ -29,6 +29,7 @@ from panoswintransformerobjectdetection_tpu.ops import fused_attention as jfa
 from panoswintransformerobjectdetection_tpu.ops.windows import swin_attention_mask
 from panoswintransformerobjectdetection_torch.models.panoswin import WindowAttention
 from panoswintransformerobjectdetection_torch.ops import fused_attention as tfa
+from torch_port_common import quick_jit, single_torch_thread  # noqa: F401
 
 BF16_UNITS = 2.0 ** -8
 
@@ -67,8 +68,8 @@ def test_twin_matches_jax(shape, entry, dtype):
     q, k, v, bias = _inputs(0, shape)
     scale = shape[-1] ** -0.5
     jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
-    ref = _jax_padded(_JAX_ENTRY[entry], *(jnp.asarray(t).astype(jdt) for t in (q, k, v)),
-                      jnp.asarray(bias), scale)
+    ref = quick_jit(lambda q, k, v, b: _jax_padded(_JAX_ENTRY[entry], q, k, v, b, scale),
+                    *(jnp.asarray(t).astype(jdt) for t in (q, k, v)), jnp.asarray(bias))
     got = _PORT_ENTRY[entry](*(torch.from_numpy(t).to(tdt) for t in (q, k, v)),
                              torch.from_numpy(bias), scale)
     assert got.dtype == tdt and tuple(got.shape) == ref.shape
@@ -85,7 +86,8 @@ def test_backward_matches_jax():
     def loss(q, k, v, bias):
         return (jfa.packed_window_attention(q, k, v, bias, scale, 2) * g).sum()
 
-    ref = jax.grad(loss, argnums=(0, 1, 2, 3))(*(jnp.asarray(t) for t in (q, k, v, bias)))
+    ref = quick_jit(jax.grad(loss, argnums=(0, 1, 2, 3)),
+                    *(jnp.asarray(t) for t in (q, k, v, bias)))
     inputs = [torch.from_numpy(t).requires_grad_() for t in (q, k, v, bias)]
     (tfa.packed_window_attention(*inputs, scale) * torch.from_numpy(g)).sum().backward()
     for name, t, r in zip("qkvb", inputs, ref):
@@ -118,9 +120,11 @@ def test_window_attention_fused_matches_jax(pano_mode, dtype):
         uv, hav, mask = np.zeros((nW, O, 2), np.float32), None, swin_attention_mask(Hp, Wp, ws, 2)
     jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
     jmod = JaxWindowAttention(dim, ws, heads, dtype=jdt, fused=True)
-    ref = jmod.apply({"params": params}, jnp.asarray(x), jnp.asarray(uv),
-                     mask=None if mask is None else jnp.asarray(mask), pano_mode=pano_mode,
-                     hav=None if hav is None else jnp.asarray(hav))
+    ref = quick_jit(lambda p, a, u, m, hv: jmod.apply({"params": p}, a, u, mask=m,
+                                                      pano_mode=pano_mode, hav=hv),
+                    params, jnp.asarray(x), jnp.asarray(uv),
+                    None if mask is None else jnp.asarray(mask),
+                    None if hav is None else jnp.asarray(hav))
     port = WindowAttention(dim, ws, heads, dtype=tdt, fused=True)
     with torch.no_grad():
         for name in ("qkv", "proj"):

@@ -14,6 +14,7 @@ from panoswintransformerobjectdetection_tpu.ops import windows as jwin
 from panoswintransformerobjectdetection_torch.geometry import axis as taxis
 from panoswintransformerobjectdetection_torch.geometry import sphere as tsphere
 from panoswintransformerobjectdetection_torch.ops import windows as twin
+from torch_port_common import single_torch_thread  # noqa: F401
 
 
 def _rand(shape, seed=0):

@@ -11,7 +11,14 @@ flip the rounding of an h0 value and h1's own rounding adds one unit.  K3
 must be exact: kernel and twin do the same operations in the same order.
 K2 float32 1e-5 * max(1, max|ref|) (sums in another order); bfloat16
 4 * 2**-8 * max|ref|, since another f32 summation order can flip the bf16
-rounding of p, which moves an output by about one unit.
+rounding of p, which moves an output by about one unit.  K4 (`dense_crop`)
+float32 1e-5 * max(1, max|ref|) * sqrt(Hl) (sums of Hl products in another
+order than cuBLAS takes them); bfloat16 2 * 2**-8 * max|ref| (one flip in
+the stage-one rounding and one in the result).  K3's backward float32
+1e-5 * max(1, max|ref|) (atomic adds in any order); bfloat16 2 * 2**-8 *
+max|ref| (the sum is rounded once, after an order of adds that changes
+from run to run; the plain version rounds the same sum taken in index
+order).
 """
 
 import numpy as np
@@ -194,3 +201,126 @@ def test_window_attention_refuses_bad_input(cuda_device):
     with pytest.raises(ValueError):     # channels not contiguous
         qt = q.transpose(2, 3)
         fa.window_attention(qt, qt, qt, torch.zeros((2, 2, 8, 8), device=cuda_device), 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 40, 24, 64, 19), (1, 17, 9, 40, 3), (1, 64, 32, 256, 8)])
+def test_dense_crop_kernel_matches_twin(cuda_device, dtype, shape):
+    """Ragged P (19 of chunks of 8), C (40 of tiles of 32), Hl (17 of steps
+    of 16) and Wl (9 of strips of 8) are covered; random weights, as the
+    JAX package tests its Pallas crop."""
+    B, Hl, Wl, C, P = shape
+    g = torch.Generator().manual_seed(0)
+    feat = torch.randn((B, Hl, Wl, C), generator=g).to(dtype).to(cuda_device)
+    Wy = (torch.randn((B, P, 7, Hl), generator=g) * 0.3).to(dtype).to(cuda_device)
+    Wx = (torch.randn((B, P, 7, Wl), generator=g) * 0.3).to(dtype).to(cuda_device)
+    before = ra.dense_crop.launches
+    got = ra.dense_crop(feat, Wy, Wx)
+    torch.cuda.synchronize()
+    assert ra.dense_crop.launches == before + 1
+    ref = ra.dense_crop_plain(feat, Wy, Wx)
+    assert got.shape == (B, P, 7, 7, C) and got.dtype == dtype
+    scale = float(ref.float().abs().max())
+    tol = 1e-5 * max(1.0, scale) * Hl ** 0.5 if dtype == torch.float32 else 2 * 2.0 ** -8 * scale
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+def test_dense_crop_kernel_gradients_go_through_the_twin(cuda_device):
+    g = torch.Generator().manual_seed(1)
+    args = [torch.randn(s, generator=g).to(cuda_device).requires_grad_()
+            for s in ((1, 12, 8, 16), (1, 5, 7, 12), (1, 5, 7, 8))]
+    cot = torch.randn((1, 5, 7, 7, 16), generator=g).to(cuda_device)
+    before = ra.dense_crop.launches
+    ra.dense_crop(*args).backward(cot)
+    assert ra.dense_crop.launches == before + 1          # the backward launches no kernel
+    got = [a.grad.clone() for a in args]
+    for a in args:
+        a.grad = None
+    ra.dense_crop_plain(*args).backward(cot)
+    for a, b in zip(got, args):
+        torch.testing.assert_close(a, b.grad, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("wide", [True, False])
+def test_dense_route_matches_direct_route(cuda_device, dtype, wide):
+    """K4 on every level against K3, values and map gradients."""
+    feats, rois = _roi_case(5, P=16, C=96)
+    if not wide:
+        feats = [f.transpose(0, 2, 1, 3).copy() for f in feats]
+        rois = rois[:, [0, 2, 1, 4, 3]].copy()
+    tr = torch.from_numpy(rois).to(cuda_device)
+    cot = torch.randn((rois.shape[0], 7, 7, 96), generator=torch.Generator().manual_seed(2))
+    cot = cot.to(dtype).to(cuda_device)
+    outs, grads = [], []
+    for fn in (ra.roi_align, ra.multilevel_roi_align_dense):
+        tf = [torch.from_numpy(f).to(dtype).to(cuda_device).requires_grad_() for f in feats]
+        before = ra.dense_crop.launches
+        out = fn(tf, tr, STRIDES)
+        out.backward(cot)
+        outs.append(out.detach().float())
+        grads.append([t.grad.float() for t in tf])
+    assert ra.dense_crop.launches == before + 4
+    units = lambda ref, n: n * 2.0 ** -8 * float(ref.abs().max())    # noqa: E731
+    tol = 1e-4 if dtype == torch.float32 else units(outs[0], 2)
+    torch.testing.assert_close(outs[1], outs[0], rtol=0, atol=tol)
+    for a, b in zip(grads[1], grads[0]):
+        gtol = 1e-4 * max(1.0, float(b.abs().max())) if dtype == torch.float32 else units(b, 4)
+        torch.testing.assert_close(a, b, rtol=0, atol=gtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("wide", [True, False])
+def test_roi_align_backward_kernel_matches_autograd_through_twin(cuda_device, dtype, wide):
+    """C = 320 leaves a partial 128-channel slice; overlapping RoIs add into
+    the same pixels; a RoI with a bad batch index adds nothing."""
+    feats, rois = _roi_case(6, P=24)
+    rois[3, 0] = 7.0
+    if not wide:
+        feats = [f.transpose(0, 2, 1, 3).copy() for f in feats]
+        rois = rois[:, [0, 2, 1, 4, 3]].copy()
+    tr = torch.from_numpy(rois).to(cuda_device)
+    shapes = [f.shape for f in feats]
+    cot = torch.randn((rois.shape[0], 7, 7, 320), generator=torch.Generator().manual_seed(3))
+    cot = cot.to(dtype).to(cuda_device)
+    before = ra.roi_align_backward.launches
+    got = ra.roi_align_backward(cot, tr, shapes, dtype, STRIDES)
+    torch.cuda.synchronize()
+    assert ra.roi_align_backward.launches == before + 1
+    ref = ra.roi_align_backward_plain(cot, tr, shapes, dtype, STRIDES)
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape and a.dtype == dtype
+        scale = float(b.float().abs().max())
+        tol = 1e-5 * max(1.0, scale) if dtype == torch.float32 else 2 * 2.0 ** -8 * scale
+        torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=tol)
+    # through autograd: the function's backward is the kernel
+    tf = [torch.from_numpy(f).to(dtype).to(cuda_device).requires_grad_() for f in feats]
+    ra.roi_align(tf, tr, STRIDES).backward(cot)
+    assert ra.roi_align_backward.launches == before + 2
+    for t, b in zip(tf, ref):
+        scale = float(b.float().abs().max())
+        tol = 1e-5 * max(1.0, scale) if dtype == torch.float32 else 2 * 2.0 ** -8 * scale
+        torch.testing.assert_close(t.grad.float(), b.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+def test_training_wrappers_refuse_bad_input(cuda_device):
+    feat = torch.rand((1, 8, 16, 4), device=cuda_device)
+    Wy, Wx = torch.rand((1, 2, 7, 8), device=cuda_device), torch.rand((1, 2, 7, 16), device=cuda_device)
+    with pytest.raises(TypeError):
+        ra.dense_crop(feat, Wy.bfloat16(), Wx)
+    with pytest.raises(ValueError):
+        ra.dense_crop(feat, Wy[:, :, :6], Wx[:, :, :6])
+    with pytest.raises(ValueError):
+        ra.dense_crop(feat, Wy, Wx[..., :8])
+    rois = torch.zeros((2, 5), device=cuda_device)
+    with pytest.raises(TypeError):
+        ra.roi_align_backward(torch.zeros((2, 7, 7, 4), device=cuda_device).bfloat16(), rois,
+                              [feat.shape], torch.float32, STRIDES)
+    with pytest.raises(ValueError):
+        ra.roi_align_backward(torch.zeros((3, 7, 7, 4), device=cuda_device), rois, [feat.shape],
+                              torch.float32, STRIDES)

@@ -24,6 +24,7 @@ from panoswintransformerobjectdetection_torch.flagship import flagship_config
 from panoswintransformerobjectdetection_torch.models.detectors import PanoFasterRCNN
 from panoswintransformerobjectdetection_torch.ops import stem_conv as tstem
 from panoswintransformerobjectdetection_torch.runtime.checkpoint import fold_batchnorm
+from torch_port_common import quick_jit, single_torch_thread  # noqa: F401
 
 BF16_ULPS = 4 * 2.0 ** -8
 
@@ -96,7 +97,8 @@ def test_patch_embed_matches_jax(fuse_bn):
     rng = np.random.default_rng(2)
     x = rng.standard_normal((2, 16, 40, 3)).astype(np.float32)
     jmod = jlayers.ConvStemPatchEmbed(patch_size=4, embed_dim=24, fuse_bn=fuse_bn)
-    variables = jmod.init(jax.random.PRNGKey(0), jnp.asarray(x), train=False)
+    variables = quick_jit(lambda k, a: jmod.init(k, a, train=False), jax.random.PRNGKey(0),
+                          jnp.asarray(x))
     params = jax.tree.map(np.asarray, variables["params"])
     stats = {}
     if not fuse_bn:
@@ -107,7 +109,8 @@ def test_patch_embed_matches_jax(fuse_bn):
     old = jlayers.USE_FUSED_STEM
     try:
         jlayers.USE_FUSED_STEM = False
-        ref = np.asarray(jmod.apply(variables, jnp.asarray(x), train=False))
+        ref = np.asarray(quick_jit(lambda v, a: jmod.apply(v, a, train=False), variables,
+                                   jnp.asarray(x)))
     finally:
         jlayers.USE_FUSED_STEM = old
 
