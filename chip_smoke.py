@@ -9,7 +9,11 @@ Phases (each raises on failure, so any failure exits non-zero):
   2. build every kernel from `panoswintransformerobjectdetection_torch/csrc`;
   3. each kernel against its twin at the flagship's shapes, f32 and bf16,
      with its median time, the twin's time and a library call's time (K2 at
-     all four stage shapes; K5's entry point checked at a small shape);
+     all four stage shapes; K5's entry point checked at a small shape).  K1
+     and K4 run bf16 on the tensor cores and f32 on the CUDA cores; their
+     first, CUDA-core versions are timed at bf16 beside them (`previous_ms`),
+     with each one's TFLOP/s and share of the bound, and K4 also on the
+     dense route's own level-0 weights;
   4. small-input f32 checks of the card's path against the CPU path, plain
      and fused attention; then the flagship (PanoSwin-T Faster R-CNN, random
      weights from seed 0, BN folded, bf16) `simple_test` on 2 x 512 x 1024
@@ -108,6 +112,24 @@ def rpn_like_rois(rng, n_per_image):
     return torch.tensor(np.asarray(rois, np.float32))
 
 
+def previous_kernel(module, entry, argtypes):
+    """The first version's CUDA-core entry, called directly at bf16 (dtype
+    code 1) so that the redesign is timed against it in the same run; no
+    wrapper calls it at bf16."""
+    from panoswintransformerobjectdetection_torch.ops import cuda_build
+    fn = cuda_build.function(module, entry, argtypes)
+
+    def launch(*args):
+        cuda_build.check(fn(*args, 1, torch.cuda.current_stream().cuda_stream),
+                         f"{entry} (first version, bf16)")
+    return launch
+
+
+def rates(ops, ms, bound):
+    """'x TFLOP/s, y of the bound' for a kernel time."""
+    return f"{ops / ms / 1e9:.1f} TFLOP/s, {bound / ms:.3f} of the bound"
+
+
 def kernel_k1(dev, stem):
     g = torch.Generator().manual_seed(1)
     c0, c1 = 32, 64
@@ -125,7 +147,8 @@ def kernel_k1(dev, stem):
         torch.cuda.synchronize()
         scale = float(ref.float().abs().max())
         tol = 1e-4 * max(1.0, scale) if dt == torch.float32 else BF16_ULPS * scale
-        err = check(f"K1 stem_conv {str(dt)[6:]} (2,512,1024,3) c0 32 c1 64", got, ref, tol)
+        err = check(f"K1 stem_conv {str(dt)[6:]} (2,512,1024,3) c0 32 c1 64, entry "
+                    f"{stem.stem_conv.last_entry}", got, ref, tol)
         if dt == torch.bfloat16:
             xn = args[0].permute(0, 3, 1, 2).contiguous()
             w0b, w1b = w0.to(dt).to(dev), w1.to(dt).to(dev)
@@ -136,7 +159,19 @@ def kernel_k1(dev, stem):
                 h0 = torch.relu(conv(xn, w0b, b0b, padding=1))
                 return torch.relu(conv(h0, w1b, b1b, padding=1))
 
+            w0k, w1k = stem.cuda_core_layout(args[1], args[3], dt)
+            previous = previous_kernel("stem_conv", stem.ENTRIES[torch.float32],
+                                       stem.LAUNCH_ARGTYPES)
+            prev_out = torch.empty_like(got)
+
+            def first_version():
+                previous(args[0].data_ptr(), w0k.data_ptr(), packed.b0.data_ptr(),
+                         w1k.data_ptr(), packed.b1.data_ptr(), prev_out.data_ptr(), B, H, W,
+                         c0, c1, w1k.shape[2])
+
             ms = time_ms(lambda: stem.stem_conv(args[0], packed), 20)
+            previous_ms = time_ms(first_version, 20)
+            check("K1 first version (CUDA cores) bf16, against the twin", prev_out, ref, tol)
             plain_ms = time_ms(lambda: stem.stem_conv_plain(*args), 5)
             library_ms = time_ms(library, 20)
             nbytes = (x.numel() + B * c1 * H * W) * 2
@@ -147,9 +182,11 @@ def kernel_k1(dev, stem):
                    "replaces": "panoswintransformerobjectdetection_tpu/ops/stem_conv.py:61",
                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                    "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / BF16_OPS_PER_S
-                   else "operations", "library_ms": library_ms}
-    print(f"  K1 bf16: kernel {rec['ms']:.3f} ms, twin {rec['plain_ms']:.3f} ms, "
-          f"two-conv2d chain {rec['library_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms")
+                   else "operations", "library_ms": library_ms, "previous_ms": previous_ms}
+            print(f"  K1 bf16: tensor-core kernel {ms:.4f} ms ({rates(ops, ms, bound)}), first "
+                  f"version {previous_ms:.4f} ms ({rates(ops, previous_ms, bound)}), twin "
+                  f"{plain_ms:.4f} ms, two-conv2d chain {library_ms:.4f} ms, bound "
+                  f"{bound:.4f} ms ({rec['bound_by']})")
     return rec
 
 
@@ -272,13 +309,35 @@ def kernel_k5(dev, fa):
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": library_ms}
 
 
+def crop_times(ra, args, previous):
+    """(kernel ms, first version ms, einsum pair ms) of K4 on bf16 (feat, Wy,
+    Wx); the pair is cuBLAS's, t written to and read from device memory."""
+    feat, Wy, Wx = args
+    Bc, Hl, Wl, C = feat.shape
+    P = Wy.shape[1]
+    out = torch.empty((Bc, P, 7, 7, C), dtype=feat.dtype, device=feat.device)
+
+    def first_version():
+        previous(feat.data_ptr(), Wy.data_ptr(), Wx.data_ptr(), out.data_ptr(), Bc, P, Hl, Wl,
+                 C, 7)
+
+    def library():
+        t = torch.einsum("bpoh,bhwc->bpowc", Wy, feat)
+        return torch.einsum("bpxw,bpowc->bpoxc", Wx, t)
+
+    return (time_ms(lambda: ra.dense_crop(*args), 10), time_ms(first_version, 10),
+            time_ms(library, 10))
+
+
 def kernel_k4(dev, ra):
     """K4 against its twin at the four levels of the flagship's training
     step (B 2, P 640, o 7, C 256), random weights.  Tolerance: f32 1e-5 *
     max(1, max|ref|) * sqrt(Hl) (sums of Hl products in another order than
     cuBLAS takes them); bf16 2 units of 2**-8 * max|ref| (one flip in the
-    stage-one rounding, one in the result)."""
+    stage-one rounding, one in the result).  Then level 0 on the dense
+    route's own weights for 2 x 640 RoIs like the RPN's."""
     C, P = 256, TRAIN_ROIS
+    previous = previous_kernel("dense_crop", ra.CROP_ENTRIES[torch.float32], ra.CROP_ARGTYPES)
     rec = {}
     for level, (Hl, Wl) in enumerate(CROP_LEVELS):
         g = torch.Generator().manual_seed(20 + level)
@@ -294,26 +353,20 @@ def kernel_k4(dev, ra):
             tol = 1e-5 * max(1.0, scale) * Hl ** 0.5 if dt == torch.float32 else \
                 2 * 2.0 ** -8 * scale
             err = check(f"K4 dense_crop {str(dt)[6:]} level {level} (B {B}, P {P}, Hl {Hl}, "
-                        f"Wl {Wl}, C {C})", got, ref, tol)
+                        f"Wl {Wl}, C {C}), entry {ra.dense_crop.last_entry}", got, ref, tol)
             del got, ref
             if dt != torch.bfloat16:
                 continue
-
-            def library():
-                t = torch.einsum("bpoh,bhwc->bpowc", args[1], args[0])
-                return torch.einsum("bpxw,bpowc->bpoxc", args[2], t)
-
-            ms = time_ms(lambda: ra.dense_crop(*args), 10)
+            ms, previous_ms, library_ms = crop_times(ra, args, previous)
             plain_ms = time_ms(lambda: ra.dense_crop_plain(*args), 3)
-            library_ms = time_ms(library, 10)
             nbytes = 2 * (sum(a.numel() for a in args) + B * P * 49 * C)
             ops = 2 * B * P * 7 * Hl * Wl * C + 2 * B * P * 49 * Wl * C
             by_bytes = nbytes / HBM_BYTES_PER_S >= ops / BF16_OPS_PER_S
             bound = max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3
-            print(f"  K4 bf16 level {level}: kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TFLOP/s; "
-                  f"the f32 rate of the CUDA cores would allow "
-                  f"{ops / F32_OPS_PER_S * 1e3:.4f} ms), twin {plain_ms:.4f} ms, bf16 einsum pair "
-                  f"{library_ms:.4f} ms, bound {bound:.4f} ms "
+            print(f"  K4 bf16 level {level}: tensor-core kernel {ms:.4f} ms "
+                  f"({rates(ops, ms, bound)}), first version {previous_ms:.4f} ms "
+                  f"({rates(ops, previous_ms, bound)}), twin {plain_ms:.4f} ms, bf16 einsum "
+                  f"pair {library_ms:.4f} ms, bound {bound:.4f} ms "
                   f"({'bytes' if by_bytes else 'operations'})")
             if level == 0:
                 rec = {"name": "dense_crop (K4)", "route": "cuda",
@@ -321,8 +374,24 @@ def kernel_k4(dev, ra):
                        "replaces": "panoswintransformerobjectdetection_tpu/ops/roi_align_pallas.py:52",
                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                        "bound_by": "bytes" if by_bytes else "operations",
-                       "library_ms": library_ms}
+                       "library_ms": library_ms, "previous_ms": previous_ms}
         del args
+
+    # level 0 as the dense route calls it: every RoI, Wy zero for the RoIs of
+    # other levels (the maps are wider than tall, so transposed first)
+    rng = np.random.default_rng(41)
+    rois = rpn_like_rois(rng, TRAIN_ROIS).to(dev)[:, [0, 2, 1, 4, 3]]
+    maps = [torch.from_numpy(rng.standard_normal((B, W // s, H // s, C)).astype(np.float32))
+            .bfloat16().to(dev) for s in (4, 8, 16, 32)]
+    args = [t.contiguous() for t in ra.dense_level_operands(maps, rois)[0]]
+    routed = int((args[1] != 0).any(dim=3).any(dim=2).sum())
+    got, ref = ra.dense_crop(*args), ra.dense_crop_plain(*args)
+    check("K4 dense_crop bf16 level 0, the dense route's weights", got, ref,
+          2 * 2.0 ** -8 * float(ref.float().abs().max()))
+    ms, previous_ms, library_ms = crop_times(ra, args, previous)
+    print(f"  K4 bf16 level 0 on the dense route's weights ({routed} of {B} x {TRAIN_ROIS} "
+          f"RoIs routed here, Wy zero for the rest): tensor-core kernel {ms:.4f} ms, first "
+          f"version {previous_ms:.4f} ms, bf16 einsum pair {library_ms:.4f} ms")
     return rec
 
 

@@ -57,7 +57,6 @@ class _RoiLevels(ctypes.Structure):
 _LAUNCH_ARGTYPES = [ctypes.POINTER(_RoiLevels), ctypes.c_void_p, ctypes.c_void_p,
                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                     ctypes.c_float, ctypes.c_void_p]
-_CROP_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def _div(a: torch.Tensor, d: float) -> torch.Tensor:
@@ -380,9 +379,40 @@ def dense_crop_plain(feat: torch.Tensor, Wy: torch.Tensor, Wx: torch.Tensor) -> 
     return torch.einsum("bpxw,bpowc->bpoxc", Wx.float(), t.float()).to(feat.dtype)
 
 
+# K4's entries in `csrc/dense_crop.cu`: CUDA cores for float32 (the first
+# version, whose bfloat16 instantiation only `chip_smoke.py` calls, to time
+# the redesign against it), tensor cores for bfloat16.  Both count as
+# launches of K4 and take the same C arguments.
+CROP_ENTRIES = {torch.float32: "dense_crop_launch", torch.bfloat16: "dense_crop_bf16_launch"}
+CROP_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+
+def _pad_last(t: torch.Tensor, multiple: int) -> torch.Tensor:
+    """t, zero-padded along its last axis to a multiple of `multiple`."""
+    n = t.shape[-1]
+    pad = -n % multiple
+    return torch.nn.functional.pad(t, (0, pad)) if pad else t
+
+
+CROP_CHANNEL_TILE = 16      # channels a block of the bfloat16 entry reads: `tc::CT` there
+
+
+def crop_operands(feat: torch.Tensor, Wy: torch.Tensor):
+    """The bfloat16 entry's operands: feat with C zero-padded to a multiple
+    of 16 and laid out channel-tile-major, (B, C / 16, Hl, Wl, 16), so that
+    the (h, w) rows a block reads for its 16 channels are whole 128-byte
+    lines; Wy with its h axis zero-padded to a multiple of 8, so that each
+    16-byte copy into shared memory is aligned.  Zero columns add nothing."""
+    B, Hl, Wl, _ = feat.shape
+    ct = CROP_CHANNEL_TILE
+    tiles = _pad_last(feat, ct).reshape(B, Hl, Wl, -1, ct).permute(0, 3, 1, 2, 4)
+    return tiles.contiguous(), _pad_last(Wy, 8).contiguous()
+
+
 def _dense_crop_forward(feat, Wy, Wx) -> torch.Tensor:
-    """Launch K4 on CUDA tensors."""
-    if feat.dtype not in _DTYPE_CODE or Wy.dtype != feat.dtype or Wx.dtype != feat.dtype:
+    """Launch K4 on CUDA tensors: the entry for their type (`CROP_ENTRIES`)."""
+    dt = feat.dtype
+    if dt not in CROP_ENTRIES or Wy.dtype != dt or Wx.dtype != dt:
         raise TypeError(f"dense_crop: feat {feat.dtype}, Wy {Wy.dtype}, Wx {Wx.dtype}; "
                         "float32 or bfloat16, all one type")
     if feat.dim() != 4 or Wy.dim() != 4 or Wx.dim() != 4:
@@ -394,16 +424,23 @@ def _dense_crop_forward(feat, Wy, Wx) -> torch.Tensor:
                          f"Wx {tuple(Wx.shape)}; o must be {OUT_SIZE}")
     if Wy.device != feat.device or Wx.device != feat.device:
         raise ValueError("dense_crop: feat, Wy and Wx on different devices")
-    feat, Wy, Wx = feat.contiguous(), Wy.contiguous(), Wx.contiguous()
-    out = torch.empty((B, P, o, o, C), dtype=feat.dtype, device=feat.device)
+    Wx = Wx.contiguous()
+    if dt == torch.bfloat16:
+        feat, Wy = crop_operands(feat, Wy)
+        Cp = feat.shape[1] * CROP_CHANNEL_TILE
+        sizes = (B, P, Hl, Wy.shape[-1], Wl, Cp, o)
+    else:
+        feat, Wy, Cp = feat.contiguous(), Wy.contiguous(), C
+        sizes = (B, P, Hl, Wl, C, o, 0)       # the CUDA-core entry, at dtype code 0 (float32)
+    out = torch.empty((B, P, o, o, Cp), dtype=dt, device=feat.device)
     if out.numel():
-        fn = cuda_build.function("dense_crop", "dense_crop_launch", _CROP_ARGTYPES)
+        fn = cuda_build.function("dense_crop", CROP_ENTRIES[dt], CROP_ARGTYPES)
         stream = torch.cuda.current_stream(feat.device).cuda_stream
-        status = fn(feat.data_ptr(), Wy.data_ptr(), Wx.data_ptr(), out.data_ptr(), B, P, Hl,
-                    Wl, C, o, _DTYPE_CODE[feat.dtype], stream)
-        cuda_build.check(status, "dense_crop kernel launch")
+        status = fn(feat.data_ptr(), Wy.data_ptr(), Wx.data_ptr(), out.data_ptr(), *sizes, stream)
+        cuda_build.check(status, f"dense_crop kernel launch ({CROP_ENTRIES[dt]})")
     dense_crop.launches += 1
-    return out
+    dense_crop.last_entry = CROP_ENTRIES[dt]
+    return out[..., :C].contiguous() if Cp != C else out
 
 
 class _DenseCrop(torch.autograd.Function):
@@ -433,26 +470,22 @@ def dense_crop(feat: torch.Tensor, Wy: torch.Tensor, Wx: torch.Tensor) -> torch.
 
 
 dense_crop.launches = 0
+dense_crop.last_entry = None
 
 
-def multilevel_roi_align_dense(feats: Sequence[torch.Tensor], rois: torch.Tensor,
-                               strides: Sequence[int] = (4, 8, 16, 32)) -> torch.Tensor:
-    """The dense route: same values as `roi_align`, through `dense_crop` on
-    every level.  The rois must be grouped by image in batch order, R = B *
-    P, as `rois.reshape(B * P, 5)` builds them: column 0 is not read.
-    Wide maps are transposed, so that stage one contracts W.
-    """
+def dense_level_operands(feats: Sequence[torch.Tensor], rois: torch.Tensor,
+                         strides: Sequence[int] = (4, 8, 16, 32)):
+    """`dense_crop`'s operands on each level, [(feat, Wy, Wx)], for maps that
+    are not wider than tall (the dense route transposes wide ones first):
+    every level gets all R = B * P RoIs, with Wy zeroed for the RoIs routed
+    to other levels."""
     feats = list(feats)
     L = len(feats)
-    B, C = feats[0].shape[0], feats[0].shape[-1]
+    B = feats[0].shape[0]
     R = rois.shape[0]
     if R % B:
         raise ValueError(f"multilevel_roi_align_dense: {R} rois for {B} images; the rois "
                          "must be grouped by image, R = B * P")
-    if _w_first(feats):
-        out = multilevel_roi_align_dense([f.transpose(1, 2) for f in feats],
-                                         rois[:, [0, 2, 1, 4, 3]], strides)
-        return out.transpose(1, 2)
     dtype = feats[0].dtype
     dev = rois.device
     rois = rois.detach()
@@ -465,11 +498,30 @@ def multilevel_roi_align_dense(feats: Sequence[torch.Tensor], rois: torch.Tensor
                            heights, max(f.shape[1] for f in feats), dtype)
     Wx_all = _axis_weights(rois[:, 1] * inv - 0.5, _div((rois[:, 3] - rois[:, 1]) * inv, OUT_SIZE),
                            widths, max(f.shape[2] for f in feats), dtype)
-    out = torch.zeros((R, OUT_SIZE, OUT_SIZE, C), dtype=dtype, device=dev)
+    operands = []
     for l, feat in enumerate(feats):
         Hl, Wl = feat.shape[1], feat.shape[2]
         sel = (lvl == l).to(dtype)
         Wy = (Wy_all[:, :, :Hl] * sel[:, None, None]).reshape(B, R // B, OUT_SIZE, Hl)
         Wx = Wx_all[:, :, :Wl].reshape(B, R // B, OUT_SIZE, Wl)
+        operands.append((feat, Wy, Wx))
+    return operands
+
+
+def multilevel_roi_align_dense(feats: Sequence[torch.Tensor], rois: torch.Tensor,
+                               strides: Sequence[int] = (4, 8, 16, 32)) -> torch.Tensor:
+    """The dense route: same values as `roi_align`, through `dense_crop` on
+    every level.  The rois must be grouped by image in batch order, R = B *
+    P, as `rois.reshape(B * P, 5)` builds them: column 0 is not read.
+    Wide maps are transposed, so that stage one contracts W.
+    """
+    feats = list(feats)
+    if _w_first(feats):
+        out = multilevel_roi_align_dense([f.transpose(1, 2) for f in feats],
+                                         rois[:, [0, 2, 1, 4, 3]], strides)
+        return out.transpose(1, 2)
+    R, C = rois.shape[0], feats[0].shape[-1]
+    out = torch.zeros((R, OUT_SIZE, OUT_SIZE, C), dtype=feats[0].dtype, device=rois.device)
+    for feat, Wy, Wx in dense_level_operands(feats, rois, strides):
         out = out + dense_crop(feat, Wy, Wx).reshape(R, OUT_SIZE, OUT_SIZE, C)
     return out

@@ -29,6 +29,7 @@ from panoswintransformerobjectdetection_tpu.ops.roi_align_pallas import (_xla_cr
 from panoswintransformerobjectdetection_torch.ops import roi_align as tra
 from torch_port_common import quick_jit, single_torch_thread  # noqa: F401
 
+F = torch.nn.functional
 STRIDES = (4, 8, 16, 32)
 BF16 = 2.0 ** -8
 
@@ -207,3 +208,61 @@ def test_roi_align_map_gradients_match_jax(dtype, route):
         plain = tra.roi_align_backward(torch.from_numpy(g).to(tdt), torch.from_numpy(rois),
                                        [f.shape for f in feats], tdt, STRIDES)
         assert all(torch.equal(p, t.grad) for p, t in zip(plain, tf))
+
+
+def _crop_from_operands(feat_p, Wy_p, Wx, C):
+    """K4 from the bfloat16 entry's operands (`crop_operands`), with plain
+    PyTorch: stage one as one padded-M product per image, rows (p, i)
+    zero-padded to whole M tiles of 128 and K to Wy's padded h, the feature
+    rows past Hl read as zeros as the kernel's copies fill them; t rounded;
+    stage two per RoI; the padded channels cut off."""
+    dt = feat_p.dtype
+    B, tiles, Hl, Wl, ct = feat_p.shape
+    Cp = tiles * ct
+    feat_p = feat_p.permute(0, 2, 3, 1, 4).reshape(B, Hl, Wl, Cp)
+    P, Hp = Wy_p.shape[1], Wy_p.shape[3]
+    M = P * 7
+    A = F.pad(Wy_p.float().reshape(B, M, Hp), (0, 0, 0, -M % 128))
+    Fm = F.pad(feat_p.float().reshape(B, Hl, Wl * Cp), (0, 0, 0, Hp - Hl))
+    t = (A @ Fm).to(dt)[:, :M].reshape(B, P, 7, Wl, Cp)
+    out = torch.einsum("bpxw,bpowc->bpoxc", Wx.float(), t.float()).to(dt)
+    return out[..., :C]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B, Hl, Wl, C, P", [(1, 32, 16, 256, 20), (2, 8, 16, 96, 5),
+                                             (1, 13, 9, 20, 19)],
+                         ids=["flagship", "tiny", "ragged"])
+def test_crop_operands_match_twin(dtype, B, Hl, Wl, C, P):
+    """`crop_operands` pads C to a multiple of 16 and lays it out
+    channel-tile-major, and pads Wy's h to a multiple of 8 with zeros; the
+    product over those operands equals the twin: exactly in float32 on
+    values whose sums are exact, within 2 bf16 units on random values.  The
+    flagship's channel count (256) and the tiny configuration's FPN width
+    (96), each over a ragged P against the kernel's 18-RoI blocks."""
+    rng = np.random.default_rng(Hl * C)
+    if dtype == torch.float32:
+        def draw(shape, d):
+            return torch.from_numpy(rng.integers(-8, 9, shape) / d).float()
+        feat, Wy, Wx = draw((B, Hl, Wl, C), 4.0), draw((B, P, 7, Hl), 16.0), \
+            draw((B, P, 7, Wl), 16.0)
+    else:
+        feat = torch.from_numpy(rng.standard_normal((B, Hl, Wl, C))).to(dtype)
+        Wy = torch.from_numpy(rng.standard_normal((B, P, 7, Hl)) * 0.3).to(dtype)
+        Wx = torch.from_numpy(rng.standard_normal((B, P, 7, Wl)) * 0.3).to(dtype)
+    feat, Wy, Wx = feat.to(dtype), Wy.to(dtype), Wx.to(dtype)
+    feat_p, Wy_p = tra.crop_operands(feat, Wy)
+    Cp, Hp = -(-C // 16) * 16, -(-Hl // 8) * 8
+    assert feat_p.shape == (B, Cp // 16, Hl, Wl, 16) and Wy_p.shape == (B, P, 7, Hp)
+    assert feat_p.is_contiguous() and Wy_p.is_contiguous()
+    unblocked = feat_p.permute(0, 2, 3, 1, 4).reshape(B, Hl, Wl, Cp)
+    assert unblocked[..., :C].equal(feat) and not unblocked[..., C:].any()
+    assert Wy_p[..., :Hl].equal(Wy) and not Wy_p[..., Hl:].any()
+    got = _crop_from_operands(feat_p, Wy_p, Wx, C)
+    ref = tra.dense_crop_plain(feat, Wy, Wx)
+    assert got.shape == ref.shape == (B, P, 7, 7, C) and got.dtype == dtype
+    if dtype == torch.float32:
+        assert torch.equal(got, ref)
+    else:
+        np.testing.assert_allclose(got.float().numpy(), ref.float().numpy(),
+                                   atol=2 * BF16 * float(ref.float().abs().max()))

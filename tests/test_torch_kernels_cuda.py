@@ -44,9 +44,14 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 64, 256, 8, 16), (1, 37, 70, 32, 64), (1, 5, 3, 2, 4)])
+@pytest.mark.parametrize("shape", [(2, 64, 256, 8, 16), (1, 37, 70, 32, 64), (1, 5, 3, 2, 4),
+                                   (1, 13, 131, 32, 64), (2, 6, 72, 24, 40),
+                                   (1, 8, 64, 16, 80)])
 def test_stem_kernel_matches_twin(cuda_device, dtype, shape):
-    """Ragged H and W, and c1 below one 16-channel pass, are covered."""
+    """Ragged H and W against both kernels' tiles (4 x 64 on the tensor
+    cores; W = 131 also takes the scalar stores), c0 and c1 that are not
+    multiples of 16 (2/4, 8/16, 24/40), the flagship's 32/64, and c1 = 80,
+    two groups of output channels.  bf16 goes through the tensor-core entry."""
     B, H, W, c0, c1 = shape
     g = torch.Generator().manual_seed(0)
     x = torch.rand((B, H, W, 3), generator=g).to(dtype)
@@ -58,6 +63,7 @@ def test_stem_kernel_matches_twin(cuda_device, dtype, shape):
     got = stem.stem_conv(args[0], stem.stem_weights(*args[1:], dtype))
     torch.cuda.synchronize()
     assert stem.stem_conv.launches == before + 1
+    assert stem.stem_conv.last_entry == stem.ENTRIES[dtype]
     ref = stem.stem_conv_plain(*args).float().cpu().numpy()
     scale = float(np.abs(ref).max())
     tol = 1e-4 * max(1.0, scale) if dtype == torch.float32 else 4 * 2.0 ** -8 * scale
@@ -205,25 +211,40 @@ def test_window_attention_refuses_bad_input(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 40, 24, 64, 19), (1, 17, 9, 40, 3), (1, 64, 32, 256, 8)])
+@pytest.mark.parametrize("shape", [(2, 40, 24, 64, 19, False), (1, 17, 9, 40, 3, False),
+                                   (1, 64, 32, 256, 8, False), (1, 33, 20, 24, 40, False),
+                                   (1, 12, 10, 12, 5, False), (2, 40, 24, 64, 50, True),
+                                   (1, 400, 9, 16, 20, False)])
 def test_dense_crop_kernel_matches_twin(cuda_device, dtype, shape):
-    """Ragged P (19 of chunks of 8), C (40 of tiles of 32), Hl (17 of steps
-    of 16) and Wl (9 of strips of 8) are covered; random weights, as the
-    JAX package tests its Pallas crop."""
-    B, Hl, Wl, C, P = shape
+    """Ragged P (19, 40, 50 against blocks of 8 and 18 RoIs), C (40 against
+    tiles of 32 and 16; 24 and 12, padded to 16), Hl (17, 33 against steps
+    of 16 and k-tiles of 64; not a multiple of 8, so Wy is padded) and Wl
+    (9, 20 against strips and passes of 8);
+    random weights, as the JAX package tests its Pallas crop.  The last case
+    zeroes Wy for RoIs 18-35, one whole 18-RoI block, as the dense route
+    does for the RoIs of other levels, next to dense blocks.  bf16 goes
+    through the tensor-core entry; Hl = 400 is past the height up to which
+    that entry keeps Wy in shared memory, so it streams Wy's k-tiles."""
+    B, Hl, Wl, C, P, zero_block = shape
     g = torch.Generator().manual_seed(0)
     feat = torch.randn((B, Hl, Wl, C), generator=g).to(dtype).to(cuda_device)
-    Wy = (torch.randn((B, P, 7, Hl), generator=g) * 0.3).to(dtype).to(cuda_device)
+    Wy = torch.randn((B, P, 7, Hl), generator=g) * 0.3
+    if zero_block:
+        Wy[:, 18:36] = 0
+    Wy = Wy.to(dtype).to(cuda_device)
     Wx = (torch.randn((B, P, 7, Wl), generator=g) * 0.3).to(dtype).to(cuda_device)
     before = ra.dense_crop.launches
     got = ra.dense_crop(feat, Wy, Wx)
     torch.cuda.synchronize()
     assert ra.dense_crop.launches == before + 1
+    assert ra.dense_crop.last_entry == ra.CROP_ENTRIES[dtype]
     ref = ra.dense_crop_plain(feat, Wy, Wx)
-    assert got.shape == (B, P, 7, 7, C) and got.dtype == dtype
+    assert got.shape == (B, P, 7, 7, C) and got.dtype == dtype and got.is_contiguous()
     scale = float(ref.float().abs().max())
     tol = 1e-5 * max(1.0, scale) * Hl ** 0.5 if dtype == torch.float32 else 2 * 2.0 ** -8 * scale
     torch.testing.assert_close(got.float(), ref.float(), rtol=0, atol=tol)
+    if zero_block:
+        assert not got[:, 18:36].any() and got[:, :18].any() and got[:, 36:].any()
 
 
 @pytest.mark.cuda

@@ -110,6 +110,15 @@ def test_no_wrapper_gives_way_to_its_twin():
     assert "build/" in ignored and "*.so" in ignored
     for name in ("roi_align_launch", "roi_align_backward_launch"):
         assert f'extern "C" int {name}(' in (cuda_build.CSRC_DIR / "roi_align.cu").read_text()
-    crop = (cuda_build.CSRC_DIR / "dense_crop.cu").read_text()
-    assert 'extern "C" int dense_crop_launch(' in crop
-    assert not re.search(r"cublas|cutlass|#include\s*<torch", crop, re.I)
+    # K1 and K4: one entry a type in one source, each declared there; the
+    # bfloat16 entry issues tensor-core instructions, and neither source calls
+    # a library
+    for name, entries in (("stem_conv", stem_conv.ENTRIES),
+                          ("dense_crop", roi_align.CROP_ENTRIES)):
+        source = (cuda_build.CSRC_DIR / f"{name}.cu").read_text()
+        assert set(entries) == {torch.float32, torch.bfloat16}
+        for symbol in entries.values():
+            assert f'extern "C" int {symbol}(' in source
+        assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in source
+        assert "ldmatrix" in source
+        assert not re.search(r"cublas|cudnn|cutlass::gemm|#include\s*<torch", source, re.I)

@@ -26,6 +26,8 @@ from panoswintransformerobjectdetection_torch.ops import stem_conv as tstem
 from panoswintransformerobjectdetection_torch.runtime.checkpoint import fold_batchnorm
 from torch_port_common import quick_jit, single_torch_thread  # noqa: F401
 
+F = torch.nn.functional
+
 BF16_ULPS = 4 * 2.0 ** -8
 
 
@@ -181,3 +183,62 @@ def test_fold_batchnorm_keeps_the_stem():
         model.load_state_dict(fold_batchnorm(model.state_dict()))
         got = model.backbone.patch_embed(x)
     np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-5)
+
+
+def _taps(t, H, W):
+    """(B, H, W, 9, C): the 3x3 neighbourhood of each pixel of the zero-padded
+    (B, H + 2, W + 2, C) map t, taps in (dy, dx) order."""
+    return torch.stack([t[:, dy:dy + H, dx:dx + W] for dy in range(3) for dx in range(3)], 3)
+
+
+def _stem_from_tensor_core_layout(x, w0k, b0, w1k, b1, c1):
+    """K1 from the bfloat16 entry's operands, with plain PyTorch: conv0 as an
+    im2col GEMM over K = 27 padded to 32, conv1 as one over K = 9 taps x c0p,
+    both f32 sums of compute-type values, rounded where the kernel rounds."""
+    dt = x.dtype
+    B, H, W, _ = x.shape
+    c0p, c1p = w0k.shape[0], w1k.shape[1]
+    cols = F.pad(_taps(F.pad(x.float(), (0, 0, 1, 1, 1, 1)), H, W).reshape(B, H, W, 27), (0, 5))
+    h0 = torch.relu(cols @ w0k.float().T + F.pad(b0, (0, c0p - b0.shape[0]))).to(dt)
+    cols = _taps(F.pad(h0.float(), (0, 0, 1, 1, 1, 1)), H, W).reshape(B, H, W, 9 * c0p)
+    w1m = w1k.float().permute(0, 2, 1).reshape(9 * c0p, c1p)          # [(tap, cin), cout]
+    h1 = torch.relu(cols @ w1m + F.pad(b1, (0, c1p - c1))).to(dt)
+    return h1[..., :c1].permute(0, 3, 1, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c0, c1, H, W", [(32, 64, 12, 70), (2, 4, 9, 20), (24, 40, 5, 131)],
+                         ids=["flagship", "tiny", "ragged"])
+def test_tensor_core_layout_matches_twin(dtype, c0, c1, H, W):
+    """`tensor_core_layout` pads c0 and c1 to multiples of 16 with zero
+    weights and orders the operands as the tensor-core entry reads them; an
+    im2col GEMM over those operands equals the twin: exactly in float32 on
+    values whose sums are exact (so no summation order can hide a wrong
+    tap), within 4 bf16 units on random values."""
+    rng = np.random.default_rng(c0 + c1)
+    if dtype == torch.float32:
+        dyadic = lambda shape, d: torch.from_numpy(rng.integers(-8, 9, shape) / d).float()  # noqa: E731
+        x, w0, b0 = dyadic((2, H, W, 3), 8.0), dyadic((c0, 3, 3, 3), 16.0), dyadic(c0, 4.0)
+        w1, b1 = dyadic((c1, c0, 3, 3), 16.0), dyadic(c1, 4.0)
+    else:
+        g = torch.Generator().manual_seed(c0)
+        x = torch.rand((2, H, W, 3), generator=g)
+        w0, b0 = torch.randn((c0, 3, 3, 3), generator=g) * 0.3, torch.randn(c0, generator=g)
+        w1, b1 = torch.randn((c1, c0, 3, 3), generator=g) * 0.1, torch.randn(c1, generator=g)
+    x = x.to(dtype)
+    w0k, w1k = tstem.tensor_core_layout(w0, w1, dtype)
+    c0p, c1p = -(-c0 // 16) * 16, -(-c1 // 16) * 16
+    assert w0k.shape == (c0p, 32) and w1k.shape == (9, c1p, c0p) and w0k.dtype == dtype
+    assert not w0k[c0:].any() and not w0k[:, 27:].any()
+    assert not w1k[:, c1:].any() and not w1k[:, :, c0:].any()
+    packed = tstem.stem_weights(w0, b0, w1, b1, dtype)
+    if dtype == torch.bfloat16:
+        assert packed.w0k.equal(w0k) and packed.w1k.equal(w1k)
+    got = _stem_from_tensor_core_layout(x, w0k, b0, w1k, b1, c1)
+    ref = tstem.stem_conv_plain(x, w0, b0, w1, b1)
+    assert got.shape == ref.shape == (2, c1, H, W) and got.dtype == dtype
+    if dtype == torch.float32:
+        assert torch.equal(got, ref)
+    else:
+        np.testing.assert_allclose(got.float().numpy(), ref.float().numpy(),
+                                   atol=BF16_ULPS * float(ref.float().abs().max()))
