@@ -8,12 +8,13 @@ Phases (each raises on failure, so any failure exits non-zero):
   1. environment: the card's name and power limit; TF32 off for f32 checks;
   2. build every kernel from `panoswintransformerobjectdetection_torch/csrc`;
   3. each kernel against its twin at the flagship's shapes, f32 and bf16,
-     with its median time, the twin's time and a library call's time (K2 at
-     all four stage shapes; K5's entry point checked at a small shape).  K1
-     and K4 run bf16 on the tensor cores and f32 on the CUDA cores; their
-     first, CUDA-core versions are timed at bf16 beside them (`previous_ms`),
-     with each one's TFLOP/s and share of the bound, and K4 also on the
-     dense route's own level-0 weights;
+     with its device time (`time_ms`), the twin's and a library call's (K2 at
+     all four stage shapes, each in the record's `stages`; K5's entry point
+     checked at a small shape).  K1, K2 and K4 run bf16 on the tensor cores
+     and f32 on the CUDA cores, K3 bf16 through vectorised gathers and f32
+     one thread a channel; their first versions are timed at bf16 beside
+     them (`previous_ms`), with each one's share of the bound, and K4 also
+     on the dense route's own level-0 weights;
   4. small-input f32 checks of the card's path against the CPU path, plain
      and fused attention; then the flagship (PanoSwin-T Faster R-CNN, random
      weights from seed 0, BN folded, bf16) `simple_test` on 2 x 512 x 1024
@@ -21,7 +22,8 @@ Phases (each raises on failure, so any failure exits non-zero):
      attention flagship alternate request by request, each request with the
      kernels' launch counts reset just before it and read just after; the
      two backbones' outputs are compared; one request of the planar
-     configuration (`pano_mode=False`, fused attention);
+     configuration (`pano_mode=False`, fused attention); every fused
+     request must launch K2's bf16 entry;
   5. training: the dense RoI route (K4 on every level) against the direct one
      (K3) on the card, values and map gradients; one `forward_train` +
      backward at 64 x 128 in f32 on the card against the CPU, same sampler
@@ -35,6 +37,7 @@ Phases (each raises on failure, so any failure exits non-zero):
 Without a CUDA card it exits with an error and prints no result.
 """
 
+import ctypes
 import json
 import statistics
 import sys
@@ -46,13 +49,16 @@ import torch
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 BF16_OPS_PER_S = 989e12         # dense bf16 tensor-core rate, same source
 BF16_ULPS = 4 * 2.0 ** -8       # bf16 tolerance: 4 units in the last place of max|ref|
+SLEEP_CYCLES = 100_000_000      # about 50 ms of the card's clock: longer than the host takes
+                                # to launch a timed batch
 B, H, W = 2, 512, 1024
 REQUESTS = 5
 # K2 at the flagship's four stages, B = 2: (windows n = B * nW, heads, nW);
 # O = 7 * 7 tokens, head width 32 at every stage.
 ATTENTION_STAGES = ((1406, 3, 703), (380, 6, 190), (100, 12, 50), (30, 24, 15))
 TOKENS, HEAD_DIM = 49, 32
-K2_PER_REQUEST = 2 + 2 + 6 + 2          # one launch per block
+K2_LAUNCHES_BY_STAGE = (2, 2, 6, 2)     # one launch per block
+K2_PER_REQUEST = sum(K2_LAUNCHES_BY_STAGE)
 TRAIN_STEPS = 5
 TRAIN_ROIS = 128 + 512              # sampled RoIs an image: positives' cap + samples
 # Feature maps of the four RoI levels as the dense route's kernel sees them:
@@ -65,19 +71,24 @@ F32_OPS_PER_S = 67e12               # f32 outside the tensor cores, same source
 BACKBONE_TOL_UNITS = 16
 
 
-def time_ms(fn, reps: int) -> float:
-    """Median time of one call, CUDA events around each of `reps` calls."""
+def time_ms(fn, reps: int, batches: int = 5) -> float:
+    """Device time of one call: the median over `batches` of the mean of
+    `reps` back-to-back calls, CUDA events around them.  Each batch is
+    queued behind a sleep on the card, so that the host's time to launch the
+    calls (tens of microseconds for a small kernel) is not counted."""
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(batches):
+        torch.cuda._sleep(SLEEP_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -191,12 +202,14 @@ def kernel_k1(dev, stem):
 
 
 def kernel_k3(dev, ra):
+    from panoswintransformerobjectdetection_torch.ops import cuda_build
     rng = np.random.default_rng(2)
     C = 256
     rois = rpn_like_rois(rng, 1000).to(dev)
     base = [torch.from_numpy(rng.standard_normal((B, H // s, W // s, C)).astype(np.float32))
             for s in (4, 8, 16, 32)]
     strides = (4, 8, 16, 32)
+    previous = cuda_build.function("roi_align", ra.ENTRIES[torch.float32], ra.LAUNCH_ARGTYPES)
     rec = {}
     for dt in (torch.float32, torch.bfloat16):
         feats = [f.to(dt).to(dev) for f in base]
@@ -204,9 +217,23 @@ def kernel_k3(dev, ra):
         ref = ra.roi_align_plain(feats, rois, strides)
         torch.cuda.synchronize()
         # same operations in the same order as the twin: exact
-        err = check(f"K3 roi_align {str(dt)[6:]} 4 levels C 256, 2 x 1000 RoIs", got, ref, 0.0)
+        err = check(f"K3 roi_align {str(dt)[6:]} 4 levels C 256, 2 x 1000 RoIs, entry "
+                    f"{ra.roi_align.last_entry}", got, ref, 0.0)
         if dt == torch.bfloat16:
+            levels = ra.level_struct(feats, strides)
+            prev_out = torch.empty_like(got)
+
+            def first_version():
+                # the first version's entry at dtype code 1 (bfloat16); no wrapper calls it so
+                cuda_build.check(previous(ctypes.byref(levels), rois.data_ptr(),
+                                          prev_out.data_ptr(), rois.shape[0], B, C, 1, 1,
+                                          float(ra.FINEST_SCALE),
+                                          torch.cuda.current_stream().cuda_stream),
+                                 "roi_align_launch (first version, bf16)")
+
             ms = time_ms(lambda: ra.roi_align(feats, rois, strides), 20)
+            previous_ms = time_ms(first_version, 20)
+            check("K3 first version bf16, against the twin", prev_out, ref, 0.0)
             plain_ms = time_ms(lambda: ra.roi_align_plain(feats, rois, strides), 3)
             # the bytes this run's RoIs need: each feature row that some tap
             # with a nonzero weight reads, once; the rois; the output
@@ -219,11 +246,14 @@ def kernel_k3(dev, ra):
             rec = {"name": "roi_align (K3)", "route": "cuda",
                    "source": "panoswintransformerobjectdetection_torch/csrc/roi_align.cu",
                    "replaces": "panoswintransformerobjectdetection_tpu/ops/roi_align_pallas.py:205",
-                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                   "entry": ra.roi_align.last_entry, "max_abs_err": err, "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bound,
                    "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / BF16_OPS_PER_S
-                   else "operations", "library_ms": None}
-    print(f"  K3 bf16: kernel {rec['ms']:.3f} ms, twin {rec['plain_ms']:.3f} ms, "
-          f"no single PyTorch call computes it, bound {rec['bound_ms']:.4f} ms")
+                   else "operations", "library_ms": None, "previous_ms": previous_ms}
+    print(f"  K3 bf16: vectorised kernel {rec['ms']:.4f} ms ({rec['bound_ms'] / rec['ms']:.3f} "
+          f"of the bound), first version {rec['previous_ms']:.4f} ms "
+          f"({rec['bound_ms'] / rec['previous_ms']:.3f}), twin {rec['plain_ms']:.3f} ms, no "
+          f"single PyTorch call computes it, bound {rec['bound_ms']:.4f} ms")
     return rec
 
 
@@ -242,27 +272,42 @@ def attention_tol(ref, dtype):
 
 
 def attention_times(fa, entry, q, k, v, bias):
-    """(kernel ms, twin ms, SDPA ms, bound ms, bound_by) in bf16.  SDPA gets
-    4-D (n, h, O, d) views and the bias cast to bf16 and repeated over the
-    batch outside the timing (a 4-D mask cannot repeat every nW windows as
-    a view): the port never calls it."""
+    """(kernel ms, first version ms, twin ms, SDPA ms, bound ms, bound_by)
+    in bf16.  SDPA gets 4-D (n, h, O, d) views and the bias cast to bf16 and
+    repeated over the batch outside the timing (a 4-D mask cannot repeat
+    every nW windows as a view): the port never calls it."""
     n, h, O, d = q.shape
     nW = bias.shape[0]
     scale = d ** -0.5
     mask = bias.to(q.dtype).expand(n // nW, nW, h, O, O).reshape(n, h, O, O)
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    previous = previous_kernel("window_attention", fa.ENTRIES[torch.float32],
+                               fa.LAUNCH_ARGTYPES)
+    out = torch.empty((n, O, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    strides = fa.launch_strides(q, k, v, bias, out)
+
+    def first_version():
+        previous(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                 strides, n, h, O, d, nW, float(scale))
+
     ms = time_ms(lambda: entry(q, k, v, bias, scale), 20)
+    previous_ms = time_ms(first_version, 20)
+    ref = fa.window_attention_plain(q, k, v, bias, scale)
+    check(f"K2 first version (CUDA cores) bf16 n {n} h {h}, against the twin", out, ref,
+          attention_tol(ref, q.dtype))
     plain_ms = time_ms(lambda: fa.window_attention_plain(q, k, v, bias, scale), 10)
     library_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=mask, scale=scale), 20)
     nbytes = 4 * q.numel() * q.element_size() + bias.numel() * 4
     ops = 4 * n * h * O * O * d
     by_bytes = nbytes / HBM_BYTES_PER_S >= ops / BF16_OPS_PER_S
     bound = max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3
-    return ms, plain_ms, library_ms, bound, "bytes" if by_bytes else "operations"
+    return ms, previous_ms, plain_ms, library_ms, bound, "bytes" if by_bytes else "operations"
 
 
 def kernel_k2(dev, fa):
-    rec = {}
+    """K2 at the flagship's four stage shapes; the record's top-level times
+    are stage 0's, every stage's are in `stages`."""
+    stages = []
     for stage, (n, h, nW) in enumerate(ATTENTION_STAGES):
         for dt in (torch.float32, torch.bfloat16):
             q, k, v, bias = attention_inputs(dev, dt, n, h, nW, 4 + stage)
@@ -270,20 +315,27 @@ def kernel_k2(dev, fa):
             ref = fa.window_attention_plain(q, k, v, bias, HEAD_DIM ** -0.5)
             torch.cuda.synchronize()
             err = check(f"K2 window_attention {str(dt)[6:]} stage {stage} (n {n}, h {h}, "
-                        f"O {TOKENS}, d {HEAD_DIM}, nW {nW})", got, ref, attention_tol(ref, dt))
+                        f"O {TOKENS}, d {HEAD_DIM}, nW {nW}), entry "
+                        f"{fa.window_attention.last_entry}", got, ref, attention_tol(ref, dt))
             if dt != torch.bfloat16:
                 continue
-            ms, plain_ms, library_ms, bound, by = attention_times(
+            ms, previous_ms, plain_ms, library_ms, bound, by = attention_times(
                 fa, fa.packed_window_attention, q, k, v, bias)
-            print(f"  K2 bf16 stage {stage}: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, "
-                  f"SDPA {library_ms:.4f} ms, bound {bound:.4f} ms ({by})")
-            if stage == 0:
-                rec = {"name": "window_attention (K2)", "route": "cuda",
-                       "source": "panoswintransformerobjectdetection_torch/csrc/window_attention.cu",
-                       "replaces": "panoswintransformerobjectdetection_tpu/ops/fused_attention.py:88",
-                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                       "bound_by": by, "library_ms": library_ms}
-    return rec
+            print(f"  K2 bf16 stage {stage}: tensor-core kernel {ms:.4f} ms ({bound / ms:.3f} of "
+                  f"the bound), first version {previous_ms:.4f} ms ({bound / previous_ms:.3f}), "
+                  f"twin {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+            stages.append({"stage": stage, "n": n, "heads": h, "nW": nW,
+                           "entry": fa.window_attention.last_entry, "max_abs_err": err,
+                           "ms": ms, "previous_ms": previous_ms, "plain_ms": plain_ms,
+                           "library_ms": library_ms, "bound_ms": bound, "bound_by": by,
+                           "share_of_bound": bound / ms,
+                           "launches_per_fused_request": K2_LAUNCHES_BY_STAGE[stage]})
+    top = {key: stages[0][key] for key in ("entry", "ms", "previous_ms", "plain_ms",
+                                           "library_ms", "bound_ms", "bound_by")}
+    return {"name": "window_attention (K2)", "route": "cuda",
+            "source": "panoswintransformerobjectdetection_torch/csrc/window_attention.cu",
+            "replaces": "panoswintransformerobjectdetection_tpu/ops/fused_attention.py:88",
+            "max_abs_err": max(st["max_abs_err"] for st in stages), **top, "stages": stages}
 
 
 def kernel_k5(dev, fa):
@@ -296,17 +348,20 @@ def kernel_k5(dev, fa):
         ref = fa.window_attention_plain(q, k, v, bias, HEAD_DIM ** -0.5)
         torch.cuda.synchronize()
         err = max(err, check(f"K5 fused_window_attention {str(dt)[6:]} (n 10, h 3, O 49, "
-                             f"d 32, nW 5)", got, ref, attention_tol(ref, dt)))
+                             f"d 32, nW 5), entry {fa.window_attention.last_entry}", got, ref,
+                             attention_tol(ref, dt)))
     n, h, nW = ATTENTION_STAGES[0]
-    ms, plain_ms, library_ms, bound, by = attention_times(
+    ms, previous_ms, plain_ms, library_ms, bound, by = attention_times(
         fa, fa.fused_window_attention, *attention_inputs(dev, torch.bfloat16, n, h, nW, 4))
-    print(f"  K5 bf16 stage 0: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, "
-          f"SDPA {library_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+    entry = fa.window_attention.last_entry
+    print(f"  K5 bf16 stage 0 ({entry}): kernel {ms:.4f} ms, first version {previous_ms:.4f} "
+          f"ms, twin {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound {bound:.4f} ms ({by})")
     return {"name": "fused_window_attention (K5)", "route": "cuda",
             "source": "panoswintransformerobjectdetection_torch/csrc/window_attention.cu",
             "replaces": "panoswintransformerobjectdetection_tpu/ops/fused_attention.py:27",
-            "shares_kernel_of": "window_attention (K2)", "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": library_ms}
+            "shares_kernel_of": "window_attention (K2)", "entry": entry, "max_abs_err": err,
+            "ms": ms, "previous_ms": previous_ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": library_ms}
 
 
 def crop_times(ra, args, previous):
@@ -670,6 +725,13 @@ def expect_launches(launches, expected, what):
                                  f"expected {'at least 1' if want is None else want}")
 
 
+def expect_k2_entry(fa, what):
+    """A bf16 request's K2 launches went through the tensor-core entry."""
+    got = fa.window_attention.last_entry
+    if got != fa.ENTRIES[torch.bfloat16]:
+        raise AssertionError(f"{what}: K2 launched {got}, not {fa.ENTRIES[torch.bfloat16]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -743,8 +805,11 @@ def main() -> int:
     dets = {}
     for _ in range(REQUESTS):
         for name, model in models.items():
+            fa.window_attention.last_entry = None
             dets[name], sec, counts = timed_request(model, inputs, counters)
             expect_launches(counts, expected[name], f"{name} flagship")
+            if name == "fused":
+                expect_k2_entry(fa, "fused flagship")
             latencies[name].append(sec)
             for c, v in counts.items():
                 launches[name][c] += v
@@ -759,8 +824,10 @@ def main() -> int:
     planar = build_flagship(compute_dtype=torch.bfloat16, device=dev, seed=0,
                             fused_attention=True, pano_mode=False)
     planar.simple_test(*inputs)                                    # warm-up
+    fa.window_attention.last_entry = None
     det, sec, counts = timed_request(planar, inputs, counters)
     expect_launches(counts, expected["fused"], "planar fused flagship")
+    expect_k2_entry(fa, "planar fused flagship")
     found = check_detections(det, "planar fused flagship")
     print(f"    planar (pano_mode=False), fused attention: one request {sec * 1e3:.3f} ms, "
           f"{found} detections, launches {counts}; peak memory "

@@ -26,14 +26,42 @@
 // below the compute rates.  So it is bound by bytes.  This first version
 // re-reads each RoI's taps from L1/L2 for every output bin (16 loads per
 // output value) rather than staging them, which costs issue slots but no
-// extra device-memory traffic beyond each RoI's footprint.
+// extra device-memory traffic beyond each RoI's footprint.  A large RoI's
+// 784 taps are distinct pixels: 400 KB of L1/L2 reads a RoI at C = 256
+// against 25 KB of output, so the gathers' rate, not device memory, is
+// what the redesign has to raise.
 //
-// Design: one block per (RoI, slice of 128 channels), one thread per
-// channel, so every feature read is coalesced along C in the NHWC maps.
-// Fourteen threads first work out the RoI's level and the merged taps of
-// the 7 bins of each axis (up to 4 distinct columns per bin) into shared
-// memory; then each thread walks the 49 output bins.
+// bfloat16 entry (`roi_align_bf16_launch`): vectorised gathers with
+// stage-one reuse.  One block of 7 warps per (RoI, slice of 32 * VEC
+// channels): its first 14 threads work out the RoI's level and taps into
+// shared memory, as in the first version; then warp i takes bin i of the
+// axis contracted first, and each lane VEC neighbouring channels, so that a
+// warp reads one tap's 256 channels (VEC = 8) in one 16-byte load a lane
+// and writes an output bin in one 16-byte store a lane.  VEC is the widest
+// of 8, 4, 2 and 1 that divides C and to whose bytes every level and the
+// output are aligned: narrower accesses, in the same entry, take any C.
+// The warp walks the bins j of the other axis and their four candidate
+// columns in order; a stage-one sum round(sum_k1 w1 f) depends only on (i,
+// column), and a RoI's candidate columns come in non-decreasing order, so a
+// column equal to the one before reuses its sum (kept in registers) and
+// every distinct column is summed once a bin i.  A bin j's loads of the
+// columns it has to sum are issued together, before any sum: behind a
+// branch per column they ran 15% slower.  The additions keep the first
+// version's order: k1 in order, rounded to bf16, then k2 in order, repeated
+// columns included with their weight 0, so the result is the twin's bit for
+// bit.  What holds it at about 4x its bound: a large RoI's 784 taps are
+// distinct pixels, so it reads about 400 KB from L1/L2 for 25 KB of output
+// (800 MB at the flagship's 2000 RoIs), and about as much time again goes
+// to the scalar f32 arithmetic of the separable sums; a copy without the
+// loads took 58% of the time.
 //
+// float32 entry (`roi_align_launch`), the first version, f32 and bf16: the
+// wrapper calls it for float32; its bf16 instantiation is there so that
+// `chip_smoke.py` times the redesign against it.  One block per (RoI,
+// slice of 128 channels), one thread per channel, so every feature read is
+// coalesced along C in the NHWC maps; after the taps each thread walks the
+// 49 output bins with 16 scalar loads each.
+
 // Backward (`roi_align_backward_kernel`): the function is linear in the
 // maps, so the maps' gradient is the transposed gather, a scatter-add of
 // grad_out[r, i, j, c] * w1 * w2 into the RoI's level.  Same blocks, same
@@ -245,6 +273,147 @@ __global__ void roi_align_backward_kernel(RoiLevels levels, const float* __restr
   }
 }
 
+// ----------------------------------------------------------------- bfloat16
+
+namespace vec {
+
+constexpr int THREADS = 32 * O;         // a warp per stage-one bin
+// Two blocks an SM: at most 146 registers a thread.  Left free, the 16
+// chunks a lane has in flight took 154 registers, one block fit an SM and
+// it ran 1.7x slower; capped for three blocks, it spilled and ran 2.8x
+// slower.
+constexpr int MIN_BLOCKS = 2;
+
+template <int VEC> struct Chunk;
+template <> struct Chunk<8> { using type = uint4; };
+template <> struct Chunk<4> { using type = uint2; };
+template <> struct Chunk<2> { using type = uint32_t; };
+template <> struct Chunk<1> { using type = uint16_t; };
+
+// Element e of VEC bf16 values held as one chunk, as a float.
+template <int VEC>
+__device__ __forceinline__ float element(const typename Chunk<VEC>::type& raw, int e) {
+  union { typename Chunk<VEC>::type raw; uint16_t h[VEC]; } u;
+  u.raw = raw;
+  return __bfloat162float(__ushort_as_bfloat16(u.h[e]));
+}
+
+template <int VEC>
+__device__ __forceinline__ void store(__nv_bfloat16* p, const float (&f)[VEC]) {
+  union { typename Chunk<VEC>::type raw; uint16_t e[VEC]; } u;
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) u.e[e] = __bfloat16_as_ushort(__float2bfloat16_rn(f[e]));
+  *reinterpret_cast<typename Chunk<VEC>::type*>(p) = u.raw;
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+roi_align_vec_kernel(RoiLevels levels, const float* __restrict__ rois,
+                     __nv_bfloat16* __restrict__ out, int batch, int C, int w_first,
+                     float finest_scale) {
+  __shared__ RoiTaps taps;
+  const int r = blockIdx.x;
+  roi_taps<__nv_bfloat16>(levels, rois + size_t(r) * 5, batch, finest_scale, taps);
+  const int i = threadIdx.x / 32, lane = threadIdx.x % 32;   // i: bin of axis a1
+  const int c = (blockIdx.y * 32 + lane) * VEC;
+  if (c >= C) return;
+  __nv_bfloat16* ob = out + size_t(r) * O * O * C + c;
+  // output bin (oy, ox) of stage-one bin i and stage-two bin j
+  auto bin = [&](int j) { return size_t(w_first ? j * O + i : i * O + j) * C; };
+  if (taps.batch < 0) {
+    float zero[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) zero[e] = 0.f;
+    for (int j = 0; j < O; ++j) store<VEC>(ob + bin(j), zero);
+    return;
+  }
+  const int lvl = taps.level;
+  const int Hl = levels.height[lvl], Wl = levels.width[lvl];
+  const __nv_bfloat16* f =
+      static_cast<const __nv_bfloat16*>(levels.feat[lvl]) + size_t(taps.batch) * Hl * Wl * C + c;
+  const int a1 = w_first ? 1 : 0, a2 = 1 - a1;
+  int i1[K];
+  float w1[K];
+#pragma unroll
+  for (int k1 = 0; k1 < K; ++k1) {
+    i1[k1] = taps.idx[a1][i][k1];
+    w1[k1] = taps.w[a1][i][k1];
+  }
+
+  // Bin by bin j, the warp issues the loads of every column it has not
+  // summed yet (up to 4 columns x 4 rows of 16 bytes a lane, all in flight
+  // at once), then sums each such column's stage one; a column equal to the
+  // one before it reuses the sum in `t`.
+  using V = typename Chunk<VEC>::type;
+  float t[VEC];             // round(sum_k1 w1 f) at the last column summed
+  int last = -1;            // tap indices are clamped to >= 0
+  for (int j = 0; j < O; ++j) {
+    int cols[K];
+    bool fresh[K];          // the same for the whole warp
+#pragma unroll
+    for (int k2 = 0; k2 < K; ++k2) {
+      cols[k2] = taps.idx[a2][j][k2];
+      fresh[k2] = cols[k2] != (k2 ? cols[k2 - 1] : last);
+    }
+    V raw[K][K];
+#pragma unroll
+    for (int k2 = 0; k2 < K; ++k2)
+#pragma unroll
+      for (int k1 = 0; k1 < K; ++k1)
+        if (fresh[k2]) {
+          const int row = w_first ? cols[k2] : i1[k1], col = w_first ? i1[k1] : cols[k2];
+          raw[k2][k1] = *reinterpret_cast<const V*>(f + (size_t(row) * Wl + col) * C);
+        }
+    float acc[VEC];
+#pragma unroll
+    for (int k2 = 0; k2 < K; ++k2) {
+      if (fresh[k2]) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          float acc1 = 0.f;
+#pragma unroll
+          for (int k1 = 0; k1 < K; ++k1) {
+            const float p = __fmul_rn(w1[k1], element<VEC>(raw[k2][k1], e));
+            acc1 = k1 == 0 ? p : __fadd_rn(acc1, p);
+          }
+          t[e] = round_t<__nv_bfloat16>(acc1);
+        }
+      }
+      const float w2 = taps.w[a2][j][k2];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const float p2 = __fmul_rn(w2, t[e]);
+        acc[e] = k2 == 0 ? p2 : __fadd_rn(acc[e], p2);
+      }
+    }
+    last = cols[K - 1];
+    store<VEC>(ob + bin(j), acc);
+  }
+}
+
+// The widest chunk, in bf16 elements, that divides C and to whose bytes
+// every level and the output are aligned.
+inline int chunk_width(const RoiLevels& levels, const void* out, int C) {
+  for (int v = 8; v > 1; v /= 2) {
+    bool ok = C % v == 0 && reinterpret_cast<uintptr_t>(out) % (2 * v) == 0;
+    for (int l = 0; l < levels.num_levels; ++l)
+      ok = ok && reinterpret_cast<uintptr_t>(levels.feat[l]) % (2 * v) == 0;
+    if (ok) return v;
+  }
+  return 1;
+}
+
+template <int VEC>
+int launch(const RoiLevels& levels, const float* rois, void* out, int R, int batch, int C,
+           int w_first, float finest_scale, cudaStream_t stream) {
+  dim3 grid(R, (C + 32 * VEC - 1) / (32 * VEC));
+  roi_align_vec_kernel<VEC><<<grid, THREADS, 0, stream>>>(
+      levels, rois, static_cast<__nv_bfloat16*>(out), batch, C, w_first, finest_scale);
+  return int(cudaGetLastError());
+}
+
+}  // namespace vec
+
 }  // namespace
 
 // levels: the level maps (B, Hl, Wl, C) contiguous, all of one dtype;
@@ -293,4 +462,21 @@ extern "C" int roi_align_backward_launch(const RoiLevels* levels, const void* ro
   else
     return int(cudaErrorInvalidValue);
   return int(cudaGetLastError());
+}
+
+// The vectorised version: the same arguments, bfloat16 only (dtype 1).
+extern "C" int roi_align_bf16_launch(const RoiLevels* levels, const void* rois, void* out,
+                                     int R, int batch, int C, int dtype, int w_first,
+                                     float finest_scale, void* stream) {
+  if (levels->num_levels < 1 || levels->num_levels > MAX_LEVELS || dtype != 1 || C < 1)
+    return int(cudaErrorInvalidValue);
+  if (R == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* r = static_cast<const float*>(rois);
+  switch (vec::chunk_width(*levels, out, C)) {
+    case 8: return vec::launch<8>(*levels, r, out, R, batch, C, w_first, finest_scale, s);
+    case 4: return vec::launch<4>(*levels, r, out, R, batch, C, w_first, finest_scale, s);
+    case 2: return vec::launch<2>(*levels, r, out, R, batch, C, w_first, finest_scale, s);
+    default: return vec::launch<1>(*levels, r, out, R, batch, C, w_first, finest_scale, s);
+  }
 }

@@ -4,8 +4,9 @@ Counterpart of `panoswintransformerobjectdetection_tpu/ops/fused_attention.py`.
 For window n and head h it computes
 softmax(q[n, h] k[n, h]^T * scale + bias[n mod nW, h]) v[n, h], with the
 bias (nW, h, O, O) float32 shared by the batch.  On a CUDA tensor that is the
-hand-written kernel `csrc/window_attention.cu`; on a CPU tensor its plain
-twin `window_attention_plain`.  Both follow the Pallas kernel's arithmetic
+hand-written kernel `csrc/window_attention.cu` (bfloat16 on the tensor
+cores, float32 on the CUDA cores); on a CPU tensor its plain twin
+`window_attention_plain`.  Both follow the Pallas kernel's arithmetic
 (`_packed_kernel`): q.k in f32 from the inputs' values, then times `scale`,
 plus the bias; max, exp and e / sum in f32; p rounded to v's type; p.v in
 f32; the output in q's type.
@@ -32,8 +33,14 @@ MAX_TOKENS = 64        # O, tokens per window
 MAX_HEAD_DIM = 64      # d
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_LAUNCH_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
-                    + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+# The kernel's entries in `csrc/window_attention.cu`: CUDA cores for float32
+# (the first version, whose bfloat16 instantiation only `chip_smoke.py`
+# calls, to time the redesign against it), tensor cores for bfloat16.  Both
+# count as launches of K2 and take the same C arguments.
+ENTRIES = {torch.float32: "window_attention_launch",
+           torch.bfloat16: "window_attention_bf16_launch"}
+LAUNCH_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+                   + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def window_attention_plain(q, k, v, bias, scale: float):
@@ -75,12 +82,20 @@ def _check(q, k, v, bias):
                          "contiguous")
 
 
+def launch_strides(q, k, v, bias, out):
+    """The 15 element strides the kernel takes: (window, head, token) of q,
+    k, v, bias and out."""
+    return (ctypes.c_longlong * 15)(*(s for t in (q, k, v, bias, out) for s in t.stride()[:3]))
+
+
 def window_attention(q, k, v, bias, scale: float):
     """K2's kernel.  Same contract as `window_attention_plain`; the result is
     a (n, h, O, d) view of an (n, O, h, d) tensor, the layout that the
     output projection reads.
 
-    A CPU tensor takes the twin; a CUDA tensor launches the kernel or raises.
+    A CPU tensor takes the twin; a CUDA tensor launches the kernel's entry
+    for its type (`ENTRIES`, recorded in `window_attention.last_entry`) or
+    raises.
     """
     if q.device.type == "cpu":
         return window_attention_plain(q, k, v, bias, scale)
@@ -89,17 +104,20 @@ def window_attention(q, k, v, bias, scale: float):
     _check(q, k, v, bias)
     n, h, O, d = q.shape
     out = torch.empty((n, O, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
-    strides = (ctypes.c_longlong * 15)(*(s for t in (q, k, v, bias, out) for s in t.stride()[:3]))
-    fn = cuda_build.function("window_attention", "window_attention_launch", _LAUNCH_ARGTYPES)
+    entry = ENTRIES[q.dtype]
+    fn = cuda_build.function("window_attention", entry, LAUNCH_ARGTYPES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                strides, n, h, O, d, bias.shape[0], float(scale), _DTYPE_CODE[q.dtype], stream)
-    cuda_build.check(status, "window_attention kernel launch")
+                launch_strides(q, k, v, bias, out), n, h, O, d, bias.shape[0], float(scale),
+                _DTYPE_CODE[q.dtype], stream)
+    cuda_build.check(status, f"window_attention kernel launch ({entry})")
     window_attention.launches += 1
+    window_attention.last_entry = entry
     return out
 
 
 window_attention.launches = 0
+window_attention.last_entry = None
 
 # K5 (`fused_window_attention` of the JAX package): the same function with
 # no VJP, so its entry point is the kernel's wrapper itself.

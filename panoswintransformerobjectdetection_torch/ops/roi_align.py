@@ -54,9 +54,15 @@ class _RoiLevels(ctypes.Structure):
                 ("num_levels", ctypes.c_int)]
 
 
-_LAUNCH_ARGTYPES = [ctypes.POINTER(_RoiLevels), ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_float, ctypes.c_void_p]
+LAUNCH_ARGTYPES = [ctypes.POINTER(_RoiLevels), ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_float, ctypes.c_void_p]
+# K3's forward entries in `csrc/roi_align.cu`: one thread a channel for
+# float32 (the first version, whose bfloat16 instantiation only
+# `chip_smoke.py` calls, to time the redesign against it), vectorised
+# gathers with stage-one reuse for bfloat16.  Both count as launches of K3
+# and take the same C arguments (`LAUNCH_ARGTYPES`).
+ENTRIES = {torch.float32: "roi_align_launch", torch.bfloat16: "roi_align_bf16_launch"}
 
 
 def _div(a: torch.Tensor, d: float) -> torch.Tensor:
@@ -200,7 +206,7 @@ def roi_align_plain(feats: Sequence[torch.Tensor], rois: torch.Tensor,
     return u.reshape(R, OUT_SIZE, OUT_SIZE, C)
 
 
-def _level_struct(tensors, strides) -> _RoiLevels:
+def level_struct(tensors, strides) -> _RoiLevels:
     levels = _RoiLevels()
     for i, (f, s) in enumerate(zip(tensors, strides)):
         levels.feat[i] = f.data_ptr()
@@ -219,7 +225,8 @@ def _check_rois(rois, what):
 
 
 def _roi_align_forward(feats, rois, strides) -> torch.Tensor:
-    """Launch K3's forward kernel on CUDA tensors."""
+    """Launch K3's forward kernel on CUDA tensors: the entry for their type
+    (`ENTRIES`, recorded in `roi_align.last_entry`)."""
     L = len(feats)
     dtype = feats[0].dtype
     C = feats[0].shape[-1]
@@ -236,13 +243,14 @@ def _roi_align_forward(feats, rois, strides) -> torch.Tensor:
     rois = rois.contiguous()
     R = rois.shape[0]
     out = torch.empty((R, OUT_SIZE, OUT_SIZE, C), dtype=dtype, device=rois.device)
-    levels = _level_struct(feats, strides)
-    fn = cuda_build.function("roi_align", "roi_align_launch", _LAUNCH_ARGTYPES)
+    levels = level_struct(feats, strides)
+    fn = cuda_build.function("roi_align", ENTRIES[dtype], LAUNCH_ARGTYPES)
     stream = torch.cuda.current_stream(rois.device).cuda_stream
     status = fn(ctypes.byref(levels), rois.data_ptr(), out.data_ptr(), R, feats[0].shape[0],
                 C, _DTYPE_CODE[dtype], int(_w_first(feats)), float(FINEST_SCALE), stream)
-    cuda_build.check(status, "roi_align kernel launch")
+    cuda_build.check(status, f"roi_align kernel launch ({ENTRIES[dtype]})")
     roi_align.launches += 1
+    roi_align.last_entry = ENTRIES[dtype]
     return out
 
 
@@ -292,8 +300,8 @@ def roi_align_backward(grad_out: torch.Tensor, rois: torch.Tensor,
     sizes = [s[0] * s[1] * s[2] * s[3] for s in shapes]
     flat = torch.zeros(sum(sizes), dtype=torch.float32, device=grad_out.device)
     grads = [g.view(tuple(s)) for g, s in zip(flat.split(sizes), shapes)]
-    levels = _level_struct(grads, strides)
-    fn = cuda_build.function("roi_align", "roi_align_backward_launch", _LAUNCH_ARGTYPES)
+    levels = level_struct(grads, strides)
+    fn = cuda_build.function("roi_align", "roi_align_backward_launch", LAUNCH_ARGTYPES)
     stream = torch.cuda.current_stream(rois.device).cuda_stream
     status = fn(ctypes.byref(levels), rois.data_ptr(), grad_out.data_ptr(), R, B, C,
                 _DTYPE_CODE[dtype], int(_w_first(shapes)), float(FINEST_SCALE), stream)
@@ -339,6 +347,7 @@ def roi_align(feats: Sequence[torch.Tensor], rois: torch.Tensor,
 
 
 roi_align.launches = 0
+roi_align.last_entry = None
 
 
 # ------------------------------------------------------------- dense route

@@ -139,3 +139,61 @@ def test_window_attention_fused_matches_jax(pano_mode, dtype):
     tol = 2e-5 * max(1.0, np.abs(ref).max()) if dtype == "float32" else \
         0.5 * BF16_UNITS * np.abs(ref).max()
     np.testing.assert_allclose(got.float().numpy(), ref, atol=tol)
+
+
+def _kernel_padding(q, k, v, bias):
+    """The problem as K2's tensor-core entry lays it out: O padded to 64 rows
+    and d to a multiple of 16 with zeros (q, k and v in shared memory), the
+    bias 0 on the padded rows and -inf on the padded keys (the accumulators'
+    mask)."""
+    n, h, O, d = q.shape
+    dp = -(-d // 16) * 16
+    q, k, v = (torch.nn.functional.pad(t, (0, dp - d, 0, 64 - O)) for t in (q, k, v))
+    bias = torch.nn.functional.pad(bias, (0, 64 - O, 0, 64 - O))
+    bias[..., :, O:] = -float("inf")
+    return q, k, v, bias
+
+
+_PADDING_SHAPES = [(2, 3, 2, 9, 6), (1, 3, 2, 49, 8)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", _PADDING_SHAPES, ids=["O9d6", "O49d8"])
+def test_kernel_padding_matches_twin(shape, dtype):
+    """Zero rows of K and V and -inf on the padded keys change nothing: the
+    padded problem through the twin equals the unpadded one, within 1e-6 of
+    max|ref| in f32 and one bf16 unit (the padded products may be summed in
+    another order)."""
+    tdt = getattr(torch, dtype)
+    q, k, v, bias = (torch.from_numpy(t) for t in _inputs(5, shape))
+    q, k, v = (t.to(tdt) for t in (q, k, v))
+    scale = shape[-1] ** -0.5
+    O, d = shape[3], shape[4]
+    ref = tfa.window_attention_plain(q, k, v, bias, scale)
+    full = tfa.window_attention_plain(*_kernel_padding(q, k, v, bias), scale)
+    assert full.shape[2:] == (64, -(-d // 16) * 16) and not full[..., d:].any()
+    got = full[:, :, :O, :d]
+    scale_ref = float(ref.float().abs().max())
+    tol = 1e-6 * scale_ref if dtype == "float32" else BF16_UNITS * scale_ref
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", _PADDING_SHAPES, ids=["O9d6", "O49d8"])
+def test_kernel_padding_matches_jax(shape, dtype):
+    """The padded problem through the Pallas `_packed_kernel` in interpret
+    mode, sliced back, equals the port's twin on the unpadded one within the
+    tolerances of `test_twin_matches_jax`."""
+    tdt, jdt = getattr(torch, dtype), jnp.dtype(dtype)
+    q, k, v, bias = (torch.from_numpy(t) for t in _inputs(6, shape))
+    q, k, v = (t.to(tdt) for t in (q, k, v))
+    scale = shape[-1] ** -0.5
+    O, d = shape[3], shape[4]
+    padded = _kernel_padding(q, k, v, bias)
+    ref = quick_jit(lambda q, k, v, b: _JAX_ENTRY["packed"](q, k, v, b, scale),
+                    *(jnp.asarray(t.float().numpy()).astype(jdt) for t in padded[:3]),
+                    jnp.asarray(padded[3].numpy()))
+    ref = np.asarray(ref.astype(jnp.float32))[:, :, :O, :d]
+    got = tfa.window_attention_plain(q, k, v, bias, scale).float().numpy()
+    tol = 2e-5 if dtype == "float32" else 4 * BF16_UNITS * np.abs(ref).max()
+    np.testing.assert_allclose(got, ref, atol=tol)

@@ -10,8 +10,9 @@ bfloat16 4 * 2**-8 * max|ref|, since a different f32 summation order can
 flip the rounding of an h0 value and h1's own rounding adds one unit.  K3
 must be exact: kernel and twin do the same operations in the same order.
 K2 float32 1e-5 * max(1, max|ref|) (sums in another order); bfloat16
-4 * 2**-8 * max|ref|, since another f32 summation order can flip the bf16
-rounding of p, which moves an output by about one unit.  K4 (`dense_crop`)
+4 * 2**-8 * max|ref|, since another f32 summation order (the tensor cores'
+for bf16) can flip the bf16 rounding of p, which moves an output by about
+one unit.  K4 (`dense_crop`)
 float32 1e-5 * max(1, max|ref|) * sqrt(Hl) (sums of Hl products in another
 order than cuBLAS takes them); bfloat16 2 * 2**-8 * max|ref| (one flip in
 the stage-one rounding and one in the result).  K3's backward float32
@@ -21,10 +22,13 @@ from run to run; the plain version rounds the same sum taken in index
 order).
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 
+from panoswintransformerobjectdetection_torch.ops import cuda_build
 from panoswintransformerobjectdetection_torch.ops import fused_attention as fa
 from panoswintransformerobjectdetection_torch.ops import roi_align as ra
 from panoswintransformerobjectdetection_torch.ops import stem_conv as stem
@@ -105,7 +109,45 @@ def test_roi_align_kernel_matches_twin(cuda_device, dtype, wide):
     got = ra.roi_align(tf, tr, STRIDES)
     torch.cuda.synchronize()
     assert ra.roi_align.launches == before + 1
+    assert ra.roi_align.last_entry == ra.ENTRIES[dtype]
     assert torch.equal(got, ra.roi_align_plain(tf, tr, STRIDES))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("wide", [True, False])
+@pytest.mark.parametrize("C", [16, 20, 256])
+def test_roi_align_kernel_channels(cuda_device, dtype, wide, C):
+    """C = 16 and 256 take 16-byte chunks in the bf16 entry (2 and 32 lanes
+    of a warp), C = 20 8-byte ones; R = 2 x 7 RoIs."""
+    feats, rois = _roi_case(7, P=7, H=128, W=256, C=C)
+    if not wide:
+        feats = [f.transpose(0, 2, 1, 3).copy() for f in feats]
+        rois = rois[:, [0, 2, 1, 4, 3]].copy()
+    tf = [torch.from_numpy(f).to(dtype).to(cuda_device) for f in feats]
+    tr = torch.from_numpy(rois).to(cuda_device)
+    got = ra.roi_align(tf, tr, STRIDES)
+    assert ra.roi_align.last_entry == ra.ENTRIES[dtype]
+    assert torch.equal(got, ra.roi_align_plain(tf, tr, STRIDES))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_kernel_unaligned_levels_and_no_rois(cuda_device, dtype):
+    """Levels that start 2 elements into their storage (4-byte chunks in the
+    bf16 entry, though C = 64 would allow 16), and R = 0."""
+    feats, rois = _roi_case(8, P=5, H=64, W=128, C=64)
+    tf = []
+    for f in feats:
+        store = torch.zeros(f.size + 2, dtype=dtype, device=cuda_device)
+        store[2:] = torch.from_numpy(f).to(dtype).reshape(-1).to(cuda_device)
+        tf.append(store[2:].view(f.shape))
+    assert tf[0].data_ptr() % 16 == 2 * tf[0].element_size()
+    tr = torch.from_numpy(rois).to(cuda_device)
+    assert torch.equal(ra.roi_align(tf, tr, STRIDES), ra.roi_align_plain(tf, tr, STRIDES))
+    none = ra.roi_align(tf, tr[:0], STRIDES)
+    torch.cuda.synchronize()
+    assert none.shape == (0, 7, 7, 64) and ra.roi_align.last_entry == ra.ENTRIES[dtype]
 
 
 @pytest.mark.cuda
@@ -118,6 +160,7 @@ def test_roi_align_kernel_bad_batch_index(cuda_device, dtype):
     tf = [torch.from_numpy(f).to(dtype).to(cuda_device) for f in feats]
     tr = torch.from_numpy(rois).to(cuda_device)
     got = ra.roi_align(tf, tr, STRIDES)
+    assert ra.roi_align.last_entry == ra.ENTRIES[dtype]
     assert torch.equal(got, ra.roi_align_plain(tf, tr, STRIDES))
     assert not got[[1, 5, 9]].any() and got[[0, 2, 8]].any()
 
@@ -138,6 +181,20 @@ def test_wrappers_refuse_bad_input(cuda_device):
         ra.roi_align(feats, torch.zeros((1, 5), dtype=torch.float64, device=cuda_device), STRIDES)
     with pytest.raises(ValueError):
         ra.roi_align(feats, torch.zeros((1, 4), device=cuda_device), STRIDES)
+    with pytest.raises(ValueError):     # levels of two types
+        ra.roi_align(feats + [torch.rand((1, 4, 8, 4), device=cuda_device).bfloat16()],
+                     torch.zeros((1, 5), device=cuda_device), STRIDES)
+    # the C entries refuse what they do not take: the vectorised entry any
+    # type but bfloat16, no channels, five levels
+    fn = cuda_build.function("roi_align", ra.ENTRIES[torch.bfloat16], ra.LAUNCH_ARGTYPES)
+    out = torch.empty((1, 7, 7, 4), device=cuda_device)
+    rois = torch.zeros((1, 5), device=cuda_device)
+    stream = torch.cuda.current_stream().cuda_stream
+    levels = ra.level_struct([f.bfloat16() for f in feats], STRIDES)
+    for dtype_code, C, count in ((0, 4, 1), (1, 0, 1), (1, 4, 5)):
+        levels.num_levels = count
+        assert fn(ctypes.byref(levels), rois.data_ptr(), out.data_ptr(), 1, 1, C, dtype_code, 1,
+                  56.0, stream) != 0
 
 
 def _attention_case(seed, B, nW, h, O, d, dtype, device):
@@ -154,15 +211,18 @@ def _attention_tol(ref, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("O", [49, 16, 9])
-@pytest.mark.parametrize("d", [32, 8])
+@pytest.mark.parametrize("O", [49, 16, 9, 64])
+@pytest.mark.parametrize("d", [32, 8, 6, 24, 64])
 def test_window_attention_kernel_matches_twin(cuda_device, dtype, O, d):
-    """An odd window count (nW = 5), ragged O against the warp's 32 keys."""
+    """An odd window count (nW = 5), ragged O against the warp's 32 keys and
+    the tensor cores' 16 rows, d not a multiple of 16 (padded with zeros)
+    and of 8 (narrower loads)."""
     q, k, v, bias = _attention_case(0, 2, 5, 3, O, d, dtype, cuda_device)
     before = fa.window_attention.launches
     got = fa.window_attention(q, k, v, bias, d ** -0.5)
     torch.cuda.synchronize()
     assert fa.window_attention.launches == before + 1
+    assert fa.window_attention.last_entry == fa.ENTRIES[dtype]
     ref = fa.window_attention_plain(q, k, v, bias, d ** -0.5)
     assert got.dtype == dtype and got.shape == ref.shape
     torch.testing.assert_close(got.float(), ref.float(), rtol=0, atol=_attention_tol(ref, dtype))
@@ -170,10 +230,13 @@ def test_window_attention_kernel_matches_twin(cuda_device, dtype, O, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_window_attention_kernel_strided_views(cuda_device, dtype):
+@pytest.mark.parametrize("h,d", [(3, 32), (1, 6), (2, 6)])
+def test_window_attention_kernel_strided_views(cuda_device, dtype, h, d):
     """q, k, v as views of the model's (n, O, 3, h, d) projection and a bias
-    broadcast over the windows (stride 0), through both entry points."""
-    n, O, h, d, nW = 10, 49, 3, 32, 5
+    broadcast over the windows (stride 0), through both entry points.  With
+    d = 6 (the tiny configuration's head width) rows are 12 bytes in bf16
+    and the views start 12 or 24 bytes apart: no 16-byte copies."""
+    n, O, nW = 10, 49, 5
     g = torch.Generator().manual_seed(1)
     qkv = torch.randn((n, O, 3, h, d), generator=g).to(dtype).to(cuda_device)
     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
@@ -188,6 +251,24 @@ def test_window_attention_kernel_strided_views(cuda_device, dtype):
     assert torch.equal(got, got5)
     torch.testing.assert_close(got.float(), ref.float(), rtol=0, atol=_attention_tol(ref, dtype))
     assert got.transpose(1, 2).is_contiguous()      # (n, O, h, d), as the projection reads it
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stage", [0, 1, 2, 3])
+def test_window_attention_kernel_flagship_stages(cuda_device, dtype, stage):
+    """The flagship's four stage shapes, B = 2, as the model passes them:
+    views of the (n, O, 3, h, 32) projection, output in (n, O, h, d)."""
+    n, h, nW = ((1406, 3, 703), (380, 6, 190), (100, 12, 50), (30, 24, 15))[stage]
+    O, d = 49, 32
+    g = torch.Generator().manual_seed(10 + stage)
+    qkv = torch.randn((n, O, 3, h, d), generator=g).to(dtype).to(cuda_device)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    bias = torch.randn((nW, h, O, O), generator=g).to(cuda_device)
+    got = fa.packed_window_attention(q, k, v, bias, d ** -0.5)
+    assert fa.window_attention.last_entry == fa.ENTRIES[dtype]
+    ref = fa.window_attention_plain(q, k, v, bias, d ** -0.5)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0, atol=_attention_tol(ref, dtype))
 
 
 @pytest.mark.cuda
@@ -207,6 +288,22 @@ def test_window_attention_refuses_bad_input(cuda_device):
     with pytest.raises(ValueError):     # channels not contiguous
         qt = q.transpose(2, 3)
         fa.window_attention(qt, qt, qt, torch.zeros((2, 2, 8, 8), device=cuda_device), 1.0)
+    with pytest.raises(TypeError):      # q in bfloat16, k and v in float32
+        fa.window_attention(q.bfloat16(), k, v, bias, 1.0)
+    big = torch.zeros((2, 1, 16, 72), device=cuda_device).bfloat16()
+    with pytest.raises(ValueError):     # d > 64
+        fa.window_attention(big, big, big, torch.zeros((1, 1, 16, 16), device=cuda_device), 1.0)
+    # the C entries refuse what they do not take: the tensor-core entry any
+    # type but bfloat16, O or d out of range, nW not dividing n
+    fn = cuda_build.function("window_attention", fa.ENTRIES[torch.bfloat16], fa.LAUNCH_ARGTYPES)
+    qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    out = torch.empty_like(qb)
+    strides = fa.launch_strides(qb, kb, vb, bias, out)
+    ptrs = [t.data_ptr() for t in (qb, kb, vb, bias, out)]
+    stream = torch.cuda.current_stream().cuda_stream
+    for n, O, d, nW, code in ((2, 16, 8, 2, 0), (2, 65, 8, 2, 1), (2, 16, 0, 2, 1),
+                              (2, 16, 8, 3, 1)):
+        assert fn(*ptrs, strides, n, 2, O, d, nW, 1.0, code, stream) != 0
 
 
 @pytest.mark.cuda

@@ -59,6 +59,7 @@ def test_cpu_tensors_take_the_twins():
     counted = (stem_conv.stem_conv, roi_align.roi_align, roi_align.roi_align_backward,
                roi_align.dense_crop, wa)
     before = [fn.launches for fn in counted]
+    entries = [fn.last_entry for fn in counted if hasattr(fn, "last_entry")]
     args = (torch.rand(1, 8, 8, 3), torch.rand(2, 3, 3, 3), torch.rand(2),
             torch.rand(4, 2, 3, 3), torch.rand(4))
     packed = stem_conv.stem_weights(*args[1:], torch.float32)
@@ -81,6 +82,7 @@ def test_cpu_tensors_take_the_twins():
                   fused_attention.packed_window_attention):
         assert torch.equal(entry(q, k, v, bias, 0.5), plain)
     assert [fn.launches for fn in counted] == before
+    assert [fn.last_entry for fn in counted if hasattr(fn, "last_entry")] == entries
 
 
 def test_modules_list_covers_the_slice():
@@ -110,15 +112,19 @@ def test_no_wrapper_gives_way_to_its_twin():
     assert "build/" in ignored and "*.so" in ignored
     for name in ("roi_align_launch", "roi_align_backward_launch"):
         assert f'extern "C" int {name}(' in (cuda_build.CSRC_DIR / "roi_align.cu").read_text()
-    # K1 and K4: one entry a type in one source, each declared there; the
-    # bfloat16 entry issues tensor-core instructions, and neither source calls
-    # a library
-    for name, entries in (("stem_conv", stem_conv.ENTRIES),
-                          ("dense_crop", roi_align.CROP_ENTRIES)):
+    # K1, K2, K3's forward and K4: one entry a type in one source, each
+    # declared there; the tensor-core sources issue `mma` and `ldmatrix`, and
+    # no source calls a library
+    for name, entries, tensor_cores in (("stem_conv", stem_conv.ENTRIES, True),
+                                        ("dense_crop", roi_align.CROP_ENTRIES, True),
+                                        ("window_attention", fused_attention.ENTRIES, True),
+                                        ("roi_align", roi_align.ENTRIES, False)):
         source = (cuda_build.CSRC_DIR / f"{name}.cu").read_text()
         assert set(entries) == {torch.float32, torch.bfloat16}
+        assert len(set(entries.values())) == 2
         for symbol in entries.values():
             assert f'extern "C" int {symbol}(' in source
-        assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in source
-        assert "ldmatrix" in source
+        if tensor_cores:
+            assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in source
+            assert "ldmatrix" in source
         assert not re.search(r"cublas|cudnn|cutlass::gemm|#include\s*<torch", source, re.I)

@@ -117,3 +117,63 @@ def test_bad_batch_index_pools_zeros():
     keep = [i for i in range(len(rois)) if i not in (1, 5, 9)]
     assert not got[[1, 5, 9]].any()
     assert torch.equal(got[keep], ref[keep])
+
+
+def _reuse_twin(feats, rois):
+    """K3's bf16 entry's order of work in PyTorch: for each stage-one bin i,
+    walk the (bin j, tap k2) columns of the other axis in order, sum a
+    column's stage one only where it differs from the column before, and
+    reuse the last sum otherwise.  Returns the output and how many stage-one
+    sums were fresh."""
+    dtype, C, R = feats[0].dtype, feats[0].shape[-1], rois.shape[0]
+    _, _, valid, (ys, _), (xs, _) = tra._roi_taps(feats, rois, STRIDES)
+    rows, w1, w2 = tra.tap_rows(feats, rois, STRIDES)
+    w_first = tra._w_first(feats)
+    i2 = ys if w_first else xs
+    table = torch.cat([f.reshape(-1, C) for f in feats]).float()
+    out = torch.zeros((R, 7, 7, C))
+    fresh_sums = 0
+    for i in range(7):
+        t = last = None
+        for j in range(7):
+            acc = None
+            for k2 in range(4):
+                col = i2[:, j, k2]
+                s1 = None
+                for k1 in range(4):
+                    p = w1[:, i, k1, None] * table[rows[:, i, k1, j, k2]]
+                    s1 = p if s1 is None else s1 + p
+                s1 = s1.to(dtype).float()
+                fresh = torch.ones(R, dtype=torch.bool) if last is None else col != last
+                t = s1 if t is None else torch.where(fresh[:, None], s1, t)
+                fresh_sums += int(fresh.sum())
+                last = col
+                p2 = w2[:, j, k2, None] * t
+                acc = p2 if acc is None else acc + p2
+            out[:, i, j] = acc
+    out = torch.where(valid[:, None, None, None], out.to(dtype), torch.zeros((), dtype=dtype))
+    return (out.transpose(1, 2) if w_first else out), fresh_sums
+
+
+@pytest.mark.parametrize("wide", [True, False], ids=["wide", "tall"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reuse_of_stage_one_sums_is_exact(dtype, wide):
+    """The bf16 kernel's reuse, written as a twin, equals `roi_align_plain`
+    bit for bit: tiny RoIs repeat columns, border RoIs clamp them, and a
+    RoI with x2 < x1 walks its columns backwards."""
+    rng = np.random.default_rng(9)
+    H, W = (64, 128) if wide else (128, 64)
+    feats = [torch.from_numpy(rng.standard_normal((2, H // s, W // s, 8)).astype(np.float32))
+             .to(getattr(torch, dtype)) for s in STRIDES]
+    rois = _rois(rng, 2, 6, H, W)
+    rois[3, [1, 3]] = rois[3, [3, 1]]                  # x2 < x1
+    rois[4, 0] = 5.0                                   # a bad batch index
+    rois = torch.from_numpy(rois)
+    got, fresh_sums = _reuse_twin(feats, rois)
+    assert torch.equal(got, tra.roi_align_plain(feats, rois, STRIDES))
+    _, _, _, (ys, _), (xs, _) = tra._roi_taps(feats, rois, STRIDES)
+    i2 = ys if W > H else xs
+    flat = i2.reshape(len(rois), -1)
+    assert (flat[:, 1:] == flat[:, :-1]).any()          # repeated columns were reused
+    assert fresh_sums < 7 * 28 * len(rois)
+    assert (flat == 0).any()                            # border columns
