@@ -12,9 +12,12 @@ Phases (each raises on failure, so any failure exits non-zero):
      all four stage shapes, each in the record's `stages`; K5's entry point
      checked at a small shape).  K1, K2 and K4 run bf16 on the tensor cores
      and f32 on the CUDA cores, K3 bf16 through vectorised gathers and f32
-     one thread a channel; their first versions are timed at bf16 beside
-     them (`previous_ms`), with each one's share of the bound, and K4 also
-     on the dense route's own level-0 weights;
+     one thread a channel, K3's backward bf16 owner computes (each pixel
+     written once, deterministic) and f32 with atomics; their first
+     versions are timed at bf16 beside them (`previous_ms`), with each
+     one's share of the bound, K4 also on the dense route's own level-0
+     weights, K3's backward on random RoIs here and, in phase 5, on the
+     RoIs that a training step samples;
   4. small-input f32 checks of the card's path against the CPU path, plain
      and fused attention; then the flagship (PanoSwin-T Faster R-CNN, random
      weights from seed 0, BN folded, bf16) `simple_test` on 2 x 512 x 1024
@@ -455,49 +458,125 @@ def level_maps(rng, dev, dt, C=256):
             .to(dt).to(dev) for s in (4, 8, 16, 32)]
 
 
+def k3_backward_times(ra, rois, cot, shapes, strides):
+    """K3's backward in bf16 on one RoI set: the bf16 entry held against
+    autograd through the twin and timed beside the first version (f32
+    maps zeroed, its bf16 instantiation, the cast: what the wrapper did
+    before) and the twin."""
+    from panoswintransformerobjectdetection_torch.ops import cuda_build
+    C = cot.shape[-1]
+    got = ra.roi_align_backward(cot, rois, shapes, torch.bfloat16, strides)
+    again = ra.roi_align_backward(cot, rois, shapes, torch.bfloat16, strides)
+    entry = ra.roi_align_backward.last_entry
+    ref = ra.roi_align_backward_plain(cot, rois, shapes, torch.bfloat16, strides)
+    first = cuda_build.function("roi_align", ra.BACKWARD_ENTRIES[torch.float32],
+                                ra.LAUNCH_ARGTYPES)
+    sizes = [int(np.prod(s)) for s in shapes]
+
+    def first_version():
+        flat = torch.zeros(sum(sizes), dtype=torch.float32, device=cot.device)
+        maps = [g.view(s) for g, s in zip(flat.split(sizes), shapes)]
+        # the first version's entry at dtype code 1 (bfloat16); no wrapper calls it so
+        cuda_build.check(first(ctypes.byref(ra.level_struct(maps, strides)), rois.data_ptr(),
+                               cot.data_ptr(), rois.shape[0], B, C, 1, 1,
+                               float(ra.FINEST_SCALE), torch.cuda.current_stream().cuda_stream),
+                         "roi_align_backward_launch (first version, bf16)")
+        return [m.bfloat16() for m in maps]
+
+    n = rois.shape[0]
+    err = 0.0
+    for level, (a, b, c, d) in enumerate(zip(got, again, ref, first_version())):
+        tol = 2 * 2.0 ** -8 * float(c.float().abs().max())
+        err = max(err, check(f"K3 backward bf16 level {level}, {n} RoIs, entry {entry}", a, c, tol))
+        check(f"K3 backward first version bf16 level {level}, {n} RoIs", d, c, tol)
+        if not torch.equal(a, b):
+            raise AssertionError(f"K3 backward bf16 level {level}: two launches differ")
+    ms = time_ms(lambda: ra.roi_align_backward(cot, rois, shapes, torch.bfloat16, strides), 20)
+    previous_ms = time_ms(first_version, 20)
+    plain_ms = time_ms(lambda: ra.roi_align_backward_plain(cot, rois, shapes, torch.bfloat16,
+                                                           strides), 2)
+    nbytes = 2 * (cot.numel() + sum(sizes)) + rois.numel() * 4
+    ops = n * 49 * C * (16 + 4) * 2
+    bound = max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3
+    levels = ra.roi_levels(rois, len(shapes))
+    return {"rois": n, "rois_by_level": [int((levels == l).sum()) for l in range(len(shapes))],
+            "entry": entry, "max_abs_err": err, "ms": ms, "previous_ms": previous_ms,
+            "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / BF16_OPS_PER_S
+            else "operations", "bitwise_repeatable": True}
+
+
+def backward_shapes(C=256):
+    return [(B, H // s, W // s, C) for s in (4, 8, 16, 32)]
+
+
 def kernel_k3_backward(dev, ra):
-    """K3's backward against autograd through the twin on 2 x 48 RoIs, then
-    timed at the training step's 2 x 640.  Tolerance: f32 1e-5 * max(1,
-    max|ref|) (atomic adds in any order); bf16 2 units of 2**-8 * max|ref|
-    (the f32 sum is rounded once, after adds in another order)."""
+    """K3's backward against autograd through the twin on 2 x 48 RoIs, f32
+    (the first version) and bf16 (owner computes); then the bf16 entry at
+    the training step's 2 x 640 random RoIs (the RoIs that a training step
+    samples follow in phase 5, `k3_backward_sampled`).  Tolerance: f32
+    1e-5 * max(1, max|ref|) (atomic adds in any order); bf16 2 units of
+    2**-8 * max|ref| (each pixel's f32 sum is rounded once, after adds in
+    another order); the bf16 entry must give the same bits twice."""
     strides = (4, 8, 16, 32)
     C = 256
-    shapes = [(B, H // s, W // s, C) for s in strides]
-    rec = {}
+    shapes = backward_shapes(C)
     for dt in (torch.float32, torch.bfloat16):
         rng = np.random.default_rng(30)
         rois = rpn_like_rois(rng, 48).to(dev)
         cot = torch.from_numpy(rng.standard_normal((rois.shape[0], 7, 7, C)).astype(np.float32))
         cot = cot.to(dt).to(dev)
         got = ra.roi_align_backward(cot, rois, shapes, dt, strides)
+        entry = ra.roi_align_backward.last_entry
+        if entry != ra.BACKWARD_ENTRIES[dt]:
+            raise AssertionError(f"K3 backward {dt}: launched {entry}")
         ref = ra.roi_align_backward_plain(cot, rois, shapes, dt, strides)
         torch.cuda.synchronize()
-        err = 0.0
         for level, (a, b) in enumerate(zip(got, ref)):
             scale = float(b.float().abs().max())
             tol = 1e-5 * max(1.0, scale) if dt == torch.float32 else 2 * 2.0 ** -8 * scale
-            err = max(err, check(f"K3 backward {str(dt)[6:]} level {level}, 2 x 48 RoIs "
-                                 f"(max|ref| {scale:.3f})", a, b, tol))
+            check(f"K3 backward {str(dt)[6:]} level {level}, 2 x 48 RoIs, entry {entry} "
+                  f"(max|ref| {scale:.3f})", a, b, tol)
         del got, ref
-        if dt != torch.bfloat16:
-            continue
-        rois = rpn_like_rois(rng, TRAIN_ROIS).to(dev)
-        cot = torch.randn((rois.shape[0], 7, 7, C), device=dev).to(dt)
-        ms = time_ms(lambda: ra.roi_align_backward(cot, rois, shapes, dt, strides), 20)
-        plain_ms = time_ms(lambda: ra.roi_align_backward_plain(cot, rois, shapes, dt, strides), 2)
-        nbytes = 2 * (cot.numel() + sum(int(np.prod(s)) for s in shapes)) + rois.numel() * 4
-        ops = rois.shape[0] * 49 * C * (16 + 4) * 2
-        bound = max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3
-        rec = {"name": "roi_align_backward (K3 backward)", "route": "cuda",
-               "source": "panoswintransformerobjectdetection_torch/csrc/roi_align.cu",
-               "replaces": "panoswintransformerobjectdetection_tpu/ops/roi_align.py:356",
-               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-               "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / BF16_OPS_PER_S
-               else "operations", "library_ms": None}
-        print(f"  K3 backward bf16, 2 x {TRAIN_ROIS} RoIs: kernel with zeroing and cast "
-              f"{ms:.4f} ms, autograd through the twin {plain_ms:.4f} ms, no single PyTorch "
-              f"call computes it, bound {bound:.4f} ms")
-    return rec
+    rng = np.random.default_rng(31)
+    rois = rpn_like_rois(rng, TRAIN_ROIS).to(dev)
+    cot = torch.randn((rois.shape[0], 7, 7, C), device=dev).bfloat16()
+    times = k3_backward_times(ra, rois, cot, shapes, strides)
+    # what the kernel costs when no RoI adds anything: read every header,
+    # write zeros
+    none = rois.clone()
+    none[:, 0] = -1.0
+    times["no_roi_ms"] = time_ms(lambda: ra.roi_align_backward(cot, none, shapes,
+                                                               torch.bfloat16, strides), 20)
+    print(f"  K3 backward bf16, 2 x {TRAIN_ROIS} random RoIs (by level {times['rois_by_level']}): "
+          f"owner-computes kernel {times['ms']:.4f} ms (every batch index invalid "
+          f"{times['no_roi_ms']:.4f} ms), first version with zeroing and cast {times['previous_ms']:.4f} ms, autograd through "
+          f"the twin {times['plain_ms']:.4f} ms, no single PyTorch call computes it, bound "
+          f"{times['bound_ms']:.4f} ms")
+    return {"name": "roi_align_backward (K3 backward)", "route": "cuda",
+            "source": "panoswintransformerobjectdetection_torch/csrc/roi_align.cu",
+            "replaces": "panoswintransformerobjectdetection_tpu/ops/roi_align.py:356",
+            **{k: times[k] for k in ("entry", "max_abs_err", "ms", "previous_ms", "plain_ms",
+                                     "bound_ms", "bound_by")},
+            "library_ms": None, "roi_sets": {"random": times}}
+
+
+def k3_backward_sampled(dev, ra, rec, rois):
+    """K3's backward on the RoIs that a full-width `forward_train` of the
+    flagship sampled in this run, clustered around the batch's ground truth
+    but chosen by a model of random weights, so not what a trained model
+    sends.  The record's top-level numbers stay those of the random RoIs,
+    the set every earlier record of this kernel was timed on; these go
+    beside them in `roi_sets`."""
+    rois = rois.float().contiguous()
+    cot = torch.randn((rois.shape[0], 7, 7, 256), device=dev).bfloat16()
+    times = k3_backward_times(ra, rois, cot, backward_shapes(), (4, 8, 16, 32))
+    print(f"  K3 backward bf16, the {rois.shape[0]} RoIs one training step sampled (by level "
+          f"{times['rois_by_level']}): owner-computes kernel {times['ms']:.4f} ms, first version with zeroing and cast "
+          f"{times['previous_ms']:.4f} ms, autograd through the twin "
+          f"{times['plain_ms']:.4f} ms, bound {times['bound_ms']:.4f} ms")
+    rec["roi_sets"]["sampled"] = times
+    rec["max_abs_err"] = max(times["max_abs_err"], rec["max_abs_err"])
 
 
 def dense_against_direct(dev, ra):
@@ -592,7 +671,9 @@ def seeded_noise(model, seed):
 
 def training_path(dev, ident, build_flagship, flagship_train_batch, counters):
     """The flagship's training step at full width; returns launches per
-    kernel over the steps that count for it."""
+    kernel over the steps that count for it, and the RoIs that the first
+    step sampled."""
+    from panoswintransformerobjectdetection_torch.ops import roi_align as ra
     from panoswintransformerobjectdetection_torch.runtime.optim import make_optimizer
     from panoswintransformerobjectdetection_torch.runtime.train import make_train_step
 
@@ -608,8 +689,16 @@ def training_path(dev, ident, build_flagship, flagship_train_batch, counters):
     torch.cuda.reset_peak_memory_stats()
     model, step = trainer()
     before = {n: t.detach().clone() for n, t in model.state_dict().items()}
+    sampled, roi_features = [], model.roi_features
+
+    def capture(feats, rois):
+        sampled.append(rois.detach().clone())
+        return roi_features(feats, rois)
+
+    model.roi_features = capture
     first, _, counts = train_step_counted(step, batch, counters, **seeded_noise(model, 50))
     expect_launches(counts, {**zero, **k3}, "training step, direct route")
+    model.roi_features = roi_features
     model.backbone.set_drop_path_generator(None)
     gen = torch.Generator(device=dev).manual_seed(51)
     times, total = [], dict(zero)
@@ -619,6 +708,9 @@ def training_path(dev, ident, build_flagship, flagship_train_batch, counters):
         times.append(sec)
         for c, v in counts.items():
             total[c] += v
+    if ra.roi_align_backward.last_entry != ra.BACKWARD_ENTRIES[torch.bfloat16]:
+        raise AssertionError(f"training step: K3's backward launched "
+                             f"{ra.roi_align_backward.last_entry}")
     bad = [n for n, p in model.named_parameters() if p.grad is None
            or not torch.isfinite(p.grad).all()]
     after = model.state_dict()
@@ -661,7 +753,7 @@ def training_path(dev, ident, build_flagship, flagship_train_batch, counters):
     print(f"    fused attention (K2 forward, backward through its twin): one step "
           f"{sec * 1e3:.3f} ms (its first), loss {fused['loss']:.6f} (plain {first['loss']:.6f}), "
           f"launches {counts}")
-    return total
+    return total, sampled[0]
 
 
 def reference_check(dev, build_flagship, **config):
@@ -836,8 +928,9 @@ def main() -> int:
     del planar, det
     print(f"[5] flagship training step, bf16 compute, f32 parameters, AdamW lr 1e-4, {B} x "
           f"{H} x {W}, 32 boxes a frame, PyTorch's TF32 defaults")
-    launches["train"] = training_path(dev, ident, build_flagship, flagship_train_batch,
-                                      counters)
+    launches["train"], sampled = training_path(dev, ident, build_flagship,
+                                               flagship_train_batch, counters)
+    k3_backward_sampled(dev, ra, records[-1], sampled)
 
     for rec in records:
         key = rec.get("shares_kernel_of", rec["name"])

@@ -62,16 +62,54 @@
 // coalesced along C in the NHWC maps; after the taps each thread walks the
 // 49 output bins with 16 scalar loads each.
 
-// Backward (`roi_align_backward_kernel`): the function is linear in the
-// maps, so the maps' gradient is the transposed gather, a scatter-add of
-// grad_out[r, i, j, c] * w1 * w2 into the RoI's level.  Same blocks, same
-// taps; every nonzero tap is one f32 `atomicAdd` into f32 gradient maps,
-// which the wrapper zeroes before and casts to the feature type after.  As
-// autograd through the twin does, it rounds the stage-one gradient w2 * d
-// to the feature type.  RoIs overlap, so the atomics are needed, and their
-// order changes the last bits of a sum from run to run.  It is bound by
-// bytes (grad_out in, the level gradients out); the atomics' traffic in L2
-// is what it really pays.
+// Backward.  The function is linear in the maps, so the maps' gradient is
+// the transposed gather: pixel (p1, p2) of a RoI's level and image gets
+//   G[p1, p2] += sum_i sum_{k1: idx1[i,k1] = p1} w1[i,k1] * A[i, p2],
+//   A[i, p2]   = sum_j sum_{k2: idx2[j,k2] = p2} round(w2[j,k2] * d[r,i,j]),
+// with a1 (bins i, taps k1) the axis the forward contracts first and a2
+// (bins j, taps k2) the other.  As autograd through the twin does, the
+// stage-one gradient w2 * d is rounded to the feature type, every other sum
+// is taken in f32, and each pixel is rounded once.  It is bound by bytes:
+// grad_out in (32 MB at the training step's 2 x 640 RoIs, C = 256) and the
+// four bf16 level maps out (45 MB), about 0.023 ms at 3.35 TB/s.
+//
+// float32 entry (`roi_align_backward_launch`), the first version: the
+// forward's blocks and taps, and every nonzero tap one f32 `atomicAdd` into
+// f32 maps, which the wrapper zeroes before and casts after.  Those two
+// passes over 89 MB of f32 maps cost about three times the bound, and the
+// atomics add in an order that changes from run to run.  Its bf16
+// instantiation is there so that `chip_smoke.py` times the redesign
+// against it.
+//
+// bfloat16 entry (`roi_align_backward_bf16_launch`): owner computes.  A
+// first kernel works out every RoI's level, image and taps once (the
+// forward's `roi_taps`, so the taps are the forward's bit for bit) and its
+// footprint: the least and greatest pixel its taps of nonzero weight name
+// on each axis.  Then one block of 8 warps owns a tile of 8 x 8 pixels of
+// one level and image and a slice of 32 * VEC channels: warp w the pixels
+// (o1 .. o1 + 7, o2 + w), lane l channels VEC * l .. VEC * l + VEC - 1 of
+// all eight, in f32 registers (VEC as in the forward: 8, or narrower where
+// C or the addresses require).  The block lists, in index order, the RoIs
+// of its level and image whose footprint meets the tile, and walks the
+// list with each RoI's gradient and taps staged in shared memory by
+// `cp.async`, the next one's copy in flight; a warp adds the RoIs whose
+// footprint holds its column: for each bin i with a tap on the tile's
+// rows, A = sum_j round(w2 * d) (w2 and d are bf16, so the f32 product is
+// exact and its rounding is the bf16 product, two channels an
+// instruction), then w1 * A into each row bin i has a tap on.  Every pixel
+// is written once, in bf16, zeros included: no f32 maps, no zero-fill, no
+// cast, no atomics, and the additions follow the RoI index, so two runs
+// give the same bits.  A coarse level has few tiles, each under many RoIs,
+// so the coarsest level's blocks come first in the grid, and their long
+// lists overlap the fine levels' work.
+//
+// What holds it at 8-9x its bound (NVIDIA H100 80GB HBM3, 700 W):
+// the arithmetic.  A warp spends some 800 instructions on a small RoI (all
+// seven bins i on its rows, two or three bins j on its column, 8 channels
+// a lane), and the training step's 1280 RoIs give some 60000 such (RoI,
+// warp) pairs; copies of the source that skipped the arithmetic took less
+// than half the time, ones that skipped the copies most of it.  A kernel
+// that writes zeros after reading every header costs about 0.05 ms alone.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -151,8 +189,9 @@ __device__ void axis_taps(float start, float bin, int size, int o, int* idx, flo
   }
 }
 
-// A RoI's level, image and merged taps, in shared memory.
-struct RoiTaps {
+// A RoI's level, image and merged taps, in shared memory (16-byte aligned,
+// so that the backward's blocks copy them in 16-byte pieces).
+struct alignas(16) RoiTaps {
   int idx[2][O][K];     // [axis][bin][tap]; axis 0 = y (rows), 1 = x (columns)
   float w[2][O][K];
   int level;
@@ -414,6 +453,311 @@ int launch(const RoiLevels& levels, const float* rois, void* out, int R, int bat
 
 }  // namespace vec
 
+// ------------------------------------------------------- bfloat16 backward
+
+namespace owner {
+
+constexpr int TILE = 8;                   // pixels a warp owns along a1
+constexpr int WARPS = 8;                  // a warp per pixel of the tile along a2
+constexpr int THREADS = 32 * WARPS;
+constexpr int LIST = 2048;                // RoIs a block filters at a time
+constexpr int PER_THREAD = LIST / THREADS;
+constexpr int MIN_BLOCKS = 2;
+constexpr int TAPS = O * K;               // candidate taps of a RoI along one axis
+constexpr unsigned FULL = 0xffffffffu;
+static_assert(TILE * O >= 32 && TILE * O <= 64, "a warp zeroes its w1 rows in two stores");
+
+// What a block needs to choose a RoI: its level (-1: it adds nothing), its
+// image, and its footprint on each axis, lo | hi << 16 over its taps of
+// nonzero weight.
+struct alignas(16) Header {
+  int level, batch, span1, span2;
+};
+
+// The grid, level by level, the coarsest first (its tiles take the most
+// RoIs each): a level's blocks are (image, tile1, tile2).
+struct Plan {
+  int first_block[MAX_LEVELS], blocks[MAX_LEVELS];
+  int tiles1[MAX_LEVELS], tiles2[MAX_LEVELS];   // tiles of an image along a1, a2
+};
+
+// One RoI as a block stages it: its gradient (49 bins, 32 * VEC channels)
+// and its taps; two stages, the next RoI's copied while one is added.
+template <int VEC> constexpr int D_BYTES = O * O * 32 * VEC * 2;
+template <int VEC> constexpr int STAGE_BYTES = D_BYTES<VEC> + int(sizeof(RoiTaps));
+template <int VEC> constexpr int SMEM_BYTES = 2 * STAGE_BYTES<VEC>;
+
+// An asynchronous copy of BYTES (2, 4, 8 or 16) from device to shared
+// memory; 2 bytes, below `cp.async`'s least, go by a plain load and store.
+template <int BYTES>
+__device__ __forceinline__ void copy_async(void* dst, const void* src) {
+  if constexpr (BYTES == 2) {
+    *static_cast<uint16_t*>(dst) = *static_cast<const uint16_t*>(src);
+  } else {
+    const unsigned s = unsigned(__cvta_generic_to_shared(dst));
+    if constexpr (BYTES == 16)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+    else
+      asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(src), "n"(BYTES));
+  }
+}
+__device__ __forceinline__ void copy_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N> __device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The whole block copies RoI r's gradient (this block's channels) and taps
+// into a stage.
+template <int VEC>
+__device__ __forceinline__ void stage_roi(char* stage, const __nv_bfloat16* grad_out,
+                                          const RoiTaps* taps, int r, int C, int c0) {
+  for (int q = threadIdx.x; q < O * O * 32; q += THREADS) {
+    const int bin = q / 32, c = c0 + (q % 32) * VEC;
+    if (c < C)
+      copy_async<2 * VEC>(stage + q * 2 * VEC, grad_out + (size_t(r) * O * O + bin) * C + c);
+  }
+  char* tstage = stage + D_BYTES<VEC>;
+  for (int q = threadIdx.x; q < int(sizeof(RoiTaps)) / 16; q += THREADS)
+    copy_async<16>(tstage + q * 16, reinterpret_cast<const char*>(taps + r) + q * 16);
+  copy_commit();
+}
+
+// One block of 32 threads a RoI: its taps and header.
+__global__ void roi_meta_kernel(RoiLevels levels, const float* __restrict__ rois, int batch,
+                                int w_first, float finest_scale, Header* __restrict__ headers,
+                                RoiTaps* __restrict__ taps) {
+  __shared__ RoiTaps t;
+  const int r = blockIdx.x, lane = threadIdx.x;
+  roi_taps<__nv_bfloat16>(levels, rois + size_t(r) * 5, batch, finest_scale, t);
+  const int* src = reinterpret_cast<const int*>(&t);
+  int* dst = reinterpret_cast<int*>(taps + r);
+  for (int k = lane; k < int(sizeof(RoiTaps) / 4); k += 32) dst[k] = src[k];
+  // lane 0 the footprint along a1, lane 1 along a2
+  const int a1 = w_first ? 1 : 0;
+  const int ax = lane == 0 ? a1 : 1 - a1;
+  int lo = 1 << 30, hi = -1;
+  for (int i = 0; i < O; ++i)
+    for (int k = 0; k < K; ++k)
+      if (t.w[ax][i][k] != 0.f) {
+        lo = min(lo, t.idx[ax][i][k]);
+        hi = max(hi, t.idx[ax][i][k]);
+      }
+  const int span = hi < 0 ? -1 : lo | (hi << 16);
+  const int span1 = __shfl_sync(FULL, span, 0), span2 = __shfl_sync(FULL, span, 1);
+  if (lane == 0) {
+    const bool adds = t.batch >= 0 && span1 >= 0 && span2 >= 0;
+    headers[r] = Header{adds ? t.level : -1, t.batch, span1, span2};
+  }
+}
+
+// a[e] += round(w * d[e]) for the VEC bf16 values d of a chunk; w is a bf16
+// value, so the f32 product is exact and its rounding is the bf16 product.
+template <int VEC>
+__device__ __forceinline__ void add_products(float w, const typename vec::Chunk<VEC>::type& raw,
+                                             float (&a)[VEC]) {
+  if constexpr (VEC == 1) {
+    a[0] = __fadd_rn(a[0], round_t<__nv_bfloat16>(__fmul_rn(w, vec::element<1>(raw, 0))));
+  } else {
+    union { typename vec::Chunk<VEC>::type raw; __nv_bfloat162 h[VEC / 2]; } u;
+    u.raw = raw;
+    const __nv_bfloat162 w2 = __float2bfloat162_rn(w);
+#pragma unroll
+    for (int e = 0; e < VEC / 2; ++e) {
+      const float2 p = __bfloat1622float2(__hmul2(w2, u.h[e]));
+      a[2 * e] = __fadd_rn(a[2 * e], p.x);
+      a[2 * e + 1] = __fadd_rn(a[2 * e + 1], p.y);
+    }
+  }
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+roi_align_backward_owner_kernel(RoiLevels maps, Plan plan, const Header* __restrict__ headers,
+                                const RoiTaps* __restrict__ taps,
+                                const __nv_bfloat16* __restrict__ grad_out, int R, int C,
+                                int w_first) {
+  __shared__ int list[LIST];
+  __shared__ int list_span[LIST];         // the listed RoIs' footprints along a2
+  __shared__ int warp_count[WARPS];
+  __shared__ float w1s[WARPS][TILE][O];   // each warp's w1 of the RoI at hand, by row
+  extern __shared__ float4 smem_store[];  // SMEM_BYTES<VEC>: two stages
+  char* smem = reinterpret_cast<char*>(smem_store);
+
+  int lvl = 0, blk = int(blockIdx.x) - plan.first_block[0];
+  while (blk < 0 || blk >= plan.blocks[lvl]) blk = int(blockIdx.x) - plan.first_block[++lvl];
+  const int tile2 = blk % plan.tiles2[lvl];
+  blk /= plan.tiles2[lvl];
+  const int tile1 = blk % plan.tiles1[lvl];
+  const int b = blk / plan.tiles1[lvl];
+  const int Hl = maps.height[lvl], Wl = maps.width[lvl];
+  const int N1 = w_first ? Wl : Hl, N2 = w_first ? Hl : Wl;
+  const int o1 = tile1 * TILE, o2 = tile2 * WARPS;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int p2 = o2 + warp;
+  const bool owns = p2 < N2;                            // the same for the warp
+  const int c = (blockIdx.y * 32 + lane) * VEC;
+  const bool active = c < C;            // idle lanes still take part in the shuffles
+  const int a1 = w_first ? 1 : 0, a2 = 1 - a1;
+  using V = typename vec::Chunk<VEC>::type;
+
+  float acc[TILE][VEC];
+#pragma unroll
+  for (int t = 0; t < TILE; ++t)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[t][e] = 0.f;
+
+  for (int base = 0; base < R; base += LIST) {
+    // list, in index order, the RoIs of this level and image that meet the tile
+    unsigned mine = 0;
+    int n = 0, spans[PER_THREAD];
+#pragma unroll
+    for (int q = 0; q < PER_THREAD; ++q) {
+      const int r = base + threadIdx.x * PER_THREAD + q;
+      spans[q] = 0;
+      if (r < R) {
+        const Header h = headers[r];
+        const bool meets = h.level == lvl && h.batch == b && (h.span1 & 0xffff) < o1 + TILE &&
+                           (h.span1 >> 16) >= o1 && (h.span2 & 0xffff) < o2 + WARPS &&
+                           (h.span2 >> 16) >= o2;
+        if (meets) {
+          mine |= 1u << q;
+          ++n;
+        }
+        spans[q] = h.span2;
+      }
+    }
+    int incl = n;
+#pragma unroll
+    for (int dd = 1; dd < 32; dd *= 2) {
+      const int v = __shfl_up_sync(FULL, incl, dd);
+      if (lane >= dd) incl += v;
+    }
+    if (lane == 31) warp_count[warp] = incl;
+    __syncthreads();
+    int pos = incl - n, total = 0;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const int v = warp_count[w];
+      pos += w < warp ? v : 0;
+      total += v;
+    }
+#pragma unroll
+    for (int q = 0; q < PER_THREAD; ++q)
+      if (mine >> q & 1u) {
+        list[pos] = base + threadIdx.x * PER_THREAD + q;
+        list_span[pos] = spans[q];
+        ++pos;
+      }
+    __syncthreads();
+
+    // The whole block stages each listed RoI (gradient and taps) in shared
+    // memory, in order, the next one's copy in flight while this one is
+    // added; a warp adds the ones whose footprint holds its column.
+    const int c0 = blockIdx.y * 32 * VEC;
+    if (total > 0) stage_roi<VEC>(smem, grad_out, taps, list[0], C, c0);
+    for (int q = 0; q < total; ++q) {
+      char* stage = smem + (q & 1) * STAGE_BYTES<VEC>;
+      if (q + 1 < total) {
+        stage_roi<VEC>(smem + ((q + 1) & 1) * STAGE_BYTES<VEC>, grad_out, taps, list[q + 1], C,
+                       c0);
+        copy_wait<1>();
+      } else {
+        copy_wait<0>();
+      }
+      __syncthreads();
+      const int sp = list_span[q];
+      if (owns && p2 >= (sp & 0xffff) && p2 <= (sp >> 16)) {     // the same for the warp
+        const RoiTaps& tp = *reinterpret_cast<const RoiTaps*>(stage + D_BYTES<VEC>);
+        int ia = -1, ib = -1;     // lane l: tap l of a1 and of a2
+        float wa = 0.f, wb = 0.f;
+        if (lane < TAPS) {
+          ia = (&tp.idx[a1][0][0])[lane];
+          wa = (&tp.w[a1][0][0])[lane];
+          ib = (&tp.idx[a2][0][0])[lane];
+          wb = (&tp.w[a2][0][0])[lane];
+        }
+        // w1 by row of the tile: a bin has at most one tap of nonzero
+        // weight on a pixel (repeated columns carry weight 0)
+        float* w1 = &w1s[warp][0][0];
+        w1[lane] = 0.f;
+        if (lane < TILE * O - 32) w1[lane + 32] = 0.f;
+        __syncwarp();
+        const bool in1 = wa != 0.f && ia >= o1 && ia < o1 + TILE;
+        if (in1) w1s[warp][ia - o1][lane / K] = wa;
+        // rows of bin i: the tile's rows that it has a tap on, 8 bits a bin
+        const int bit = in1 ? (lane / K % 4) * TILE + ia - o1 : 0;
+        const unsigned rows_lo = __reduce_or_sync(FULL, in1 && lane < 4 * K ? 1u << bit : 0u);
+        const unsigned rows_hi = __reduce_or_sync(FULL, in1 && lane >= 4 * K ? 1u << bit : 0u);
+        const unsigned m2 = __ballot_sync(FULL, wb != 0.f && ib == p2);
+        float w2[O];                    // w2 of each bin j on this warp's column
+#pragma unroll
+        for (int j = 0; j < O; ++j) {
+          const unsigned bits = (m2 >> (K * j)) & 0xfu;
+          const float v = __shfl_sync(FULL, wb, K * j + (bits ? __ffs(bits) - 1 : 0));
+          w2[j] = bits ? v : 0.f;
+        }
+        __syncwarp();
+        // Bin by bin i with a tap on the tile's rows: A = sum_j round(w2 *
+        // d) over the bins j with a tap on this warp's column, then w1 * A
+        // into each row the bin has a tap on.  w2 and d are bf16, so their
+        // f32 product is exact and round(w2 * d) is the bf16 product, two
+        // channels an instruction.
+        const V* dv = reinterpret_cast<const V*>(stage) + lane;
+#pragma unroll
+        for (int i = 0; i < O; ++i) {
+          const unsigned rows = ((i < 4 ? rows_lo : rows_hi) >> ((i % 4) * TILE)) & 0xffu;
+          if (!rows) continue;                                     // the same for the warp
+          float a[VEC];
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) a[e] = 0.f;
+#pragma unroll
+          for (int j = 0; j < O; ++j)
+            if (w2[j] != 0.f)
+              add_products<VEC>(w2[j], dv[(w_first ? j * O + i : i * O + j) * 32], a);
+#pragma unroll
+          for (int t = 0; t < TILE; ++t)
+            if (rows >> t & 1u) {
+              const float w = w1s[warp][t][i];
+#pragma unroll
+              for (int e = 0; e < VEC; ++e) acc[t][e] = __fmaf_rn(w, a[e], acc[t][e]);
+            }
+        }
+        __syncwarp();                   // w1s is written again for the next RoI
+      }
+      __syncthreads();                  // the stage is copied into again
+    }
+    __syncthreads();                    // the list is written again
+  }
+
+  if (owns && active)
+#pragma unroll
+    for (int t = 0; t < TILE; ++t)
+      if (o1 + t < N1) {
+        const int y = w_first ? p2 : o1 + t, x = w_first ? o1 + t : p2;
+        vec::store<VEC>(static_cast<__nv_bfloat16*>(const_cast<void*>(maps.feat[lvl])) +
+                            ((size_t(b) * Hl + y) * Wl + x) * C + c,
+                        acc[t]);
+      }
+}
+
+template <int VEC>
+int launch(const RoiLevels& maps, const Plan& plan, const Header* headers, const RoiTaps* taps,
+           const void* grad_out, int R, int C, int w_first, cudaStream_t stream) {
+  int blocks = 0;
+  for (int l = 0; l < maps.num_levels; ++l) blocks += plan.blocks[l];
+  if (blocks == 0) return 0;
+  static const int attributes = int(cudaFuncSetAttribute(
+      roi_align_backward_owner_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES<VEC>));
+  if (attributes) return attributes;
+  dim3 grid(blocks, (C + 32 * VEC - 1) / (32 * VEC));
+  roi_align_backward_owner_kernel<VEC><<<grid, THREADS, SMEM_BYTES<VEC>, stream>>>(
+      maps, plan, headers, taps, static_cast<const __nv_bfloat16*>(grad_out), R, C, w_first);
+  return int(cudaGetLastError());
+}
+
+}  // namespace owner
+
 }  // namespace
 
 // levels: the level maps (B, Hl, Wl, C) contiguous, all of one dtype;
@@ -478,5 +822,56 @@ extern "C" int roi_align_bf16_launch(const RoiLevels* levels, const void* rois, 
     case 4: return vec::launch<4>(*levels, r, out, R, batch, C, w_first, finest_scale, s);
     case 2: return vec::launch<2>(*levels, r, out, R, batch, C, w_first, finest_scale, s);
     default: return vec::launch<1>(*levels, r, out, R, batch, C, w_first, finest_scale, s);
+  }
+}
+
+// The bf16 entry's workspace, in bytes: a header and the taps of every RoI.
+extern "C" long long roi_align_backward_bf16_workspace(int R) {
+  return (long long)R * (sizeof(owner::Header) + sizeof(RoiTaps));
+}
+
+// The maps' gradient in bfloat16, deterministic.  levels: the bf16 gradient
+// maps (B, Hl, Wl, C), contiguous, which this writes whole (the caller
+// need not zero them); grad_out (R, 7, 7, C) bf16; dtype must be 1;
+// workspace: device memory of `roi_align_backward_bf16_workspace(R)` bytes
+// or more, 16-byte aligned.  The rest as for the float32 entry.
+extern "C" int roi_align_backward_bf16_launch(const RoiLevels* levels, const void* rois,
+                                              const void* grad_out, int R, int batch, int C,
+                                              int dtype, int w_first, float finest_scale,
+                                              void* workspace, long long workspace_bytes,
+                                              void* stream) {
+  const int L = levels->num_levels;
+  if (L < 1 || L > MAX_LEVELS || dtype != 1 || C < 1 || R < 0 || batch < 0 ||
+      workspace_bytes < roi_align_backward_bf16_workspace(R) ||
+      reinterpret_cast<uintptr_t>(workspace) % 16)
+    return int(cudaErrorInvalidValue);
+  owner::Plan plan{};
+  long long blocks = 0;
+  for (int l = L - 1; l >= 0; --l) {
+    const int H = levels->height[l], W = levels->width[l];
+    if (H < 0 || W < 0 || H >= (1 << 15) || W >= (1 << 15)) return int(cudaErrorInvalidValue);
+    const int N1 = w_first ? W : H, N2 = w_first ? H : W;
+    plan.first_block[l] = int(blocks);
+    plan.tiles1[l] = (N1 + owner::TILE - 1) / owner::TILE;
+    plan.tiles2[l] = (N2 + owner::WARPS - 1) / owner::WARPS;
+    const long long level_blocks = (long long)batch * plan.tiles1[l] * plan.tiles2[l];
+    if (blocks + level_blocks >= (1LL << 31)) return int(cudaErrorInvalidValue);
+    plan.blocks[l] = int(level_blocks);
+    blocks += level_blocks;
+  }
+  auto* headers = static_cast<owner::Header*>(workspace);
+  auto* taps = reinterpret_cast<RoiTaps*>(headers + R);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (R > 0) {
+    owner::roi_meta_kernel<<<R, 32, 0, s>>>(*levels, static_cast<const float*>(rois), batch,
+                                            w_first, finest_scale, headers, taps);
+    const int status = int(cudaGetLastError());
+    if (status) return status;
+  }
+  switch (vec::chunk_width(*levels, grad_out, C)) {
+    case 8: return owner::launch<8>(*levels, plan, headers, taps, grad_out, R, C, w_first, s);
+    case 4: return owner::launch<4>(*levels, plan, headers, taps, grad_out, R, C, w_first, s);
+    case 2: return owner::launch<2>(*levels, plan, headers, taps, grad_out, R, C, w_first, s);
+    default: return owner::launch<1>(*levels, plan, headers, taps, grad_out, R, C, w_first, s);
   }
 }

@@ -10,7 +10,7 @@ serialises gathers.
 Direct route (`roi_align`, kernel K3): per axis and bin at most four
 distinct taps, gathered from the RoI's own level.  On a CUDA tensor that is
 the kernel `csrc/roi_align.cu`, forward and backward (the gradient of the
-maps is a scatter-add, `roi_align_backward`); on a CPU tensor the
+maps is the transposed gather, `roi_align_backward`); on a CPU tensor the
 vectorised twin `roi_align_plain`, which does the same arithmetic in the
 same order, with autograd through it.
 
@@ -266,17 +266,38 @@ def roi_align_backward_plain(grad_out: torch.Tensor, rois: torch.Tensor,
     return torch.autograd.grad(out, feats, grad_out.to(dtype))
 
 
+# K3's backward entries in `csrc/roi_align.cu`: f32 atomics into zeroed f32
+# maps, cast after, for float32 (the first version, whose bfloat16
+# instantiation only `chip_smoke.py` calls, to time the redesign against
+# it); owner computes, written once in bf16 and deterministic, for bfloat16.
+BACKWARD_ENTRIES = {torch.float32: "roi_align_backward_launch",
+                    torch.bfloat16: "roi_align_backward_bf16_launch"}
+BACKWARD_BF16_ARGTYPES = LAUNCH_ARGTYPES[:-1] + [ctypes.c_void_p, ctypes.c_longlong,
+                                                 ctypes.c_void_p]
+
+
+def backward_workspace_bytes(R: int) -> int:
+    """The bf16 entry's workspace for R RoIs (a header and the taps of
+    each), as `csrc/roi_align.cu` sizes it."""
+    fn = cuda_build.library("roi_align").roi_align_backward_bf16_workspace
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
+    return fn(R)
+
+
 def roi_align_backward(grad_out: torch.Tensor, rois: torch.Tensor,
                        shapes: Sequence[Sequence[int]], dtype: torch.dtype,
                        strides: Sequence[int] = (4, 8, 16, 32)):
     """K3's backward: the gradient of the level maps (B, Hl, Wl, C), of
     `shapes` and `dtype`, given grad_out (R, 7, 7, C): every tap's
-    grad_out * w1 * w2 added to its pixel of the RoI's own level.  The sums
-    are taken in float32 (atomics, in an order that changes from run to
-    run) and cast once.  The rois get no gradient.
+    grad_out * w1 * w2 added to its pixel of the RoI's own level, the
+    stage-one gradient w2 * grad_out rounded to `dtype`, the sums in float32
+    and rounded once.  The rois get no gradient.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    or raises.
+    A CPU tensor takes the plain version; a CUDA tensor launches the entry
+    for `dtype` (`BACKWARD_ENTRIES`, recorded in `.last_entry`) or raises:
+    bfloat16 writes each map once and adds in RoI order, so two runs agree
+    bit for bit; float32 adds with atomics, in an order that changes from
+    run to run.
     """
     if grad_out.device.type == "cpu":
         return roi_align_backward_plain(grad_out, rois, shapes, dtype, strides)
@@ -297,20 +318,31 @@ def roi_align_backward(grad_out: torch.Tensor, rois: torch.Tensor,
         raise ValueError("roi_align_backward: levels must be (B, H, W, C) with one B and C")
     grad_out = grad_out.contiguous()
     rois = rois.contiguous()
-    sizes = [s[0] * s[1] * s[2] * s[3] for s in shapes]
-    flat = torch.zeros(sum(sizes), dtype=torch.float32, device=grad_out.device)
-    grads = [g.view(tuple(s)) for g, s in zip(flat.split(sizes), shapes)]
-    levels = level_struct(grads, strides)
-    fn = cuda_build.function("roi_align", "roi_align_backward_launch", LAUNCH_ARGTYPES)
-    stream = torch.cuda.current_stream(rois.device).cuda_stream
-    status = fn(ctypes.byref(levels), rois.data_ptr(), grad_out.data_ptr(), R, B, C,
-                _DTYPE_CODE[dtype], int(_w_first(shapes)), float(FINEST_SCALE), stream)
-    cuda_build.check(status, "roi_align backward kernel launch")
+    dev = grad_out.device
+    entry = BACKWARD_ENTRIES[dtype]
+    args = (rois.data_ptr(), grad_out.data_ptr(), R, B, C, _DTYPE_CODE[dtype],
+            int(_w_first(shapes)), float(FINEST_SCALE))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if dtype == torch.bfloat16:
+        grads = [torch.empty(tuple(s), dtype=dtype, device=dev) for s in shapes]
+        workspace = torch.empty(backward_workspace_bytes(R), dtype=torch.uint8, device=dev)
+        fn = cuda_build.function("roi_align", entry, BACKWARD_BF16_ARGTYPES)
+        status = fn(ctypes.byref(level_struct(grads, strides)), *args, workspace.data_ptr(),
+                    workspace.numel(), stream)
+    else:
+        sizes = [s[0] * s[1] * s[2] * s[3] for s in shapes]
+        flat = torch.zeros(sum(sizes), dtype=torch.float32, device=dev)
+        grads = [g.view(tuple(s)) for g, s in zip(flat.split(sizes), shapes)]
+        fn = cuda_build.function("roi_align", entry, LAUNCH_ARGTYPES)
+        status = fn(ctypes.byref(level_struct(grads, strides)), *args, stream)
+    cuda_build.check(status, f"roi_align backward kernel launch ({entry})")
     roi_align_backward.launches += 1
-    return tuple(g.to(dtype) for g in grads)
+    roi_align_backward.last_entry = entry
+    return tuple(grads)
 
 
 roi_align_backward.launches = 0
+roi_align_backward.last_entry = None
 
 
 class _RoIAlign(torch.autograd.Function):

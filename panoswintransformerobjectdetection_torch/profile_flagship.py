@@ -1,7 +1,7 @@
 """Where the flagship's `simple_test` and its training step spend their time
 on one CUDA card.
 
-    python -m panoswintransformerobjectdetection_torch.profile_flagship [inference|train]
+    python -m panoswintransformerobjectdetection_torch.profile_flagship [inference|train|train-fused]
 
 Builds the flagship (PanoSwin-T Faster R-CNN, random weights from seed 0,
 stem BatchNorm folded, bf16) with plain and with fused attention (kernel
@@ -18,8 +18,10 @@ PyTorch's default TF32 settings.  For each configuration it prints:
 Then the training step (`runtime/train.make_train_step`: bf16 compute, AdamW,
 2 frames with 32 boxes each, direct RoI route) in the same two ways: each
 stage of `forward_train` (`TRAIN_STAGES`), the backward and the optimizer
-(`STEP_STAGES`) synchronised, and `torch.profiler` over 3 whole steps.
-With `inference` or `train` as the argument only that half runs.
+(`STEP_STAGES`) synchronised, and `torch.profiler` over 3 whole steps; then
+the same for the step with fused attention (`fused_attention=True`: K2
+forward in every block, its backward through the twin).  With
+`inference`, `train` or `train-fused` as the argument only that part runs.
 Without a CUDA card it exits with an error.
 """
 
@@ -39,6 +41,9 @@ from .runtime.train import make_train_step
 BATCH = 2
 REPS = 5
 TOP_KERNELS = 15
+# the port's own kernels (`csrc/`), each listed whatever its rank
+OWN_KERNELS = ("stem_kernel", "stem_tc_kernel", "window_attention", "roi_align", "roi_meta",
+               "dense_crop")
 CONFIGS = (("plain attention", {}), ("fused attention (K2)", {"fused_attention": True}))
 
 
@@ -109,11 +114,16 @@ def device_summary(label, run, latency, ident, reps=REPS, unit="request"):
         print("  the profiler recorded no device events: device times not measured")
     for name, (count, sec) in sorted(per_name.items(), key=lambda kv: -kv[1][1])[:TOP_KERNELS]:
         print(f"  {sec / reps * 1e3:9.3f} ms  {count // reps:5d}x  {name[:110]}")
+    for name, (count, sec) in sorted(per_name.items()):
+        if any(k in name for k in OWN_KERNELS):
+            print(f"  port kernel {sec / reps * 1e3:9.4f} ms  {count // reps:5d}x  {name[:100]}")
 
 
-def profile_training(ident, dev):
-    """Stage times and the device's share of the flagship's training step."""
-    model = build_flagship(compute_dtype=torch.bfloat16, device=dev, seed=0, train=True)
+def profile_training(ident, dev, fused=False):
+    """Stage times and the device's share of the flagship's training step,
+    with plain or fused attention."""
+    model = build_flagship(compute_dtype=torch.bfloat16, device=dev, seed=0, train=True,
+                           fused_attention=fused)
     step = make_train_step(model, *make_optimizer(model, base_lr=1e-4))
     batch = flagship_train_batch(BATCH, dev)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -130,7 +140,7 @@ def profile_training(ident, dev):
     for _ in range(REPS):
         step(batch, generator=gen, stage=timed_stage)
     med = statistics.median(latency)
-    label = "training step, direct RoI route"
+    label = "training step, direct RoI route" + (", fused attention (K2)" if fused else "")
     stage_table(label, per_stage, med, ident, what="train step")
     print(f"  {BATCH / med:.3f} images/s; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -142,15 +152,17 @@ def main() -> int:
         print("profile_flagship: no CUDA device is available", file=sys.stderr)
         return 1
     what = sys.argv[1] if len(sys.argv) > 1 else "all"
-    if what not in ("all", "inference", "train"):
+    if what not in ("all", "inference", "train", "train-fused"):
         print(f"profile_flagship: unknown argument {what!r}", file=sys.stderr)
         return 2
     ident = gpu_identity()
     dev = torch.device("cuda")
-    if what != "train":
+    if what in ("all", "inference"):
         profile_inference(ident, dev)
-    if what != "inference":
+    if what in ("all", "train"):
         profile_training(ident, dev)
+    if what in ("all", "train-fused"):
+        profile_training(ident, dev, fused=True)
     print(ident)
     return 0
 

@@ -177,3 +177,52 @@ def test_convert_detector_rebuilds_jax_tree(setup):
     np.testing.assert_array_equal(
         params["bbox_head_m"]["shared_fc0"]["kernel"],
         np.asarray(setup["variables"]["params"]["bbox_head_m"]["shared_fc0"]["kernel"]))
+
+
+def _to_torch(tree):
+    return jax.tree.map(lambda a: torch.tensor(np.asarray(a)), tree)
+
+
+@pytest.mark.parametrize("scale_factors", [((0.5, 0.5, 0.5, 0.5), (2.0, 1.5, 2.0, 1.5)),
+                                           ((2.0, 1.5, 2.0, 1.5), (1.0, 1.0, 1.0, 1.0))])
+def test_detections_with_scale_factors(setup, scale_factors):
+    """Boxes rescaled to each image's original size (`scale_factors`, as
+    `simple_test` gets them from a resized input) against the JAX
+    `bbox_head_detections` on the same head outputs."""
+    ref = setup["ref"]
+    P = ref["rois"].shape[1]
+    cls, reg = ref["head_cls"].reshape(B, P, -1), ref["head_reg"].reshape(B, P, -1)
+    sf = np.asarray(scale_factors, np.float32)
+    cfg = default_test_cfg()["rcnn"]
+    want = quick_jit(lambda c, r, rois, shapes, f, m: bbox_head_detections(
+        c, r, rois, shapes, cls.shape[-1] - 1, roi_mask=m, scale_factors=f, **cfg),
+        *(jnp.asarray(t.numpy()) for t in (cls, reg, ref["rois"], setup["img_shapes"])),
+        jnp.asarray(sf), jnp.asarray(ref["props"].mask.numpy()))
+    got = troi.bbox_head_detections(cls, reg, ref["rois"], setup["img_shapes"],
+                                    roi_mask=ref["props"].mask,
+                                    scale_factors=torch.from_numpy(sf), **cfg)
+    assert got.mask.any()
+    _same_slots(got, _to_torch(want))
+    unscaled = troi.bbox_head_detections(cls, reg, ref["rois"], setup["img_shapes"],
+                                         roi_mask=ref["props"].mask, **cfg)
+    assert not torch.equal(got.boxes[got.mask], unscaled.boxes[unscaled.mask])
+
+
+def test_proposals_with_min_bbox_size(setup):
+    """`min_bbox_size` > 0 drops the decoded boxes no wider or taller than
+    it before NMS: the same slots as the JAX `rpn_proposals`, and fewer
+    than without it."""
+    ref, port = setup["ref"], setup["port"]
+    anchors = port.anchor_gen.grid_anchors([tuple(c.shape[1:3]) for c in ref["cls"]])
+    cfg = dict(default_test_cfg()["rpn"], min_bbox_size=12.0)
+    want = quick_jit(lambda c, r, a, s: rpn_proposals(c, r, a, s, **cfg),
+                     [jnp.asarray(t.numpy()) for t in ref["cls"]],
+                     [jnp.asarray(t.numpy()) for t in ref["reg"]],
+                     [jnp.asarray(a.numpy()) for a in anchors],
+                     jnp.asarray(setup["img_shapes"].numpy()))
+    got = trpn.rpn_proposals(ref["cls"], ref["reg"], anchors, setup["img_shapes"], **cfg)
+    assert got.mask.any()
+    _same_slots(got, _to_torch(want))
+    assert int(got.mask.sum()) < int(ref["props"].mask.sum())
+    boxes = got.boxes[got.mask]
+    assert ((boxes[:, 2] - boxes[:, 0] > 12.0) & (boxes[:, 3] - boxes[:, 1] > 12.0)).all()

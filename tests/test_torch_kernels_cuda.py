@@ -17,9 +17,9 @@ float32 1e-5 * max(1, max|ref|) * sqrt(Hl) (sums of Hl products in another
 order than cuBLAS takes them); bfloat16 2 * 2**-8 * max|ref| (one flip in
 the stage-one rounding and one in the result).  K3's backward float32
 1e-5 * max(1, max|ref|) (atomic adds in any order); bfloat16 2 * 2**-8 *
-max|ref| (the sum is rounded once, after an order of adds that changes
-from run to run; the plain version rounds the same sum taken in index
-order).
+max|ref| (each pixel's f32 sum is rounded once; the bf16 entry adds w1
+times a sum over the bins j, the plain version each product, in another
+order).  The bf16 entry must give the same bits on every run.
 """
 
 import ctypes
@@ -390,12 +390,30 @@ def test_dense_route_matches_direct_route(cuda_device, dtype, wide):
         torch.testing.assert_close(a, b, rtol=0, atol=gtol)
 
 
+def _backward_tol(ref, dtype):
+    scale = float(ref.float().abs().max())
+    return 1e-5 * max(1.0, scale) if dtype == torch.float32 else 2 * 2.0 ** -8 * scale
+
+
+def _untouched(feats, rois):
+    """Per level, the pixels that no tap of nonzero weight names, (B, Hl, Wl)."""
+    rows, w1, w2 = ra.tap_rows(feats, rois, STRIDES)
+    need = (w1[:, :, :, None, None] != 0) & (w2[:, None, None] != 0)
+    _, valid = ra.batch_index(rois, feats[0].shape[0])
+    touched = torch.zeros(sum(f.shape[0] * f.shape[1] * f.shape[2] for f in feats),
+                          dtype=torch.bool, device=rois.device)
+    touched[rows[need & valid[:, None, None, None, None]]] = True
+    return [~m.view(f.shape[:3]) for m, f in
+            zip(touched.split([f.shape[0] * f.shape[1] * f.shape[2] for f in feats]), feats)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("wide", [True, False])
 def test_roi_align_backward_kernel_matches_autograd_through_twin(cuda_device, dtype, wide):
-    """C = 320 leaves a partial 128-channel slice; overlapping RoIs add into
-    the same pixels; a RoI with a bad batch index adds nothing."""
+    """C = 320 leaves a partial slice of channels; overlapping RoIs add into
+    the same pixels; a RoI with a bad batch index adds nothing; pixels no
+    RoI touches are exactly 0; the bf16 entry gives the same bits twice."""
     feats, rois = _roi_case(6, P=24)
     rois[3, 0] = 7.0
     if not wide:
@@ -409,20 +427,104 @@ def test_roi_align_backward_kernel_matches_autograd_through_twin(cuda_device, dt
     got = ra.roi_align_backward(cot, tr, shapes, dtype, STRIDES)
     torch.cuda.synchronize()
     assert ra.roi_align_backward.launches == before + 1
+    assert ra.roi_align_backward.last_entry == ra.BACKWARD_ENTRIES[dtype]
     ref = ra.roi_align_backward_plain(cot, tr, shapes, dtype, STRIDES)
     for a, b in zip(got, ref):
         assert a.shape == b.shape and a.dtype == dtype
-        scale = float(b.float().abs().max())
-        tol = 1e-5 * max(1.0, scale) if dtype == torch.float32 else 2 * 2.0 ** -8 * scale
-        torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=tol)
+        torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=_backward_tol(b, dtype))
+    tf = [torch.from_numpy(f).to(dtype).to(cuda_device) for f in feats]
+    blanks = _untouched(tf, tr)
+    assert any(blank.any() for blank in blanks)
+    for a, blank in zip(got, blanks):
+        assert torch.equal(a[blank], torch.zeros_like(a[blank]))
+    if dtype == torch.bfloat16:
+        again = ra.roi_align_backward(cot, tr, shapes, dtype, STRIDES)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
     # through autograd: the function's backward is the kernel
-    tf = [torch.from_numpy(f).to(dtype).to(cuda_device).requires_grad_() for f in feats]
+    tf = [t.requires_grad_() for t in tf]
+    launched = ra.roi_align_backward.launches
     ra.roi_align(tf, tr, STRIDES).backward(cot)
-    assert ra.roi_align_backward.launches == before + 2
+    assert ra.roi_align_backward.launches == launched + 1
     for t, b in zip(tf, ref):
-        scale = float(b.float().abs().max())
-        tol = 1e-5 * max(1.0, scale) if dtype == torch.float32 else 2 * 2.0 ** -8 * scale
-        torch.testing.assert_close(t.grad.float(), b.float(), rtol=0, atol=tol)
+        torch.testing.assert_close(t.grad.float(), b.float(), rtol=0, atol=_backward_tol(b, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("wide", [True, False])
+@pytest.mark.parametrize("C", [8, 24, 256])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_roi_align_backward_kernel_channels(cuda_device, dtype, wide, C, aligned):
+    """C = 8, 24 and 256 (one lane, three and all 32 lanes of 16-byte
+    chunks in the bf16 entry); a gradient that starts 2 elements into its
+    storage forces 4-byte chunks.  64 x 256 maps (wide) and their transpose
+    (tall); R = 2 x 9."""
+    feats, rois = _roi_case(9, P=9, H=64, W=256, C=C)
+    if not wide:
+        feats = [f.transpose(0, 2, 1, 3).copy() for f in feats]
+        rois = rois[:, [0, 2, 1, 4, 3]].copy()
+    tr = torch.from_numpy(rois).to(cuda_device)
+    shapes = [f.shape for f in feats]
+    g = torch.randn((rois.shape[0], 7, 7, C), generator=torch.Generator().manual_seed(4))
+    store = torch.zeros(g.numel() + 2, dtype=dtype, device=cuda_device)
+    cot = store[:g.numel()] if aligned else store[2:]
+    cot = cot.view(g.shape)
+    cot.copy_(g.to(dtype))
+    assert (cot.data_ptr() % 16 == 0) == aligned
+    got = ra.roi_align_backward(cot, tr, shapes, dtype, STRIDES)
+    assert ra.roi_align_backward.last_entry == ra.BACKWARD_ENTRIES[dtype]
+    ref = ra.roi_align_backward_plain(cot, tr, shapes, dtype, STRIDES)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=_backward_tol(b, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_backward_kernel_no_rois_and_bad_batch_index(cuda_device, dtype):
+    """R = 0 gives maps of exact zeros (the bf16 entry writes them itself);
+    RoIs whose batch index lies outside [0, B), or is NaN, add nothing."""
+    feats, rois = _roi_case(10, P=6, H=64, W=128, C=64)
+    shapes = [f.shape for f in feats]
+    tr = torch.from_numpy(rois).to(cuda_device)
+    cot = torch.randn((rois.shape[0], 7, 7, 64), device=cuda_device).to(dtype)
+    none = ra.roi_align_backward(cot[:0], tr[:0], shapes, dtype, STRIDES)
+    torch.cuda.synchronize()
+    assert ra.roi_align_backward.last_entry == ra.BACKWARD_ENTRIES[dtype]
+    assert all(a.shape == tuple(s) and not a.any() for a, s in zip(none, shapes))
+    bad = tr.clone()
+    bad[:, 0] = torch.tensor([2.0, -1.0, float("nan")] * 4, device=cuda_device)
+    assert not any(a.any() for a in ra.roi_align_backward(cot, bad, shapes, dtype, STRIDES))
+    keep = torch.tensor([i % 3 != 0 for i in range(12)], device=cuda_device)
+    mixed = torch.where(keep[:, None], tr, bad)
+    got = ra.roi_align_backward(cot, mixed, shapes, dtype, STRIDES)
+    ref = ra.roi_align_backward(cot[keep], tr[keep], shapes, dtype, STRIDES)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=_backward_tol(b, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clustered", [False, True], ids=["spread", "clustered"])
+def test_roi_align_backward_bf16_many_rois(cuda_device, clustered):
+    """More RoIs than a block of the bf16 entry lists at a time (2048), so
+    that it lists them in rounds; `clustered` jitters every RoI around one
+    box an image, so that a few tiles take them all: the plain version's
+    values, and the same bits twice."""
+    feats, rois = _roi_case(11, P=1100, H=128, W=256, C=64)
+    if clustered:
+        rng = np.random.default_rng(12)
+        box = np.array([40.0, 24.0, 104.0, 80.0], np.float32)
+        rois[:, 1:] = box + rng.uniform(-6, 6, (rois.shape[0], 4)).astype(np.float32)
+    shapes = [f.shape for f in feats]
+    tr = torch.from_numpy(rois).to(cuda_device)
+    cot = torch.randn((rois.shape[0], 7, 7, 64), generator=torch.Generator().manual_seed(5))
+    cot = cot.bfloat16().to(cuda_device)
+    got = ra.roi_align_backward(cot, tr, shapes, torch.bfloat16, STRIDES)
+    again = ra.roi_align_backward(cot, tr, shapes, torch.bfloat16, STRIDES)
+    ref = ra.roi_align_backward_plain(cot, tr, shapes, torch.bfloat16, STRIDES)
+    for a, b, c in zip(got, again, ref):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a.float(), c.float(), rtol=0,
+                                   atol=_backward_tol(c, torch.bfloat16))
 
 
 @pytest.mark.cuda
@@ -442,3 +544,15 @@ def test_training_wrappers_refuse_bad_input(cuda_device):
     with pytest.raises(ValueError):
         ra.roi_align_backward(torch.zeros((3, 7, 7, 4), device=cuda_device), rois, [feat.shape],
                               torch.float32, STRIDES)
+    # the bf16 entry refuses another dtype code and a workspace too small
+    cot = torch.zeros((2, 7, 7, 4), device=cuda_device).bfloat16()
+    shapes = [feat.shape]
+    maps = [torch.empty(feat.shape, device=cuda_device).bfloat16()]
+    fn = cuda_build.function("roi_align", ra.BACKWARD_ENTRIES[torch.bfloat16],
+                             ra.BACKWARD_BF16_ARGTYPES)
+    need = ra.backward_workspace_bytes(2)
+    workspace = torch.empty(need, dtype=torch.uint8, device=cuda_device)
+    for dtype_code, size in ((0, need), (1, need - 1)):
+        assert fn(ctypes.byref(ra.level_struct(maps, STRIDES)), rois.data_ptr(), cot.data_ptr(),
+                  2, 1, 4, dtype_code, 1, 56.0, workspace.data_ptr(), size,
+                  torch.cuda.current_stream().cuda_stream) != 0

@@ -112,6 +112,13 @@ def test_no_wrapper_gives_way_to_its_twin():
     assert "build/" in ignored and "*.so" in ignored
     for name in ("roi_align_launch", "roi_align_backward_launch"):
         assert f'extern "C" int {name}(' in (cuda_build.CSRC_DIR / "roi_align.cu").read_text()
+    # K3's backward: one entry a type, the bf16 one with no atomics
+    source = (cuda_build.CSRC_DIR / "roi_align.cu").read_text()
+    assert set(roi_align.BACKWARD_ENTRIES) == {torch.float32, torch.bfloat16}
+    for symbol in roi_align.BACKWARD_ENTRIES.values():
+        assert f'extern "C" int {symbol}(' in source
+    owner = source[source.index("namespace owner {"):source.index("}  // namespace owner")]
+    assert "atomic" not in owner
     # K1, K2, K3's forward and K4: one entry a type in one source, each
     # declared there; the tensor-core sources issue `mma` and `ldmatrix`, and
     # no source calls a library

@@ -177,3 +177,79 @@ def test_reuse_of_stage_one_sums_is_exact(dtype, wide):
     assert (flat[:, 1:] == flat[:, :-1]).any()          # repeated columns were reused
     assert fresh_sums < 7 * 28 * len(rois)
     assert (flat == 0).any()                            # border columns
+
+
+def _owner_twin(cot, rois, shapes, tile=8):
+    """K3's bf16 backward's order of work in PyTorch: per level, image and
+    tile of `tile` x `tile` pixels (a1 rows, a2 columns; `owner::TILE` and
+    `owner::WARPS` in `csrc/roi_align.cu`), the RoIs of that level and image
+    whose footprint (the least and greatest pixel of their taps of nonzero
+    weight on each axis) meets the tile, in index order, each adding
+    w1 * round(w2 * d) into the tile's f32 sums, rounded once.  Returns the
+    maps."""
+    zeros = [torch.zeros(s, dtype=torch.bfloat16) for s in shapes]
+    lvl, bidx, valid, (ys, yw), (xs, xw) = tra._roi_taps(zeros, rois, STRIDES)
+    w_first = tra._w_first(shapes)
+    i1, w1, i2, w2 = (xs, xw, ys, yw) if w_first else (ys, yw, xs, xw)
+    d = cot.float().reshape(-1, 7, 7, cot.shape[-1])
+    if w_first:
+        d = d.transpose(1, 2)                          # d[r, i, j]: i along a1
+    span = lambda idx, w: (torch.where(w != 0, idx, 1 << 30).amin((1, 2)),  # noqa: E731
+                           torch.where(w != 0, idx, -1).amax((1, 2)))
+    lo1, hi1 = span(i1, w1)
+    lo2, hi2 = span(i2, w2)
+    maps = []
+    for level, (B, Hl, Wl, C) in enumerate(shapes):
+        N1, N2 = (Wl, Hl) if w_first else (Hl, Wl)
+        total = torch.zeros((B, N1, N2, C))
+        for b in range(B):
+            for o1 in range(0, N1, tile):
+                for o2 in range(0, N2, tile):
+                    listed = [r for r in range(len(rois))
+                              if valid[r] and lvl[r] == level and bidx[r] == b and hi1[r] >= 0
+                              and hi2[r] >= 0 and lo1[r] < o1 + tile and hi1[r] >= o1
+                              and lo2[r] < o2 + tile and hi2[r] >= o2]
+                    for r in listed:
+                        # dense w1 (tile rows, bins i) and w2 (tile columns, bins j)
+                        rows = torch.arange(o1, o1 + tile)
+                        cols = torch.arange(o2, o2 + tile)
+                        W1 = ((i1[r][None] == rows[:, None, None]) * w1[r][None]).sum(-1)
+                        W2 = ((i2[r][None] == cols[:, None, None]) * w2[r][None]).sum(-1)
+                        v = (W2[:, None, :, None] * d[r][None]).bfloat16().float()
+                        add = torch.einsum("ti,wijc->twc", W1, v)
+                        n1, n2 = min(tile, N1 - o1), min(tile, N2 - o2)
+                        total[b, o1:o1 + n1, o2:o2 + n2] += add[:n1, :n2]
+        total = total.bfloat16()
+        maps.append(total.transpose(1, 2).contiguous() if w_first else total)
+    return maps
+
+
+@pytest.mark.parametrize("wide", [True, False], ids=["wide", "tall"])
+@pytest.mark.parametrize("clustered", [False, True], ids=["spread", "clustered"])
+def test_owner_computes_order_matches_plain_backward(wide, clustered):
+    """The bf16 backward kernel's tiles and footprints, written as a twin:
+    within 2 units of 2**-8 * max|ref| of autograd through `roi_align_plain`
+    (the sums are taken in another order), and exactly 0 on pixels no RoI
+    reaches.  Tiny, border-crossing and elongated RoIs, one with x2 < x1 and
+    one with a bad batch index; `clustered` adds six RoIs an image around one
+    box, as a training step samples them around its ground truth, so that a
+    few tiles list many RoIs."""
+    rng = np.random.default_rng(12)
+    H, W = (64, 128) if wide else (128, 64)
+    shapes = [(2, H // s, W // s, 4) for s in STRIDES]
+    rois = _rois(rng, 2, 6, H, W)
+    rois[3, [1, 3]] = rois[3, [3, 1]]                  # x2 < x1
+    rois[4, 0] = 5.0                                   # a bad batch index
+    if clustered:
+        box = np.array([20.0, 12.0, 52.0, 40.0], np.float32)
+        near = [[b, *(box + rng.uniform(-3, 3, 4))] for b in (0, 1) for _ in range(6)]
+        rois = np.concatenate([rois, np.asarray(near, np.float32)])
+    rois = torch.from_numpy(rois)
+    cot = torch.from_numpy(rng.standard_normal((len(rois), 7, 7, 4)).astype(np.float32))
+    cot = cot.bfloat16()
+    got = _owner_twin(cot, rois, shapes)
+    ref = tra.roi_align_backward_plain(cot, rois, shapes, torch.bfloat16, STRIDES)
+    for a, b in zip(got, ref):
+        tol = 2 * 2.0 ** -8 * float(b.float().abs().max())
+        np.testing.assert_allclose(a.float().numpy(), b.float().numpy(), rtol=0, atol=tol)
+        assert torch.equal(a[b == 0], b[b == 0].float().bfloat16())
