@@ -36,14 +36,28 @@ Phases (each raises on failure, so any failure exits non-zero):
      steps on the direct route, one step on the dense route from the same
      weights and noise, one step with fused attention, each step with the
      launch counts reset just before it and read just after;
-  6. a JSON line per kernel, then the result line.
+  6. the inference API: the bf16 flagship config
+     (`configs/panoswin/faster_rcnn_panoswin_tiny_bf16_streetwin.py`) with
+     seed-0 weights written as a reference-format `.pth` in a temporary
+     directory, loaded by `init_detector` on the card; `inference_detector`
+     on a seeded 512 x 1024 frame through the default pipeline (672 x 1344
+     after padding), 1 warm-up and 5 timed requests, each with the launch
+     counts reset just before it and read just after (K1 and K3 once a
+     request), its result equal to `simple_test` on the same prepared
+     tensor, K1 and K3 held against their twins at this path's shapes; the
+     nano demo config (PitchAttention in three stages) in f32 at 64 x 128,
+     card against CPU from one `.pth`; one `aug_test_detector` call with
+     flip on the card;
+  7. a JSON line per kernel, then the result line.
 Without a CUDA card it exits with an error and prints no result.
 """
 
 import ctypes
 import json
+import os
 import statistics
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -72,6 +86,9 @@ F32_OPS_PER_S = 67e12               # f32 outside the tensor cores, same source
 # in bf16 or the f32 product scaled; softmax or e / sum), and each of the 12
 # blocks carries the difference on: 16 bf16 units of max|ref|.
 BACKBONE_TOL_UNITS = 16
+API_CONFIG = "configs/panoswin/faster_rcnn_panoswin_tiny_bf16_streetwin.py"
+NANO_CONFIG = "configs/panoswin/faster_rcnn_panoswin_nano_demo.py"
+IMG_NORM = ([123.675, 116.28, 103.53], [58.395, 57.12, 57.375])
 
 
 def time_ms(fn, reps: int, batches: int = 5) -> float:
@@ -824,6 +841,148 @@ def expect_k2_entry(fa, what):
         raise AssertionError(f"{what}: K2 launched {got}, not {fa.ENTRIES[torch.bfloat16]}")
 
 
+def write_reference_pth(config, directory, seed):
+    """Random weights from `seed` (`flagship.init_weights`) for `config`'s
+    model, written as a reference checkpoint: {"state_dict": {"module." + key:
+    tensor}}."""
+    from panoswintransformerobjectdetection_torch.apis.inference import build_detector_from_cfg
+    from panoswintransformerobjectdetection_torch.flagship import init_weights
+    from panoswintransformerobjectdetection_torch.runtime.config import load_config
+    model = build_detector_from_cfg(load_config(config))
+    init_weights(model, seed)
+    path = os.path.join(directory, os.path.basename(config)[:-3] + ".pth")
+    torch.save({"state_dict": {"module." + k: v for k, v in model.state_dict().items()}}, path)
+    return path
+
+
+def per_class(det, num_classes):
+    """`inference_detector`'s result from a one-image DetResult."""
+    boxes, scores, labels, mask = (t[0].cpu().numpy() for t in det)
+    return [np.concatenate([boxes[mask & (labels == c)], scores[mask & (labels == c), None]],
+                           1).astype(np.float32) for c in range(num_classes)]
+
+
+def api_nano_card_vs_cpu(dev, directory):
+    """The nano demo config (depths 1-1-2-1: PitchAttention ends stages 0, 1
+    and 3) through `init_detector` + `inference_detector`, f32, TF32 off, one
+    64 x 128 image kept at its size: card against CPU from one `.pth`.
+    Tolerance: the same detections per class, boxes within 1e-2 px and
+    scores within 1e-4 (f32 sums in another order through the network)."""
+    from panoswintransformerobjectdetection_torch.apis.inference import (inference_detector,
+                                                                         init_detector)
+    from panoswintransformerobjectdetection_torch.data.transforms import (Compose, Normalize,
+                                                                          Pad, Resize)
+    path = write_reference_pth(NANO_CONFIG, directory, 1)
+    img = (np.random.default_rng(4).random((64, 128, 3)) * 255).astype(np.float32)
+    pipeline = Compose([Resize((64, 1333)), Normalize(*IMG_NORM), Pad(32)])
+    got, ref = (inference_detector(init_detector(NANO_CONFIG, path, device=where), img, pipeline)
+                for where in (dev, "cpu"))
+    counts = [len(r) for r in ref]
+    if [len(g) for g in got] != counts or not sum(counts):
+        raise AssertionError(f"nano config through the API: card counts {[len(g) for g in got]}, "
+                             f"CPU {counts}")
+    box_err = max(float(np.abs(g[:, :4] - r[:, :4]).max(initial=0)) for g, r in zip(got, ref))
+    score_err = max(float(np.abs(g[:, 4] - r[:, 4]).max(initial=0)) for g, r in zip(got, ref))
+    ok = box_err <= 1e-2 and score_err <= 1e-4
+    print(f"    (b) nano config (PitchAttention), f32, 64 x 128, card vs CPU from one .pth: "
+          f"detections per class {counts} on both, max|box diff| {box_err:.3g} px (tolerance "
+          f"1e-2), max|score diff| {score_err:.3g} (1e-4): {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError("nano config through the API: card and CPU disagree")
+
+
+def api_path(dev, ident, counters, stem, ra):
+    """Phase 6: the inference API on the card; returns the launches of the
+    5 timed requests."""
+    from panoswintransformerobjectdetection_torch.apis.inference import (inference_detector,
+                                                                         init_detector, prepare)
+    from panoswintransformerobjectdetection_torch.apis.tta import aug_test_detector
+    zero = {name: 0 for name in counters}
+    once = {**zero, "stem_conv (K1)": 1, "roi_align (K3)": 1}
+    with tempfile.TemporaryDirectory() as directory:
+        path = write_reference_pth(API_CONFIG, directory, 0)
+        defaults = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        api_nano_card_vs_cpu(dev, directory)
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = defaults
+        model = init_detector(API_CONFIG, path, device=dev)
+    frame = (np.random.default_rng(0).random((H, W, 3)) * 255).astype(np.float32)
+    inference_detector(model, frame)                               # warm-up
+    times, total = [], dict(zero)
+    for _ in range(REQUESTS):
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = inference_detector(model, frame)
+        seconds = time.perf_counter() - t0
+        counts = {name: fn.launches for name, fn in counters.items()}
+        expect_launches(counts, once, "inference_detector request")
+        times.append(seconds)
+        for c, v in counts.items():
+            total[c] += v
+    t0 = time.perf_counter()
+    prep = prepare(frame)
+    pipeline_ms = (time.perf_counter() - t0) * 1e3
+    shape = tuple(prep["img"].shape)
+    if shape != (672, 1344, 3) or tuple(prep["img_shape"][:2]) != (667, 1333):
+        raise AssertionError(f"default pipeline: {tuple(prep['img_shape'])} padded to {shape}")
+    images = torch.from_numpy(np.ascontiguousarray(prep["img"][None])).to(dev)
+    img_shapes = torch.tensor([[667.0, 1333.0]], device=dev)
+    captured, roi_features = [], model.roi_features
+
+    def capture(feats, rois):
+        captured.append(([f.detach() for f in feats[:4]], rois.detach()))
+        return roi_features(feats, rois)
+
+    model.roi_features = capture
+    det = model.simple_test(images, img_shapes,
+                            torch.from_numpy(prep["scale_factor"][None]).to(dev))
+    model.roi_features = roi_features
+    direct = per_class(det, model.num_classes)
+    if [len(r) for r in result] != [len(d) for d in direct] or not all(
+            np.array_equal(r, d) for r, d in zip(result, direct)):
+        raise AssertionError("inference_detector differs from simple_test on its prepared tensor")
+    found = sum(len(r) for r in result)
+    if not found or not all(np.isfinite(r).all() for r in result):
+        raise AssertionError("inference_detector: no detections, or values that are not finite")
+    med = statistics.median(times)
+    print(f"    (a) bf16 flagship config through the API ({os.path.basename(API_CONFIG)}, seed-0 "
+          f"weights from a reference .pth): {REQUESTS} requests of one 512 x 1024 frame "
+          f"(padded to 672 x 1344) after 1 warm-up: latency ms "
+          f"{[round(t * 1e3, 3) for t in times]}, median {med * 1e3:.3f} ms, range "
+          f"{min(times) * 1e3:.3f}-{max(times) * 1e3:.3f} ms; the pipeline alone (host) "
+          f"{pipeline_ms:.3f} ms; launches over the requests {total}; {found} detections, equal "
+          f"to simple_test on the prepared tensor; card {ident}")
+
+    weights = model.backbone.patch_embed.kernel_weights(torch.bfloat16)
+    x = images.to(torch.bfloat16)
+    ref = stem.stem_conv_plain(x, weights.w0, weights.b0, weights.w1, weights.b1)
+    check("K1 bf16 at the API path's shape (1, 672, 1344, 3), against the twin",
+          stem.stem_conv(x, weights), ref, BF16_ULPS * float(ref.float().abs().max()))
+    feats, rois = captured[0]
+    check(f"K3 bf16 on the API request's {rois.shape[0]} RoIs, against the twin",
+          ra.roi_align(feats, rois, model.featmap_strides),
+          ra.roi_align_plain(feats, rois, model.featmap_strides), 0.0)
+
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = aug_test_detector(model, frame, flip=True)
+    seconds = time.perf_counter() - t0
+    counts = {name: fn.launches for name, fn in counters.items()}
+    expect_launches(counts, {**zero, "stem_conv (K1)": 4, "roi_align (K3)": 2},
+                    "aug_test_detector, one scale with flip")
+    k = len(out["boxes"])
+    if not (k and np.isfinite(out["boxes"]).all() and np.isfinite(out["scores"]).all()
+            and ((out["labels"] >= 0) & (out["labels"] < model.num_classes)).all()):
+        raise AssertionError("aug_test_detector: no detections, or values out of range")
+    print(f"    (c) aug_test_detector, scale (800, 1333) with flip: {k} detections in "
+          f"{seconds * 1e3:.3f} ms (its first call), launches {counts}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -932,6 +1091,9 @@ def main() -> int:
                                                flagship_train_batch, counters)
     k3_backward_sampled(dev, ra, records[-1], sampled)
 
+    print("[6] inference API on the card, bf16, PyTorch's TF32 defaults except in (b)")
+    launches["api"] = api_path(dev, ident, counters, stem, ra)
+
     for rec in records:
         key = rec.get("shares_kernel_of", rec["name"])
         if key in ("dense_crop (K4)", "roi_align_backward (K3 backward)"):
@@ -941,6 +1103,7 @@ def main() -> int:
         rec["launches"] = launches[path][key]
         if key == "roi_align (K3)":
             rec["launches_training"] = launches["train"][key]
+        rec["launches_api"] = launches["api"][key]
     print(json.dumps({"kernels": records}))
     print(ident)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,7 +1,8 @@
 """Box overlaps, DeltaXYWH encoding and decoding, clipping (mmdet v2 numerics).
 
-Counterpart of `bbox_overlaps`, `delta_encode`, `delta_decode` and
-`clip_boxes` in `panoswintransformerobjectdetection_tpu/core/bbox.py`.
+Counterpart of `bbox_overlaps`, `delta_encode`, `delta_decode`,
+`clip_boxes` and `flip_boxes` in
+`panoswintransformerobjectdetection_tpu/core/bbox.py`.
 """
 
 import math
@@ -79,3 +80,9 @@ def clip_boxes(boxes: torch.Tensor, h: torch.Tensor, w: torch.Tensor) -> torch.T
     x2 = torch.minimum(torch.maximum(flat[..., 2], zero), w)
     y2 = torch.minimum(torch.maximum(flat[..., 3], zero), h)
     return torch.stack([x1, y1, x2, y2], dim=-1).reshape(boxes.shape)
+
+
+def flip_boxes(boxes: torch.Tensor, img_w: float) -> torch.Tensor:
+    """Horizontal flip of (..., 4) xyxy boxes in an image of width `img_w`."""
+    return torch.stack([img_w - boxes[..., 2], boxes[..., 1], img_w - boxes[..., 0],
+                        boxes[..., 3]], dim=-1)

@@ -2,9 +2,10 @@
 
 Same configuration as `_flagship` in `__graft_entry__.py` (embed 96, depths
 2-2-6-2, heads 3-6-12-24, window 7, absolute encoder), which `bench.py`
-runs.  `tiny=True` gives an even-depth small variant for the tests (embed 6,
-depths 2-2-2-2, heads 1-1-1-2, window 4, FPN width 16): the JAX package's
-own tiny flagship has depths 1-1-1-1, which would run PitchAttention only.
+runs.  `tiny=True` gives a small variant for the tests (embed 6, depths
+2-2-2-2, heads 1-1-1-2, window 4, FPN width 16), whose stages run window
+attention; the tests take the JAX package's own tiny flagship (depths
+1-1-1-1, PitchAttention alone) as a config through `apis/inference.py`.
 
 `build_flagship(train=True)` gives the detector in train mode with the
 stem's BatchNorm live, for `runtime/train.make_train_step`;

@@ -1,7 +1,7 @@
 """Spherical coordinates of an equirectangular grid and great-circle distances.
 
 Counterpart of `panoswintransformerobjectdetection_tpu/geometry/sphere.py`
-(`make_uv_grid`, `haversine`).  u (longitude) lies in [-pi, pi) and grows to
+(`make_uv_grid`, `uv_to_xyz`, `wrap_u`, `haversine`).  u (longitude) lies in [-pi, pi) and grows to
 the right; v (latitude) lies in [-pi/2, pi/2) and grows downwards.  The last
 dimension of a uv tensor is (u, v).
 """
@@ -21,6 +21,23 @@ def make_uv_grid(H: int, W: int, device=None, dtype=torch.float32) -> torch.Tens
     uu = u[None, :].expand(H, W)
     vv = v[:, None].expand(H, W)
     return torch.stack([uu, vv], dim=-1)
+
+
+def uv_to_xyz(uv: torch.Tensor) -> torch.Tensor:
+    """(..., 2) uv on the unit sphere, (..., 3): x = sin(u) sin(v + pi/2),
+    y = cos(u) sin(v + pi/2), z = cos(v + pi/2).  The (v + pi/2) form is
+    kept as the reference writes it: near a pole the rotation's azimuth
+    frame rests on the float residues of exactly these terms."""
+    u = uv[..., 0]
+    v2 = uv[..., 1] + 0.5 * PI
+    sv = torch.sin(v2)
+    return torch.stack([torch.sin(u) * sv, torch.cos(u) * sv, torch.cos(v2)], dim=-1)
+
+
+def wrap_u(u: torch.Tensor) -> torch.Tensor:
+    """Longitudes wrapped into (-pi, pi]."""
+    u = torch.where(u > PI, u - 2.0 * PI, u)
+    return torch.where(u <= -PI, u + 2.0 * PI, u)
 
 
 def haversine(uv1: torch.Tensor, uv2: torch.Tensor) -> torch.Tensor:

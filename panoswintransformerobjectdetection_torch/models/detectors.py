@@ -3,8 +3,9 @@
 Counterpart of the `TwoStageDetector` subset that the flagship uses in
 `panoswintransformerobjectdetection_tpu/models/detectors.py` (registered
 there as `PanoFasterRCNN`): `extract_feat`, `simple_test` with the default
-test configuration and `forward_train` with the default training
-configuration (random sampler, L1 box loss).  Submodule names follow the
+test configuration, the two steps of test-time augmentation
+(`extract_proposals`, `bbox_for_rois`) and `forward_train` with the default
+training configuration (random sampler, L1 box loss).  Submodule names follow the
 reference's state-dict keys (`backbone.`, `neck.`, `rpn_head.`,
 `roi_head.bbox_head.`).
 """
@@ -15,6 +16,7 @@ import torch
 import torch.nn as nn
 
 from ..core.anchors import AnchorGenerator
+from ..core.bbox import clip_boxes, delta_decode
 from ..core.sampler import sampler_noise
 from ..ops.nms import DetResult
 from ..ops.roi_align import multilevel_roi_align_dense, roi_align
@@ -229,3 +231,32 @@ class PanoFasterRCNN(nn.Module):
             cls.reshape(B, P, -1), reg.reshape(B, P, -1), rois.reshape(B, P, 5), img_shapes,
             target_stds=self.rcnn_target_stds, roi_mask=props.mask,
             scale_factors=scale_factors, **self.test_cfg["rcnn"]))
+
+    @torch.no_grad()
+    def extract_proposals(self, images, img_shapes):
+        """The RPN's proposals alone (the first step of `apis/tta.py`)."""
+        dev = self.device
+        images = torch.as_tensor(images, device=dev)
+        img_shapes = torch.as_tensor(img_shapes, dtype=torch.float32, device=dev)
+        return self.proposals(self.extract_feat(images), img_shapes)
+
+    @torch.no_grad()
+    def bbox_for_rois(self, images, boxes, img_shapes):
+        """Class probabilities (B, P, C + 1) and per-class boxes (B, P, 4C)
+        for given proposal boxes (B, P, 4): softmax of the head's logits,
+        the deltas decoded with zero means, each coordinate clipped to the
+        image (the per-augmentation step of `apis/tta.py`)."""
+        dev = self.device
+        images = torch.as_tensor(images, device=dev)
+        boxes = torch.as_tensor(boxes, dtype=torch.float32, device=dev)
+        img_shapes = torch.as_tensor(img_shapes, dtype=torch.float32, device=dev)
+        feats = self.extract_feat(images)
+        B, P, _ = boxes.shape
+        bidx = torch.arange(B, dtype=boxes.dtype, device=dev)[:, None, None].expand(B, P, 1)
+        rois = torch.cat([bidx, boxes], dim=-1).reshape(B * P, 5)
+        cls, reg = self.roi_head.bbox_head(self.roi_features(feats, rois))
+        scores = torch.softmax(cls.reshape(B, P, -1), dim=-1)
+        dec = delta_decode(boxes.reshape(B * P, 4), reg.reshape(B * P, -1),
+                           stds=self.rcnn_target_stds).reshape(B, P, -1)
+        return scores, clip_boxes(dec, img_shapes[:, 0, None, None],
+                                  img_shapes[:, 1, None, None])

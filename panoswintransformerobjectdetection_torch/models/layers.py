@@ -8,7 +8,7 @@ in it.  With no compute type the result follows the input and the float32
 parameters (float32 here).  LayerNorm always returns float32, as flax's
 does with float32 parameters.  In train mode the stem runs its two 3x3
 convs with live BatchNorm and DropPath drops residual branches; in eval
-mode the stem goes through kernel K1 and DropPath is the identity.
+mode a 3-channel stem goes through kernel K1 and DropPath is the identity.
 """
 
 from typing import Optional
@@ -102,43 +102,54 @@ def batch_norm_train(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
 
 class ConvStemPatchEmbed(nn.Module):
     """3-conv patch stem: (3x3 conv, BN, ReLU) x 2, then the patch-stride conv,
-    then LayerNorm.  `proj` is the reference's Sequential, so its state-dict
-    keys are `proj.{0,1,3,4,6}`.
+    then LayerNorm (`use_norm`).  `proj` is the reference's Sequential, so its
+    state-dict keys are `proj.{0,1,3,4,6}`.
 
-    Eval path: BatchNorm's running statistics are folded into the two 3x3
-    convs, once (`kernel_weights`), and both run through kernel K1
-    (`ops/stem_conv.py`) at any H, W.  Train path: the three convs in the
-    compute type with live BatchNorm (`batch_norm_train`), as the JAX module
-    does with `train=True`; K1 is not on it and needs no backward.
-    Input (B, H, W, 3) NHWC; output (B, H/ps, W/ps, embed_dim).
+    Eval path with 3 input channels: BatchNorm's running statistics are
+    folded into the two 3x3 convs, once (`kernel_weights`), and both run
+    through kernel K1 (`ops/stem_conv.py`) at any H, W.  Any other channel
+    count takes the three convs with eval BatchNorm, as the JAX module does
+    (its fused stem takes 3 channels only).  Train path: the three convs in
+    the compute type with live BatchNorm (`batch_norm_train`), as the JAX
+    module does with `train=True`; K1 is not on it and needs no backward.
+    `fuse_bn=True`: the checkpoint's convs have BatchNorm folded in already,
+    so the BatchNorm modules (kept for the state dict's keys) are not
+    applied in either mode.
+    Input (B, H, W, in_chans) NHWC; output (B, H/ps, W/ps, embed_dim).
     """
 
-    def __init__(self, patch_size: int = 4, embed_dim: int = 96, dtype=None):
+    def __init__(self, patch_size: int = 4, embed_dim: int = 96, dtype=None,
+                 use_norm: bool = True, in_chans: int = 3, fuse_bn: bool = False):
         super().__init__()
         d3 = embed_dim // 3
         self.patch_size = patch_size
         self.proj = nn.Sequential(
-            nn.Conv2d(3, d3, 3, padding=1), nn.BatchNorm2d(d3, eps=BN_EPS), nn.ReLU(),
+            nn.Conv2d(in_chans, d3, 3, padding=1), nn.BatchNorm2d(d3, eps=BN_EPS), nn.ReLU(),
             nn.Conv2d(d3, 2 * d3, 3, padding=1), nn.BatchNorm2d(2 * d3, eps=BN_EPS),
             nn.ReLU(),
             nn.Conv2d(2 * d3, embed_dim, patch_size, stride=patch_size))
-        self.norm = LayerNorm(embed_dim)
+        self.norm = LayerNorm(embed_dim) if use_norm else None
         self.dtype = dtype
+        self.fuse_bn = fuse_bn
         self._kernel_key = self._kernel_weights = None
 
     def kernel_weights(self, dtype: torch.dtype) -> StemWeights:
-        """The two 3x3 convs with BatchNorm's running statistics folded in,
-        laid out for K1 at compute type `dtype`.  Made at the first eval
-        call and kept until a stem parameter or statistic changes in place
-        (`load_state_dict`, an optimiser step) or the module is moved."""
+        """The two 3x3 convs with BatchNorm's running statistics folded in
+        (unless `fuse_bn`), laid out for K1 at compute type `dtype`.  Made at
+        the first eval call and kept until a stem parameter or statistic
+        changes in place (`load_state_dict`, an optimiser step) or the module
+        is moved."""
         pairs = [(self.proj[ci], self.proj[bi]) for ci, bi in ((0, 1), (3, 4))]
         tensors = [[conv.weight, conv.bias, bn.weight, bn.bias, bn.running_mean,
                     bn.running_var] for conv, bn in pairs]
         key = (dtype, *(t._version for ts in tensors for t in ts))
         if self._kernel_key != key:
             with torch.no_grad():
-                folded = [t for ts, (_, bn) in zip(tensors, pairs)
-                          for t in fold_bn(*ts, bn.eps)]
+                if self.fuse_bn:
+                    folded = [t for ts in tensors for t in ts[:2]]
+                else:
+                    folded = [t for ts, (_, bn) in zip(tensors, pairs)
+                              for t in fold_bn(*ts, bn.eps)]
                 self._kernel_weights = stem_weights(*folded, dtype)
             self._kernel_key = key
         return self._kernel_weights
@@ -147,20 +158,29 @@ class ConvStemPatchEmbed(nn.Module):
         self._kernel_key = self._kernel_weights = None     # moved or cast: lay out again
         return super()._apply(*args, **kwargs)
 
+    def _batch_norm(self, bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+        if self.fuse_bn:
+            return x
+        if self.training:
+            return batch_norm_train(bn, x)
+        return F.batch_norm(x.float(), bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                            eps=bn.eps)
+
     def forward(self, x):
         ps = self.patch_size
         x = x.to(self.dtype or x.dtype)
         B, H, W, _ = x.shape
         x = F.pad(x, (0, 0, 0, (-W) % ps, 0, (-H) % ps))
-        if self.training:
+        if self.training or x.shape[-1] != 3:
             x = x.permute(0, 3, 1, 2)
-            x = torch.relu(batch_norm_train(self.proj[1], conv(self.proj[0], x, self.dtype)))
-            x = torch.relu(batch_norm_train(self.proj[4], conv(self.proj[3], x, self.dtype)))
+            x = torch.relu(self._batch_norm(self.proj[1], conv(self.proj[0], x, self.dtype)))
+            x = torch.relu(self._batch_norm(self.proj[4], conv(self.proj[3], x, self.dtype)))
             x = conv(self.proj[6], x, self.dtype).permute(0, 2, 3, 1)
         else:
             h1 = stem_conv(x, self.kernel_weights(x.dtype))
             x = patch_projection(h1, self.proj[6].weight, self.proj[6].bias)
-        x = self.norm(x)
+        if self.norm is not None:
+            x = self.norm(x)
         return x.to(self.dtype or x.dtype)
 
 

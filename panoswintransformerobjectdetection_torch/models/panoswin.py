@@ -15,22 +15,32 @@ the JAX package:
     the f32 product.
 In train mode the stem runs with live BatchNorm and every block's two
 residual branches go through DropPath, whose rate rises linearly over the
-blocks to `drop_path_rate`.  Only even depths are ported: an odd depth ends
-its stage with a PitchAttention block, which is a later slice.
+blocks to `drop_path_rate`.  A stage of odd depth ends with a
+`PitchAttention` block (queries and values from the map's windows, keys
+from the same windows of the map rotated about a great circle), which has
+no DropPath and no compute type: it runs in float32 whatever the detector's
+type, as the JAX block does.
 """
 
+import math
 from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..geometry.resample import grid_sample_nhwc
+from ..geometry.rotate import pano_rotate, rotation_grid
 from ..geometry.sphere import haversine, make_uv_grid
 from ..ops.fused_attention import packed_window_attention
 from ..ops.windows import (make_relative_position_index, swin_attention_mask,
                            window_partition, window_reverse, window_transition,
                            window_transition_reverse)
 from .layers import ConvStemPatchEmbed, DropPath, LayerNorm, Mlp, PatchMerging, dense
+
+PI = math.pi
+# PitchAttention's rotation axis (u, v): the reference's `np_v = -0.0001`.
+PITCH_AXIS = (PI, -0.0001 * PI)
 
 
 def sphere_bias(alpha_table, beta_table, rel_index, hav: Optional[torch.Tensor]):
@@ -56,11 +66,12 @@ class WindowAttention(nn.Module):
     """Window attention with the dual-table spherical bias."""
 
     def __init__(self, dim: int, window_size: int, num_heads: int, dtype=None,
-                 fused: bool = False):
+                 fused: bool = False, qkv_bias: bool = True, qk_scale: Optional[float] = None):
         super().__init__()
         t = (2 * window_size - 1) ** 2
         self.num_heads = num_heads
-        self.qkv = nn.Linear(dim, 3 * dim)
+        self.qk_scale = qk_scale
+        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
         self.sphere_position_alpha_table_Te = nn.Parameter(torch.zeros(t, num_heads))
         self.sphere_position_beta_table_Te = nn.Parameter(torch.zeros(t, num_heads))
@@ -75,7 +86,7 @@ class WindowAttention(nn.Module):
         n, O, c = x.shape
         h = self.num_heads
         hd = c // h
-        scale = hd ** -0.5
+        scale = self.qk_scale or hd ** -0.5
         qkv = dense(self.qkv, x, self.dtype).reshape(n, O, 3, h, hd)
         bias = sphere_bias(self.sphere_position_alpha_table_Te,
                            self.sphere_position_beta_table_Te, self.rel_index, hav)
@@ -104,13 +115,14 @@ class PanoSwinBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, window_size: int, shift_size: int,
                  mlp_ratio: float = 4.0, dtype=None, pano_mode: bool = True,
-                 fused: bool = False, drop_path: float = 0.0):
+                 fused: bool = False, drop_path: float = 0.0, qkv_bias: bool = True,
+                 qk_scale: Optional[float] = None):
         super().__init__()
         self.window_size = window_size
         self.shift_size = shift_size
         self.pano_mode = pano_mode
         self.norm1 = LayerNorm(dim)
-        self.attn = WindowAttention(dim, window_size, num_heads, dtype, fused)
+        self.attn = WindowAttention(dim, window_size, num_heads, dtype, fused, qkv_bias, qk_scale)
         self.norm2 = LayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
         self.drop_path1 = DropPath(drop_path)
@@ -141,25 +153,141 @@ class PanoSwinBlock(nn.Module):
         return x + self.drop_path2(self.mlp(self.norm2(x)))
 
 
+class PitchAttention(nn.Module):
+    """The block that ends a stage of odd depth (`PitchAttentionModule:990`
+    of the reference): attention from the map's windows (queries, values)
+    to the same windows of the map rotated about a great circle (keys).
+
+    Kept from the JAX block: the residual is the post-norm features (the
+    reference overwrites its shortcut in place with norm1); the uv grid goes
+    through the same rotation and window resampling as the features, and
+    the pano bias couples each window's uv with its rotated uv; planar mode
+    keys the windows themselves, with the beta-only bias.  The attention is
+    the plain one of the JAX `_attention_core` (never kernel K2), and every
+    layer runs in float32 with no DropPath.  Parameters sit flat on the
+    block, under the reference's keys.
+    """
+
+    def __init__(self, dim: int, num_heads: int, window_size: int, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = True, qk_scale: Optional[float] = None,
+                 pano_mode: bool = True):
+        super().__init__()
+        t = (2 * window_size - 1) ** 2
+        self.num_heads = num_heads
+        self.window_size = window_size
+        self.qk_scale = qk_scale
+        self.pano_mode = pano_mode
+        self.q_linear = nn.Linear(dim, dim, bias=qkv_bias)
+        self.k_linear = nn.Linear(dim, dim, bias=qkv_bias)
+        self.v_linear = nn.Linear(dim, dim, bias=qkv_bias)
+        self.proj = nn.Linear(dim, dim)
+        self.sphere_position_alpha_table_Te = nn.Parameter(torch.zeros(t, num_heads))
+        self.sphere_position_beta_table_Te = nn.Parameter(torch.zeros(t, num_heads))
+        self.register_buffer("rel_index", torch.from_numpy(
+            make_relative_position_index(window_size)), persistent=False)
+        self.norm1 = LayerNorm(dim)
+        self.norm2 = LayerNorm(dim)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+
+    def window_grids(self, Hp: int, Wp: int, pad_r: int, pad_b: int, device) -> tuple:
+        """The two grids of `PitchAttentionModule.get_rotated:1024`: the
+        rotation of the whole padded map, (Hp, Wp, 2), and for each window
+        the ws x ws samples of the rotated map around its rotated centre,
+        (nH * nW, O, 2).  The centres ignore the pad (pad_r, pad_b); the
+        rotated ones are flipped upside down, and wrapped at +-1."""
+        ws = self.window_size
+        nH, nW = Hp // ws, Wp // ws
+        us = ((torch.arange(nW, dtype=torch.float32, device=device) + 0.5) / nW * 2.0
+              * (1.0 - pad_r / Wp) - 1.0) * PI
+        vs = ((torch.arange(nH, dtype=torch.float32, device=device) + 0.5) / nH
+              * (1.0 - pad_b / Hp) - 0.5) * PI
+        centers = torch.stack([us[None, :].expand(nH, nW), vs[:, None].expand(nH, nW)], -1)
+        rc = pano_rotate(PITCH_AXIS, centers.reshape(-1, 2)).reshape(nH, nW, 2) / PI
+        rc = torch.flip(rc * torch.tensor([1.0, -1.0], device=device), dims=(0,))
+        rc = rc * torch.tensor([1.0, 2.0], device=device)
+        ar = (torch.arange(ws, dtype=torch.float32, device=device) + 0.5 - 0.5 * ws) / Hp
+        offsets = torch.stack([ar[:, None].expand(ws, ws), 2.0 * ar[None, :].expand(ws, ws)], -1)
+        grids = (rc[:, :, None, None, :] + offsets).reshape(nH * nW, ws * ws, 2)
+        grids = torch.where(grids <= -1.0, grids + 2.0, grids)
+        grids = torch.where(grids >= 1.0, grids - 2.0, grids)
+        return rotation_grid(Hp, Wp, PITCH_AXIS, device), grids
+
+    def rotated_windows(self, x: torch.Tensor, grids: tuple) -> torch.Tensor:
+        """x (B, Hp, Wp, C) rotated, then resampled window by window, laid out
+        as a (B, Hp, Wp, C) map of windows."""
+        B, Hp, Wp, C = x.shape
+        ws = self.window_size
+        image_grid, window_grids = grids
+        rotated = grid_sample_nhwc(x, image_grid.expand(B, Hp, Wp, 2))
+        s, O, _ = window_grids.shape
+        sampled = grid_sample_nhwc(rotated, window_grids.expand(B, s, O, 2))
+        sampled = sampled.reshape(B, Hp // ws, Wp // ws, ws, ws, C).permute(0, 1, 3, 2, 4, 5)
+        return sampled.reshape(B, Hp, Wp, C)
+
+    def forward(self, x, uv):
+        """x (B, H, W, c) in any type; uv (H, W, 2).  Returns float32."""
+        B, H, W, c = x.shape
+        ws = self.window_size
+        xn = self.norm1(x)
+        shortcut = xn
+        pad_b, pad_r = (-H) % ws, (-W) % ws
+        xn = F.pad(xn, (0, 0, 0, pad_r, 0, pad_b))
+        uvp = F.pad(uv, (0, 0, 0, pad_r, 0, pad_b))[None]
+        Hp, Wp = xn.shape[1], xn.shape[2]
+        if self.pano_mode:
+            grids = self.window_grids(Hp, Wp, pad_r, pad_b, x.device)
+            rotated, rot_uv = self.rotated_windows(xn, grids), self.rotated_windows(uvp, grids)
+        else:
+            rotated, rot_uv = xn, uvp
+        O = ws * ws
+        wins = window_partition(xn, ws).reshape(-1, O, c)
+        rwins = window_partition(rotated, ws).reshape(-1, O, c)
+        n = wins.shape[0]
+        h = self.num_heads
+        hd = c // h
+        scale = self.qk_scale or hd ** -0.5
+        q = dense(self.q_linear, wins, None).reshape(n, O, h, hd).transpose(1, 2)
+        k = dense(self.k_linear, rwins, None).reshape(n, O, h, hd).transpose(1, 2)
+        v = dense(self.v_linear, wins, None).reshape(n, O, h, hd).transpose(1, 2)
+        nW = (Hp // ws) * (Wp // ws)
+        hav = None
+        if self.pano_mode:
+            hav = haversine(window_partition(uvp, ws).reshape(nW, O, 2),
+                            window_partition(rot_uv, ws).reshape(nW, O, 2))
+        bias = sphere_bias(self.sphere_position_alpha_table_Te,
+                           self.sphere_position_beta_table_Te, self.rel_index, hav)
+        attn = torch.einsum("nhqd,nhkd->nhqk", q * scale, k)
+        attn = attn.reshape(n // nW, nW, h, O, O) + bias.expand(nW, h, O, O)[None]
+        attn = torch.softmax(attn.reshape(n, h, O, O), dim=-1)
+        out = torch.einsum("nhqk,nhkd->nhqd", attn, v).transpose(1, 2).reshape(n, O, c)
+        out = dense(self.proj, out, None)
+        y = window_reverse(out.reshape(-1, ws, ws, c), ws, Hp, Wp)[:, :H, :W]
+        x = shortcut + y
+        return x + self.mlp(self.norm2(x))
+
+
 class BasicLayer(nn.Module):
-    """One stage: alternating shift-0 and shift-ws/2 blocks, then PatchMerging."""
+    """One stage: alternating shift-0 and shift-ws/2 blocks, a PitchAttention
+    block after them when the depth is odd, then PatchMerging."""
 
     def __init__(self, dim: int, depth: int, num_heads: int, window_size: int,
                  mlp_ratio: float = 4.0, downsample: bool = True, dtype=None,
                  pano_mode: bool = True, fused: bool = False,
-                 drop_path: Sequence[float] = ()):
+                 drop_path: Sequence[float] = (), qkv_bias: bool = True,
+                 qk_scale: Optional[float] = None):
         super().__init__()
-        if depth % 2:
-            raise NotImplementedError(
-                "odd stage depths end in a PitchAttention block, which is not "
-                "ported yet (ROADMAP.md, Queue 1, item 11)")
         self.window_size = window_size
         self.pano_mode = pano_mode
-        self.blocks = nn.ModuleList(
-            PanoSwinBlock(dim, num_heads, window_size,
-                          0 if i % 2 == 0 else window_size // 2, mlp_ratio, dtype,
-                          pano_mode, fused, drop_path[i] if drop_path else 0.0)
-            for i in range(depth))
+        depth_swin = depth - depth % 2
+        blocks = [PanoSwinBlock(dim, num_heads, window_size,
+                                0 if i % 2 == 0 else window_size // 2, mlp_ratio, dtype,
+                                pano_mode, fused, drop_path[i] if drop_path else 0.0,
+                                qkv_bias, qk_scale)
+                  for i in range(depth_swin)]
+        if depth % 2:
+            blocks.append(PitchAttention(dim, num_heads, window_size, mlp_ratio, qkv_bias,
+                                         qk_scale, pano_mode))
+        self.blocks = nn.ModuleList(blocks)
         self.downsample = PatchMerging(dim, dtype) if downsample else None
 
     def _window_context(self, uv, shift: int, H: int, W: int):
@@ -175,6 +303,9 @@ class BasicLayer(nn.Module):
     def forward(self, x, uv):
         ctx = {}
         for blk in self.blocks:
+            if isinstance(blk, PitchAttention):
+                x = blk(x, uv)
+                continue
             if blk.shift_size not in ctx:
                 ctx[blk.shift_size] = self._window_context(uv, blk.shift_size, x.shape[1],
                                                            x.shape[2])
@@ -195,9 +326,15 @@ class PanoSwinTransformer(nn.Module):
     `pano_mode=False` gives planar Swin semantics (beta table only, cyclic
     shift, shifted-window mask, a zero uv grid); `ape`'s encoder then stays
     in the state dict but is not applied.  `fused_attention=True` runs every
-    block's attention through kernel K2.  `drop_path_rate` is the last
+    window block's attention through kernel K2.  `drop_path_rate` is the last
     block's DropPath rate (train mode only); `set_drop_path_generator` gives
-    every DropPath one explicit generator.
+    every DropPath one explicit generator.  The options of the JAX module
+    that a config may set: `qkv_bias` and `qk_scale` (window and pitch
+    attention), `patch_norm` (the stem's LayerNorm), `in_chans` (the stem's
+    input channels; only 3 channels run kernel K1, as in the JAX module),
+    `fuse_bn` (the checkpoint's stem has its BatchNorm folded into the
+    convs: the BatchNorm modules stay, for the state dict's keys, and are
+    not applied); `use_checkpoint` (activation checkpointing) is not ported.
     """
 
     def __init__(self, patch_size: int = 4, embed_dim: int = 96,
@@ -205,9 +342,17 @@ class PanoSwinTransformer(nn.Module):
                  num_heads: Sequence[int] = (3, 6, 12, 24), window_size: int = 7,
                  mlp_ratio: float = 4.0, ape: bool = False,
                  out_indices: Sequence[int] = (0, 1, 2, 3), pano_mode: bool = True,
-                 fused_attention: bool = False, drop_path_rate: float = 0.2, dtype=None):
+                 fused_attention: bool = False, drop_path_rate: float = 0.2, dtype=None,
+                 qkv_bias: bool = True, qk_scale: Optional[float] = None,
+                 patch_norm: bool = True, in_chans: int = 3, fuse_bn: bool = False,
+                 use_checkpoint: bool = False):
         super().__init__()
-        self.patch_embed = ConvStemPatchEmbed(patch_size, embed_dim, dtype)
+        if use_checkpoint:
+            raise NotImplementedError(
+                "use_checkpoint (activation checkpointing) is not ported yet (ROADMAP.md, "
+                "Queue 1, item 16)")
+        self.patch_embed = ConvStemPatchEmbed(patch_size, embed_dim, dtype, use_norm=patch_norm,
+                                              in_chans=in_chans, fuse_bn=fuse_bn)
         self.abs_encoder = nn.Linear(5, embed_dim) if ape else None
         self.pano_mode = pano_mode
         n = len(depths)
@@ -217,7 +362,8 @@ class PanoSwinTransformer(nn.Module):
         self.layers = nn.ModuleList(
             BasicLayer(embed_dim * 2 ** i, depths[i], num_heads[i], window_size,
                        mlp_ratio, downsample=i < n - 1, dtype=dtype, pano_mode=pano_mode,
-                       fused=fused_attention, drop_path=dpr[starts[i]:starts[i] + depths[i]])
+                       fused=fused_attention, drop_path=dpr[starts[i]:starts[i] + depths[i]],
+                       qkv_bias=qkv_bias, qk_scale=qk_scale)
             for i in range(n))
         self.out_indices = tuple(out_indices)
         for i in self.out_indices:
@@ -252,4 +398,4 @@ class PanoSwinTransformer(nn.Module):
 
 
 __all__ = ["sphere_bias", "prepare_window_uv", "WindowAttention", "PanoSwinBlock",
-           "BasicLayer", "PanoSwinTransformer"]
+           "PitchAttention", "BasicLayer", "PanoSwinTransformer"]

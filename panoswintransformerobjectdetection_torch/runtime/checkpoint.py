@@ -1,5 +1,6 @@
 """Parameters between the JAX package's variable trees and the port's
-state dicts, and BatchNorm folding for inference.
+state dicts, reference-format `.pth` files, training checkpoints, and
+BatchNorm folding for inference.
 
 `from_jax_variables` is the inverse of `convert_detector` in
 `panoswintransformerobjectdetection_tpu/runtime/checkpoint.py`: it takes the
@@ -8,13 +9,22 @@ returns a state dict in the reference's key layout, which the port's
 detector loads with `load_state_dict`.  Layouts: conv HWIO -> OIHW, Dense
 (in, out) -> Linear (out, in), LayerNorm scale -> weight, and `shared_fc0`'s
 input reordered from the JAX (h, w, C) flatten to the reference's (C, h, w).
+
+A reference checkpoint loads without a converter, since the port's keys
+are the reference's (`load_torch_state_dict`, `load_reference_weights`);
+`save_checkpoint` and `load_checkpoint` keep a training run's model,
+optimizer, schedule and step (the JAX package's orbax state, here through
+`torch.save`).
 """
 
-from typing import Any, Dict
+import math
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.nn as nn
 
+from ..geometry.resample import _torch_cubic_weights
 from ..ops.stem_conv import BN_EPS, fold_bn
 
 
@@ -38,7 +48,12 @@ def _ln(sd, key, p):
     sd[key + ".bias"] = _t(p["bias"])
 
 
-def _bn(sd, key, p, s):
+def _bn(sd, key, p, s, channels: int):
+    """A BatchNorm's entries; the identity where the JAX stem has none
+    (`fuse_bn=True`: the port keeps the module for its keys)."""
+    if p is None:
+        p = {"scale": np.ones(channels), "bias": np.zeros(channels)}
+        s = {"mean": np.zeros(channels), "var": np.ones(channels)}
     sd[key + ".weight"] = _t(p["scale"])
     sd[key + ".bias"] = _t(p["bias"])
     sd[key + ".running_mean"] = _t(s["mean"])
@@ -48,15 +63,18 @@ def _bn(sd, key, p, s):
 
 def from_jax_backbone(params: Dict[str, Any],
                       batch_stats: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX `PanoSwinTransformer` variables -> the port backbone's state dict."""
+    """JAX `PanoSwinTransformer` variables -> the port backbone's state dict.
+    A stage's last block is a PitchAttention block when it has `q_linear`."""
     sd: Dict[str, torch.Tensor] = {}
-    pe, pe_stats = params["patch_embed"], batch_stats["patch_embed"]
-    _conv(sd, "patch_embed.proj.0", pe["conv0"])
-    _bn(sd, "patch_embed.proj.1", pe["bn0"], pe_stats["bn0"])
-    _conv(sd, "patch_embed.proj.3", pe["conv1"])
-    _bn(sd, "patch_embed.proj.4", pe["bn1"], pe_stats["bn1"])
+    pe, pe_stats = params["patch_embed"], batch_stats.get("patch_embed", {})
+    for conv, bn, conv_key, bn_key in (("conv0", "bn0", "proj.0", "proj.1"),
+                                       ("conv1", "bn1", "proj.3", "proj.4")):
+        _conv(sd, "patch_embed." + conv_key, pe[conv])
+        _bn(sd, "patch_embed." + bn_key, pe.get(bn), pe_stats.get(bn),
+            np.shape(pe[conv]["kernel"])[-1])
     _conv(sd, "patch_embed.proj.6", pe["proj"])
-    _ln(sd, "patch_embed.norm", pe["norm"])
+    if "norm" in pe:
+        _ln(sd, "patch_embed.norm", pe["norm"])
     if "abs_encoder" in params:
         _linear(sd, "abs_encoder", params["abs_encoder"])
     i = 0
@@ -67,10 +85,16 @@ def from_jax_backbone(params: Dict[str, Any],
             blk, key = layer[f"blocks_{j}"], f"layers.{i}.blocks.{j}"
             _ln(sd, key + ".norm1", blk["norm1"])
             _ln(sd, key + ".norm2", blk["norm2"])
-            _linear(sd, key + ".attn.qkv", blk["attn"]["qkv"])
-            _linear(sd, key + ".attn.proj", blk["attn"]["proj"])
-            sd[key + ".attn.sphere_position_alpha_table_Te"] = _t(blk["attn"]["alpha_table"])
-            sd[key + ".attn.sphere_position_beta_table_Te"] = _t(blk["attn"]["beta_table"])
+            if "q_linear" in blk:
+                attn, prefix = blk, key
+                for name in ("q_linear", "k_linear", "v_linear"):
+                    _linear(sd, f"{key}.{name}", blk[name])
+            else:
+                attn, prefix = blk["attn"], key + ".attn"
+                _linear(sd, prefix + ".qkv", attn["qkv"])
+            _linear(sd, prefix + ".proj", attn["proj"])
+            sd[prefix + ".sphere_position_alpha_table_Te"] = _t(attn["alpha_table"])
+            sd[prefix + ".sphere_position_beta_table_Te"] = _t(attn["beta_table"])
             _linear(sd, key + ".mlp.fc1", blk["mlp"]["fc1"])
             _linear(sd, key + ".mlp.fc2", blk["mlp"]["fc2"])
             j += 1
@@ -87,7 +111,7 @@ def from_jax_variables(params: Dict[str, Any], batch_stats: Dict[str, Any],
                        roi_size: int = 7) -> Dict[str, torch.Tensor]:
     """JAX detector variables -> the port's state dict (reference keys)."""
     sd = {"backbone." + k: v for k, v in
-          from_jax_backbone(params["backbone_m"], batch_stats["backbone_m"]).items()}
+          from_jax_backbone(params["backbone_m"], batch_stats.get("backbone_m", {})).items()}
     neck = params["neck_m"]
     i = 0
     while f"lateral_{i}" in neck:
@@ -131,3 +155,77 @@ def fold_batchnorm(state_dict: Dict[str, torch.Tensor],
         sd[b + ".running_mean"] = torch.zeros_like(ones)
         sd[b + ".running_var"] = ones - eps
     return sd
+
+
+def strip_module(sd: Dict[str, Any]) -> Dict[str, Any]:
+    """Drop the `module.` prefix that a data-parallel wrapper puts on every
+    key (only when every key has it)."""
+    if all(k.startswith("module.") for k in sd):
+        return {k[len("module."):]: v for k, v in sd.items()}
+    return sd
+
+
+def resize_bias_table(table: torch.Tensor, src_ws: int, dst_ws: int) -> torch.Tensor:
+    """Bicubic resize of a ((2 src_ws - 1)^2, heads) relative-bias table to
+    window `dst_ws` (`mmcv_custom/checkpoint.py:336-352`), with torch's
+    bicubic weights, in float64, cast back to the table's type."""
+    if src_ws == dst_ws:
+        return table
+    h = table.shape[1]
+    s, d = 2 * src_ws - 1, 2 * dst_ws - 1
+    img = table.detach().cpu().double().reshape(s, s, h)
+    wh = torch.from_numpy(_torch_cubic_weights(d, s))
+    out = torch.einsum("oh,hwc->owc", wh, img)
+    out = torch.einsum("ow,hwc->hoc", wh, out)
+    return out.reshape(d * d, h).to(table.dtype)
+
+
+def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """The state dict of a checkpoint file: the file's `state_dict` or
+    `model` entry, or the file itself, with `module.` stripped.  A file path
+    only (no URL: the port fetches nothing), read on the CPU with
+    `weights_only=True`, which unpickles tensors and plain containers only."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(ckpt, dict) and "state_dict" in ckpt:
+        ckpt = ckpt["state_dict"]
+    elif isinstance(ckpt, dict) and "model" in ckpt:
+        ckpt = ckpt["model"]
+    return strip_module(ckpt)
+
+
+def load_reference_weights(model: nn.Module, sd: Dict[str, torch.Tensor]) -> None:
+    """Load a reference-format state dict into `model` with
+    `load_state_dict(strict=True)`.  A sphere-bias table made for another
+    window size (its length tells which) is resized first with
+    `resize_bias_table`."""
+    own = model.state_dict()
+    sd = dict(sd)
+    for key, table in sd.items():
+        if key.endswith("_table_Te") and key in own and table.shape != own[key].shape:
+            side = math.isqrt(table.shape[0])
+            dst = math.isqrt(own[key].shape[0])
+            sd[key] = resize_bias_table(table, (side + 1) // 2, (dst + 1) // 2)
+    model.load_state_dict(sd, strict=True)
+
+
+def save_checkpoint(path: str, model: nn.Module, optimizer: torch.optim.Optimizer,
+                    scheduler: Optional[torch.optim.lr_scheduler.LRScheduler] = None,
+                    step: int = 0) -> None:
+    """A training checkpoint: the model's state dict (reference keys), the
+    optimizer's and the schedule's state, and the step."""
+    torch.save({"state_dict": model.state_dict(), "optimizer": optimizer.state_dict(),
+                "scheduler": None if scheduler is None else scheduler.state_dict(),
+                "step": int(step)}, path)
+
+
+def load_checkpoint(path: str, model: nn.Module, optimizer: torch.optim.Optimizer,
+                    scheduler: Optional[torch.optim.lr_scheduler.LRScheduler] = None) -> int:
+    """Restore what `save_checkpoint` wrote into `model`, `optimizer` and
+    `scheduler` (made as for the saved run, on the device to resume on);
+    returns the step."""
+    ckpt = torch.load(path, map_location=next(model.parameters()).device, weights_only=True)
+    model.load_state_dict(ckpt["state_dict"], strict=True)
+    optimizer.load_state_dict(ckpt["optimizer"])
+    if scheduler is not None:
+        scheduler.load_state_dict(ckpt["scheduler"])
+    return ckpt["step"]

@@ -79,6 +79,17 @@ def test_stages_match_jax(jax_backbone, pano_mode, fused, dtype):
 
 
 def test_odd_depth_not_ported():
-    with pytest.raises(NotImplementedError, match="PitchAttention"):
+    """Odd depths were not ported before PitchAttention came: a stage of odd
+    depth now ends with a PitchAttention block (held against JAX in
+    `test_torch_pitch_attention.py`), and the option that is still not
+    ported, activation checkpointing, raises naming its ROADMAP item."""
+    from panoswintransformerobjectdetection_torch.models.panoswin import PitchAttention
+    port = PanoSwinTransformer(embed_dim=6, depths=(1, 2, 3, 2), num_heads=(1, 1, 1, 2),
+                               window_size=4)
+    kinds = [[type(b).__name__ for b in layer.blocks] for layer in port.layers]
+    assert kinds == [["PitchAttention"], ["PanoSwinBlock"] * 2,
+                     ["PanoSwinBlock"] * 2 + ["PitchAttention"], ["PanoSwinBlock"] * 2]
+    assert isinstance(port.layers[2].blocks[2], PitchAttention)
+    with pytest.raises(NotImplementedError, match="item 16"):
         PanoSwinTransformer(embed_dim=6, depths=(1, 2, 2, 2), num_heads=(1, 1, 1, 2),
-                            window_size=4)
+                            window_size=4, use_checkpoint=True)

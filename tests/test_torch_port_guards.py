@@ -1,5 +1,6 @@
-"""Guards of the PyTorch port: it imports no JAX and nothing of the JAX
-package, and its entry points run on the card unless told otherwise."""
+"""Guards of the PyTorch port: it imports no JAX, nothing of the JAX
+package and no OpenCV, and its entry points run on the card unless told
+otherwise."""
 
 import importlib
 import pkgutil
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 import panoswintransformerobjectdetection_torch as port
+from panoswintransformerobjectdetection_torch.apis.inference import init_detector
 from panoswintransformerobjectdetection_torch.flagship import build_flagship
 from panoswintransformerobjectdetection_torch.ops import fused_attention, roi_align, stem_conv
 
@@ -24,11 +26,14 @@ def _modules():
 
 
 def test_every_module_imports_without_jax():
+    """Importing every module of the port loads neither JAX nor OpenCV (the
+    card's machine has no OpenCV; reading an image file imports it then)."""
     names = _modules()
-    assert len(names) >= 22
-    code = ("import sys, importlib\nsys.modules['jax'] = None\n"
+    assert len(names) >= 30
+    code = ("import sys, importlib\nsys.modules['jax'] = None\nsys.modules['cv2'] = None\n"
             f"for n in {names!r}:\n    importlib.import_module(n)\n"
-            "assert not any(k == 'jax' or k.startswith(('jax.', 'panoswintransformerobjectdetection_tpu'))"
+            "assert not any(k in ('jax', 'cv2') or k.startswith(('jax.', 'cv2.', "
+            "'panoswintransformerobjectdetection_tpu'))"
             " for k, v in sys.modules.items() if v is not None)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=300)
@@ -51,6 +56,8 @@ def test_default_device_is_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_flagship(tiny=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_detector(str(ROOT / "configs" / "panoswin" / "faster_rcnn_panoswin_nano_demo.py"))
 
 
 def test_cpu_tensors_take_the_twins():
@@ -92,7 +99,9 @@ def test_modules_list_covers_the_slice():
                 "models.panoswin", "models.fpn", "models.rpn_head", "models.roi_head",
                 "models.detectors", "core.anchors", "core.bbox", "core.assigner",
                 "core.sampler", "core.losses", "runtime.checkpoint", "runtime.optim",
-                "runtime.train", "flagship", "profile_flagship"):
+                "runtime.train", "flagship", "profile_flagship", "geometry.rotate",
+                "geometry.resample", "runtime.config", "data.transforms", "apis.inference",
+                "apis.tta"):
         assert f"{port.__name__}.{sub}" in names
         importlib.import_module(f"{port.__name__}.{sub}")
 

@@ -23,8 +23,9 @@ from panoswintransformerobjectdetection_torch.models.layers import ConvStemPatch
 from panoswintransformerobjectdetection_torch.flagship import flagship_config
 from panoswintransformerobjectdetection_torch.models.detectors import PanoFasterRCNN
 from panoswintransformerobjectdetection_torch.ops import stem_conv as tstem
-from panoswintransformerobjectdetection_torch.runtime.checkpoint import fold_batchnorm
-from torch_port_common import quick_jit, single_torch_thread  # noqa: F401
+from panoswintransformerobjectdetection_torch.runtime.checkpoint import (fold_batchnorm,
+                                                                         from_jax_backbone)
+from torch_port_common import quick_jit, random_variables, single_torch_thread  # noqa: F401
 
 F = torch.nn.functional
 
@@ -118,6 +119,48 @@ def test_patch_embed_matches_jax(fuse_bn):
 
     mod = ConvStemPatchEmbed(4, 24).eval()
     _load_jax_stem(mod, params, stats)
+    with torch.no_grad():
+        got = mod(torch.from_numpy(x)).numpy()
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, atol=1e-4)
+
+
+@pytest.mark.parametrize("option", ["patch_norm_off", "in_chans_4", "fuse_bn"])
+def test_stem_options_match_jax(option):
+    """The stem options a config may set, in eval, against the JAX module
+    (its XLA conv chain), float32 atol 1e-4: no LayerNorm; 4 input channels,
+    which take the three convs with eval BatchNorm in both packages (only 3
+    channels go through the fused stem); BatchNorm folded into the
+    checkpoint's convs, so that the JAX stem has none and the port's, carried
+    across by `from_jax_backbone` and then given other statistics, is not
+    applied."""
+    rng = np.random.default_rng(4)
+    chans = 4 if option == "in_chans_4" else 3
+    x = rng.standard_normal((2, 16, 40, chans)).astype(np.float32)
+    jmod = jlayers.ConvStemPatchEmbed(patch_size=4, embed_dim=24,
+                                      use_norm=option != "patch_norm_off",
+                                      fuse_bn=option == "fuse_bn")
+    variables = dict(random_variables(jmod, jnp.asarray(x), seed=5))
+    if option != "fuse_bn":
+        variables["batch_stats"] = {
+            k: {"mean": rng.standard_normal(v["mean"].shape).astype(np.float32),
+                "var": rng.uniform(0.5, 2.0, v["var"].shape).astype(np.float32)}
+            for k, v in variables["batch_stats"].items()}
+    old = jlayers.USE_FUSED_STEM
+    try:
+        jlayers.USE_FUSED_STEM = False
+        ref = np.asarray(quick_jit(lambda v, a: jmod.apply(v, a, train=False), variables,
+                                   jnp.asarray(x)))
+    finally:
+        jlayers.USE_FUSED_STEM = old
+    mod = ConvStemPatchEmbed(4, 24, use_norm=option != "patch_norm_off", in_chans=chans,
+                             fuse_bn=option == "fuse_bn").eval()
+    sd = from_jax_backbone({"patch_embed": jax.tree.map(np.asarray, variables["params"])},
+                           {"patch_embed": jax.tree.map(np.asarray,
+                                                        variables.get("batch_stats", {}))})
+    mod.load_state_dict({k[len("patch_embed."):]: v for k, v in sd.items()})
+    if option == "fuse_bn":
+        _random_bn_stem(mod, 6)
     with torch.no_grad():
         got = mod(torch.from_numpy(x)).numpy()
     assert got.shape == ref.shape

@@ -5,7 +5,9 @@ module runs: the suite runs several pytest workers on few cores, beside JAX's
 own thread pool.  `quick_jit` compiles a JAX reference without XLA's backend
 optimisations: these references run once, so their compile time is their
 cost.  `tiny_detector` builds the JAX tiny flagship and the port's copy of
-its weights once per process, for every module that needs them.
+its weights once per process, for every module that needs them;
+`tiny_odd_detector` does the same for the odd-depth tiny flagship, whose
+weights are a reference-format state dict.
 """
 
 import functools
@@ -17,6 +19,7 @@ import pytest
 import torch
 
 from panoswintransformerobjectdetection_tpu.models import DETECTORS, build
+from panoswintransformerobjectdetection_torch.apis.inference import build_detector_from_cfg
 from panoswintransformerobjectdetection_torch.flagship import flagship_config
 from panoswintransformerobjectdetection_torch.runtime.checkpoint import from_jax_variables
 
@@ -51,13 +54,13 @@ def to_numpy(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def random_variables(module, sample, seed: int):
-    """Variables of a flax module with the tree of `module.init` (traced for
+def random_variables(module, *samples, seed: int):
+    """Variables of a flax module with the tree of `module.init(key, *samples)` (traced for
     its shapes only: compiling the init costs more than any test that uses
     it) and numpy values from `seed` with the spread of the init's: kernels
     normal, cut at 2 sigma (0.02 for Dense, fan_in**-0.5 for convolutions),
     as the sphere-bias tables; biases and means 0, scales and variances 1."""
-    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), sample)
+    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), *samples)
     rng = np.random.default_rng(seed)
 
     def fill(path, leaf):
@@ -105,3 +108,55 @@ def jax_sampler_noise(key, batch: int, n: int):
         for dst, k in zip(out, jax.random.split(image_key)):
             dst.append(np.asarray(jax.random.uniform(k, (n,))))
     return tuple(torch.from_numpy(np.stack(o)) for o in out)
+
+
+# The JAX package's own tiny flagship (`__graft_entry__.py:_flagship(tiny=True)`:
+# depths 1-1-1-1, so every stage is one PitchAttention block), as a config,
+# with a test configuration of its size.
+ODD_CONFIG = {"model": {
+    "type": "PanoFasterRCNN",
+    "backbone": {"type": "PanoSwinTransformer", "embed_dim": 6, "depths": (1, 1, 1, 1),
+                 "num_heads": (1, 1, 1, 2), "window_size": 4, "ape": True,
+                 "drop_path_rate": 0.0},
+    "neck": {"type": "FPN", "in_channels": (6, 12, 24, 48), "out_channels": 16, "num_outs": 5},
+    "num_classes": 5,
+    "test_cfg": {"rpn": {"nms_pre": 256, "max_per_img": 64, "iou_threshold": 0.7,
+                         "min_bbox_size": 0},
+                 "rcnn": {"score_thr": 0.05, "iou_threshold": 0.5, "max_per_img": 32}}}}
+
+
+def random_reference_state_dict(model: torch.nn.Module, seed: int):
+    """A state dict in the reference's keys for `model`, numpy values from
+    `seed`: Linear weights and the sphere-bias tables normal cut at 2 sigma
+    (0.02), conv weights normal (fan_in**-0.5), biases normal (0.02), norm
+    scales 1 + normal (0.1), BatchNorm means normal (0.1) and variances
+    uniform in [0.5, 2]."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, t in model.state_dict().items():
+        shape = tuple(t.shape)
+        if name.endswith("num_batches_tracked"):
+            out[name] = t.clone()
+            continue
+        if name.endswith("_Te") or (name.endswith(".weight") and len(shape) == 2):
+            a = rng.standard_normal(shape).clip(-2, 2) * 0.02
+        elif name.endswith(".weight") and len(shape) == 4:
+            a = rng.standard_normal(shape) * float(np.prod(shape[1:])) ** -0.5
+        elif name.endswith(".weight"):
+            a = 1.0 + rng.standard_normal(shape) * 0.1
+        elif name.endswith("running_var"):
+            a = rng.uniform(0.5, 2.0, shape)
+        elif name.endswith("running_mean"):
+            a = rng.standard_normal(shape) * 0.1
+        else:
+            a = rng.standard_normal(shape) * 0.02
+        out[name] = torch.from_numpy(a.astype(np.float32))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def tiny_odd_detector():
+    """`ODD_CONFIG` and a reference-format state dict of random weights for
+    it (`random_reference_state_dict`, seed 4)."""
+    return {"config": ODD_CONFIG,
+            "state_dict": random_reference_state_dict(build_detector_from_cfg(ODD_CONFIG), 4)}
