@@ -48,10 +48,36 @@ Phases (each raises on failure, so any failure exits non-zero):
      nano demo config (PitchAttention in three stages) in f32 at 64 x 128,
      card against CPU from one `.pth`; one `aug_test_detector` call with
      flip on the card;
-  7. a JSON line per kernel, then the result line.
+  7. the evaluation path (`build_dataset` -> `DetDataLoader` ->
+     `apis/test.single_device_test` -> COCOeval with the native matcher):
+     (a) the indoor360 config (`configs/panoswin/
+     faster_rcnn_panoswin_tiny_indoor360.py`: PanoSwin-T, 37 classes, f32)
+     with seed-0 weights from a reference `.pth`, on 16 synthetic 512 x 1024
+     frames with 1-4 BFoV boxes each (from `--seed`) at the config's batch
+     of 2, a warm-up pass then a timed one with the launch counts reset just
+     before it and read just after (K1 8 through its f32 entry, K3 8), then
+     `evaluate` (bbox, proposal, classwise: every metric finite, NaN exactly
+     for the classes without ground truth); eval images/s, the median batch
+     and the host time of each step; K1's f32 entry at the eval batch's
+     shape beside its twin and cuDNN, K3 on the batch's RoIs against its
+     twin; (b) the nano config at 64 x 128 in f32 on 8 frames, CPU then
+     card from one `.pth`, scored on ground truth made from the CPU's
+     detections (each box moved by a seeded 0-3 px): equal detections
+     within 1e-3 px and 1e-4, every bbox metric within 1e-4 and not all 0;
+     (c) the 7a set's ground truth as detections: bbox_mAP and AR@100 1
+     (within 1e-12, COCOeval's precision rounding).
+     The card's machine has no OpenCV and cannot decode a JPEG, so the
+     frames never go to disk: the test pipeline's first step
+     (`LoadImageFromFile`) is replaced by `FramesFromMemory`, which hands
+     over the seeded arrays; every later step (Resize, Normalize, Pad,
+     PanoCheck) is the config's own.  `LoadImageFromFile` itself is held
+     against the JAX package's in the CPU tests;
+  8. a JSON line for the evaluation, a JSON line per kernel, the card's
+     name and power limit, then the result line.
 Without a CUDA card it exits with an error and prints no result.
 """
 
+import argparse
 import ctypes
 import json
 import os
@@ -88,6 +114,8 @@ F32_OPS_PER_S = 67e12               # f32 outside the tensor cores, same source
 BACKBONE_TOL_UNITS = 16
 API_CONFIG = "configs/panoswin/faster_rcnn_panoswin_tiny_bf16_streetwin.py"
 NANO_CONFIG = "configs/panoswin/faster_rcnn_panoswin_nano_demo.py"
+EVAL_CONFIG = "configs/panoswin/faster_rcnn_panoswin_tiny_indoor360.py"
+EVAL_FRAMES = 16
 IMG_NORM = ([123.675, 116.28, 103.53], [58.395, 57.12, 57.375])
 
 
@@ -983,7 +1011,314 @@ def api_path(dev, ident, counters, stem, ra):
     return total
 
 
-def main() -> int:
+class FramesFromMemory:
+    """The test pipeline's first step on the card's machine, which has no
+    OpenCV and so cannot decode a JPEG: the seeded uint8 frame drawn for the
+    record, in place of `LoadImageFromFile`'s read of its file.  Every later
+    step is the config's own."""
+
+    def __init__(self, frames):
+        self.frames = frames
+
+    def __call__(self, results):
+        img = self.frames[results["img_info"]["id"]].astype(np.float32)
+        results.update(img=img, img_shape=img.shape, ori_shape=img.shape)
+        results.setdefault("scale_factor", np.ones(4, np.float32))
+        return results
+
+
+def write_ann(path, frames, classes, annotations):
+    """A COCO-format `ann.json` for `frames` with `annotations`."""
+    n, h, w = frames.shape[:3]
+    ann = {"images": [{"id": i, "file_name": f"{i}.jpg", "width": w, "height": h}
+                      for i in range(n)],
+           "annotations": [dict(a, id=k + 1) for k, a in enumerate(annotations)],
+           "categories": [{"id": k + 1, "name": c} for k, c in enumerate(classes)]}
+    with open(path, "w") as f:
+        json.dump(ann, f)
+    return path
+
+
+def in_memory_dataset(test_cfg, ann_file, frames, img_scale=None):
+    """The config's test dataset through the port's `build_dataset`, with
+    its first step (`LoadImageFromFile`) replaced by `FramesFromMemory`;
+    `img_scale` replaces the Resize step's scale when given."""
+    from panoswintransformerobjectdetection_torch.data.builder import build_dataset
+    from panoswintransformerobjectdetection_torch.data.transforms import LoadImageFromFile
+    pipeline = [dict(p, img_scale=img_scale) if img_scale and p["type"] == "Resize" else p
+                for p in test_cfg["pipeline"]]
+    dataset = build_dataset(dict(test_cfg, ann_file=ann_file,
+                                 img_prefix=os.path.dirname(ann_file), pipeline=pipeline))
+    if not isinstance(dataset.pipeline.transforms[0], LoadImageFromFile):
+        raise AssertionError("the config's test pipeline does not start with LoadImageFromFile")
+    dataset.pipeline.transforms[0] = FramesFromMemory(frames)
+    return dataset
+
+
+def match_detections(got, want, box_tol, score_tol, what):
+    """Equal counts an image; each detection of `got` has a partner in
+    `want` of the same label with its box and score within the tolerances
+    (random weights give scores within rounding of each other, so two
+    detections may trade places).  Returns (max|box diff|, max|score diff|)."""
+    box_err = score_err = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if len(g["boxes"]) != len(w["boxes"]):
+            raise AssertionError(f"{what}: image {i} has {len(g['boxes'])} detections, "
+                                 f"the reference {len(w['boxes'])}")
+        free = np.ones(len(w["boxes"]), bool)
+        for box, score, label in zip(g["boxes"], g["scores"], g["labels"]):
+            d_box = np.abs(w["boxes"] - box).max(1, initial=0)
+            d_score = np.abs(w["scores"] - score)
+            near = free & (w["labels"] == label) & (d_score <= score_tol) & (d_box <= box_tol)
+            if not near.any():
+                raise AssertionError(f"{what}: image {i}, label {label}, score {score}, box "
+                                     f"{box} has no partner within the tolerances")
+            j = int(np.argmax(near))
+            free[j] = False
+            box_err, score_err = max(box_err, float(d_box[j])), max(score_err, float(d_score[j]))
+    return box_err, score_err
+
+
+def bfov_annotations(rng, n_frames, num_classes):
+    """1-4 360-Indoor BFoV boxes a frame: tangent point (u, v) and extent
+    (w, h) in radians, some across the seam or around a pole."""
+    out = []
+    for i in range(n_frames):
+        for _ in range(int(rng.integers(1, 5))):
+            box = [float(rng.uniform(-np.pi, np.pi)), float(rng.uniform(-1.2, 1.2)),
+                   float(rng.uniform(0.05, 1.2)), float(rng.uniform(0.05, 1.0))]
+            out.append({"image_id": i, "category_id": int(rng.integers(1, num_classes + 1)),
+                        "bbox": box, "area": box[2] * box[3], "iscrowd": 0})
+    return out
+
+
+def stage_timer(times):
+    """A `stage` hook for `single_device_test` that synchronises the card
+    around each step and keeps its host time."""
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.setdefault(name, []).append(time.perf_counter() - t0)
+        return out
+    return stage
+
+
+def k1_f32_at_eval_shape(stem, model, images):
+    """K1's f32 entry on the model's own folded stem weights at the eval
+    batch's shape, against its twin, with its device time beside the twin's
+    and cuDNN's two-conv chain (TF32 off: an f32 comparison)."""
+    defaults = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    w = model.backbone.patch_embed.kernel_weights(torch.float32)
+    x = images.float()
+    ref = stem.stem_conv_plain(x, w.w0, w.b0, w.w1, w.b1)
+    got = stem.stem_conv(x, w)
+    entry = stem.stem_conv.last_entry
+    if entry != stem.ENTRIES[torch.float32]:
+        raise AssertionError(f"K1 at f32 launched {entry}")
+    err = check(f"K1 f32 at the eval batch's shape {tuple(x.shape)}, entry {entry}, against "
+                "the twin", got, ref, 1e-4 * max(1.0, float(ref.abs().max())))
+    xn = x.permute(0, 3, 1, 2).contiguous()
+    conv = torch.nn.functional.conv2d
+
+    def library():
+        return torch.relu(conv(torch.relu(conv(xn, w.w0, w.b0, padding=1)), w.w1, w.b1,
+                               padding=1))
+
+    ms = time_ms(lambda: stem.stem_conv(x, w), 10)
+    plain_ms = time_ms(lambda: stem.stem_conv_plain(x, w.w0, w.b0, w.w1, w.b1), 3)
+    library_ms = time_ms(library, 10)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = defaults
+    b, h, wd, _ = x.shape
+    c0, c1 = w.w0.shape[0], w.w1.shape[0]
+    nbytes = (x.numel() + b * c1 * h * wd) * 4
+    ops = 2 * b * h * wd * (27 * c0 + 9 * c0 * c1)
+    bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+    rec = {"shape": list(x.shape), "c0": c0, "c1": c1, "entry": entry, "max_abs_err": err,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound,
+           "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
+           else "operations"}
+    print(f"    K1 f32 entry at {tuple(x.shape)}, c0 {c0} c1 {c1}: kernel {ms:.4f} ms "
+          f"({rates(ops, ms, bound)}), twin {plain_ms:.4f} ms, cuDNN two-conv chain "
+          f"{library_ms:.4f} ms, bound {bound:.4f} ms ({rec['bound_by']})")
+    return rec
+
+
+def eval_indoor360(dev, ident, counters, stem, ra, seed, directory):
+    """7a: the indoor360 config as users run it, on the card."""
+    from panoswintransformerobjectdetection_torch import native
+    from panoswintransformerobjectdetection_torch.apis.test import EVAL_STAGES
+    from panoswintransformerobjectdetection_torch.apis.inference import init_detector
+    from panoswintransformerobjectdetection_torch.apis.test import single_device_test
+    from panoswintransformerobjectdetection_torch.runtime.config import load_config
+    cfg = load_config(EVAL_CONFIG)
+    path = write_reference_pth(EVAL_CONFIG, directory, 0)
+    model = init_detector(EVAL_CONFIG, path, device=dev)
+    rng = np.random.default_rng(seed)
+    frames = (rng.random((EVAL_FRAMES, H, W, 3)) * 255).astype(np.uint8)
+    classes = tuple(f"c{i}" for i in range(model.num_classes))
+    ann_file = write_ann(os.path.join(directory, "indoor360.json"), frames, classes,
+                         bfov_annotations(rng, EVAL_FRAMES, len(classes)))
+    dataset = in_memory_dataset(cfg["data"]["test"], ann_file, frames)
+    batch = cfg["data"]["samples_per_gpu"]
+    single_device_test(model, dataset, batch_size=batch, device=dev)       # warm-up
+    times = {}
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = single_device_test(model, dataset, batch_size=batch, device=dev,
+                                 stage=stage_timer(times))
+    loop_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    n_batches = EVAL_FRAMES // batch
+    expect = {name: 0 for name in counters}
+    expect.update({"stem_conv (K1)": n_batches, "roi_align (K3)": n_batches})
+    if launches != expect:
+        raise AssertionError(f"7a: launches {launches}, expected {expect}")
+    if stem.stem_conv.last_entry != stem.ENTRIES[torch.float32]:
+        raise AssertionError(f"7a: K1 launched {stem.stem_conv.last_entry}, not its f32 entry")
+    if len(results) != EVAL_FRAMES or not all(
+            np.isfinite(r["boxes"]).all() and np.isfinite(r["scores"]).all() for r in results):
+        raise AssertionError("7a: results missing or not finite")
+    native.calls.update(native=0, numpy=0)
+    if native.get_lib() is None:
+        raise AssertionError(f"7a: the native matcher did not build: {native.build_error}")
+    t1 = time.perf_counter()
+    metrics = dataset.evaluate(results, metric=["bbox", "proposal"], classwise=True)
+    evaluate_s = time.perf_counter() - t1
+    if native.calls["numpy"] or not native.calls["native"]:
+        raise AssertionError(f"7a: matcher calls {native.calls}: the native matcher must run")
+    with_gt = {a["category_id"] for r in dataset.records for a in r["eval_anns"]
+               if not a["iscrowd"] and not a["ignore"]}
+    for key, v in metrics.items():
+        cls = key[len("bbox_AP_c"):] if key.startswith("bbox_AP_c") else None
+        nan_expected = cls is not None and int(cls) not in with_gt
+        if np.isnan(v) != nan_expected or (not nan_expected and not np.isfinite(v)):
+            raise AssertionError(f"7a: metric {key} = {v}, NaN expected: {nan_expected}")
+    per_batch = [sum(times[s][i] for s in EVAL_STAGES) for i in range(n_batches)]
+    host = {s: sum(times[s]) * 1e3 for s in EVAL_STAGES}
+    rec = {"frames": EVAL_FRAMES, "batch": batch, "images_per_s": EVAL_FRAMES / loop_s,
+           "loop_ms": loop_s * 1e3, "median_batch_ms": statistics.median(per_batch) * 1e3,
+           "stage_ms": host, "evaluate_ms": evaluate_s * 1e3, "launches": launches,
+           "matcher_calls": dict(native.calls), "detections": sum(len(r["boxes"])
+                                                                  for r in results)}
+    print(f"    (a) {os.path.basename(EVAL_CONFIG)} (PanoSwin-T, {model.num_classes} classes, "
+          f"f32, seed-0 weights from a reference .pth): {EVAL_FRAMES} frames of {H} x {W}, "
+          f"batch {batch}, after a warm-up pass: {rec['images_per_s']:.3f} eval images/s ({loop_s * 1e3:.3f} ms for "
+          f"the loop), median batch {rec['median_batch_ms']:.3f} ms; host ms over the loop: "
+          f"loader (pipeline + collate) {host['load']:.3f}, copy to the card "
+          f"{host['copy']:.3f}, simple_test {host['simple_test']:.3f}, results "
+          f"{host['results']:.3f}; evaluate (bbox, proposal, classwise) {evaluate_s * 1e3:.3f} "
+          f"ms with the native matcher ({native.calls['native']} matches); launches "
+          f"{launches}; {rec['detections']} detections; bbox_mAP {metrics['bbox_mAP']:.6f}, "
+          f"AR@1000 {metrics['AR@1000']:.6f}; card {ident}")
+    images = torch.from_numpy(np.stack([dataset[i]["img"] for i in range(batch)])).to(dev)
+    rec["k1_f32"] = k1_f32_at_eval_shape(stem, model, images)
+    captured, roi_features = [], model.roi_features
+
+    def capture(feats, rois):
+        captured.append(([f.detach() for f in feats[:4]], rois.detach()))
+        return roi_features(feats, rois)
+
+    model.roi_features = capture
+    model.simple_test(images, torch.tensor([[float(H), float(W)]] * batch, device=dev))
+    model.roi_features = roi_features
+    feats, rois = captured[0]
+    check(f"K3 f32 on the eval batch's {rois.shape[0]} RoIs, against the twin",
+          ra.roi_align(feats, rois, model.featmap_strides),
+          ra.roi_align_plain(feats, rois, model.featmap_strides), 0.0)
+    return rec, dataset
+
+
+def eval_nano_card_vs_cpu(dev, seed, directory):
+    """7b: the nano config at 64 x 128, f32, card against CPU from one
+    `.pth`, on ground truth made from the CPU's detections."""
+    from panoswintransformerobjectdetection_torch.apis.inference import init_detector
+    from panoswintransformerobjectdetection_torch.apis.test import single_device_test
+    from panoswintransformerobjectdetection_torch.runtime.config import load_config
+    cfg = load_config(NANO_CONFIG)
+    path = write_reference_pth(NANO_CONFIG, directory, 1)
+    rng = np.random.default_rng(seed + 1)
+    frames = (rng.random((8, 64, 128, 3)) * 255).astype(np.uint8)
+    classes = cfg["classes"]
+    first = write_ann(os.path.join(directory, "nano_first.json"), frames, classes, [])
+    ref = single_device_test(init_detector(NANO_CONFIG, path, device="cpu"),
+                             in_memory_dataset(cfg["data"]["test"], first, frames, (64, 1333)),
+                             batch_size=2, device="cpu")
+    gt = []
+    for i, r in enumerate(ref):
+        for b, s, label in zip(r["boxes"], r["scores"], r["labels"]):
+            x1, y1, x2, y2 = (b + rng.uniform(-3, 3, 4)).tolist()
+            if s > 0.05 and x2 - x1 >= 1 and y2 - y1 >= 1:
+                gt.append({"image_id": i, "category_id": int(label) + 1, "iscrowd": 0,
+                           "bbox": [x1, y1, x2 - x1, y2 - y1], "area": (x2 - x1) * (y2 - y1)})
+    dataset = in_memory_dataset(cfg["data"]["test"],
+                                write_ann(os.path.join(directory, "nano.json"), frames,
+                                          classes, gt), frames, (64, 1333))
+    defaults = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    got = single_device_test(init_detector(NANO_CONFIG, path, device=dev), dataset,
+                             batch_size=2, device=dev)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = defaults
+    box_err, score_err = match_detections(got, ref, 1e-3, 1e-4, "7b nano card vs CPU")
+    m_cpu, m_card = dataset.evaluate(ref), dataset.evaluate(got)
+    diffs = {k: abs(m_card[k] - v) for k, v in m_cpu.items()}
+    if max(diffs.values()) > 1e-4 or not any(v > 0 for v in m_cpu.values()):
+        raise AssertionError(f"7b: metrics card {m_card}, CPU {m_cpu}")
+    print(f"    (b) nano config, f32, 8 frames of 64 x 128, card vs CPU from one .pth: "
+          f"detections per image {[len(r['boxes']) for r in ref]} on both, max|box diff| "
+          f"{box_err:.3g} px (tolerance 1e-3), max|score diff| {score_err:.3g} (1e-4); on "
+          f"{len(gt)} ground-truth boxes made from the CPU's detections: bbox_mAP card "
+          f"{m_card['bbox_mAP']:.6f}, CPU {m_cpu['bbox_mAP']:.6f}, max|metric diff| "
+          f"{max(diffs.values()):.3g} (tolerance 1e-4)")
+    return {"box_err": box_err, "score_err": score_err, "bbox_mAP": m_card["bbox_mAP"],
+            "max_metric_diff": max(diffs.values())}
+
+
+def perfect_probe(dataset):
+    """7c: the 7a dataset's ground truth as its evaluator holds it
+    (`eval_anns`) as detections of score 1: bbox_mAP and AR@100 are 1
+    (within 1e-12)."""
+    dets = []
+    for r in dataset.records:
+        anns = [a for a in r["eval_anns"] if not a["iscrowd"]]
+        boxes = np.array([[a["bbox"][0], a["bbox"][1], a["bbox"][0] + a["bbox"][2],
+                           a["bbox"][1] + a["bbox"][3]] for a in anns], np.float32)
+        dets.append({"boxes": boxes.reshape(-1, 4), "scores": np.ones(len(anns), np.float32),
+                     "labels": np.array([a["category_id"] for a in anns], np.int64)})
+    metrics = dataset.evaluate(dets)
+    # 1 within 1e-12: COCOeval's precision is tp / (tp + fp + spacing(1))
+    if abs(metrics["bbox_mAP"] - 1.0) > 1e-12 or abs(metrics["bbox_AR@100"] - 1.0) > 1e-12:
+        raise AssertionError(f"7c: perfect detections give {metrics}")
+    pixel = dataset.evaluate([{"boxes": r["bboxes"], "labels": r["labels"],
+                               "scores": np.ones(len(r["bboxes"]), np.float32)}
+                              for r in dataset.records])
+    print(f"    (c) perfect-detection probe on the 7a set (host): bbox_mAP "
+          f"{metrics['bbox_mAP']}, AR@100 {metrics['bbox_AR@100']}, AR@1 "
+          f"{metrics['bbox_AR@1']:.6f}; the records' equirectangular pixel boxes as "
+          f"detections give bbox_mAP {pixel['bbox_mAP']:.6f}: 360-Indoor's eval_anns keep "
+          "the BFoV boxes in radians, as the JAX package's do (ROADMAP.md, Queue 3)")
+    return {"bbox_mAP": metrics["bbox_mAP"], "bbox_AR@100": metrics["bbox_AR@100"],
+            "pixel_boxes_bbox_mAP": pixel["bbox_mAP"]}
+
+
+def eval_path(dev, ident, counters, stem, ra, seed):
+    """Phase 7: the evaluation path on the card; returns its record."""
+    with tempfile.TemporaryDirectory() as directory:
+        rec, dataset = eval_indoor360(dev, ident, counters, stem, ra, seed, directory)
+        rec["nano_card_vs_cpu"] = eval_nano_card_vs_cpu(dev, seed, directory)
+        rec["perfect_probe"] = perfect_probe(dataset)
+    return rec
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description="Drive the PyTorch port on one CUDA card.")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of phase 7's synthetic frames and boxes")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -1094,6 +1429,12 @@ def main() -> int:
     print("[6] inference API on the card, bf16, PyTorch's TF32 defaults except in (b)")
     launches["api"] = api_path(dev, ident, counters, stem, ra)
 
+    print("[7] evaluation path on the card: build_dataset, DetDataLoader, single_device_test, "
+          "COCOeval with the native matcher; f32 configs, PyTorch's TF32 defaults except in "
+          "(b) and K1's f32 timing")
+    evaluation = eval_path(dev, ident, counters, stem, ra, args.seed)
+    launches["eval"] = evaluation["launches"]
+
     for rec in records:
         key = rec.get("shares_kernel_of", rec["name"])
         if key in ("dense_crop (K4)", "roi_align_backward (K3 backward)"):
@@ -1104,6 +1445,10 @@ def main() -> int:
         if key == "roi_align (K3)":
             rec["launches_training"] = launches["train"][key]
         rec["launches_api"] = launches["api"][key]
+        rec["launches_eval"] = launches["eval"][key]
+        if key == "stem_conv (K1)":
+            rec["f32_eval_shape"] = evaluation["k1_f32"]
+    print(json.dumps({"evaluation": {k: v for k, v in evaluation.items() if k != "k1_f32"}}))
     print(json.dumps({"kernels": records}))
     print(ident)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,8 +6,8 @@ Counterpart of `build_detector_from_cfg`, `init_detector`, `load_weights`,
 `panoswintransformerobjectdetection_tpu/apis/inference.py`.  The detector
 runs on the card unless the caller passes `device="cpu"`; the result is the
 reference's per-class list of (k, 5) float32 arrays (x1, y1, x2, y2,
-score).  Drawing the result (`show_result_pyplot`) needs OpenCV and
-matplotlib and is not ported (ROADMAP.md, Queue 1, item 15).
+score).  `show_result_pyplot` draws such a result; it imports OpenCV and
+matplotlib when it runs (the card's machine has neither).
 """
 
 import asyncio
@@ -143,3 +143,34 @@ async def async_inference_detector(model: PanoFasterRCNN, img,
     loop = asyncio.get_running_loop()
     return await loop.run_in_executor(None, functools.partial(
         inference_detector, model, img, pipeline=pipeline, num_classes=num_classes))
+
+
+def show_result_pyplot(model: PanoFasterRCNN, img, result: List[np.ndarray],
+                       score_thr: float = 0.3, fig_size=(15, 10), title: str = "result",
+                       class_names=None, out_file: Optional[str] = None) -> np.ndarray:
+    """Draw `inference_detector`'s result (a list over classes of (k, 5)
+    arrays) on `img` (a path, or an (H, W, 3) BGR array): boxes and scores
+    above `score_thr`, written to `out_file` when given, and shown in a
+    matplotlib figure when the backend can show one.  Returns the drawn BGR
+    image."""
+    import cv2
+    from ..utils.visualize import show_result
+    if isinstance(img, str):
+        img = cv2.imread(img, cv2.IMREAD_COLOR)
+    boxes = np.concatenate([r[:, :4] for r in result]) if result else np.zeros((0, 4),
+                                                                                 np.float32)
+    scores = np.concatenate([r[:, 4] for r in result]) if result else np.zeros(0, np.float32)
+    labels = np.concatenate([np.full(len(r), c, np.int64) for c, r in enumerate(result)]) \
+        if result else np.zeros(0, np.int64)
+    drawn = show_result(img, {"boxes": boxes, "scores": scores, "labels": labels},
+                        class_names=class_names or getattr(model, "classes", None),
+                        score_thr=score_thr, out_file=out_file)
+    import matplotlib
+    if matplotlib.get_backend().lower() != "agg":
+        import matplotlib.pyplot as plt
+        plt.figure(figsize=fig_size)
+        plt.imshow(cv2.cvtColor(drawn, cv2.COLOR_BGR2RGB))
+        plt.title(title)
+        plt.axis("off")
+        plt.show()
+    return drawn

@@ -1,0 +1,81 @@
+"""The evaluation loop: a dataset through the detector, batch by batch.
+
+Counterpart of `single_device_test` in
+`panoswintransformerobjectdetection_tpu/apis/test.py` (the reference's
+`single_gpu_test`).  `DetDataLoader` makes fixed-shape numpy batches on the
+host; each goes to the device, through `simple_test` under
+`torch.inference_mode()`, and back; the padded slots are dropped by the
+result's `mask`, and each image's result is keyed by the record index the
+batch carries.  Runs on the card unless the caller passes `device="cpu"`.
+"""
+
+from typing import Callable, List, Optional, Union
+
+import torch
+
+from ..data.loader import DetDataLoader
+from ..device import resolve_device
+from ..models.detectors import PanoFasterRCNN, run_stage
+
+# The loop's steps, each run through `stage(name, fn)`: the next batch from
+# the loader (pipeline and collation on the host), its copy to the device,
+# `simple_test`, and the results' copy back and trim.
+EVAL_STAGES = ("load", "copy", "simple_test", "results")
+
+
+def single_device_test(model: PanoFasterRCNN, dataset, *, batch_size: int = 1,
+                       max_gt: int = 100, with_masks: bool = False, progress: bool = False,
+                       device: Optional[Union[str, torch.device]] = None,
+                       stage: Callable = run_stage) -> List[dict]:
+    """Per-image dicts (boxes (k, 4), scores (k,), labels (k,)) in original
+    image coordinates, in the dataset's order.  `model` must already be on
+    `device` (the card unless "cpu" is passed).  Each of `EVAL_STAGES` runs
+    as `stage(name, fn)`; a caller that times the loop passes one that also
+    times it.  A sample that the loader skips raises, rather than shifting
+    every later result onto the wrong image."""
+    dev = resolve_device(device)
+    if with_masks:
+        raise NotImplementedError("evaluation with masks is not ported yet (ROADMAP.md, "
+                                  "Queue 1, item 17)")
+    if model.device.type != dev.type or dev.index not in (None, model.device.index):
+        raise ValueError(f"the model is on {model.device}, the evaluation on {dev}: move "
+                         "the model or pass its device")
+    dev = model.device
+    loader = DetDataLoader(dataset, batch_size=batch_size, shuffle=False, max_gt=max_gt,
+                           drop_last=False)
+    by_index = {}
+    batches = iter(loader)
+    bi = 0
+    with torch.inference_mode():
+        while True:
+            batch = stage("load", lambda: next(batches, None))
+            if batch is None:
+                break
+            inputs = stage("copy", lambda: [
+                torch.from_numpy(batch[k]).to(dev)
+                for k in ("images", "img_shapes", "scale_factors")])
+            out = stage("simple_test", lambda: model.simple_test(*inputs))
+            results = stage("results", lambda: _trimmed(out, batch["indices"]))
+            by_index.update(results)
+            if progress and bi % 50 == 0:
+                print(f"eval batch {bi}/{len(loader)}")
+            bi += 1
+    missing = [i for i in range(len(dataset)) if i not in by_index]
+    if missing:
+        raise RuntimeError(
+            f"eval loader skipped {len(missing)} sample(s) (first: {missing[:5]}); results "
+            "would misalign with dataset.records")
+    return [by_index[i] for i in range(len(dataset))]
+
+
+def _trimmed(out, indices) -> dict:
+    boxes, scores, labels, mask = (t.cpu().numpy() for t in out)
+    return {int(idx): {"boxes": boxes[i][mask[i]], "scores": scores[i][mask[i]],
+                       "labels": labels[i][mask[i]]}
+            for i, idx in enumerate(indices)}
+
+
+def multi_host_test(*args, **kwargs):
+    """Distributed evaluation (the JAX package's `multi_host_test`)."""
+    raise NotImplementedError("distributed evaluation is not ported yet (ROADMAP.md, Queue 1, "
+                              "item 16)")

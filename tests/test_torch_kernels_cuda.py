@@ -23,6 +23,7 @@ order).  The bf16 entry must give the same bits on every run.
 """
 
 import ctypes
+import os
 
 import numpy as np
 import pytest
@@ -556,3 +557,49 @@ def test_training_wrappers_refuse_bad_input(cuda_device):
         assert fn(ctypes.byref(ra.level_struct(maps, STRIDES)), rois.data_ptr(), cot.data_ptr(),
                   2, 1, 4, dtype_code, 1, 56.0, workspace.data_ptr(), size,
                   torch.cuda.current_stream().cuda_stream) != 0
+
+
+@pytest.mark.cuda
+def test_single_device_test_on_the_card(cuda_device, tmp_path):
+    """The nano demo config, f32, on eight seeded 64 x 128 frames through
+    `single_device_test` at batch 2: K1 and K3 launch once a batch, and the
+    card's detections equal the CPU's (equal counts an image, each with a
+    partner of the same label, box within 1e-3 px and score within 1e-4)."""
+    import json
+    from chip_smoke import FramesFromMemory, match_detections
+    from panoswintransformerobjectdetection_torch.apis.inference import init_detector
+    from panoswintransformerobjectdetection_torch.apis.test import single_device_test
+    from panoswintransformerobjectdetection_torch.data.builder import build_dataset
+    from panoswintransformerobjectdetection_torch.data.transforms import LoadImageFromFile
+    rng = np.random.default_rng(8)
+    frames = (rng.random((8, 64, 128, 3)) * 255).astype(np.uint8)
+    ann = {"images": [{"id": i, "file_name": f"{i}.jpg", "width": 128, "height": 64}
+                      for i in range(8)],
+           "annotations": [{"id": i + 1, "image_id": i, "category_id": 1,
+                            "bbox": [10.0, 8.0, 30.0, 20.0], "area": 600.0, "iscrowd": 0}
+                           for i in range(8)],
+           "categories": [{"id": 1, "name": "car"}]}
+    ann_file = str(tmp_path / "ann.json")
+    with open(ann_file, "w") as f:
+        json.dump(ann, f)
+    pipeline = [{"type": "LoadImageFromFile"},
+                {"type": "Resize", "img_scale": (64, 1333), "keep_ratio": True},
+                {"type": "Normalize", "mean": [123.675, 116.28, 103.53],
+                 "std": [58.395, 57.12, 57.375], "to_rgb": True},
+                {"type": "Pad", "size_divisor": 32}, {"type": "PanoCheck"}]
+    dataset = build_dataset({"type": "StreetDataset", "ann_file": ann_file,
+                             "img_prefix": str(tmp_path), "pipeline": pipeline,
+                             "test_mode": True})
+    assert isinstance(dataset.pipeline.transforms[0], LoadImageFromFile)
+    dataset.pipeline.transforms[0] = FramesFromMemory(frames)
+    config = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs",
+                          "panoswin", "faster_rcnn_panoswin_nano_demo.py")
+    ref = single_device_test(init_detector(config, seed=1, device="cpu"), dataset,
+                             batch_size=2, device="cpu")
+    model = init_detector(config, seed=1, device=cuda_device)
+    stem.stem_conv.launches = ra.roi_align.launches = 0
+    got = single_device_test(model, dataset, batch_size=2, device=cuda_device)
+    assert (stem.stem_conv.launches, ra.roi_align.launches) == (4, 4)
+    assert stem.stem_conv.last_entry == stem.ENTRIES[torch.float32]
+    assert sum(len(r["boxes"]) for r in ref) > 0
+    match_detections(got, ref, 1e-3, 1e-4, "single_device_test, card vs CPU")

@@ -14,8 +14,11 @@ import torch
 
 import panoswintransformerobjectdetection_torch as port
 from panoswintransformerobjectdetection_torch.apis.inference import init_detector
+from panoswintransformerobjectdetection_torch.apis.test import single_device_test
 from panoswintransformerobjectdetection_torch.flagship import build_flagship
 from panoswintransformerobjectdetection_torch.ops import fused_attention, roi_align, stem_conv
+from panoswintransformerobjectdetection_torch.tools import image_demo
+from panoswintransformerobjectdetection_torch.tools import test as test_cli
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_DIR = Path(port.__file__).resolve().parent
@@ -56,8 +59,15 @@ def test_default_device_is_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_flagship(tiny=True)
+    nano = str(ROOT / "configs" / "panoswin" / "faster_rcnn_panoswin_nano_demo.py")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        init_detector(str(ROOT / "configs" / "panoswin" / "faster_rcnn_panoswin_nano_demo.py"))
+        init_detector(nano)
+    model = build_flagship(tiny=True, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        single_device_test(model, [])
+    for main in (test_cli.main, lambda args: image_demo.main(["frame.jpg", *args])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main([nano])
 
 
 def test_cpu_tensors_take_the_twins():
@@ -101,7 +111,10 @@ def test_modules_list_covers_the_slice():
                 "core.sampler", "core.losses", "runtime.checkpoint", "runtime.optim",
                 "runtime.train", "flagship", "profile_flagship", "geometry.rotate",
                 "geometry.resample", "runtime.config", "data.transforms", "apis.inference",
-                "apis.tta"):
+                "apis.tta", "core.rle", "core.cocoeval", "core.evaluation", "core.class_names",
+                "native", "geometry.projection", "data.datasets", "data.wrappers",
+                "data.builder", "data.loader", "apis.test", "utils.visualize", "tools.test",
+                "tools.eval_metric", "tools.image_demo"):
         assert f"{port.__name__}.{sub}" in names
         importlib.import_module(f"{port.__name__}.{sub}")
 

@@ -160,3 +160,60 @@ def tiny_odd_detector():
     it (`random_reference_state_dict`, seed 4)."""
     return {"config": ODD_CONFIG,
             "state_dict": random_reference_state_dict(build_detector_from_cfg(ODD_CONFIG), 4)}
+
+
+STREET_CLASSES = ("car", "crosswalk", "light", "traffic_sign", "warning_line")
+
+
+def write_coco_set(root, n_images: int, height: int, width: int, seed: int,
+                   classes=STREET_CLASSES, crowd: bool = True, bfov: bool = False):
+    """A synthetic COCO-format set on disk, on the model of
+    `test_eval_protocol_parity.py:_make_dataset`: `n_images` JPEG frames of
+    (height, width) with filled rectangles, 1-4 boxes each (log-uniform
+    sizes, so all three COCOeval area buckets), one crowd region (an RLE) on
+    image 0.  With `bfov`, each box is written as 360-Indoor's BFoV (tangent
+    point and extent in radians) and a last box of image 0 as pixels.
+    Returns (ann_file, img_dir)."""
+    import json
+    import os
+    import cv2
+    rng = np.random.default_rng(seed)
+    img_dir = os.path.join(root, "imgs")
+    os.makedirs(img_dir, exist_ok=True)
+    images, annotations = [], []
+    for i in range(n_images):
+        img = (rng.random((height, width, 3)) * 60).astype(np.uint8)
+        for _ in range(int(rng.integers(1, 5))):
+            s = float(np.exp(rng.uniform(np.log(6), np.log(min(height, width) * 0.8))))
+            ar = float(np.exp(rng.uniform(np.log(0.6), np.log(1.8))))
+            bw, bh = min(s * np.sqrt(ar), width - 2.0), min(s / np.sqrt(ar), height - 2.0)
+            x = float(rng.uniform(0, width - bw - 1))
+            y = float(rng.uniform(0, height - bh - 1))
+            color = tuple(int(c) for c in rng.integers(90, 255, 3))
+            cv2.rectangle(img, (int(x), int(y)), (int(x + bw), int(y + bh)), color, -1)
+            if bfov:
+                box = [float(rng.uniform(-np.pi, np.pi)), float(rng.uniform(-1.2, 1.2)),
+                       float(rng.uniform(0.05, 1.2)), float(rng.uniform(0.05, 1.0))]
+                area = box[2] * box[3]
+            else:
+                box, area = [x, y, float(bw), float(bh)], float(bw * bh)
+            annotations.append({"id": len(annotations) + 1, "image_id": i,
+                                "category_id": int(rng.integers(1, len(classes) + 1)),
+                                "bbox": box, "area": area, "iscrowd": 0})
+        if i == 0 and crowd:
+            annotations.append({"id": len(annotations) + 1, "image_id": 0, "category_id": 1,
+                                "bbox": [0.0, 0.0, 20.0, 12.0], "area": 240.0, "iscrowd": 1,
+                                "segmentation": {"size": [height, width],
+                                                 "counts": [40, 240, height * width - 280]}})
+        if i == 0 and bfov:
+            annotations.append({"id": len(annotations) + 1, "image_id": 0, "category_id": 2,
+                                "bbox": [width * 0.5, 3.0, 30.0, 9.0], "area": 270.0,
+                                "iscrowd": 0})
+        cv2.imwrite(os.path.join(img_dir, f"{i}.jpg"), img)
+        images.append({"id": i, "file_name": f"{i}.jpg", "width": width, "height": height})
+    ann = {"images": images, "annotations": annotations,
+           "categories": [{"id": k + 1, "name": n} for k, n in enumerate(classes)]}
+    ann_file = os.path.join(root, "ann.json")
+    with open(ann_file, "w") as f:
+        json.dump(ann, f)
+    return ann_file, img_dir
