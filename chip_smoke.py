@@ -65,15 +65,37 @@ Phases (each raises on failure, so any failure exits non-zero):
      detections (each box moved by a seeded 0-3 px): equal detections
      within 1e-3 px and 1e-4, every bbox metric within 1e-4 and not all 0;
      (c) the 7a set's ground truth as detections: bbox_mAP and AR@100 1
-     (within 1e-12, COCOeval's precision rounding).
+     (within 1e-12, COCOeval's precision rounding), and so the records'
+     own pixel boxes, which 360-Indoor's `eval_anns` now carry.
      The card's machine has no OpenCV and cannot decode a JPEG, so the
      frames never go to disk: the test pipeline's first step
      (`LoadImageFromFile`) is replaced by `FramesFromMemory`, which hands
      over the seeded arrays; every later step (Resize, Normalize, Pad,
      PanoCheck) is the config's own.  `LoadImageFromFile` itself is held
      against the JAX package's in the CPU tests;
-  8. a JSON line for the evaluation, a JSON line per kernel, the card's
-     name and power limit, then the result line.
+  8. the training loop (`apis/train.train_detector`): (a) the bf16
+     streetwin config at full width with seed-0 weights from a reference
+     `.pth` (`load_from`), 8 synthetic 512 x 1024 frames with 1-6 boxes each
+     (from `--seed`) through the config's own `train_pipeline` after
+     `FramesFromMemory` (PanoStretch, RollAug, RandomFlip, multiscale
+     Resize), the shuffling `DetDataLoader` at batch 2 with the CLI's 2
+     worker threads, 2 epochs (8 steps), an `epoch_{n}` checkpoint each
+     epoch and an `eval_fn` (`single_device_test` + `evaluate`) on 4 frames
+     after each; then a run resumed from `epoch_1` (loader in the model's
+     thread) whose steps and learning rates must be the first run's; every
+     loss finite; each step with the launch counts reset just before it and
+     read just after (K3 forward 1, K3 backward 1 through its bf16 entry,
+     K2 and K4 0), each eval batch likewise (K1 1, K3 1), and K1's cached
+     weights equal to a fresh fold of the just-trained stem; loop images/s
+     with the loader, the median step, the loader's host share, peak
+     memory; (b) the nano config at 64 x 128 in f32, two loop steps with
+     `accumulate_steps=2` and a clip that triggers, card against CPU from
+     one `.pth` with the same draws; (c) one full-width bf16
+     `forward_train` + backward with `use_checkpoint=True` and one without,
+     same weights and generators, DropPath 0.1: losses equal, gradients
+     within the stated tolerance, peak memory of both;
+  9. a JSON line for the evaluation, one for the training loop, a JSON line
+     per kernel, the card's name and power limit, then the result line.
 Without a CUDA card it exits with an error and prints no result.
 """
 
@@ -116,6 +138,7 @@ API_CONFIG = "configs/panoswin/faster_rcnn_panoswin_tiny_bf16_streetwin.py"
 NANO_CONFIG = "configs/panoswin/faster_rcnn_panoswin_nano_demo.py"
 EVAL_CONFIG = "configs/panoswin/faster_rcnn_panoswin_tiny_indoor360.py"
 EVAL_FRAMES = 16
+LOOP_FRAMES, LOOP_EVAL_FRAMES, LOOP_EPOCHS = 8, 4, 2
 IMG_NORM = ([123.675, 116.28, 103.53], [58.395, 57.12, 57.375])
 
 
@@ -1039,18 +1062,19 @@ def write_ann(path, frames, classes, annotations):
     return path
 
 
-def in_memory_dataset(test_cfg, ann_file, frames, img_scale=None):
-    """The config's test dataset through the port's `build_dataset`, with
-    its first step (`LoadImageFromFile`) replaced by `FramesFromMemory`;
-    `img_scale` replaces the Resize step's scale when given."""
+def in_memory_dataset(split_cfg, ann_file, frames, img_scale=None):
+    """A config's dataset (a test or a training split) through the port's
+    `build_dataset`, with its pipeline's first step (`LoadImageFromFile`)
+    replaced by `FramesFromMemory`; `img_scale` replaces the Resize step's
+    scale (one scale) when given."""
     from panoswintransformerobjectdetection_torch.data.builder import build_dataset
     from panoswintransformerobjectdetection_torch.data.transforms import LoadImageFromFile
     pipeline = [dict(p, img_scale=img_scale) if img_scale and p["type"] == "Resize" else p
-                for p in test_cfg["pipeline"]]
-    dataset = build_dataset(dict(test_cfg, ann_file=ann_file,
+                for p in split_cfg["pipeline"]]
+    dataset = build_dataset(dict(split_cfg, ann_file=ann_file,
                                  img_prefix=os.path.dirname(ann_file), pipeline=pipeline))
     if not isinstance(dataset.pipeline.transforms[0], LoadImageFromFile):
-        raise AssertionError("the config's test pipeline does not start with LoadImageFromFile")
+        raise AssertionError("the config's pipeline does not start with LoadImageFromFile")
     dataset.pipeline.transforms[0] = FramesFromMemory(frames)
     return dataset
 
@@ -1296,11 +1320,13 @@ def perfect_probe(dataset):
     pixel = dataset.evaluate([{"boxes": r["bboxes"], "labels": r["labels"],
                                "scores": np.ones(len(r["bboxes"]), np.float32)}
                               for r in dataset.records])
+    if abs(pixel["bbox_mAP"] - 1.0) > 1e-12:
+        raise AssertionError(f"7c: the records' pixel boxes as detections give {pixel}")
     print(f"    (c) perfect-detection probe on the 7a set (host): bbox_mAP "
           f"{metrics['bbox_mAP']}, AR@100 {metrics['bbox_AR@100']}, AR@1 "
           f"{metrics['bbox_AR@1']:.6f}; the records' equirectangular pixel boxes as "
-          f"detections give bbox_mAP {pixel['bbox_mAP']:.6f}: 360-Indoor's eval_anns keep "
-          "the BFoV boxes in radians, as the JAX package's do (ROADMAP.md, Queue 3)")
+          f"detections give bbox_mAP {pixel['bbox_mAP']} (360-Indoor's eval_anns carry the "
+          "converted pixel box, a deliberate departure from the JAX package)")
     return {"bbox_mAP": metrics["bbox_mAP"], "bbox_AR@100": metrics["bbox_AR@100"],
             "pixel_boxes_bbox_mAP": pixel["bbox_mAP"]}
 
@@ -1314,10 +1340,346 @@ def eval_path(dev, ident, counters, stem, ra, seed):
     return rec
 
 
+
+def pixel_annotations(rng, n_frames, height, width, num_classes, most=6):
+    """1-`most` pixel boxes a frame (COCO xywh), 16 px to half the frame a side."""
+    out = []
+    for i in range(n_frames):
+        for _ in range(int(rng.integers(1, most + 1))):
+            w, h = float(rng.uniform(16, width / 2)), float(rng.uniform(16, height / 2))
+            x, y = float(rng.uniform(0, width - w)), float(rng.uniform(0, height - h))
+            out.append({"image_id": i, "category_id": int(rng.integers(1, num_classes + 1)),
+                        "bbox": [x, y, w, h], "area": w * h, "iscrowd": 0})
+    return out
+
+
+class LoopRecord:
+    """A training hook, and `stage` hooks for `train_detector` and
+    `single_device_test`, that keep what phase 8 checks: each step's metrics
+    and step count, each epoch's loop time (its first batch asked for to its
+    last step's hooks), each stage's host time (the card synchronised around
+    it), and the launches of each step and each eval batch, the counts set
+    to 0 just before and read just after."""
+
+    def __init__(self, counters):
+        self.counters = counters
+        self.steps, self.epochs, self.times = [], [], {}
+        self.step_launches, self.eval_launches = [], []
+
+    def _counted(self, fn, into):
+        for c in self.counters.values():
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        into.append({name: c.launches for name, c in self.counters.items()})
+        return out
+
+    def stage(self, name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self._counted(fn, self.step_launches) if name == "step" else fn()
+        torch.cuda.synchronize()
+        self.times.setdefault(name, []).append(time.perf_counter() - t0)
+        return out
+
+    def eval_stage(self, name, fn):
+        return self._counted(fn, self.eval_launches) if name == "simple_test" else fn()
+
+    # hook methods (`runtime/hooks.Hook`)
+    def before_train(self, ctx):
+        pass
+
+    def before_epoch(self, ctx):
+        self.epochs.append([time.perf_counter(), None, 0])
+
+    def after_iter(self, ctx):
+        self.steps.append(dict(ctx["metrics"], step=ctx["step"]))
+        self.epochs[-1][1:] = [time.perf_counter(), self.epochs[-1][2] + 1]
+
+    def after_epoch(self, ctx):
+        pass
+
+    def after_train(self, ctx):
+        pass
+
+
+def check_stem_cache(stem, model, dtype):
+    """K1's cached weights (`ConvStemPatchEmbed.kernel_weights`, keyed on the
+    tensors' versions) equal a fresh fold of the stem's current weights and
+    statistics: a training step changed them in place since the last eval."""
+    pe = model.backbone.patch_embed
+    cached = pe.kernel_weights(dtype)
+    with torch.no_grad():
+        folded = [t for ci, bi in ((0, 1), (3, 4))
+                  for t in stem.fold_bn(pe.proj[ci].weight, pe.proj[ci].bias, pe.proj[bi].weight,
+                                        pe.proj[bi].bias, pe.proj[bi].running_mean,
+                                        pe.proj[bi].running_var, pe.proj[bi].eps)]
+        fresh = stem.stem_weights(*folded, dtype)
+    if not all(torch.equal(a, b) for a, b in zip(cached, fresh)):
+        raise AssertionError("8a: K1's cached stem weights are not the trained stem's")
+    return cached
+
+
+def loop_full_width(dev, ident, counters, stem, ra, seed, directory):
+    """8a: the bf16 streetwin config's training loop on the card."""
+    from panoswintransformerobjectdetection_torch.apis.inference import build_detector_from_cfg
+    from panoswintransformerobjectdetection_torch.apis.test import single_device_test
+    from panoswintransformerobjectdetection_torch.apis.train import train_detector
+    from panoswintransformerobjectdetection_torch.runtime.config import load_config
+    from panoswintransformerobjectdetection_torch.runtime.hooks import LrRecordHook
+    from panoswintransformerobjectdetection_torch.runtime.optim import warmup_step_schedule
+    cfg = load_config(API_CONFIG)
+    classes = cfg["classes"]
+    path = write_reference_pth(API_CONFIG, directory, 0)
+    rng = np.random.default_rng(seed + 2)
+    frames = (rng.random((LOOP_FRAMES, H, W, 3)) * 255).astype(np.uint8)
+    ann_file = write_ann(os.path.join(directory, "loop_train.json"), frames, classes,
+                         pixel_annotations(rng, LOOP_FRAMES, H, W, len(classes)))
+    train_ds = in_memory_dataset(dict(cfg["data"]["train"], classes=classes), ann_file, frames)
+    steps = [p["type"] for p in cfg["data"]["train"]["pipeline"]]
+    val_frames = frames[:LOOP_EVAL_FRAMES]
+    val_ann = write_ann(os.path.join(directory, "loop_val.json"), val_frames, classes,
+                        pixel_annotations(rng, LOOP_EVAL_FRAMES, H, W, len(classes)))
+    val_ds = in_memory_dataset(dict(cfg["data"]["val"], classes=classes), val_ann, val_frames)
+    batch = cfg["data"]["samples_per_gpu"]
+    opt, sched = cfg["optimizer"], cfg["lr_config"]
+    steps_per_epoch = LOOP_FRAMES // batch
+    schedule = warmup_step_schedule(opt["lr"], sched["warmup_iters"],
+                                    decay_steps=[e * steps_per_epoch for e in sched["step"]])
+    stems = []
+
+    def run(record, work_dir, **kw):
+        def eval_fn(model):
+            results = single_device_test(model, val_ds, batch_size=batch, device=dev,
+                                         stage=record.eval_stage)
+            stems.append(check_stem_cache(stem, model, torch.bfloat16))
+            return val_ds.evaluate(results)
+
+        model = build_detector_from_cfg(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        train_detector(model, train_ds, work_dir=work_dir, total_epochs=LOOP_EPOCHS,
+                       batch_size=batch, base_lr=opt["lr"], weight_decay=opt["weight_decay"],
+                       warmup_iters=sched["warmup_iters"], decay_epochs=sched["step"],
+                       log_interval=1, checkpoint_interval=1, eval_fn=eval_fn, seed=seed,
+                       hooks=[LrRecordHook(schedule), record], device=dev, stage=record.stage,
+                       **kw)
+        return time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+    first, resumed = LoopRecord(counters), LoopRecord(counters)
+    first_dir, resumed_dir = (os.path.join(directory, d) for d in ("loop", "resumed"))
+    wall, peak = run(first, first_dir, load_from=path, num_workers=2)
+    resumed_wall, resumed_peak = run(resumed, resumed_dir, num_workers=0,
+                                     resume_from=os.path.join(first_dir, "epoch_1"))
+
+    zero = {name: 0 for name in counters}
+    per_step = {**zero, "roi_align (K3)": 1, "roi_align_backward (K3 backward)": 1}
+    per_batch = {**zero, "stem_conv (K1)": 1, "roi_align (K3)": 1}
+    for record, n_steps, n_evals in ((first, LOOP_EPOCHS * steps_per_epoch, LOOP_EPOCHS),
+                                     (resumed, steps_per_epoch, 1)):
+        eval_batches = n_evals * (LOOP_EVAL_FRAMES // batch)
+        if (len(record.step_launches), len(record.eval_launches)) != (n_steps, eval_batches):
+            raise AssertionError(f"8a: {len(record.step_launches)} steps and "
+                                 f"{len(record.eval_launches)} eval batches, expected {n_steps} "
+                                 f"and {eval_batches}")
+        for counts in record.step_launches:
+            expect_launches(counts, per_step, "8a training step")
+        for counts in record.eval_launches:
+            expect_launches(counts, per_batch, "8a eval batch")
+        if not all(np.isfinite(v) for m in record.steps for v in m.values()):
+            raise AssertionError(f"8a: a loss is not finite: {record.steps}")
+    if ra.roi_align_backward.last_entry != ra.BACKWARD_ENTRIES[torch.bfloat16]:
+        raise AssertionError(f"8a: K3's backward launched {ra.roi_align_backward.last_entry}")
+    if stems[0] is stems[1]:
+        raise AssertionError("8a: K1's stem weights were not folded again after an epoch")
+    want = [(m["step"], m["lr"]) for m in first.steps[steps_per_epoch:]]
+    got = [(m["step"], m["lr"]) for m in resumed.steps]
+    ckpts = [torch.load(os.path.join(d, f"epoch_{LOOP_EPOCHS}"), map_location="cpu",
+                        weights_only=True) for d in (first_dir, resumed_dir)]
+    if got != want or not ckpts[0]["step"] == ckpts[1]["step"] == LOOP_EPOCHS * steps_per_epoch \
+            or ckpts[0]["scheduler"] != ckpts[1]["scheduler"]:
+        raise AssertionError(f"8a: resumed steps and lrs {got}, the first run's {want}; "
+                             f"schedules {ckpts[0]['scheduler']} and {ckpts[1]['scheduler']}")
+    del ckpts
+
+    def summary(record, wall_s, peak_bytes, workers):
+        loop_s = sum(end - start for start, end, _ in record.epochs)
+        n = sum(k for _, _, k in record.epochs)
+        host = {k: sum(v) for k, v in record.times.items()}
+        last_start, last_end, last_n = record.epochs[-1]
+        return {"steps": n, "images_per_s": n * batch / loop_s,
+                "last_epoch_images_per_s": last_n * batch / (last_end - last_start),
+                "median_step_ms": statistics.median(record.times["step"]) * 1e3,
+                "step_ms": [t * 1e3 for t in record.times["step"]],
+                "loader_share": host["load"] / loop_s, "stage_ms": {k: v * 1e3 for k, v in
+                                                                  host.items()},
+                "loop_ms": loop_s * 1e3, "wall_ms": wall_s * 1e3,
+                "peak_memory_gib": peak_bytes / 2**30, "num_workers": workers}
+
+    rec = {"config": os.path.basename(API_CONFIG), "pipeline": steps, "frames": LOOP_FRAMES,
+           "batch": batch, "epochs": LOOP_EPOCHS, "card": ident,
+           "first": summary(first, wall, peak, 2), "resumed": summary(resumed, resumed_wall,
+                                                                      resumed_peak, 0),
+           "losses": [{k: m[k] for k in ("loss", "grad_norm", "lr")} for m in first.steps],
+           "launches_step": per_step, "launches_eval_batch": per_batch,
+           "launches": {name: sum(c[name] for c in first.step_launches + first.eval_launches)
+                        for name in counters}}
+    for name in ("first", "resumed"):
+        r = rec[name]
+        origin = ", from epoch_1" if name == "resumed" else ""
+        print(f"    (a) {rec['config']} ({name} run{origin}, "
+              f"{r['num_workers']} loader threads): {r['steps']} steps of {batch} frames of "
+              f"{H} x {W} through {'/'.join(steps[1:])}: {r['images_per_s']:.3f} images/s "
+              f"with the loader (last epoch {r['last_epoch_images_per_s']:.3f}), median step "
+              f"{r['median_step_ms']:.3f} ms, steps ms {[round(t, 3) for t in r['step_ms']]}, "
+              f"host ms {{{', '.join(f'{k}: {v:.3f}' for k, v in r['stage_ms'].items())}}}, "
+              f"loader share {r['loader_share']:.3f}, wall with checkpoints and evals "
+              f"{r['wall_ms']:.3f} ms, peak memory {r['peak_memory_gib']:.2f} GiB; card {ident}")
+    print(f"    (a) every loss finite; launches a step {per_step} and an eval batch {per_batch} "
+          f"in both runs; K1's weights folded again after each epoch; the resumed run's steps "
+          f"and learning rates {got} are the first run's; losses {rec['losses']}")
+    return rec
+
+
+def loop_nano_card_vs_cpu(dev, seed, directory):
+    """8b: two loop steps of the nano config, f32, TF32 off, on the card and
+    on the CPU from one `.pth`, with the same pipeline draws (`random.seed`,
+    in-thread loader), the same sampler noise and DropPath masks (CPU
+    generators), `accumulate_steps=2` and a clip that triggers.  Tolerances:
+    losses 1e-4 relative (f32 sums in another order); the gradient norm
+    1e-3 relative (its squares sum every gradient, each within 2e-3 of its
+    largest entry in `train_reference_check`); the parameters after
+    the update within 2 lr + 1e-6 everywhere (AdamW's first step moves an
+    entry by lr * g / (|g| + eps): where g lies within rounding of 0, the two
+    devices may step opposite ways) and their median difference within
+    1e-3 lr; running statistics 1e-4 relative."""
+    import random
+    from panoswintransformerobjectdetection_torch.apis.inference import build_detector_from_cfg
+    from panoswintransformerobjectdetection_torch.apis.train import train_detector
+    from panoswintransformerobjectdetection_torch.runtime.config import load_config
+    cfg = load_config(NANO_CONFIG)
+    path = write_reference_pth(NANO_CONFIG, directory, 1)
+    rng = np.random.default_rng(seed + 3)
+    frames = (rng.random((4, 64, 128, 3)) * 255).astype(np.uint8)
+    ann_file = write_ann(os.path.join(directory, "nano_train.json"), frames, cfg["classes"],
+                         pixel_annotations(rng, 4, 64, 128, len(cfg["classes"])))
+    lr, clip = 1e-4, 1e-3
+    out = []
+    defaults = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    for name, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        dataset = in_memory_dataset(dict(cfg["data"]["train"], classes=cfg["classes"]), ann_file,
+                                    frames, (64, 1333))
+        record = LoopRecord({})
+        model = build_detector_from_cfg(cfg)
+        random.seed(seed)
+        train_detector(model, dataset, work_dir=os.path.join(directory, f"nano_{name}"),
+                       total_epochs=1, batch_size=2, base_lr=lr, warmup_iters=0,
+                       grad_clip=clip, accumulate_steps=2, num_workers=0, log_interval=1,
+                       load_from=path, seed=seed, hooks=[record], device=where)
+        out.append((record.steps, {k: v.cpu() for k, v in model.state_dict().items()}))
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = defaults
+    (card_steps, card), (cpu_steps, cpu) = out
+    if len(card_steps) != 2 or len(cpu_steps) != 2:
+        raise AssertionError(f"8b: steps card {card_steps}, CPU {cpu_steps}")
+    loss_err = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-6) for g, w in zip(card_steps, cpu_steps)
+                   for k in w if k not in ("step", "grad_norm"))
+    norm_err = max(abs(g["grad_norm"] - w["grad_norm"]) / w["grad_norm"]
+                   for g, w in zip(card_steps, cpu_steps))
+    if loss_err > 1e-4 or norm_err > 1e-3 or min(w["grad_norm"] for w in cpu_steps) <= clip:
+        raise AssertionError(f"8b: card {card_steps}, CPU {cpu_steps}")
+    diffs, stat_err = [], 0.0
+    for name, ref in cpu.items():
+        if "num_batches" in name:
+            continue
+        d = (card[name].double() - ref.double()).abs()
+        if "running" in name:
+            stat_err = max(stat_err, float((d / ref.double().abs().clamp(min=1.0)).max()))
+        else:
+            diffs.append(d.flatten())
+    diffs = torch.cat(diffs)
+    max_err, median_err = float(diffs.max()), float(diffs.median())
+    if max_err > 2 * lr + 1e-6 or median_err > 1e-3 * lr or stat_err > 1e-4:
+        raise AssertionError(f"8b: parameters max|diff| {max_err}, median {median_err}, "
+                             f"statistics {stat_err}")
+    print(f"    (b) nano config, f32, 2 loop steps of 2 frames of 64 x 128 (accumulate 2, clip "
+          f"{clip}: grad norms {[round(w['grad_norm'], 4) for w in cpu_steps]}), card vs CPU from "
+          f"one .pth: losses within {loss_err:.3g} relative (tolerance 1e-4), gradient norms "
+          f"{norm_err:.3g} (1e-3); parameters after "
+          f"the update max|diff| {max_err:.3g} (2 lr + 1e-6 = {2 * lr + 1e-6:.3g}), median "
+          f"{median_err:.3g} (1e-3 lr), running statistics {stat_err:.3g} (1e-4): ok")
+    return {"loss_rel_err": loss_err, "grad_norm_rel_err": norm_err,
+            "param_max_err": max_err, "param_median_err": median_err,
+            "stat_rel_err": stat_err}
+
+
+def loop_use_checkpoint(dev, ident, directory):
+    """8c: one full-width bf16 `forward_train` + backward of the streetwin
+    config with activation checkpointing and one without, from the same
+    weights, batch, sampler generator and DropPath generator (rate 0.1).
+    The losses must be equal; each gradient within 2e-2 * max|g| + 1e-6 of
+    the plain run's (the recompute's kernels are the same, but atomic adds in
+    the index and scatter backward passes sum in any order, and a bf16
+    rounding flipped upstream moves an entry by a unit of 2**-8)."""
+    from panoswintransformerobjectdetection_torch.apis.inference import (build_detector_from_cfg,
+                                                                         load_weights)
+    from panoswintransformerobjectdetection_torch.flagship import flagship_train_batch
+    from panoswintransformerobjectdetection_torch.runtime.config import load_config
+    path = write_reference_pth(API_CONFIG, directory, 0)
+    batch = flagship_train_batch(B, dev)
+    runs = {}
+    for use_checkpoint in (False, True):
+        cfg = load_config(API_CONFIG)
+        cfg["model"]["backbone"]["use_checkpoint"] = use_checkpoint
+        model = build_detector_from_cfg(cfg)
+        load_weights(model, path)
+        model.to(dev).train()
+        model.backbone.set_drop_path_generator(torch.Generator().manual_seed(7))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = model.forward_train(**batch, generator=torch.Generator().manual_seed(8))
+        sum(v for k, v in out.items() if "loss" in k).backward()
+        torch.cuda.synchronize()
+        runs[use_checkpoint] = ({k: float(v.detach()) for k, v in out.items()},
+                                {n: p.grad.detach().float().cpu()
+                                 for n, p in model.named_parameters()},
+                                torch.cuda.max_memory_allocated(), time.perf_counter() - t0)
+        del model, out
+    (plain, plain_g, plain_mem, plain_s), (ckpt, ckpt_g, ckpt_mem, ckpt_s) = runs[False], runs[True]
+    worst = (0.0, "")
+    for name, g in plain_g.items():
+        scale = float(g.abs().max())
+        err = float((ckpt_g[name] - g).abs().max())
+        worst = max(worst, (err / max(scale, 1e-30), name))
+        if err > 2e-2 * scale + 1e-6:
+            raise AssertionError(f"8c: gradient of {name}: {err}, max|g| {scale}")
+    if ckpt != plain:
+        raise AssertionError(f"8c: losses with use_checkpoint {ckpt}, without {plain}")
+    rec = {"losses": plain, "worst_grad_rel_err": worst[0], "worst_grad": worst[1],
+           "peak_memory_gib": {"plain": plain_mem / 2**30, "use_checkpoint": ckpt_mem / 2**30},
+           "first_step_ms": {"plain": plain_s * 1e3, "use_checkpoint": ckpt_s * 1e3}}
+    print(f"    (c) use_checkpoint, bf16, {B} x {H} x {W}, DropPath 0.1: losses equal ({plain}); "
+          f"gradients within {worst[0]:.3g} of max|g| at worst ({worst[1]}; tolerance 2e-2); "
+          f"peak memory {plain_mem / 2**30:.2f} GiB without, {ckpt_mem / 2**30:.2f} GiB with; "
+          f"forward + backward (first call each) {plain_s * 1e3:.3f} / {ckpt_s * 1e3:.3f} ms; "
+          f"card {ident}")
+    return rec
+
+
+def training_loop_path(dev, ident, counters, stem, ra, seed):
+    """Phase 8: the training loop on the card; returns its record."""
+    with tempfile.TemporaryDirectory() as directory:
+        rec = loop_full_width(dev, ident, counters, stem, ra, seed, directory)
+        rec["nano_card_vs_cpu"] = loop_nano_card_vs_cpu(dev, seed, directory)
+        rec["use_checkpoint"] = loop_use_checkpoint(dev, ident, directory)
+    return rec
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Drive the PyTorch port on one CUDA card.")
     parser.add_argument("--seed", type=int, default=0,
-                        help="seed of phase 7's synthetic frames and boxes")
+                        help="seed of phases 7 and 8's synthetic frames and boxes")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1435,6 +1797,12 @@ def main(argv=None) -> int:
     evaluation = eval_path(dev, ident, counters, stem, ra, args.seed)
     launches["eval"] = evaluation["launches"]
 
+    print("[8] training loop on the card: train_detector over the bf16 streetwin config's own "
+          "train_pipeline, checkpoints, resume, eval after each epoch; PyTorch's TF32 defaults "
+          "except in (b)")
+    loop = training_loop_path(dev, ident, counters, stem, ra, args.seed)
+    launches["loop"] = loop["launches"]
+
     for rec in records:
         key = rec.get("shares_kernel_of", rec["name"])
         if key in ("dense_crop (K4)", "roi_align_backward (K3 backward)"):
@@ -1446,9 +1814,12 @@ def main(argv=None) -> int:
             rec["launches_training"] = launches["train"][key]
         rec["launches_api"] = launches["api"][key]
         rec["launches_eval"] = launches["eval"][key]
+        rec["launches_training_loop"] = launches["loop"][key]
         if key == "stem_conv (K1)":
             rec["f32_eval_shape"] = evaluation["k1_f32"]
+    print("[9] records")
     print(json.dumps({"evaluation": {k: v for k, v in evaluation.items() if k != "k1_f32"}}))
+    print(json.dumps({"training_loop": loop}))
     print(json.dumps({"kernels": records}))
     print(ident)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -78,4 +78,4 @@ def _trimmed(out, indices) -> dict:
 def multi_host_test(*args, **kwargs):
     """Distributed evaluation (the JAX package's `multi_host_test`)."""
     raise NotImplementedError("distributed evaluation is not ported yet (ROADMAP.md, Queue 1, "
-                              "item 16)")
+                              "item 16b)")

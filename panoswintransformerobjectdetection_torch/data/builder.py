@@ -4,9 +4,10 @@ Counterpart of `panoswintransformerobjectdetection_tpu/data/builder.py`
 (`PIPELINES`, `DATASETS`, `build_pipeline`, `build_dataset`,
 `build_dataloader`, `replace_ImageToTensor`, `get_loading_pipeline`).
 Pipeline steps of the JAX package that the port has not ported (the
-training augmentations) raise `NotImplementedError` naming ROADMAP.md,
-Queue 1, item 16.  `build_dataloader` shards by the `num_shards` and
-`shard_id` it is given: distributed runs are item 16 as well.
+photometric distortion, InstaBoost and the basketball expansion) raise
+`NotImplementedError` naming ROADMAP.md, Queue 1, item 17.
+`build_dataloader` shards by the `num_shards` and `shard_id` it is given:
+distributed runs are item 16b.
 """
 
 from typing import Sequence
@@ -22,13 +23,18 @@ PIPELINES = {
     "LoadPanoAnnotations": T.LoadAnnotations,   # BFoV conversion at parse time
     "Resize": T.Resize,
     "PanoResize": T.PanoResize,
+    "RandomFlip": T.RandomFlip,
     "Normalize": T.Normalize,
     "Pad": T.Pad,
+    "PanoStretch": T.PanoStretch,
+    "RollAug": T.RollAug,
     "PanoCheck": T.PanoCheck,
+    "RandomCrop": T.RandomCrop,
+    "AutoAugment": T.AutoAugment,
 }
-# The JAX package's other pipeline steps: training augmentations.
-UNPORTED_PIPELINES = ("RandomFlip", "PanoStretch", "RollAug", "BasketBallExpand", "RandomCrop",
-                      "AutoAugment", "PhotoMetricDistortion", "InstaBoost")
+# The JAX package's other pipeline steps: OpenCV's HSV (absent on the card's
+# machine), masks, and a test-time channel expansion of other families.
+UNPORTED_PIPELINES = ("BasketBallExpand", "PhotoMetricDistortion", "InstaBoost")
 # Steps whose work the loader's collation does.
 COLLATION_STEPS = ("DefaultFormatBundle", "Collect", "ImageToTensor", "MultiScaleFlipAug")
 
@@ -56,7 +62,7 @@ def build_pipeline(cfgs: Sequence[dict]):
             continue
         if kind in UNPORTED_PIPELINES:
             raise NotImplementedError(f"pipeline step {kind!r} is not ported yet "
-                                      "(ROADMAP.md, Queue 1, item 16)")
+                                      "(ROADMAP.md, Queue 1, item 17)")
         if kind == "LoadPanoAnnotations":
             c.pop("bb_tangent2sphere", None)
             c.pop("with_mask", None)

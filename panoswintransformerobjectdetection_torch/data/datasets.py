@@ -8,7 +8,12 @@ xyxy at parse time, `geometry/projection.bfov_to_xyxy`), `VOCDataset`,
 `LVISDataset`, `CityscapesDataset`, `WIDERFaceDataset` and
 `DeepFashionDataset`, the roles of the reference's `CocoDataset`
 (`mmdet/datasets/coco.py:21`), `StreetDataset` (`street.py:21`) and the
-360-Indoor tooling.  Records and `eval_anns` are the JAX package's.
+360-Indoor tooling.  Records and `eval_anns` are the JAX package's, with
+two deliberate departures (ROADMAP.md, known divergences): 360-Indoor's
+`eval_anns` carry the converted pixel box (the JAX package keeps the BFoV
+box in radians there, which pixel detections cannot match), and
+`VOCDataset` finds `Annotations/` in VOC's own layout, three levels above
+the split file (`VOC2007/ImageSets/Main/test.txt` -> `VOC2007/`).
 """
 
 import json
@@ -87,7 +92,7 @@ class CocoStyleDataset:
                 # `coco.py:365` evaluates against it) — so eval bboxes come
                 # straight from the raw xywh, bypassing the tiny-box gate
                 # that only applies to training targets
-                x, y, w, h = a["bbox"]
+                x, y, w, h = self._eval_xywh(a, b)
                 eval_anns.append({
                     "image_id": im["id"], "category_id": label,
                     "bbox": [x, y, w, h],
@@ -122,6 +127,10 @@ class CocoStyleDataset:
                 "eval_anns": eval_anns,
             })
         return records
+
+    def _eval_xywh(self, ann, xyxy):
+        """The box that evaluation holds detections against: the raw xywh."""
+        return ann["bbox"]
 
     def _eval_area(self, ann, xyxy):
         """Area used for COCOeval area-range buckets: the annotation's own
@@ -260,14 +269,27 @@ class Indoor360Dataset(CocoStyleDataset):
     def __init__(self, *args, classes=None, **kw):
         super().__init__(*args, classes=classes, **kw)
 
+    @staticmethod
+    def _is_bfov(ann) -> bool:
+        b = ann["bbox"]
+        return len(b) == 4 and max(abs(v) for v in b) <= 2 * np.pi
+
     def _ann_to_xyxy(self, ann, img_info):
         from ..geometry.projection import bfov_to_xyxy
-        b = ann["bbox"]
-        if len(b) == 4 and max(abs(v) for v in b) <= 2 * np.pi:
-            xyxy = bfov_to_xyxy(torch.tensor([b], dtype=torch.float32),
+        if self._is_bfov(ann):
+            xyxy = bfov_to_xyxy(torch.tensor([ann["bbox"]], dtype=torch.float32),
                                 img_info["width"], img_info["height"]).numpy()[0]
             return xyxy.tolist()
         return super()._ann_to_xyxy(ann, img_info)
+
+    def _eval_xywh(self, ann, xyxy):
+        """A BFoV box is evaluated as its converted pixel box (x1, y1, x2 - x1,
+        y2 - y1), the frame detections are in; the JAX package keeps it in
+        radians here, where no pixel detection can match it."""
+        if not self._is_bfov(ann):
+            return ann["bbox"]
+        x1, y1, x2, y2 = xyxy
+        return [x1, y1, x2 - x1, y2 - y1]
 
     def _eval_area(self, ann, xyxy):
         # the raw `area` field is in BFoV (radian) units; area-range
@@ -284,14 +306,16 @@ VOC_CLASSES = (
 class VOCDataset(CocoStyleDataset):
     """Pascal-VOC XML annotations (`mmdet/datasets/voc.py` + `xml_style.py`).
 
-    Expects an ImageSets split file + Annotations/*.xml + JPEGImages/.
-    `evaluate` uses VOC-style mAP@0.5 (`eval_map_voc`).
+    Expects VOC's own layout: the split file `<year>/ImageSets/Main/<split>.txt`,
+    `<year>/Annotations/*.xml` and `<year>/JPEGImages/` (the JAX package
+    reads `Annotations/` one level below `<year>/`).  `evaluate` uses
+    VOC-style mAP@0.5 (`eval_map_voc`).
     """
     CLASSES = VOC_CLASSES
 
     def _parse(self, split_file, filter_empty):
         import xml.etree.ElementTree as ET
-        root = osp.dirname(osp.dirname(split_file))
+        root = osp.dirname(osp.dirname(osp.dirname(split_file)))
         with open(split_file) as f:
             ids = [l.strip() for l in f if l.strip()]
         name_to_idx = {c: i for i, c in enumerate(self.CLASSES)}

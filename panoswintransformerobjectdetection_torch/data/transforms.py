@@ -1,5 +1,7 @@
-"""The test-time pipeline transforms: `Compose`, `LoadImageFromFile`,
-`LoadAnnotations`, `Resize`, `PanoResize`, `Normalize`, `Pad`, `PanoCheck`.
+"""The pipeline transforms: `Compose`, `LoadImageFromFile`,
+`LoadAnnotations`, `Resize`, `PanoResize`, `Normalize`, `Pad`, `PanoCheck`,
+and the training augmentations `RandomFlip`, `PanoStretch`, `RollAug`,
+`RandomCrop` and `AutoAugment`.
 
 Counterpart of those in `panoswintransformerobjectdetection_tpu/data/
 transforms.py`.  Each transform takes and returns a `results` dict: `img`
@@ -10,8 +12,11 @@ so `Resize` is PyTorch's bilinear `F.interpolate` (half-pixel centres, no
 antialias) where the JAX package calls `cv2.resize(INTER_LINEAR)`: same
 sizes and scale factors, pixel values within about 0.01 of OpenCV's on
 0-255 images.  Only `LoadImageFromFile` reads with OpenCV, imported when it
-runs.  The training transforms (flip, stretch, roll, crop, photometric,
-masks) are ROADMAP.md, Queue 1, item 16.
+runs.  Each augmentation draws from Python's `random` in the calls and the
+order of the JAX transform, so that one seed gives both packages the same
+draws; `pano_stretch` resamples with scipy's `map_coordinates`, as the JAX
+package does.  The photometric distortion (OpenCV's HSV), InstaBoost and
+masks are ROADMAP.md, Queue 1, item 17.
 """
 
 import random
@@ -60,12 +65,12 @@ class LoadImageFromFile:
 class LoadAnnotations:
     """The parsed boxes and labels of `results["ann_info"]` as `gt_bboxes`
     and `gt_labels` (the pano variant's BFoV conversion runs when the
-    dataset parses).  Masks are not ported (ROADMAP.md, Queue 1, item 16)."""
+    dataset parses).  Masks are not ported (ROADMAP.md, Queue 1, item 17)."""
 
     def __init__(self, with_bbox: bool = True, with_mask: bool = False, **_):
         if with_mask:
             raise NotImplementedError("LoadAnnotations(with_mask=True) is not ported yet "
-                                      "(ROADMAP.md, Queue 1, item 16)")
+                                      "(ROADMAP.md, Queue 1, item 17)")
         self.with_bbox = with_bbox
 
     def __call__(self, results):
@@ -183,3 +188,174 @@ class PanoCheck:
     def __call__(self, results):
         results.setdefault("pano_ratio_v", np.array([0.0, 1.0], np.float32))
         return results
+
+
+class RandomFlip:
+    """Horizontal flip with probability `flip_ratio` (one `random.random()`
+    draw); boxes mirrored as w - x.  Sets `flip`."""
+
+    def __init__(self, flip_ratio: float = 0.5):
+        self.flip_ratio = flip_ratio
+
+    def __call__(self, results):
+        results["flip"] = random.random() < self.flip_ratio
+        if results["flip"]:
+            img = np.ascontiguousarray(results["img"][:, ::-1])
+            results["img"] = img
+            if "gt_bboxes" in results:
+                b = results["gt_bboxes"]
+                flipped = b.copy()
+                flipped[:, 0], flipped[:, 2] = img.shape[1] - b[:, 2], img.shape[1] - b[:, 0]
+                results["gt_bboxes"] = flipped
+        return results
+
+
+def _uv_tri(w: int, h: int):
+    u = (((np.arange(w) + 0.5) / w) - 0.5) * 2 * np.pi
+    v = (((np.arange(h) + 0.5) / h) - 0.5) * np.pi
+    uu, vv = np.meshgrid(u, v)
+    return np.sin(uu), np.cos(uu), np.tan(vv)
+
+
+def pano_stretch(img: np.ndarray, boxes, kx: float, ky: float):
+    """Stretch the scene along the tangent axes by (kx, ky) and resample
+    the equirectangular image bilinearly, wrapping at the borders (scipy's
+    `map_coordinates(order=1, mode="wrap")`); boxes map through the
+    closed-form warp of their corners (`xzaug.py:98 getAug`)."""
+    from scipy.ndimage import map_coordinates
+    h, w = img.shape[:2]
+    sin_u, cos_u, tan_v = _uv_tri(w, h)
+    u0 = np.arctan2(sin_u * kx / ky, cos_u)
+    v0 = np.arctan(tan_v * np.sin(u0) / sin_u * ky)
+    refx = (u0 / (2 * np.pi) + 0.5) * w - 0.5
+    refy = (v0 / np.pi + 0.5) * h - 0.5
+    out = np.stack([map_coordinates(img[..., i], [refy, refx], order=1, mode="wrap")
+                    for i in range(img.shape[-1])], axis=-1)
+    if boxes is not None and len(boxes):
+        pts = boxes.reshape(-1, 2)
+        cu0 = ((pts[:, 0] + 0.5) / w - 0.5) * 2 * np.pi
+        cv0 = ((pts[:, 1] + 0.5) / h - 0.5) * np.pi
+        with np.errstate(divide="ignore", invalid="ignore"):
+            cu = np.arctan2(np.sin(cu0) * ky / kx, np.cos(cu0))
+            cv = np.arctan(np.tan(cv0) * np.sin(cu) / np.sin(cu0) / ky)
+        cv = np.where(np.abs(np.sin(cu0)) < 1e-9, np.arctan(np.tan(cv0) / ky), cv)
+        px = (cu / (2 * np.pi) + 0.5) * w - 0.5
+        py = (cv / np.pi + 0.5) * h - 0.5
+        boxes = np.stack([px, py], -1).reshape(-1, 4).astype(np.float32)
+        boxes = np.stack([np.minimum(boxes[:, 0], boxes[:, 2]),
+                          np.minimum(boxes[:, 1], boxes[:, 3]),
+                          np.maximum(boxes[:, 0], boxes[:, 2]),
+                          np.maximum(boxes[:, 1], boxes[:, 3])], -1)
+    return out, boxes
+
+
+class PanoStretch:
+    """With probability `chance`: kx, ky uniform in [1, kxy], each inverted
+    half the time, then `pano_stretch`; boxes clipped to the image
+    (`transforms.py:992`)."""
+
+    def __init__(self, chance: float = 1.0, kxy=(2.0, 2.0)):
+        self.chance = chance
+        self.kxy = kxy
+
+    def __call__(self, results):
+        if random.random() >= self.chance:
+            return results
+        kx = random.uniform(1.0, self.kxy[0])
+        ky = random.uniform(1.0, self.kxy[1])
+        if random.random() < 0.5:
+            kx = 1.0 / kx
+        if random.random() < 0.5:
+            ky = 1.0 / ky
+        img, boxes = pano_stretch(results["img"], results.get("gt_bboxes"), kx, ky)
+        results["img"] = img.astype(np.float32)
+        if boxes is not None:
+            h, w = img.shape[:2]
+            boxes[:, 0::2] = boxes[:, 0::2].clip(0, w)
+            boxes[:, 1::2] = boxes[:, 1::2].clip(0, h)
+            results["gt_bboxes"] = boxes
+        return results
+
+
+class RollAug:
+    """With probability `chance`: roll the panorama right by int(d * W)
+    columns, d uniform in [0, 1) (`rollaug.py:11`).  A box pushed across the
+    seam keeps its larger part: with its centre past the seam it moves to
+    the left edge, otherwise it is cut at the seam."""
+
+    def __init__(self, chance: float = 1.0, clip01: bool = True):
+        self.chance = chance
+        self.clip01 = clip01
+
+    def __call__(self, results):
+        if random.random() >= self.chance:
+            return results
+        img = results["img"]
+        w = img.shape[1]
+        shift = int(random.random() * w)
+        results["img"] = np.ascontiguousarray(np.roll(img, shift, axis=1))
+        if "gt_bboxes" in results and len(results["gt_bboxes"]):
+            b = results["gt_bboxes"].copy()
+            b[:, 0] += shift
+            b[:, 2] += shift
+            over = b[:, 2] > w
+            center_over = (b[:, 0] + b[:, 2]) * 0.5 > w
+            b[:, 0] = np.where(over & center_over, np.maximum(b[:, 0] - w, 0), b[:, 0])
+            b[:, 2] = np.where(over & center_over, b[:, 2] - w, b[:, 2])
+            b[:, 2] = np.where(over & ~center_over, w, b[:, 2])
+            results["gt_bboxes"] = b
+        return results
+
+
+class RandomCrop:
+    """mmdet's `RandomCrop`: a crop of size drawn in [crop_size, (h, w)]
+    ("absolute_range") or of `crop_size` ("absolute"), at a random corner;
+    boxes shifted and clipped, those left empty dropped (with none left and
+    `allow_negative_crop=False` the sample stays uncropped)."""
+
+    def __init__(self, crop_size, crop_type: str = "absolute_range",
+                 allow_negative_crop: bool = True):
+        self.crop_size = tuple(crop_size)
+        self.crop_type = crop_type
+        self.allow_negative_crop = allow_negative_crop
+
+    def __call__(self, results):
+        img = results["img"]
+        h, w = img.shape[:2]
+        lo, hi = self.crop_size
+        if self.crop_type == "absolute_range":
+            ch = min(h, random.randint(min(lo, h), max(lo, min(hi, h))))
+            cw = min(w, random.randint(min(lo, w), max(lo, min(hi, w))))
+        else:
+            ch, cw = min(lo, h), min(hi, w)
+        y0 = random.randint(0, h - ch)
+        x0 = random.randint(0, w - cw)
+        boxes = results.get("gt_bboxes")
+        if boxes is not None and len(boxes):
+            b = boxes.copy()
+            b[:, 0::2] -= x0
+            b[:, 1::2] -= y0
+            b[:, 0::2] = b[:, 0::2].clip(0, cw)
+            b[:, 1::2] = b[:, 1::2].clip(0, ch)
+            keep = (b[:, 2] > b[:, 0]) & (b[:, 3] > b[:, 1])
+            if not keep.any() and not self.allow_negative_crop:
+                return results
+            results["gt_bboxes"] = b[keep]
+            results["gt_labels"] = results["gt_labels"][keep]
+        crop = np.ascontiguousarray(img[y0:y0 + ch, x0:x0 + cw])
+        results["img"] = crop
+        results["img_shape"] = crop.shape
+        return results
+
+
+class AutoAugment:
+    """mmdet's `AutoAugment`: one of `policies` (each a list of transform
+    configs, built by `data/builder.build_pipeline`), chosen with
+    `random.choice` per sample."""
+
+    def __init__(self, policies):
+        from .builder import build_pipeline
+        self.policies = [Compose(build_pipeline(p)) for p in policies]
+
+    def __call__(self, results):
+        return random.choice(self.policies)(results)

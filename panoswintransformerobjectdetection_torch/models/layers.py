@@ -65,21 +65,32 @@ class DropPath(nn.Module):
     with probability 1 - rate and scaled by 1 / (1 - rate); the identity in
     eval mode or at rate 0.  The keep mask is drawn from `generator` (the
     default generator of the input's device when None) on the generator's
-    own device."""
+    own device, unless the caller hands one in (`keep_mask`, drawn ahead of
+    an activation-checkpointed block so that its recompute sees the same
+    mask)."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = float(rate)
         self.generator: Optional[torch.Generator] = None
 
-    def forward(self, x):
+    def keep_mask(self, x: torch.Tensor) -> Optional[torch.Tensor]:
+        """The (B, 1, ...) bool mask that `forward` would draw for `x`;
+        None where `forward` is the identity."""
         if self.rate == 0.0 or not self.training:
-            return x
-        keep = 1.0 - self.rate
+            return None
         shape = (x.shape[0],) + (1,) * (x.dim() - 1)
         where = self.generator.device if self.generator is not None else x.device
-        mask = (torch.rand(shape, generator=self.generator, device=where) < keep).to(x.device)
-        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+        return (torch.rand(shape, generator=self.generator, device=where)
+                < 1.0 - self.rate).to(x.device)
+
+    def forward(self, x, keep_mask: Optional[torch.Tensor] = None):
+        if self.rate == 0.0 or not self.training:
+            return x
+        if keep_mask is None:
+            keep_mask = self.keep_mask(x)
+        keep = 1.0 - self.rate
+        return torch.where(keep_mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def batch_norm_train(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:

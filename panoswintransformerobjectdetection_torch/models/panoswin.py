@@ -28,6 +28,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..geometry.resample import grid_sample_nhwc
 from ..geometry.rotate import pano_rotate, rotation_grid
@@ -129,8 +130,9 @@ class PanoSwinBlock(nn.Module):
         self.drop_path2 = DropPath(drop_path)
         self.dtype = dtype
 
-    def forward(self, x, hav=None, mask=None):
-        """hav: pano couplings (nW, O, O); mask: planar shift mask or None."""
+    def forward(self, x, hav=None, mask=None, keep_masks=(None, None)):
+        """hav: pano couplings (nW, O, O); mask: planar shift mask or None;
+        keep_masks: the two DropPaths' masks when drawn by the caller."""
         B, H, W, c = x.shape
         ws, shift, pano = self.window_size, self.shift_size, self.pano_mode
         xn = self.norm1(x).to(self.dtype or torch.float32)
@@ -149,8 +151,8 @@ class PanoSwinBlock(nn.Module):
         y = y[:, :SH, :SW]
         if pano:
             y = window_transition_reverse(y, shift, True, width_was_odd=bool(W % 2))
-        x = x + self.drop_path1(y[:, :H, :W])
-        return x + self.drop_path2(self.mlp(self.norm2(x)))
+        x = x + self.drop_path1(y[:, :H, :W], keep_masks[0])
+        return x + self.drop_path2(self.mlp(self.norm2(x)), keep_masks[1])
 
 
 class PitchAttention(nn.Module):
@@ -268,16 +270,25 @@ class PitchAttention(nn.Module):
 
 class BasicLayer(nn.Module):
     """One stage: alternating shift-0 and shift-ws/2 blocks, a PitchAttention
-    block after them when the depth is odd, then PatchMerging."""
+    block after them when the depth is odd, then PatchMerging.
+
+    `use_checkpoint`: while gradients are recorded, each window block runs
+    under `torch.utils.checkpoint` (its activations are recomputed in the
+    backward pass), as the JAX stage wraps it in `nn.remat`; PitchAttention
+    is not wrapped, as in JAX.  The block's two DropPath masks are drawn
+    before the checkpointed call, in the order the plain path draws them,
+    and handed in: the recompute then sees the same masks, whatever
+    generator they come from, and the gradients are the plain path's."""
 
     def __init__(self, dim: int, depth: int, num_heads: int, window_size: int,
                  mlp_ratio: float = 4.0, downsample: bool = True, dtype=None,
                  pano_mode: bool = True, fused: bool = False,
                  drop_path: Sequence[float] = (), qkv_bias: bool = True,
-                 qk_scale: Optional[float] = None):
+                 qk_scale: Optional[float] = None, use_checkpoint: bool = False):
         super().__init__()
         self.window_size = window_size
         self.pano_mode = pano_mode
+        self.use_checkpoint = use_checkpoint
         depth_swin = depth - depth % 2
         blocks = [PanoSwinBlock(dim, num_heads, window_size,
                                 0 if i % 2 == 0 else window_size // 2, mlp_ratio, dtype,
@@ -309,7 +320,14 @@ class BasicLayer(nn.Module):
             if blk.shift_size not in ctx:
                 ctx[blk.shift_size] = self._window_context(uv, blk.shift_size, x.shape[1],
                                                            x.shape[2])
-            x = blk(x, *ctx[blk.shift_size])
+            if self.use_checkpoint and torch.is_grad_enabled():
+                # nothing inside the block draws random numbers, so no RNG
+                # state needs saving for the recompute
+                keep = (blk.drop_path1.keep_mask(x), blk.drop_path2.keep_mask(x))
+                x = checkpoint(blk, x, *ctx[blk.shift_size], keep, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = blk(x, *ctx[blk.shift_size])
         if self.downsample is None:
             return x, x, uv
         x_down = self.downsample(x)
@@ -334,7 +352,8 @@ class PanoSwinTransformer(nn.Module):
     input channels; only 3 channels run kernel K1, as in the JAX module),
     `fuse_bn` (the checkpoint's stem has its BatchNorm folded into the
     convs: the BatchNorm modules stay, for the state dict's keys, and are
-    not applied); `use_checkpoint` (activation checkpointing) is not ported.
+    not applied); `use_checkpoint` (activation checkpointing of every window
+    block, `BasicLayer`).
     """
 
     def __init__(self, patch_size: int = 4, embed_dim: int = 96,
@@ -347,10 +366,6 @@ class PanoSwinTransformer(nn.Module):
                  patch_norm: bool = True, in_chans: int = 3, fuse_bn: bool = False,
                  use_checkpoint: bool = False):
         super().__init__()
-        if use_checkpoint:
-            raise NotImplementedError(
-                "use_checkpoint (activation checkpointing) is not ported yet (ROADMAP.md, "
-                "Queue 1, item 16)")
         self.patch_embed = ConvStemPatchEmbed(patch_size, embed_dim, dtype, use_norm=patch_norm,
                                               in_chans=in_chans, fuse_bn=fuse_bn)
         self.abs_encoder = nn.Linear(5, embed_dim) if ape else None
@@ -363,7 +378,7 @@ class PanoSwinTransformer(nn.Module):
             BasicLayer(embed_dim * 2 ** i, depths[i], num_heads[i], window_size,
                        mlp_ratio, downsample=i < n - 1, dtype=dtype, pano_mode=pano_mode,
                        fused=fused_attention, drop_path=dpr[starts[i]:starts[i] + depths[i]],
-                       qkv_bias=qkv_bias, qk_scale=qk_scale)
+                       qkv_bias=qkv_bias, qk_scale=qk_scale, use_checkpoint=use_checkpoint)
             for i in range(n))
         self.out_indices = tuple(out_indices)
         for i in self.out_indices:

@@ -11,10 +11,11 @@ detector loads with `load_state_dict`.  Layouts: conv HWIO -> OIHW, Dense
 input reordered from the JAX (h, w, C) flatten to the reference's (C, h, w).
 
 A reference checkpoint loads without a converter, since the port's keys
-are the reference's (`load_torch_state_dict`, `load_reference_weights`);
+are the reference's (`load_torch_state_dict`, `load_reference_weights`,
+`load_backbone_weights` for a backbone's own checkpoint);
 `save_checkpoint` and `load_checkpoint` keep a training run's model,
-optimizer, schedule and step (the JAX package's orbax state, here through
-`torch.save`).
+optimizer, schedule, step and host random states (the JAX package's orbax
+state, here through `torch.save`).
 """
 
 import math
@@ -193,9 +194,10 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
     return strip_module(ckpt)
 
 
-def load_reference_weights(model: nn.Module, sd: Dict[str, torch.Tensor]) -> None:
+def load_reference_weights(model: nn.Module, sd: Dict[str, torch.Tensor],
+                           strict: bool = True) -> None:
     """Load a reference-format state dict into `model` with
-    `load_state_dict(strict=True)`.  A sphere-bias table made for another
+    `load_state_dict(strict=strict)`.  A sphere-bias table made for another
     window size (its length tells which) is resized first with
     `resize_bias_table`."""
     own = model.state_dict()
@@ -205,27 +207,52 @@ def load_reference_weights(model: nn.Module, sd: Dict[str, torch.Tensor]) -> Non
             side = math.isqrt(table.shape[0])
             dst = math.isqrt(own[key].shape[0])
             sd[key] = resize_bias_table(table, (side + 1) // 2, (dst + 1) // 2)
-    model.load_state_dict(sd, strict=True)
+    model.load_state_dict(sd, strict=strict)
+
+
+def load_backbone_weights(backbone: nn.Module, sd: Dict[str, torch.Tensor]) -> None:
+    """A reference PanoSwin backbone checkpoint (`SimplePanoSwinTransformer`'s
+    keys, `module.` stripped) into `backbone`, as the JAX package's
+    `convert_panoswin_backbone` reads it: the stem, the absolute encoder, the
+    stages and the out-norms, bias tables of another window size resized
+    (`load_reference_weights`).  Keys of other modules (a classifier's head
+    and last norm) are left out; the absolute encoder, the stem's LayerNorm
+    and the out-norms, which the converter takes only when present, keep
+    the backbone's own values when absent; any other missing key raises."""
+    own = backbone.state_dict()
+    optional = ("abs_encoder.", "patch_embed.norm.", "norm")
+    missing = [k for k in own if k not in sd and not k.startswith(optional)
+               and not k.endswith("num_batches_tracked")]
+    if missing:
+        raise KeyError(f"the backbone checkpoint has no {missing[:5]} ({len(missing)} keys "
+                       "missing)")
+    load_reference_weights(backbone, {k: v for k, v in sd.items() if k in own}, strict=False)
 
 
 def save_checkpoint(path: str, model: nn.Module, optimizer: torch.optim.Optimizer,
                     scheduler: Optional[torch.optim.lr_scheduler.LRScheduler] = None,
-                    step: int = 0) -> None:
+                    step: int = 0, generators: Optional[Dict[str, Any]] = None) -> None:
     """A training checkpoint: the model's state dict (reference keys), the
-    optimizer's and the schedule's state, and the step."""
+    optimizer's and the schedule's state, the step, and the state of each
+    host random generator in `generators` (name -> an object with
+    `getstate`: Python's `random` module, a `random.Random`)."""
     torch.save({"state_dict": model.state_dict(), "optimizer": optimizer.state_dict(),
                 "scheduler": None if scheduler is None else scheduler.state_dict(),
-                "step": int(step)}, path)
+                "step": int(step),
+                "generators": {k: g.getstate() for k, g in (generators or {}).items()}}, path)
 
 
 def load_checkpoint(path: str, model: nn.Module, optimizer: torch.optim.Optimizer,
-                    scheduler: Optional[torch.optim.lr_scheduler.LRScheduler] = None) -> int:
-    """Restore what `save_checkpoint` wrote into `model`, `optimizer` and
-    `scheduler` (made as for the saved run, on the device to resume on);
-    returns the step."""
+                    scheduler: Optional[torch.optim.lr_scheduler.LRScheduler] = None,
+                    generators: Optional[Dict[str, Any]] = None) -> int:
+    """Restore what `save_checkpoint` wrote into `model`, `optimizer`,
+    `scheduler` (made as for the saved run, on the device to resume on) and
+    each of `generators` (`setstate`); returns the step."""
     ckpt = torch.load(path, map_location=next(model.parameters()).device, weights_only=True)
     model.load_state_dict(ckpt["state_dict"], strict=True)
     optimizer.load_state_dict(ckpt["optimizer"])
     if scheduler is not None:
         scheduler.load_state_dict(ckpt["scheduler"])
+    for name, g in (generators or {}).items():
+        g.setstate(ckpt["generators"][name])
     return ckpt["step"]

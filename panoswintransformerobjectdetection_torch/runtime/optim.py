@@ -6,9 +6,10 @@ in `panoswintransformerobjectdetection_tpu/runtime/optim.py`: AdamW, lr
 (LayerNorm, BatchNorm), the sphere-bias tables and absolute position
 embeddings; linear warm-up, then stepwise decay.  optax's chain (Adam's
 scaling, decayed weights on the mask, the learning rate) is
-`torch.optim.AdamW` with two parameter groups and a `LambdaLR`.  Gradient
-clipping and accumulation, which the flagship's recipe leaves off, are not
-ported.
+`torch.optim.AdamW` with two parameter groups and a `LambdaLR`.  optax's
+`clip_by_global_norm` and `MultiSteps`, which the JAX package puts in front
+of it, are `AccumulatingAdamW`: the running mean of k micro-steps'
+gradients, clipped as optax clips, then one AdamW update.
 """
 
 from typing import Callable, Dict, Sequence, Tuple
@@ -46,18 +47,97 @@ def warmup_step_schedule(base_lr: float, warmup_iters: int = 500, warmup_ratio: 
     return fn
 
 
+class AccumulatingAdamW(torch.optim.AdamW):
+    """AdamW behind optax's `clip_by_global_norm(grad_clip)` (off at 0) and
+    `MultiSteps(every_k_schedule=accumulate_steps)`.
+
+    Each `step()` is a micro-step.  It folds the parameters' `.grad` into a
+    running mean, acc <- acc + (g - acc) / (n + 1) with n the micro-steps
+    already taken, as optax does; on every k-th micro-step the mean is
+    clipped (kept when its global norm is below `grad_clip`, else g / norm *
+    grad_clip) and AdamW updates the parameters, and the mean starts again
+    from zero.  Between those steps the parameters do not move.  `step()`
+    returns True when it updated them: the learning-rate schedule counts
+    those updates, as optax's inner chain does.  The mean and the
+    micro-step count are optimizer state (`state_dict`), so a run resumes
+    between micro-steps as it would have gone on.
+    """
+
+    def __init__(self, params, grad_clip: float = 0.0, accumulate_steps: int = 1, **adamw):
+        if accumulate_steps < 1:
+            raise ValueError(f"accumulate_steps must be >= 1, not {accumulate_steps}")
+        super().__init__(params, **adamw)
+        self.grad_clip = float(grad_clip)
+        self.accumulate_steps = int(accumulate_steps)
+        self.acc_grads: Dict[torch.Tensor, torch.Tensor] = {}
+        for group in self.param_groups:
+            group.setdefault("micro_step", 0)
+
+    def _params(self):
+        return [p for g in self.param_groups for p in g["params"]]
+
+    def state_dict(self):
+        out = super().state_dict()
+        out["acc_grads"] = {i: self.acc_grads[p] for i, p in enumerate(self._params())
+                            if p in self.acc_grads}
+        return out
+
+    def load_state_dict(self, state_dict):
+        state_dict = dict(state_dict)
+        acc = state_dict.pop("acc_grads", {})
+        super().load_state_dict(state_dict)
+        params = self._params()
+        self.acc_grads = {params[i]: t.to(params[i].device) for i, t in acc.items()}
+
+    @torch.no_grad()
+    def step(self, closure=None) -> bool:
+        if closure is not None:
+            raise ValueError("AccumulatingAdamW.step takes no closure")
+        params = [p for p in self._params() if p.grad is not None]
+        k = self.accumulate_steps
+        if k > 1:
+            n = self.param_groups[0].get("micro_step", 0)
+            for p in params:
+                acc = self.acc_grads.setdefault(p, torch.zeros_like(p))
+                acc.add_((p.grad - acc) / (n + 1))
+            for group in self.param_groups:
+                group["micro_step"] = (n + 1) % k
+            if n + 1 < k:
+                return False
+            for p in params:
+                p.grad = self.acc_grads[p].clone()
+                self.acc_grads[p].zero_()
+        if self.grad_clip > 0:
+            norm = global_norm([p.grad for p in params])
+            if not norm < self.grad_clip:
+                for p in params:
+                    p.grad.div_(norm).mul_(self.grad_clip)
+        super().step()
+        return True
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum of every entry's square (optax's `global_norm`)."""
+    return torch.sqrt(sum(torch.sum(t * t) for t in tensors))
+
+
 def make_optimizer(model: nn.Module, base_lr: float = 1e-4, weight_decay: float = 0.05,
                    betas=(0.9, 0.999), warmup_iters: int = 500, warmup_ratio: float = 0.001,
-                   decay_steps: Sequence[int] = ()
-                   ) -> Tuple[torch.optim.AdamW, torch.optim.lr_scheduler.LambdaLR]:
+                   decay_steps: Sequence[int] = (), grad_clip: float = 0.0,
+                   accumulate_steps: int = 1
+                   ) -> Tuple[AccumulatingAdamW, torch.optim.lr_scheduler.LambdaLR]:
     """AdamW over `model`'s parameters, decayed where `no_decay_mask` says,
-    and the schedule; call `scheduler.step()` after every `optimizer.step()`."""
+    behind clipping and accumulation (`AccumulatingAdamW`), and the
+    schedule; call `scheduler.step()` after every `optimizer.step()` that
+    returns True."""
     mask = no_decay_mask(model)
     params = dict(model.named_parameters())
     groups = [{"params": [p for n, p in params.items() if mask[n]],
                "weight_decay": weight_decay},
               {"params": [p for n, p in params.items() if not mask[n]], "weight_decay": 0.0}]
-    optimizer = torch.optim.AdamW(groups, lr=base_lr, betas=betas, eps=1e-8)
+    optimizer = AccumulatingAdamW(groups, grad_clip=grad_clip,
+                                  accumulate_steps=accumulate_steps, lr=base_lr, betas=betas,
+                                  eps=1e-8)
     sched = warmup_step_schedule(base_lr, warmup_iters, warmup_ratio, decay_steps)
     scheduler = torch.optim.lr_scheduler.LambdaLR(optimizer, lambda step: sched(step) / base_lr)
     return optimizer, scheduler

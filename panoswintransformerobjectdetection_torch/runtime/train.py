@@ -3,7 +3,10 @@
 Counterpart of `make_train_step` in
 `panoswintransformerobjectdetection_tpu/runtime/train.py`: the total loss
 is the sum of `forward_train`'s entries whose key contains "loss"; backward;
-AdamW; the metrics carry `loss` and `grad_norm` beside the outputs.
+the optimizer's micro-step (`runtime/optim.AccumulatingAdamW`: accumulation
+and clipping, then AdamW on every k-th call); the metrics carry `loss` and
+`grad_norm`, the norm of this micro-step's gradient before any clipping,
+beside the outputs.
 Parameters stay float32; with a bfloat16 compute type the activations are
 cast where the inference path casts them, and no loss scaling is needed.
 """
@@ -41,8 +44,7 @@ def make_train_step(detector, optimizer: torch.optim.Optimizer, scheduler=None) 
         def update():
             grads = [p.grad for p in params if p.grad is not None]
             norm = torch.nn.utils.get_total_norm(grads)
-            optimizer.step()
-            if scheduler is not None:
+            if optimizer.step() and scheduler is not None:
                 scheduler.step()
             return norm
 

@@ -12,7 +12,7 @@ with `--tta`, `apis/tta.aug_test_detector` on each image at the config's
 the metrics as JSON (NaN, a class without ground truth, as null), writes
 the per-image results to `--out` as a pickle, and returns the metrics.
 Runs on the card unless `--device cpu` is given; distributed evaluation is
-not ported (ROADMAP.md, Queue 1, item 16).
+not ported (ROADMAP.md, Queue 1, item 16b).
 """
 
 import argparse

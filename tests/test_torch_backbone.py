@@ -81,8 +81,9 @@ def test_stages_match_jax(jax_backbone, pano_mode, fused, dtype):
 def test_odd_depth_not_ported():
     """Odd depths were not ported before PitchAttention came: a stage of odd
     depth now ends with a PitchAttention block (held against JAX in
-    `test_torch_pitch_attention.py`), and the option that is still not
-    ported, activation checkpointing, raises naming its ROADMAP item."""
+    `test_torch_pitch_attention.py`), and activation checkpointing builds
+    (its gradients are held against the plain path's in
+    `test_torch_train_loop.py`)."""
     from panoswintransformerobjectdetection_torch.models.panoswin import PitchAttention
     port = PanoSwinTransformer(embed_dim=6, depths=(1, 2, 3, 2), num_heads=(1, 1, 1, 2),
                                window_size=4)
@@ -90,6 +91,6 @@ def test_odd_depth_not_ported():
     assert kinds == [["PitchAttention"], ["PanoSwinBlock"] * 2,
                      ["PanoSwinBlock"] * 2 + ["PitchAttention"], ["PanoSwinBlock"] * 2]
     assert isinstance(port.layers[2].blocks[2], PitchAttention)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        PanoSwinTransformer(embed_dim=6, depths=(1, 2, 2, 2), num_heads=(1, 1, 1, 2),
-                            window_size=4, use_checkpoint=True)
+    checkpointed = PanoSwinTransformer(embed_dim=6, depths=(1, 2, 2, 2), num_heads=(1, 1, 1, 2),
+                                       window_size=4, use_checkpoint=True)
+    assert all(layer.use_checkpoint for layer in checkpointed.layers)

@@ -603,3 +603,40 @@ def test_single_device_test_on_the_card(cuda_device, tmp_path):
     assert stem.stem_conv.last_entry == stem.ENTRIES[torch.float32]
     assert sum(len(r["boxes"]) for r in ref) > 0
     match_detections(got, ref, 1e-3, 1e-4, "single_device_test, card vs CPU")
+
+
+@pytest.mark.cuda
+def test_use_checkpoint_recomputes_k2_and_keeps_the_gradients(cuda_device):
+    """The tiny flagship with fused attention, bf16, DropPath 0.2, one
+    `forward_train` + backward with and without activation checkpointing from
+    the same weights, batch and generators: with it, K2's forward launches
+    twice a window block (once more in the backward pass, which recomputes
+    the block), without it once; the losses are equal and each gradient is
+    within 1e-3 * max|g| + 1e-6 of the plain run's (cuDNN and cuBLAS may
+    take other algorithms, in another order, for the recompute's shapes)."""
+    from panoswintransformerobjectdetection_torch.flagship import flagship_config, init_weights
+    from panoswintransformerobjectdetection_torch.flagship import flagship_train_batch
+    from panoswintransformerobjectdetection_torch.models.detectors import PanoFasterRCNN
+    batch = flagship_train_batch(2, cuda_device, seed=1, height=64, width=128, num_gt=4)
+    blocks = sum(flagship_config(tiny=True)["backbone"]["depths"])
+    runs = []
+    for use_checkpoint in (False, True):
+        cfg = flagship_config(tiny=True, fused_attention=True, drop_path_rate=0.2)
+        cfg["backbone"]["use_checkpoint"] = use_checkpoint
+        model = PanoFasterRCNN(**cfg, compute_dtype=torch.bfloat16)
+        init_weights(model, 2)
+        model.to(cuda_device).train()
+        model.backbone.set_drop_path_generator(torch.Generator().manual_seed(3))
+        fa.window_attention.launches = 0
+        out = model.forward_train(**batch, generator=torch.Generator().manual_seed(4))
+        sum(v for k, v in out.items() if "loss" in k).backward()
+        torch.cuda.synchronize()
+        runs.append((fa.window_attention.launches, {k: float(v.detach()) for k, v in out.items()},
+                     {n: p.grad.float().cpu() for n, p in model.named_parameters()}))
+    (plain_n, plain_out, plain_g), (ckpt_n, ckpt_out, ckpt_g) = runs
+    assert (plain_n, ckpt_n) == (blocks, 2 * blocks)
+    assert fa.window_attention.last_entry == fa.ENTRIES[torch.bfloat16]
+    assert ckpt_out == plain_out
+    for name, g in plain_g.items():
+        tol = 1e-3 * float(g.abs().max()) + 1e-6
+        assert float((ckpt_g[name] - g).abs().max()) <= tol, name

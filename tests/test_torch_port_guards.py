@@ -19,6 +19,7 @@ from panoswintransformerobjectdetection_torch.flagship import build_flagship
 from panoswintransformerobjectdetection_torch.ops import fused_attention, roi_align, stem_conv
 from panoswintransformerobjectdetection_torch.tools import image_demo
 from panoswintransformerobjectdetection_torch.tools import test as test_cli
+from panoswintransformerobjectdetection_torch.tools import train as train_cli
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_DIR = Path(port.__file__).resolve().parent
@@ -65,7 +66,8 @@ def test_default_device_is_the_card(monkeypatch):
     model = build_flagship(tiny=True, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         single_device_test(model, [])
-    for main in (test_cli.main, lambda args: image_demo.main(["frame.jpg", *args])):
+    for main in (test_cli.main, train_cli.main,
+                 lambda args: image_demo.main(["frame.jpg", *args])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main([nano])
 
@@ -114,7 +116,8 @@ def test_modules_list_covers_the_slice():
                 "apis.tta", "core.rle", "core.cocoeval", "core.evaluation", "core.class_names",
                 "native", "geometry.projection", "data.datasets", "data.wrappers",
                 "data.builder", "data.loader", "apis.test", "utils.visualize", "tools.test",
-                "tools.eval_metric", "tools.image_demo"):
+                "tools.eval_metric", "tools.image_demo", "runtime.hooks", "apis.train",
+                "tools.train"):
         assert f"{port.__name__}.{sub}" in names
         importlib.import_module(f"{port.__name__}.{sub}")
 
