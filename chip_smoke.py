@@ -94,8 +94,33 @@ Phases (each raises on failure, so any failure exits non-zero):
      `forward_train` + backward with `use_checkpoint=True` and one without,
      same weights and generators, DropPath 0.1: losses equal, gradients
      within the stated tolerance, peak memory of both;
-  9. a JSON line for the evaluation, one for the training loop, a JSON line
-     per kernel, the card's name and power limit, then the result line.
+  9. Swin-T Mask R-CNN serving (`configs/swin/
+     mask_rcnn_swin_tiny_patch4_window7_coco.py`: stock Swin-T, FPN, the
+     FCN mask head on 14 x 14 RoIs), with seed-0 weights from a reference
+     `.pth` and the detections' `score_thr` lowered to 0.01 (random
+     weights give every class about 1/81): (a) f32 as the config is, 8
+     synthetic 480 x 640 frames with 1-4 polygon instances each (from
+     `--seed`) through the config's test pipeline (800 x 1067, padded to
+     800 x 1088) after `FramesFromMemory`, `single_device_test(
+     with_masks=True)` at batch 2, a warm-up pass then a timed one with the
+     launch counts set to 0 just before it and read just after (K3 once a
+     batch at 7 and once at 14, its f32 entry; no other kernel), eval
+     images/s, the median batch, the host ms of each step
+     (`MASK_EVAL_STAGES`: loader, copy, `simple_test_masks`, results, paste,
+     RLE) and peak memory, then `evaluate` (bbox, segm: every metric
+     finite), and K3 at 14 on the batch's mask RoIs against its twin; (b)
+     the same with `compute_dtype="bfloat16"` (K3's bf16 entry at both
+     sizes); (c) a nano Swin Mask R-CNN in f32 at 64 x 128, card against CPU
+     from one `.pth`: detections within 1e-3 px and 1e-4, mask
+     probabilities within 1e-4, pasted bitmaps equal outside a 1e-4 band
+     around 0.5, bbox and segm metrics within 1e-4 on ground truth made
+     from the CPU's detections and masks; (d) the 9a set's ground truth as
+     detections: segm_mAP and bbox_mAP 1.  Phase 3 holds K3 at 14 against
+     its twin on the mask branch's shapes (2 x 100 RoIs on 800 x 1088, C
+     256) in f32 and bf16, with its times and bound;
+ 10. a JSON line for the evaluation, one for the training loop, one for
+     Mask R-CNN serving, a JSON line per kernel, the card's name and power
+     limit, then the result line.
 Without a CUDA card it exits with an error and prints no result.
 """
 
@@ -140,6 +165,9 @@ EVAL_CONFIG = "configs/panoswin/faster_rcnn_panoswin_tiny_indoor360.py"
 EVAL_FRAMES = 16
 LOOP_FRAMES, LOOP_EVAL_FRAMES, LOOP_EPOCHS = 8, 4, 2
 IMG_NORM = ([123.675, 116.28, 103.53], [58.395, 57.12, 57.375])
+MASK_CONFIG = "configs/swin/mask_rcnn_swin_tiny_patch4_window7_coco.py"
+MASK_FRAME = (800, 1088)            # the mask config's padded batch from 480 x 640 frames
+MASK_FRAMES, MASK_SCORE_THR = 8, 0.01
 
 
 def time_ms(fn, reps: int, batches: int = 5) -> float:
@@ -173,9 +201,10 @@ def check(name, got, ref, tol):
     return err
 
 
-def rpn_like_rois(rng, n_per_image):
+def rpn_like_rois(rng, n_per_image, height=H, width=W):
     """Proposals like the RPN's: sizes across all four levels, some crossing
-    the border, some tiny, some elongated."""
+    the border, some tiny, some elongated, on B frames of height x width."""
+    H, W = height, width
     rois = []
     for b in range(B):
         kinds = rng.integers(0, 6, n_per_image)
@@ -280,7 +309,7 @@ def kernel_k3(dev, ra):
     base = [torch.from_numpy(rng.standard_normal((B, H // s, W // s, C)).astype(np.float32))
             for s in (4, 8, 16, 32)]
     strides = (4, 8, 16, 32)
-    previous = cuda_build.function("roi_align", ra.ENTRIES[torch.float32], ra.LAUNCH_ARGTYPES)
+    previous = cuda_build.function("roi_align", ra.ENTRIES[torch.float32], ra.FORWARD_ARGTYPES)
     rec = {}
     for dt in (torch.float32, torch.bfloat16):
         feats = [f.to(dt).to(dev) for f in base]
@@ -298,7 +327,7 @@ def kernel_k3(dev, ra):
                 # the first version's entry at dtype code 1 (bfloat16); no wrapper calls it so
                 cuda_build.check(previous(ctypes.byref(levels), rois.data_ptr(),
                                           prev_out.data_ptr(), rois.shape[0], B, C, 1, 1,
-                                          float(ra.FINEST_SCALE),
+                                          float(ra.FINEST_SCALE), 7,
                                           torch.cuda.current_stream().cuda_stream),
                                  "roi_align_launch (first version, bf16)")
 
@@ -326,6 +355,52 @@ def kernel_k3(dev, ra):
           f"({rec['bound_ms'] / rec['previous_ms']:.3f}), twin {rec['plain_ms']:.3f} ms, no "
           f"single PyTorch call computes it, bound {rec['bound_ms']:.4f} ms")
     return rec
+
+
+def kernel_k3_mask(dev, ra):
+    """K3 at 14 x 14 bins on the mask branch's shapes: 2 x 100 RoIs over
+    the four FPN levels of an 800 x 1088 batch, C = 256; both entries
+    against the twin (exact), each with its device time, the twin's and
+    the bound.  Returns the two records (bf16 first)."""
+    rng = np.random.default_rng(12)
+    C, o = 256, 14
+    rois = rpn_like_rois(rng, 100, *MASK_FRAME).to(dev)
+    base = [torch.from_numpy(rng.standard_normal((B, MASK_FRAME[0] // s, MASK_FRAME[1] // s, C))
+                             .astype(np.float32)) for s in (4, 8, 16, 32)]
+    strides = (4, 8, 16, 32)
+    records = []
+    for dt in (torch.bfloat16, torch.float32):
+        feats = [f.to(dt).to(dev) for f in base]
+        got = ra.roi_align(feats, rois, strides, o)
+        ref = ra.roi_align_plain(feats, rois, strides, o)
+        torch.cuda.synchronize()
+        name = str(dt)[6:]
+        err = check(f"K3 roi_align o=14 {name} 4 levels C 256, 2 x 100 RoIs on 800 x 1088, "
+                    f"entry {ra.roi_align.last_entry}", got, ref, 0.0)
+        entry = ra.roi_align.last_entry
+        ms = time_ms(lambda: ra.roi_align(feats, rois, strides, o), 20)
+        plain_ms = time_ms(lambda: ra.roi_align_plain(feats, rois, strides, o), 3)
+        rows, w1, w2 = ra.tap_rows(feats, rois, strides, o)
+        need = (w1[:, :, :, None, None] != 0) & (w2[:, None, None] != 0)
+        size = got.element_size()
+        nbytes = (torch.unique(rows[need]).numel() * C * size + rois.numel() * 4
+                  + got.numel() * size)
+        ops = rois.shape[0] * o * o * C * (16 + 4) * 2
+        peak = BF16_OPS_PER_S if dt == torch.bfloat16 else F32_OPS_PER_S
+        bound = max(nbytes / HBM_BYTES_PER_S, ops / peak) * 1e3
+        rec = {"name": f"roi_align o=14 {name} (K3)", "route": "cuda",
+               "source": "panoswintransformerobjectdetection_torch/csrc/roi_align.cu",
+               "replaces": "panoswintransformerobjectdetection_tpu/ops/roi_align_pallas.py:205",
+               "shares_kernel_of": "roi_align (K3)", "out_size": o, "entry": entry,
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+               "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / peak else "operations",
+               "library_ms": None}
+        line = (f"  K3 o=14 {name}: kernel {ms:.4f} ms ({bound / ms:.3f} of the bound), twin "
+                f"{plain_ms:.3f} ms, no single PyTorch call computes it, bound {bound:.4f} ms "
+                f"({rec['bound_by']}, {nbytes / 1e6:.1f} MB)")
+        print(line)
+        records.append(rec)
+    return records
 
 
 def attention_inputs(dev, dtype, n, h, nW, seed):
@@ -893,15 +968,16 @@ def expect_k2_entry(fa, what):
 
 
 def write_reference_pth(config, directory, seed):
-    """Random weights from `seed` (`flagship.init_weights`) for `config`'s
-    model, written as a reference checkpoint: {"state_dict": {"module." + key:
-    tensor}}."""
+    """Random weights from `seed` (`flagship.init_weights`) for the model of
+    `config` (a config file's path or its dict), written as a reference
+    checkpoint: {"state_dict": {"module." + key: tensor}}."""
     from panoswintransformerobjectdetection_torch.apis.inference import build_detector_from_cfg
     from panoswintransformerobjectdetection_torch.flagship import init_weights
     from panoswintransformerobjectdetection_torch.runtime.config import load_config
-    model = build_detector_from_cfg(load_config(config))
+    model = build_detector_from_cfg(load_config(config) if isinstance(config, str) else config)
     init_weights(model, seed)
-    path = os.path.join(directory, os.path.basename(config)[:-3] + ".pth")
+    name = os.path.basename(config)[:-3] if isinstance(config, str) else f"model_{seed}"
+    path = os.path.join(directory, name + ".pth")
     torch.save({"state_dict": {"module." + k: v for k, v in model.state_dict().items()}}, path)
     return path
 
@@ -1676,6 +1752,298 @@ def training_loop_path(dev, ident, counters, stem, ra, seed):
     return rec
 
 
+def polygon_annotations(rng, n_frames, height, width, num_classes):
+    """1-4 polygon instances a frame: 5-8 vertices around a centre, radius
+    12 px to 0.3 of the frame's shorter side; box from the polygon's extent
+    and area from its rasterised mask, as COCO keeps them."""
+    from panoswintransformerobjectdetection_torch.core import rle
+    out = []
+    for i in range(n_frames):
+        for _ in range(int(rng.integers(1, 5))):
+            cx, cy = rng.uniform(0.2, 0.8) * width, rng.uniform(0.2, 0.8) * height
+            n = int(rng.integers(5, 9))
+            ang = np.sort(rng.uniform(0, 2 * np.pi, n))
+            rad = rng.uniform(12, 0.3 * min(height, width)) * rng.uniform(0.6, 1.0, n)
+            xs = np.clip(cx + rad * np.cos(ang), 0, width - 1)
+            ys = np.clip(cy + rad * np.sin(ang), 0, height - 1)
+            poly = [float(v) for v in np.stack([xs, ys], 1).reshape(-1)]
+            area = float(rle.area(rle.polygon_to_rle(poly, height, width)))
+            out.append({"image_id": i, "category_id": int(rng.integers(1, num_classes + 1)),
+                        "bbox": [float(xs.min()), float(ys.min()), float(xs.max() - xs.min()),
+                                 float(ys.max() - ys.min())],
+                        "area": area, "iscrowd": 0, "segmentation": [poly]})
+    return out
+
+
+def mask_config(dtype=None, score_thr=MASK_SCORE_THR):
+    """The Swin-T Mask R-CNN config with the detections' score threshold
+    lowered (random weights give every class about 1/81) and, when given,
+    a compute type."""
+    from panoswintransformerobjectdetection_torch.runtime.config import load_config
+    cfg = load_config(MASK_CONFIG)
+    cfg["model"]["test_cfg"]["rcnn"]["score_thr"] = score_thr
+    if dtype:
+        cfg["model"]["compute_dtype"] = dtype
+    return cfg
+
+
+def mask_pass(model, dataset, dev, counters, ra):
+    """One timed `single_device_test(with_masks=True)` pass at the config's
+    batch with the launch counts set to 0 just before it and read just
+    after: (results, seconds, per-stage host seconds, launches, K3's
+    launches by size)."""
+    from panoswintransformerobjectdetection_torch.apis.test import single_device_test
+    times = {}
+    for fn in counters.values():
+        fn.launches = 0
+    ra.roi_align.launches_by_size = dict.fromkeys(ra.KERNEL_OUT_SIZES, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = single_device_test(model, dataset, batch_size=2, with_masks=True, device=dev,
+                                 stage=stage_timer(times))
+    seconds = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    return results, seconds, times, launches, dict(ra.roi_align.launches_by_size)
+
+
+def check_mask_launches(launches, by_size, n_batches, entry, ra, what):
+    """K3 once a batch at 7 and once at 14 through `entry`; no other kernel."""
+    expect = {name: 0 for name in launches}
+    expect["roi_align (K3)"] = 2 * n_batches
+    if launches != expect or by_size != {7: n_batches, 14: n_batches}:
+        raise AssertionError(f"{what}: launches {launches}, K3 by size {by_size}; expected "
+                             f"{expect} and {n_batches} at each of 7 and 14")
+    if ra.roi_align.last_entry != entry:
+        raise AssertionError(f"{what}: K3 launched {ra.roi_align.last_entry}, not {entry}")
+
+
+def check_mask_results(results, n, what):
+    ok = len(results) == n and all(
+        np.isfinite(r["boxes"]).all() and np.isfinite(r["scores"]).all()
+        and len(r["masks"]) == len(r["boxes"]) for r in results)
+    if not ok or not sum(len(r["boxes"]) for r in results):
+        raise AssertionError(f"{what}: results missing, empty or not finite")
+
+
+def mask_full_width(dev, ident, counters, ra, seed, directory):
+    """9a and 9b: the Swin-T Mask R-CNN config at full width, f32 then bf16."""
+    from panoswintransformerobjectdetection_torch.apis.inference import init_detector
+    from panoswintransformerobjectdetection_torch.apis.test import MASK_EVAL_STAGES
+    from panoswintransformerobjectdetection_torch.data.datasets import CocoDataset
+    cfg = mask_config()
+    path = write_reference_pth(cfg, directory, 0)
+    rng = np.random.default_rng(seed + 9)
+    frames = (rng.random((MASK_FRAMES, 480, 640, 3)) * 255).astype(np.uint8)
+    ann_file = write_ann(os.path.join(directory, "coco_instance.json"), frames,
+                         CocoDataset.CLASSES,
+                         polygon_annotations(rng, MASK_FRAMES, 480, 640, len(CocoDataset.CLASSES)))
+    dataset = in_memory_dataset(cfg["data"]["test"], ann_file, frames)
+    padded = tuple(dataset[0]["img"].shape[:2])
+    if padded != MASK_FRAME or tuple(dataset[0]["img_shape"][:2]) != (800, 1067):
+        raise AssertionError(f"9a: the test pipeline gives {dataset[0]['img_shape']} padded "
+                             f"to {padded}")
+    n_batches = MASK_FRAMES // 2
+    records = {}
+    for label, dtype in (("9a", None), ("9b", "bfloat16")):
+        model = init_detector(mask_config(dtype), path, device=dev)
+        from panoswintransformerobjectdetection_torch.apis.test import single_device_test
+        single_device_test(model, dataset, batch_size=2, with_masks=True, device=dev)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        results, loop_s, times, launches, by_size = mask_pass(model, dataset, dev, counters, ra)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        entry = ra.ENTRIES[torch.bfloat16 if dtype else torch.float32]
+        check_mask_launches(launches, by_size, n_batches, entry, ra, label)
+        check_mask_results(results, MASK_FRAMES, label)
+        per_batch = [sum(times[s][i] for s in MASK_EVAL_STAGES) for i in range(n_batches)]
+        host = {s: sum(times[s]) * 1e3 for s in MASK_EVAL_STAGES}
+        rec = {"dtype": dtype or "float32", "frames": MASK_FRAMES, "batch": 2,
+               "score_thr": MASK_SCORE_THR, "images_per_s": MASK_FRAMES / loop_s,
+               "loop_ms": loop_s * 1e3, "median_batch_ms": statistics.median(per_batch) * 1e3,
+               "stage_ms": host, "peak_gib": peak, "launches": launches,
+               "k3_launches_by_size": by_size,
+               "detections": sum(len(r["boxes"]) for r in results)}
+        line = (f"    ({label[1]}) {os.path.basename(MASK_CONFIG)} (Swin-T Mask R-CNN, 80 classes, "
+                f"{rec['dtype']}, seed-0 weights from a reference .pth, score_thr "
+                f"{MASK_SCORE_THR}): {MASK_FRAMES} frames of 480 x 640 (800 x 1067, padded "
+                f"to 800 x 1088), batch 2, after a warm-up pass: {rec['images_per_s']:.3f} eval "
+                f"images/s ({loop_s * 1e3:.3f} ms for the loop), median batch "
+                f"{rec['median_batch_ms']:.3f} ms; host ms over the loop: "
+                + ", ".join(f"{s} {v:.3f}" for s, v in host.items())
+                + f"; peak memory {peak:.2f} GiB; launches {launches}, K3 by size {by_size}; "
+                f"{rec['detections']} detections")
+        if label == "9a":
+            t1 = time.perf_counter()
+            metrics = dataset.evaluate(results, metric=["bbox", "segm"])
+            rec["evaluate_ms"] = (time.perf_counter() - t1) * 1e3
+            bad = {k: v for k, v in metrics.items() if not np.isfinite(v)}
+            if bad:
+                raise AssertionError(f"9a: metrics not finite: {bad}")
+            rec["bbox_mAP"], rec["segm_mAP"] = metrics["bbox_mAP"], metrics["segm_mAP"]
+            line += (f"; evaluate (bbox, segm) {rec['evaluate_ms']:.3f} ms, every metric finite, "
+                     f"bbox_mAP {metrics['bbox_mAP']:.6f}, segm_mAP {metrics['segm_mAP']:.6f}")
+            captured, roi_features = [], model.roi_features
+
+            def capture(feats, rois, out_size=7):
+                captured.append(([f.detach() for f in feats[:4]], rois.detach(), out_size))
+                return roi_features(feats, rois, out_size)
+
+            batch = [dataset[i] for i in range(2)]
+            model.roi_features = capture
+            model.simple_test_masks(
+                torch.from_numpy(np.stack([b["img"] for b in batch])).to(dev),
+                torch.tensor([list(b["img_shape"][:2]) for b in batch], dtype=torch.float32,
+                             device=dev),
+                torch.from_numpy(np.stack([b["scale_factor"] for b in batch])).to(dev))
+            model.roi_features = roi_features
+            feats, rois, o = captured[-1]
+            if o != 14:
+                raise AssertionError(f"9a: the mask branch pooled at {o}")
+            check(f"K3 o=14 f32 on the mask branch's {rois.shape[0]} RoIs, against the twin",
+                  ra.roi_align(feats, rois, model.featmap_strides, 14),
+                  ra.roi_align_plain(feats, rois, model.featmap_strides, 14), 0.0)
+        print(line + f"; card {ident}")
+        records[label] = rec
+        del model
+    return records, dataset
+
+
+NANO_MASK_MODEL = {
+    "type": "MaskRCNN",
+    "backbone": {"type": "SwinTransformer", "embed_dim": 16, "depths": (2, 2, 2, 2),
+                 "num_heads": (1, 2, 2, 4), "window_size": 4, "drop_path_rate": 0.0},
+    "neck": {"type": "FPN", "in_channels": (16, 32, 64, 128), "out_channels": 16,
+             "num_outs": 5},
+    "num_classes": 5,
+    "test_cfg": {"rpn": {"nms_pre": 256, "max_per_img": 64, "iou_threshold": 0.7,
+                         "min_bbox_size": 0},
+                 "rcnn": {"score_thr": 0.05, "iou_threshold": 0.5, "max_per_img": 16}}}
+
+
+def mask_nano_card_vs_cpu(dev, seed, directory):
+    """9c: a nano Swin Mask R-CNN in f32 at 64 x 128, card against CPU from
+    one `.pth`: detections, mask probabilities, pasted bitmaps, segm and
+    bbox metrics (on ground truth made from the CPU's detections and
+    masks)."""
+    from panoswintransformerobjectdetection_torch.apis.inference import init_detector
+    from panoswintransformerobjectdetection_torch.apis.test import single_device_test
+    from panoswintransformerobjectdetection_torch.core import rle
+    from panoswintransformerobjectdetection_torch.models.mask_head import (paste_mask_values,
+                                                                           paste_masks)
+    classes = tuple(f"c{i}" for i in range(5))
+    cfg = {"model": NANO_MASK_MODEL}
+    split = {"type": "CocoDataset", "classes": classes, "test_mode": True,
+             "pipeline": [{"type": "LoadImageFromFile"},
+                          {"type": "Resize", "img_scale": (64, 1333), "keep_ratio": True},
+                          {"type": "Normalize", "mean": IMG_NORM[0], "std": IMG_NORM[1],
+                           "to_rgb": True},
+                          {"type": "Pad", "size_divisor": 32}]}
+    path = write_reference_pth(cfg, directory, 1)
+    rng = np.random.default_rng(seed + 3)
+    frames = (rng.random((8, 64, 128, 3)) * 255).astype(np.uint8)
+    cpu = init_detector(cfg, path, device="cpu")
+    first = write_ann(os.path.join(directory, "nano_mask_first.json"), frames, classes, [])
+    ref = single_device_test(cpu, in_memory_dataset(split, first, frames), batch_size=2,
+                             with_masks=True, device="cpu")
+    gt = []
+    for i, r in enumerate(ref):
+        for b, s, label, m in zip(r["boxes"], r["scores"], r["labels"], r["masks"]):
+            x1, y1, x2, y2 = (b + rng.uniform(-3, 3, 4)).tolist()
+            if s > 0.05 and x2 - x1 >= 1 and y2 - y1 >= 1 and rle.area(m) > 0:
+                gt.append({"image_id": i, "category_id": int(label) + 1, "iscrowd": 0,
+                           "bbox": [x1, y1, x2 - x1, y2 - y1], "area": float(rle.area(m)),
+                           "segmentation": m})
+    dataset = in_memory_dataset(split, write_ann(os.path.join(directory, "nano_mask.json"),
+                                                 frames, classes, gt), frames)
+    defaults = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    card = init_detector(cfg, path, device=dev)
+    got = single_device_test(card, dataset, batch_size=2, with_masks=True, device=dev)
+    box_err, score_err = match_detections(got, ref, 1e-3, 1e-4, "9c nano Mask R-CNN card vs CPU")
+    m_cpu = dataset.evaluate(ref, metric=["bbox", "segm"])
+    m_card = dataset.evaluate(got, metric=["bbox", "segm"])
+    diffs = {k: abs(m_card[k] - v) for k, v in m_cpu.items()}
+    if max(diffs.values()) > 1e-4 or not m_cpu["segm_mAP"] > 0:
+        raise AssertionError(f"9c: metrics card {m_card}, CPU {m_cpu}")
+    # mask probabilities and pasted bitmaps of one batch, slot by slot
+    batch = [dataset[i] for i in range(2)]
+    inputs = (np.stack([b["img"] for b in batch]),
+              np.array([list(b["img_shape"][:2]) for b in batch], np.float32),
+              np.stack([b["scale_factor"] for b in batch]))
+    det_c, probs_c = cpu.simple_test_masks(*(torch.from_numpy(a) for a in inputs))
+    det_g, probs_g = card.simple_test_masks(*(torch.from_numpy(a).to(dev) for a in inputs))
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = defaults
+    prob_err, flips, band = 0.0, 0, 0
+    for i in range(2):
+        mc, mg = det_c.mask[i], det_g.mask[i].cpu()
+        boxes_c, boxes_g = det_c.boxes[i][mc], det_g.boxes[i].cpu()[mg]
+        labels_c, labels_g = det_c.labels[i][mc], det_g.labels[i].cpu()[mg]
+        if len(boxes_c) != len(boxes_g):
+            raise AssertionError(f"9c: image {i} has {len(boxes_g)} detections on the card, "
+                                 f"{len(boxes_c)} on the CPU")
+        # each card slot's CPU partner: same label, box within 1e-3 px
+        d = (boxes_g[:, None] - boxes_c[None]).abs().amax(-1)
+        d[labels_g[:, None] != labels_c[None]] = float("inf")
+        partner = d.argmin(1)
+        if (d.gather(1, partner[:, None]) > 1e-3).any() or len(set(partner.tolist())) < len(d):
+            raise AssertionError(f"9c: image {i}: card detections without a CPU partner")
+        pc = probs_c[i][mc][partner]
+        pg = probs_g[i][mg]
+        if len(pc):
+            prob_err = max(prob_err, float((pg.cpu() - pc).abs().max()))
+        h, w = 64, 128
+        values = paste_mask_values(pc, boxes_c[partner], h, w)
+        bits_c = values >= 0.5
+        bits_g = paste_masks(pg, boxes_c[partner].to(dev), h, w).cpu()
+        near = (values - 0.5).abs() <= 1e-4
+        flips += int(((bits_c != bits_g) & ~near).sum())
+        band += int(near.sum())
+    if prob_err > 1e-4 or flips:
+        raise AssertionError(f"9c: mask probabilities differ by {prob_err} (tolerance 1e-4), "
+                             f"{flips} pasted pixels differ outside the 1e-4 band around 0.5")
+    print(f"    (c) nano Swin Mask R-CNN, f32, 8 frames of 64 x 128, card vs CPU from one .pth: "
+          f"detections per image {[len(r['boxes']) for r in ref]} on both, max|box diff| "
+          f"{box_err:.3g} px (tolerance 1e-3), max|score diff| {score_err:.3g} (1e-4); "
+          f"mask probabilities of the first batch max|diff| {prob_err:.3g} (1e-4); pasted "
+          f"bitmaps (each device's probabilities on the CPU's boxes) equal outside the 1e-4 "
+          f"band around 0.5 ({band} pixels in it); on {len(gt)} ground-truth instances made "
+          f"from the CPU's detections and masks: segm_mAP card {m_card['segm_mAP']:.6f}, CPU "
+          f"{m_cpu['segm_mAP']:.6f}, bbox_mAP card {m_card['bbox_mAP']:.6f}, max|metric diff| "
+          f"{max(diffs.values()):.3g} (tolerance 1e-4)")
+    return {"box_err": box_err, "score_err": score_err, "prob_err": prob_err,
+            "pixels_in_band": band, "segm_mAP": m_card["segm_mAP"],
+            "max_metric_diff": max(diffs.values())}
+
+
+def mask_perfect_probe(dataset):
+    """9d: the 9a set's ground truth (boxes and polygon masks as RLE) as
+    detections of score 1: bbox_mAP and segm_mAP 1 (within 1e-12)."""
+    from panoswintransformerobjectdetection_torch.core import rle
+    dets = []
+    for r in dataset.records:
+        anns = [a for a in r["eval_anns"] if not a["iscrowd"]]
+        boxes = np.array([[a["bbox"][0], a["bbox"][1], a["bbox"][0] + a["bbox"][2],
+                           a["bbox"][1] + a["bbox"][3]] for a in anns], np.float32)
+        dets.append({"boxes": boxes.reshape(-1, 4), "scores": np.ones(len(anns), np.float32),
+                     "labels": np.array([a["category_id"] for a in anns], np.int64),
+                     "masks": [rle.ann_to_rle(a["segmentation"], r["height"], r["width"])
+                               for a in anns]})
+    metrics = dataset.evaluate(dets, metric=["bbox", "segm"])
+    if abs(metrics["segm_mAP"] - 1.0) > 1e-12 or abs(metrics["bbox_mAP"] - 1.0) > 1e-12:
+        raise AssertionError(f"9d: perfect detections give {metrics}")
+    print(f"    (d) perfect-mask probe on the 9a set (host): segm_mAP {metrics['segm_mAP']}, "
+          f"bbox_mAP {metrics['bbox_mAP']}, segm_AR@100 {metrics['segm_AR@100']}")
+    return {"segm_mAP": metrics["segm_mAP"], "bbox_mAP": metrics["bbox_mAP"]}
+
+
+def mask_rcnn_path(dev, ident, counters, ra, seed):
+    """Phase 9: Swin-T Mask R-CNN serving on the card; returns its record."""
+    with tempfile.TemporaryDirectory() as directory:
+        rec, dataset = mask_full_width(dev, ident, counters, ra, seed, directory)
+        rec["nano_card_vs_cpu"] = mask_nano_card_vs_cpu(dev, seed, directory)
+        rec["perfect_probe"] = mask_perfect_probe(dataset)
+    return rec
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Drive the PyTorch port on one CUDA card.")
     parser.add_argument("--seed", type=int, default=0,
@@ -1718,6 +2086,7 @@ def main(argv=None) -> int:
           "rounding of p, which moves an output by about one unit)")
     records = [kernel_k1(dev, stem), kernel_k2(dev, fa), kernel_k3(dev, ra),
                kernel_k5(dev, fa), kernel_k4(dev, ra), kernel_k3_backward(dev, ra)]
+    mask_records = kernel_k3_mask(dev, ra)
     dense_against_direct(dev, ra)
 
     print("[4] flagship simple_test, bf16, BN folded, random weights (seed 0); before it "
@@ -1803,6 +2172,11 @@ def main(argv=None) -> int:
     loop = training_loop_path(dev, ident, counters, stem, ra, args.seed)
     launches["loop"] = loop["launches"]
 
+    print("[9] Swin-T Mask R-CNN serving on the card: init_detector from a reference .pth, "
+          "single_device_test(with_masks=True), paste, RLE, evaluate(bbox, segm); PyTorch's "
+          "TF32 defaults except in (c)")
+    masks = mask_rcnn_path(dev, ident, counters, ra, args.seed)
+
     for rec in records:
         key = rec.get("shares_kernel_of", rec["name"])
         if key in ("dense_crop (K4)", "roi_align_backward (K3 backward)"):
@@ -1817,9 +2191,17 @@ def main(argv=None) -> int:
         rec["launches_training_loop"] = launches["loop"][key]
         if key == "stem_conv (K1)":
             rec["f32_eval_shape"] = evaluation["k1_f32"]
-    print("[9] records")
+        rec["launches_mask_rcnn"] = (masks["9a"]["k3_launches_by_size"][7]
+                                     + masks["9b"]["k3_launches_by_size"][7]
+                                     if key == "roi_align (K3)" else 0)
+    # K3 at 14: its main path is phase 9's mask branch, 9b (bf16) and 9a (f32)
+    for rec, label in zip(mask_records, ("9b", "9a")):
+        rec["launches"] = masks[label]["k3_launches_by_size"][14]
+    records += mask_records
+    print("[10] records")
     print(json.dumps({"evaluation": {k: v for k, v in evaluation.items() if k != "k1_f32"}}))
     print(json.dumps({"training_loop": loop}))
+    print(json.dumps({"mask_rcnn": masks}))
     print(json.dumps({"kernels": records}))
     print(ident)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -20,25 +20,27 @@ import torch
 from ..data.transforms import Compose, Normalize, Pad, Resize
 from ..device import resolve_device
 from ..flagship import init_weights
-from ..models.detectors import PanoFasterRCNN
+from ..models.detectors import BACKBONES, MaskRCNN, PanoFasterRCNN
 from ..runtime.checkpoint import load_reference_weights, load_torch_state_dict
 from ..runtime.config import load_config
 
-DETECTOR_TYPES = ("PanoFasterRCNN", "FasterRCNN")
+DETECTOR_TYPES = {"PanoFasterRCNN": PanoFasterRCNN, "FasterRCNN": PanoFasterRCNN,
+                  "MaskRCNN": MaskRCNN}
 COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # `TwoStageDetector` fields (JAX `models/detectors.py:73-105`) that the port
-# takes only at these values: other values select a mask branch, PISA, other
-# bbox heads or RoI extractors, which are not ported.
-_DEFAULT_ONLY = {"with_mask": False, "mask_roi_size": 14, "pisa": None, "bbox_head": None,
-                 "roi_extractor": None, "roi_sampling_ratio": 2, "bbox_roi_size": 7}
+# takes only at these values: other values select PISA, other bbox heads or
+# RoI extractors, which are not ported.
+_DEFAULT_ONLY = {"pisa": None, "bbox_head": None, "roi_extractor": None,
+                 "roi_sampling_ratio": 2, "bbox_roi_size": 7}
 _FPN_DEFAULT_ONLY = {"start_level": 0, "add_extra_convs": False,
                      "relu_before_extra_convs": False}
 _ZOO = "is not ported yet (ROADMAP.md, Queue 1, item 17)"
 
 
 def build_detector_from_cfg(cfg: dict) -> PanoFasterRCNN:
-    """A config's `model` dict -> `PanoFasterRCNN` (random weights as
-    constructed).  Types and options that the port does not implement raise
+    """A config's `model` dict -> `PanoFasterRCNN` or `MaskRCNN` (random
+    weights as constructed), with a PanoSwin or a stock Swin backbone.
+    Types and options that the port does not implement raise
     `NotImplementedError`; `pretrained` (a weight-init directive of the
     training API) is dropped."""
     model = dict(cfg["model"])
@@ -50,7 +52,7 @@ def build_detector_from_cfg(cfg: dict) -> PanoFasterRCNN:
         if model.pop(key, default) != default:
             raise NotImplementedError(f"detector option {key}={cfg['model'][key]!r} {_ZOO}")
     backbone = dict(model.pop("backbone"))
-    if backbone.pop("type", "PanoSwinTransformer") != "PanoSwinTransformer":
+    if backbone.get("type", "PanoSwinTransformer") not in BACKBONES:
         raise NotImplementedError(f"backbone type {cfg['model']['backbone']['type']!r} {_ZOO}")
     neck = model.pop("neck", None)
     if neck is not None:
@@ -65,8 +67,8 @@ def build_detector_from_cfg(cfg: dict) -> PanoFasterRCNN:
     if dtype is not None and dtype not in COMPUTE_DTYPES:
         raise NotImplementedError(f"compute_dtype {dtype!r}: the port's kernels take "
                                   f"{sorted(COMPUTE_DTYPES)}")
-    return PanoFasterRCNN(backbone=backbone, neck=neck, compute_dtype=COMPUTE_DTYPES.get(dtype),
-                          **model)
+    return DETECTOR_TYPES[kind](backbone=backbone, neck=neck,
+                                compute_dtype=COMPUTE_DTYPES.get(dtype), **model)
 
 
 def load_weights(model: PanoFasterRCNN, checkpoint: str) -> None:

@@ -6,37 +6,46 @@ Counterpart of `single_device_test` in
 host; each goes to the device, through `simple_test` under
 `torch.inference_mode()`, and back; the padded slots are dropped by the
 result's `mask`, and each image's result is keyed by the record index the
-batch carries.  Runs on the card unless the caller passes `device="cpu"`.
+batch carries.  With masks (a Mask R-CNN), `simple_test_masks` runs instead,
+each image's detections are pasted into bitmaps of its original size on
+the device (`models/mask_head.paste_masks`) and each bitmap is run-length
+encoded on the host (`core/rle.encode`).  Runs on the card unless the
+caller passes `device="cpu"`.
 """
 
 from typing import Callable, List, Optional, Union
 
 import torch
 
+from ..core import rle
 from ..data.loader import DetDataLoader
 from ..device import resolve_device
 from ..models.detectors import PanoFasterRCNN, run_stage
+from ..models.mask_head import paste_masks
 
 # The loop's steps, each run through `stage(name, fn)`: the next batch from
 # the loader (pipeline and collation on the host), its copy to the device,
-# `simple_test`, and the results' copy back and trim.
+# `simple_test` (`simple_test_masks` with masks), and the results' copy back
+# and trim.  With masks two more: the paste of each detection's mask into
+# its image on the device, with the bitmaps' copy back, and their
+# run-length encoding on the host.
 EVAL_STAGES = ("load", "copy", "simple_test", "results")
+MASK_EVAL_STAGES = EVAL_STAGES + ("paste", "rle")
 
 
 def single_device_test(model: PanoFasterRCNN, dataset, *, batch_size: int = 1,
                        max_gt: int = 100, with_masks: bool = False, progress: bool = False,
                        device: Optional[Union[str, torch.device]] = None,
                        stage: Callable = run_stage) -> List[dict]:
-    """Per-image dicts (boxes (k, 4), scores (k,), labels (k,)) in original
-    image coordinates, in the dataset's order.  `model` must already be on
-    `device` (the card unless "cpu" is passed).  Each of `EVAL_STAGES` runs
-    as `stage(name, fn)`; a caller that times the loop passes one that also
-    times it.  A sample that the loader skips raises, rather than shifting
-    every later result onto the wrong image."""
+    """Per-image dicts (boxes (k, 4), scores (k,), labels (k,), and with
+    `with_masks` masks: k RLE dicts of the image's original size) in
+    original image coordinates, in the dataset's order.  `model` must
+    already be on `device` (the card unless "cpu" is passed).  Each of
+    `EVAL_STAGES` (`MASK_EVAL_STAGES` with masks) runs as `stage(name,
+    fn)`; a caller that times the loop passes one that also times it.  A
+    sample that the loader skips raises, rather than shifting every later
+    result onto the wrong image."""
     dev = resolve_device(device)
-    if with_masks:
-        raise NotImplementedError("evaluation with masks is not ported yet (ROADMAP.md, "
-                                  "Queue 1, item 17)")
     if model.device.type != dev.type or dev.index not in (None, model.device.index):
         raise ValueError(f"the model is on {model.device}, the evaluation on {dev}: move "
                          "the model or pass its device")
@@ -54,8 +63,15 @@ def single_device_test(model: PanoFasterRCNN, dataset, *, batch_size: int = 1,
             inputs = stage("copy", lambda: [
                 torch.from_numpy(batch[k]).to(dev)
                 for k in ("images", "img_shapes", "scale_factors")])
-            out = stage("simple_test", lambda: model.simple_test(*inputs))
+            if with_masks:
+                out, probs = stage("simple_test", lambda: model.simple_test_masks(*inputs))
+            else:
+                out = stage("simple_test", lambda: model.simple_test(*inputs))
             results = stage("results", lambda: _trimmed(out, batch["indices"]))
+            if with_masks:
+                bitmaps = stage("paste", lambda: _pasted(out, probs, batch["indices"],
+                                                         dataset.records))
+                stage("rle", lambda: _encoded(results, bitmaps))
             by_index.update(results)
             if progress and bi % 50 == 0:
                 print(f"eval batch {bi}/{len(loader)}")
@@ -73,6 +89,24 @@ def _trimmed(out, indices) -> dict:
     return {int(idx): {"boxes": boxes[i][mask[i]], "scores": scores[i][mask[i]],
                        "labels": labels[i][mask[i]]}
             for i, idx in enumerate(indices)}
+
+
+def _pasted(out, probs, indices, records) -> dict:
+    """Each image's detections' masks pasted at its record's size, as host
+    bool arrays (k, height, width)."""
+    bitmaps = {}
+    for i, idx in enumerate(indices):
+        m = out.mask[i]
+        rec = records[int(idx)]
+        bitmaps[int(idx)] = paste_masks(probs[i][m], out.boxes[i][m], int(rec["height"]),
+                                        int(rec["width"])).cpu().numpy()
+    return bitmaps
+
+
+def _encoded(results: dict, bitmaps: dict) -> None:
+    """Each result's `masks`: its bitmaps run-length encoded."""
+    for idx, res in results.items():
+        res["masks"] = [rle.encode(b) for b in bitmaps[idx]]
 
 
 def multi_host_test(*args, **kwargs):

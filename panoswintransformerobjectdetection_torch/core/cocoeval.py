@@ -14,8 +14,8 @@ protocol that the reference evaluates bbox, segm and proposal metrics with
 * maxDets truncation per image and category at [1, 10, 100];
 * 101-point interpolated AP averaged over IoU .50:.05:.95 and the area
   ranges all/small/medium/large; AR at maxDets 1/10/100 and per area;
-* segm metrics run the same machinery on RLE mask IoU (no detector of the
-  port makes masks yet: ROADMAP.md, Queue 1, item 17).
+* segm metrics run the same machinery on RLE mask IoU (the masks of a
+  `MaskRCNN`, run-length encoded by `apis/test.single_device_test`).
 
 The per-image matcher is the C++ one (`native/cocoeval.cpp`) when it
 builds, else `_match_image`'s numpy loop, its twin; `native.calls` counts

@@ -1,4 +1,6 @@
-// Multilevel RoIAlign: every RoI pooled to (7, 7, C) from its own FPN level.
+// Multilevel RoIAlign: every RoI pooled to (O, O, C) from its own FPN level,
+// O = 7 (the bbox head) or 14 (the mask head) in the forward, 7 in the
+// backward.
 //
 // Replaces the Pallas kernel `_windowed_kernel`
 // (panoswintransformerobjectdetection_tpu/ops/roi_align_pallas.py:205) and,
@@ -32,10 +34,11 @@
 // what the redesign has to raise.
 //
 // bfloat16 entry (`roi_align_bf16_launch`): vectorised gathers with
-// stage-one reuse.  One block of 7 warps per (RoI, slice of 32 * VEC
-// channels): its first 14 threads work out the RoI's level and taps into
-// shared memory, as in the first version; then warp i takes bin i of the
-// axis contracted first, and each lane VEC neighbouring channels, so that a
+// stage-one reuse.  One block of O warps per (RoI, slice of 32 * VEC
+// channels) at O = 7: its first 2 * O threads work out the RoI's level and
+// taps into shared memory, as in the first version; then warp i takes bin
+// i of the axis contracted first (at O = 14 see `vec`'s note on the two
+// designs), and each lane VEC neighbouring channels, so that a
 // warp reads one tap's 256 channels (VEC = 8) in one 16-byte load a lane
 // and writes an output bin in one 16-byte store a lane.  VEC is the widest
 // of 8, 4, 2 and 1 that divides C and to whose bytes every level and the
@@ -60,7 +63,15 @@
 // `chip_smoke.py` times the redesign against it.  One block per (RoI,
 // slice of 128 channels), one thread per channel, so every feature read is
 // coalesced along C in the NHWC maps; after the taps each thread walks the
-// 49 output bins with 16 scalar loads each.
+// O * O output bins with 16 scalar loads each.
+//
+// At O = 14 (the mask head's 2 x 100 RoIs an 800 x 1088 batch, C = 256)
+// the function reads at most the RoIs' footprints and writes 200 * 196 *
+// 256 values: 20 MB in bf16, about 0.006 ms at 3.35 TB/s, far from the
+// arithmetic's limit, so it is bound by bytes as at O = 7.  Nothing in the
+// design changes with O: each output value is the same 16 weighted taps,
+// and the bin width extent * inv / O is divided with `__fdiv_rn`, as the
+// twin divides, so the kernel stays the twin's bit for bit.
 
 // Backward.  The function is linear in the maps, so the maps' gradient is
 // the transposed gather: pixel (p1, p2) of a RoI's level and image gets
@@ -115,9 +126,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int O = 7;        // output bins per side
+constexpr int BACKWARD_O = 7;   // the backward's output bins per side (the bbox head's)
 constexpr int S = 2;        // samples per bin side
 constexpr int K = 2 * S;    // candidate taps per bin
 constexpr int MAX_LEVELS = 4;
@@ -189,8 +202,10 @@ __device__ void axis_taps(float start, float bin, int size, int o, int* idx, flo
   }
 }
 
-// A RoI's level, image and merged taps, in shared memory (16-byte aligned,
-// so that the backward's blocks copy them in 16-byte pieces).
+// A RoI's level, image and merged taps at O bins a side, in shared memory
+// (16-byte aligned, so that the backward's blocks copy them in 16-byte
+// pieces).
+template <int O>
 struct alignas(16) RoiTaps {
   int idx[2][O][K];     // [axis][bin][tap]; axis 0 = y (rows), 1 = x (columns)
   float w[2][O][K];
@@ -198,11 +213,11 @@ struct alignas(16) RoiTaps {
   int batch;            // -1: the index lies outside [0, batch), or is NaN
 };
 
-// Fills `taps` for the block's RoI with its first 14 threads and
-// synchronises the block.
-template <typename T>
+// Fills `taps` for the block's RoI with its first 2 * O threads (the block
+// has at least that many) and synchronises the whole block.
+template <typename T, int O>
 __device__ void roi_taps(const RoiLevels& levels, const float* roi, int batch,
-                         float finest_scale, RoiTaps& taps) {
+                         float finest_scale, RoiTaps<O>& taps) {
   const int t = threadIdx.x;
   if (t < 2 * O) {
     const float x1 = roi[1], y1 = roi[2], x2 = roi[3], y2 = roi[4];
@@ -228,14 +243,15 @@ __device__ void roi_taps(const RoiLevels& levels, const float* roi, int batch,
   __syncthreads();
 }
 
-template <typename T>
+template <typename T, int O>
 __global__ void roi_align_kernel(RoiLevels levels, const float* __restrict__ rois,
                                  T* __restrict__ out, int batch, int C, int w_first,
                                  float finest_scale) {
-  __shared__ RoiTaps taps;
+  static_assert(2 * O <= THREADS, "the taps take 2 * O threads of the block");
+  __shared__ RoiTaps<O> taps;
   const int r = blockIdx.x;
   const int t = threadIdx.x;
-  roi_taps<T>(levels, rois + size_t(r) * 5, batch, finest_scale, taps);
+  roi_taps<T, O>(levels, rois + size_t(r) * 5, batch, finest_scale, taps);
   auto& s_idx = taps.idx;
   auto& s_w = taps.w;
   const int s_level = taps.level, s_batch = taps.batch;
@@ -278,10 +294,11 @@ template <typename T>
 __global__ void roi_align_backward_kernel(RoiLevels levels, const float* __restrict__ rois,
                                           const T* __restrict__ grad_out, int batch, int C,
                                           int w_first, float finest_scale) {
-  __shared__ RoiTaps taps;
+  constexpr int O = BACKWARD_O;
+  __shared__ RoiTaps<O> taps;
   const int r = blockIdx.x;
   const int t = threadIdx.x;
-  roi_taps<T>(levels, rois + size_t(r) * 5, batch, finest_scale, taps);
+  roi_taps<T, O>(levels, rois + size_t(r) * 5, batch, finest_scale, taps);
   const int c = blockIdx.y * THREADS + t;
   if (c >= C || taps.batch < 0) return;
   const int lvl = taps.level;
@@ -316,12 +333,16 @@ __global__ void roi_align_backward_kernel(RoiLevels levels, const float* __restr
 
 namespace vec {
 
-constexpr int THREADS = 32 * O;         // a warp per stage-one bin
-// Two blocks an SM: at most 146 registers a thread.  Left free, the 16
-// chunks a lane has in flight took 154 registers, one block fit an SM and
-// it ran 1.7x slower; capped for three blocks, it spilled and ran 2.8x
-// slower.
-constexpr int MIN_BLOCKS = 2;
+// A warp takes one stage-one bin, so a block has 32 * O threads, and the
+// blocks an SM holds follow.  At O = 7, two blocks an SM: at most 146
+// registers a thread.  Left free, the 16 chunks a lane has in flight took
+// 154 registers, one block fit an SM and it ran 1.7x slower; capped for
+// three blocks, it spilled and ran 2.8x slower.  At O = 14 the 448 threads
+// of a block would be capped at 73 registers (a spill) by two blocks an
+// SM, so it holds one, with the same 146 registers a thread.  (Giving each
+// of 7 warps two bins, two blocks an SM, measured 3% slower.)
+__host__ __device__ constexpr int threads(int O) { return 32 * O; }
+__host__ __device__ constexpr int min_blocks(int O) { return threads(O) > 256 ? 1 : 2; }
 
 template <int VEC> struct Chunk;
 template <> struct Chunk<8> { using type = uint4; };
@@ -345,32 +366,34 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, const float (&f)[VEC]) {
   *reinterpret_cast<typename Chunk<VEC>::type*>(p) = u.raw;
 }
 
-template <int VEC>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+template <int VEC, int O>
+__global__ void __launch_bounds__(threads(O), min_blocks(O))
 roi_align_vec_kernel(RoiLevels levels, const float* __restrict__ rois,
                      __nv_bfloat16* __restrict__ out, int batch, int C, int w_first,
                      float finest_scale) {
-  __shared__ RoiTaps taps;
+  __shared__ RoiTaps<O> taps;
   const int r = blockIdx.x;
-  roi_taps<__nv_bfloat16>(levels, rois + size_t(r) * 5, batch, finest_scale, taps);
-  const int i = threadIdx.x / 32, lane = threadIdx.x % 32;   // i: bin of axis a1
+  roi_taps<__nv_bfloat16, O>(levels, rois + size_t(r) * 5, batch, finest_scale, taps);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int c = (blockIdx.y * 32 + lane) * VEC;
   if (c >= C) return;
   __nv_bfloat16* ob = out + size_t(r) * O * O * C + c;
   // output bin (oy, ox) of stage-one bin i and stage-two bin j
-  auto bin = [&](int j) { return size_t(w_first ? j * O + i : i * O + j) * C; };
+  auto bin = [&](int i, int j) { return size_t(w_first ? j * O + i : i * O + j) * C; };
   if (taps.batch < 0) {
     float zero[VEC];
 #pragma unroll
     for (int e = 0; e < VEC; ++e) zero[e] = 0.f;
-    for (int j = 0; j < O; ++j) store<VEC>(ob + bin(j), zero);
+    for (int j = 0; j < O; ++j) store<VEC>(ob + bin(warp, j), zero);
     return;
   }
+  const int a1 = w_first ? 1 : 0, a2 = 1 - a1;
   const int lvl = taps.level;
   const int Hl = levels.height[lvl], Wl = levels.width[lvl];
   const __nv_bfloat16* f =
       static_cast<const __nv_bfloat16*>(levels.feat[lvl]) + size_t(taps.batch) * Hl * Wl * C + c;
-  const int a1 = w_first ? 1 : 0, a2 = 1 - a1;
+  using V = typename Chunk<VEC>::type;
+  const int i = warp;                                         // bin of axis a1
   int i1[K];
   float w1[K];
 #pragma unroll
@@ -380,10 +403,9 @@ roi_align_vec_kernel(RoiLevels levels, const float* __restrict__ rois,
   }
 
   // Bin by bin j, the warp issues the loads of every column it has not
-  // summed yet (up to 4 columns x 4 rows of 16 bytes a lane, all in flight
-  // at once), then sums each such column's stage one; a column equal to the
-  // one before it reuses the sum in `t`.
-  using V = typename Chunk<VEC>::type;
+  // summed yet (up to 4 columns x 4 rows of 16 bytes a lane, all in
+  // flight at once), then sums each such column's stage one; a column
+  // equal to the one before it reuses the sum in `t`.
   float t[VEC];             // round(sum_k1 w1 f) at the last column summed
   int last = -1;            // tap indices are clamped to >= 0
   for (int j = 0; j < O; ++j) {
@@ -426,7 +448,7 @@ roi_align_vec_kernel(RoiLevels levels, const float* __restrict__ rois,
       }
     }
     last = cols[K - 1];
-    store<VEC>(ob + bin(j), acc);
+    store<VEC>(ob + bin(i, j), acc);
   }
 }
 
@@ -442,13 +464,28 @@ inline int chunk_width(const RoiLevels& levels, const void* out, int C) {
   return 1;
 }
 
-template <int VEC>
-int launch(const RoiLevels& levels, const float* rois, void* out, int R, int batch, int C,
-           int w_first, float finest_scale, cudaStream_t stream) {
+template <int VEC, int O>
+int launch_width(const RoiLevels& levels, const float* rois, void* out, int R, int batch, int C,
+                 int w_first, float finest_scale, cudaStream_t stream) {
   dim3 grid(R, (C + 32 * VEC - 1) / (32 * VEC));
-  roi_align_vec_kernel<VEC><<<grid, THREADS, 0, stream>>>(
+  roi_align_vec_kernel<VEC, O><<<grid, threads(O), 0, stream>>>(
       levels, rois, static_cast<__nv_bfloat16*>(out), batch, C, w_first, finest_scale);
   return int(cudaGetLastError());
+}
+
+template <int O>
+int launch(const RoiLevels& levels, const float* rois, void* out, int R, int batch, int C,
+           int w_first, float finest_scale, cudaStream_t stream) {
+  const auto go = [&](auto width) {
+    return launch_width<decltype(width)::value, O>(levels, rois, out, R, batch, C, w_first,
+                                                   finest_scale, stream);
+  };
+  switch (chunk_width(levels, out, C)) {
+    case 8: return go(std::integral_constant<int, 8>{});
+    case 4: return go(std::integral_constant<int, 4>{});
+    case 2: return go(std::integral_constant<int, 2>{});
+    default: return go(std::integral_constant<int, 1>{});
+  }
 }
 
 }  // namespace vec
@@ -457,6 +494,8 @@ int launch(const RoiLevels& levels, const float* rois, void* out, int R, int bat
 
 namespace owner {
 
+constexpr int O = BACKWARD_O;
+using Taps = RoiTaps<O>;
 constexpr int TILE = 8;                   // pixels a warp owns along a1
 constexpr int WARPS = 8;                  // a warp per pixel of the tile along a2
 constexpr int THREADS = 32 * WARPS;
@@ -484,7 +523,7 @@ struct Plan {
 // One RoI as a block stages it: its gradient (49 bins, 32 * VEC channels)
 // and its taps; two stages, the next RoI's copied while one is added.
 template <int VEC> constexpr int D_BYTES = O * O * 32 * VEC * 2;
-template <int VEC> constexpr int STAGE_BYTES = D_BYTES<VEC> + int(sizeof(RoiTaps));
+template <int VEC> constexpr int STAGE_BYTES = D_BYTES<VEC> + int(sizeof(Taps));
 template <int VEC> constexpr int SMEM_BYTES = 2 * STAGE_BYTES<VEC>;
 
 // An asynchronous copy of BYTES (2, 4, 8 or 16) from device to shared
@@ -510,14 +549,14 @@ template <int N> __device__ __forceinline__ void copy_wait() {
 // into a stage.
 template <int VEC>
 __device__ __forceinline__ void stage_roi(char* stage, const __nv_bfloat16* grad_out,
-                                          const RoiTaps* taps, int r, int C, int c0) {
+                                          const Taps* taps, int r, int C, int c0) {
   for (int q = threadIdx.x; q < O * O * 32; q += THREADS) {
     const int bin = q / 32, c = c0 + (q % 32) * VEC;
     if (c < C)
       copy_async<2 * VEC>(stage + q * 2 * VEC, grad_out + (size_t(r) * O * O + bin) * C + c);
   }
   char* tstage = stage + D_BYTES<VEC>;
-  for (int q = threadIdx.x; q < int(sizeof(RoiTaps)) / 16; q += THREADS)
+  for (int q = threadIdx.x; q < int(sizeof(Taps)) / 16; q += THREADS)
     copy_async<16>(tstage + q * 16, reinterpret_cast<const char*>(taps + r) + q * 16);
   copy_commit();
 }
@@ -525,13 +564,13 @@ __device__ __forceinline__ void stage_roi(char* stage, const __nv_bfloat16* grad
 // One block of 32 threads a RoI: its taps and header.
 __global__ void roi_meta_kernel(RoiLevels levels, const float* __restrict__ rois, int batch,
                                 int w_first, float finest_scale, Header* __restrict__ headers,
-                                RoiTaps* __restrict__ taps) {
-  __shared__ RoiTaps t;
+                                Taps* __restrict__ taps) {
+  __shared__ Taps t;
   const int r = blockIdx.x, lane = threadIdx.x;
-  roi_taps<__nv_bfloat16>(levels, rois + size_t(r) * 5, batch, finest_scale, t);
+  roi_taps<__nv_bfloat16, O>(levels, rois + size_t(r) * 5, batch, finest_scale, t);
   const int* src = reinterpret_cast<const int*>(&t);
   int* dst = reinterpret_cast<int*>(taps + r);
-  for (int k = lane; k < int(sizeof(RoiTaps) / 4); k += 32) dst[k] = src[k];
+  for (int k = lane; k < int(sizeof(Taps) / 4); k += 32) dst[k] = src[k];
   // lane 0 the footprint along a1, lane 1 along a2
   const int a1 = w_first ? 1 : 0;
   const int ax = lane == 0 ? a1 : 1 - a1;
@@ -573,7 +612,7 @@ __device__ __forceinline__ void add_products(float w, const typename vec::Chunk<
 template <int VEC>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 roi_align_backward_owner_kernel(RoiLevels maps, Plan plan, const Header* __restrict__ headers,
-                                const RoiTaps* __restrict__ taps,
+                                const Taps* __restrict__ taps,
                                 const __nv_bfloat16* __restrict__ grad_out, int R, int C,
                                 int w_first) {
   __shared__ int list[LIST];
@@ -667,7 +706,7 @@ roi_align_backward_owner_kernel(RoiLevels maps, Plan plan, const Header* __restr
       __syncthreads();
       const int sp = list_span[q];
       if (owns && p2 >= (sp & 0xffff) && p2 <= (sp >> 16)) {     // the same for the warp
-        const RoiTaps& tp = *reinterpret_cast<const RoiTaps*>(stage + D_BYTES<VEC>);
+        const Taps& tp = *reinterpret_cast<const Taps*>(stage + D_BYTES<VEC>);
         int ia = -1, ib = -1;     // lane l: tap l of a1 and of a2
         float wa = 0.f, wb = 0.f;
         if (lane < TAPS) {
@@ -741,7 +780,7 @@ roi_align_backward_owner_kernel(RoiLevels maps, Plan plan, const Header* __restr
 }
 
 template <int VEC>
-int launch(const RoiLevels& maps, const Plan& plan, const Header* headers, const RoiTaps* taps,
+int launch(const RoiLevels& maps, const Plan& plan, const Header* headers, const Taps* taps,
            const void* grad_out, int R, int C, int w_first, cudaStream_t stream) {
   int blocks = 0;
   for (int l = 0; l < maps.num_levels; ++l) blocks += plan.blocks[l];
@@ -760,27 +799,43 @@ int launch(const RoiLevels& maps, const Plan& plan, const Header* headers, const
 
 }  // namespace
 
+namespace {
+
+template <typename T, int O>
+void launch_first(const RoiLevels& levels, const float* rois, void* out, int R, int batch, int C,
+                  int w_first, float finest_scale, cudaStream_t s) {
+  dim3 grid(R, (C + THREADS - 1) / THREADS);
+  roi_align_kernel<T, O><<<grid, THREADS, 0, s>>>(levels, rois, static_cast<T*>(out), batch, C,
+                                                  w_first, finest_scale);
+}
+
+bool valid_levels(const RoiLevels* levels) {
+  return levels->num_levels >= 1 && levels->num_levels <= MAX_LEVELS;
+}
+
+}  // namespace
+
 // levels: the level maps (B, Hl, Wl, C) contiguous, all of one dtype;
 // rois (R, 5) float32 (batch index, x1, y1, x2, y2) in image pixels, where
-// a RoI whose index lies outside [0, batch) pools zeros; out (R, 7, 7, C).
-// dtype 0 = float32, 1 = bfloat16.  w_first = 1 contracts the W axis first
-// (wide maps).
+// a RoI whose index lies outside [0, batch) pools zeros; out (R, O, O, C)
+// with O = out_size, 7 or 14.  dtype 0 = float32, 1 = bfloat16 (O = 7 only:
+// the vectorised entry serves bfloat16).  w_first = 1 contracts the W axis
+// first (wide maps).
 extern "C" int roi_align_launch(const RoiLevels* levels, const void* rois, void* out, int R,
                                 int batch, int C, int dtype, int w_first, float finest_scale,
-                                void* stream) {
-  if (levels->num_levels < 1 || levels->num_levels > MAX_LEVELS) return int(cudaErrorInvalidValue);
+                                int out_size, void* stream) {
+  if (!valid_levels(levels) || (out_size != 7 && out_size != 14) ||
+      !(dtype == 0 || (dtype == 1 && out_size == 7)))
+    return int(cudaErrorInvalidValue);
   if (R == 0) return 0;
-  dim3 grid(R, (C + THREADS - 1) / THREADS);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* r = static_cast<const float*>(rois);
-  if (dtype == 0)
-    roi_align_kernel<float><<<grid, THREADS, 0, s>>>(*levels, r, static_cast<float*>(out),
-                                                     batch, C, w_first, finest_scale);
-  else if (dtype == 1)
-    roi_align_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
-        *levels, r, static_cast<__nv_bfloat16*>(out), batch, C, w_first, finest_scale);
+  if (dtype == 0 && out_size == 7)
+    launch_first<float, 7>(*levels, r, out, R, batch, C, w_first, finest_scale, s);
+  else if (dtype == 0)
+    launch_first<float, 14>(*levels, r, out, R, batch, C, w_first, finest_scale, s);
   else
-    return int(cudaErrorInvalidValue);
+    launch_first<__nv_bfloat16, 7>(*levels, r, out, R, batch, C, w_first, finest_scale, s);
   return int(cudaGetLastError());
 }
 
@@ -811,23 +866,20 @@ extern "C" int roi_align_backward_launch(const RoiLevels* levels, const void* ro
 // The vectorised version: the same arguments, bfloat16 only (dtype 1).
 extern "C" int roi_align_bf16_launch(const RoiLevels* levels, const void* rois, void* out,
                                      int R, int batch, int C, int dtype, int w_first,
-                                     float finest_scale, void* stream) {
-  if (levels->num_levels < 1 || levels->num_levels > MAX_LEVELS || dtype != 1 || C < 1)
+                                     float finest_scale, int out_size, void* stream) {
+  if (!valid_levels(levels) || dtype != 1 || C < 1 || (out_size != 7 && out_size != 14))
     return int(cudaErrorInvalidValue);
   if (R == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* r = static_cast<const float*>(rois);
-  switch (vec::chunk_width(*levels, out, C)) {
-    case 8: return vec::launch<8>(*levels, r, out, R, batch, C, w_first, finest_scale, s);
-    case 4: return vec::launch<4>(*levels, r, out, R, batch, C, w_first, finest_scale, s);
-    case 2: return vec::launch<2>(*levels, r, out, R, batch, C, w_first, finest_scale, s);
-    default: return vec::launch<1>(*levels, r, out, R, batch, C, w_first, finest_scale, s);
-  }
+  if (out_size == 7)
+    return vec::launch<7>(*levels, r, out, R, batch, C, w_first, finest_scale, s);
+  return vec::launch<14>(*levels, r, out, R, batch, C, w_first, finest_scale, s);
 }
 
 // The bf16 entry's workspace, in bytes: a header and the taps of every RoI.
 extern "C" long long roi_align_backward_bf16_workspace(int R) {
-  return (long long)R * (sizeof(owner::Header) + sizeof(RoiTaps));
+  return (long long)R * (sizeof(owner::Header) + sizeof(owner::Taps));
 }
 
 // The maps' gradient in bfloat16, deterministic.  levels: the bf16 gradient
@@ -860,7 +912,7 @@ extern "C" int roi_align_backward_bf16_launch(const RoiLevels* levels, const voi
     blocks += level_blocks;
   }
   auto* headers = static_cast<owner::Header*>(workspace);
-  auto* taps = reinterpret_cast<RoiTaps*>(headers + R);
+  auto* taps = reinterpret_cast<owner::Taps*>(headers + R);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (R > 0) {
     owner::roi_meta_kernel<<<R, 32, 0, s>>>(*levels, static_cast<const float*>(rois), batch,

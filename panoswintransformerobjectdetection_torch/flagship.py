@@ -50,18 +50,19 @@ def flagship_config(tiny: bool = False, fused_attention: bool = False,
 
 
 def init_weights(model: nn.Module, seed: int = 0) -> None:
-    """Random weights from `seed`: Linear weights and bias tables N(0, 0.02)
-    clipped at 2 sigma, conv weights N(0, 1/fan_in), biases 0; BatchNorm and
+    """Random weights from `seed`: Linear weights, bias tables and Swin's
+    absolute position table N(0, 0.02) clipped at 2 sigma, conv and
+    transposed-conv weights N(0, 1/fan_in), biases 0; BatchNorm and
     LayerNorm keep their identity defaults."""
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if name.endswith("_Te"):
+            if name.endswith(("_Te", "relative_position_bias_table", "absolute_pos_embed")):
                 p.copy_(torch.randn(p.shape, generator=g).clamp(-2, 2) * 0.02)
         for m in model.modules():
             if isinstance(m, nn.Linear):
                 m.weight.copy_(torch.randn(m.weight.shape, generator=g).clamp(-2, 2) * 0.02)
-            elif isinstance(m, nn.Conv2d):
+            elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
                 fan_in = m.weight[0].numel()
                 m.weight.copy_(torch.randn(m.weight.shape, generator=g) * fan_in ** -0.5)
             else:

@@ -1,13 +1,15 @@
-"""Two-stage detector: backbone -> FPN -> RPN -> RoIAlign -> head.
+"""Two-stage detector: backbone -> FPN -> RPN -> RoIAlign -> head [-> masks].
 
 Counterpart of the `TwoStageDetector` subset that the flagship uses in
 `panoswintransformerobjectdetection_tpu/models/detectors.py` (registered
 there as `PanoFasterRCNN`): `extract_feat`, `simple_test` with the default
 test configuration, the two steps of test-time augmentation
 (`extract_proposals`, `bbox_for_rois`) and `forward_train` with the default
-training configuration (random sampler, L1 box loss).  Submodule names follow the
-reference's state-dict keys (`backbone.`, `neck.`, `rpn_head.`,
-`roi_head.bbox_head.`).
+training configuration (random sampler, L1 box loss); and `MaskRCNN`'s
+test-time mask branch (`simple_test_masks`).  The backbone is a PanoSwin
+(`models/panoswin.py`) or a stock Swin (`models/swin.py`).  Submodule names
+follow the reference's state-dict keys (`backbone.`, `neck.`, `rpn_head.`,
+`roi_head.bbox_head.`, `roi_head.mask_head.`).
 """
 
 from typing import Callable, Dict, Optional, Sequence, Tuple
@@ -21,10 +23,14 @@ from ..core.sampler import sampler_noise
 from ..ops.nms import DetResult
 from ..ops.roi_align import multilevel_roi_align_dense, roi_align
 from .fpn import FPN
+from .mask_head import FCNMaskHead
 from .panoswin import PanoSwinTransformer
 from .roi_head import (Shared2FCBBoxHead, bbox_head_detections, bbox_head_loss,
                        sample_rois_for_training)
 from .rpn_head import RPNHead, rpn_loss, rpn_proposals
+from .swin import SwinTransformer
+
+BACKBONES = {"PanoSwinTransformer": PanoSwinTransformer, "SwinTransformer": SwinTransformer}
 
 
 def default_train_cfg() -> dict:
@@ -50,6 +56,9 @@ def default_test_cfg() -> dict:
 
 # The stages of one `simple_test` request, in order.
 STAGES = ("stem", "backbone", "fpn", "proposals", "roi_align", "bbox_head", "detections")
+# The stages of one `simple_test_masks` request: those of `simple_test`,
+# then the mask branch.
+MASK_STAGES = STAGES + ("mask_roi_align", "mask_head")
 # The stages of one `forward_train`, in order.
 TRAIN_STAGES = ("stem", "backbone", "fpn", "rpn_head", "rpn_loss", "proposals", "sampling",
                 "roi_align", "bbox_head", "bbox_loss")
@@ -62,11 +71,14 @@ def run_stage(name: str, fn: Callable):
 
 
 class RoIHead(nn.Module):
-    """Holds the bbox head under `roi_head.bbox_head`, as the reference does."""
+    """Holds the bbox head under `roi_head.bbox_head` and any mask head under
+    `roi_head.mask_head`, as the reference does."""
 
-    def __init__(self, bbox_head: Shared2FCBBoxHead):
+    def __init__(self, bbox_head: Shared2FCBBoxHead, mask_head: Optional[FCNMaskHead] = None):
         super().__init__()
         self.bbox_head = bbox_head
+        if mask_head is not None:
+            self.mask_head = mask_head
 
 
 class PanoFasterRCNN(nn.Module):
@@ -78,22 +90,31 @@ class PanoFasterRCNN(nn.Module):
                  rpn_target_stds: Sequence[float] = (1.0, 1.0, 1.0, 1.0),
                  rcnn_target_stds: Sequence[float] = (0.1, 0.1, 0.2, 0.2),
                  train_cfg: Optional[dict] = None, test_cfg: Optional[dict] = None,
-                 compute_dtype: Optional[torch.dtype] = None, roi_align: str = "direct"):
-        """`roi_align`: "direct" pools the RoIs with kernel K3, "dense" with
-        the interpolation-matrix route and kernel K4 on each level
-        (`ops/roi_align.py`); both compute the same function."""
+                 compute_dtype: Optional[torch.dtype] = None, roi_align: str = "direct",
+                 with_mask: bool = False, mask_roi_size: int = 14):
+        """`backbone`: the backbone's arguments, with its `type` (one of
+        `BACKBONES`; PanoSwinTransformer when absent).  `roi_align`:
+        "direct" pools the RoIs with kernel K3, "dense" with the
+        interpolation-matrix route and kernel K4 on each level
+        (`ops/roi_align.py`); both compute the same function.  `with_mask`
+        adds the FCN mask head (`roi_head.mask_head`), which
+        `simple_test_masks` runs on `mask_roi_size` bins a side."""
         super().__init__()
         if roi_align not in ("direct", "dense"):
             raise ValueError(f"roi_align must be 'direct' or 'dense', got {roi_align!r}")
-        self.backbone = PanoSwinTransformer(**backbone, dtype=compute_dtype)
+        backbone = dict(backbone)
+        self.backbone = BACKBONES[backbone.pop("type", "PanoSwinTransformer")](
+            **backbone, dtype=compute_dtype)
         neck = dict(neck or {"in_channels": (96, 192, 384, 768), "out_channels": 256,
                              "num_outs": 5})
         self.neck = FPN(**neck, dtype=compute_dtype)
         out_ch = neck["out_channels"]
         self.rpn_head = RPNHead(out_ch, 256, len(anchor_scales) * len(anchor_ratios),
                                 compute_dtype)
-        self.roi_head = RoIHead(Shared2FCBBoxHead(out_ch, 7, num_classes,
-                                                  dtype=compute_dtype))
+        self.roi_head = RoIHead(Shared2FCBBoxHead(out_ch, 7, num_classes, dtype=compute_dtype),
+                                FCNMaskHead(out_ch, num_classes) if with_mask else None)
+        self.with_mask = with_mask
+        self.mask_roi_size = mask_roi_size
         self.anchor_gen = AnchorGenerator(anchor_strides, anchor_ratios, anchor_scales)
         self.featmap_strides = tuple(featmap_strides)
         self.rpn_target_stds = tuple(rpn_target_stds)
@@ -133,12 +154,12 @@ class PanoFasterRCNN(nn.Module):
         return torch.cat([bidx[:, None, None].expand(B, P, 1), props.boxes],
                          dim=-1).reshape(B * P, 5)
 
-    def roi_features(self, feats, rois):
-        """rois (B * P, 5), grouped by image -> (B * P, 7, 7, C)."""
+    def roi_features(self, feats, rois, out_size: int = 7):
+        """rois (B * P, 5), grouped by image -> (B * P, o, o, C), o = `out_size`."""
         nlvl = min(len(self.featmap_strides), len(feats))
         if self.roi_align == "dense":
-            return multilevel_roi_align_dense(feats[:nlvl], rois, self.featmap_strides)
-        return roi_align(feats[:nlvl], rois, self.featmap_strides)
+            return multilevel_roi_align_dense(feats[:nlvl], rois, self.featmap_strides, out_size)
+        return roi_align(feats[:nlvl], rois, self.featmap_strides, out_size)
 
     def forward_train(self, images, img_shapes, gt_boxes, gt_labels, gt_valid,
                       noise: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None,
@@ -161,6 +182,10 @@ class PanoFasterRCNN(nn.Module):
         if not self.training:
             raise RuntimeError("forward_train needs train mode (call .train()): the eval "
                                "stem runs kernel K1, which has no backward")
+        if self.with_mask:
+            raise NotImplementedError("Mask R-CNN training (mask targets, the mask loss, "
+                                      "K3's backward at 14 x 14) is not ported yet (ROADMAP.md, "
+                                      "Queue 1, item 17)")
         dev = self.device
         noise = dict(noise or {})
         images = torch.as_tensor(images, device=dev)
@@ -214,6 +239,11 @@ class PanoFasterRCNN(nn.Module):
         `stage(name, fn)`, which calls `fn()` and returns its result; a
         profiler passes one that also times it.
         """
+        return self._detect(images, img_shapes, scale_factors, stage)[0]
+
+    def _detect(self, images, img_shapes, scale_factors, stage):
+        """`simple_test`'s DetResult, with the FPN maps and the scale
+        factors on the device (None where not given)."""
         dev = self.device
         images = torch.as_tensor(images, device=dev)
         img_shapes = torch.as_tensor(img_shapes, dtype=torch.float32, device=dev)
@@ -227,10 +257,40 @@ class PanoFasterRCNN(nn.Module):
         rois = self.rois(props)
         roi_feats = stage("roi_align", lambda: self.roi_features(feats, rois))
         cls, reg = stage("bbox_head", lambda: self.roi_head.bbox_head(roi_feats))
-        return stage("detections", lambda: bbox_head_detections(
+        det = stage("detections", lambda: bbox_head_detections(
             cls.reshape(B, P, -1), reg.reshape(B, P, -1), rois.reshape(B, P, 5), img_shapes,
             target_stds=self.rcnn_target_stds, roi_mask=props.mask,
             scale_factors=scale_factors, **self.test_cfg["rcnn"]))
+        return det, feats, scale_factors
+
+    @torch.no_grad()
+    def simple_test_masks(self, images, img_shapes, scale_factors=None,
+                          stage: Callable = run_stage):
+        """`simple_test`'s DetResult and each detection slot's mask
+        probabilities (B, K, 2s, 2s) of its own class, s = `mask_roi_size`
+        (the JAX `simple_test_masks`): every slot, padded ones included, is
+        a mask RoI (its box scaled back to the network's input), pooled with
+        kernel K3 at s x s bins from the FPN maps of the detection pass.
+        Paste them into the image with `mask_head.paste_masks`.  The stages
+        are `MASK_STAGES`."""
+        if not self.with_mask:
+            raise ValueError("simple_test_masks needs a detector with a mask head "
+                             "(with_mask=True)")
+        det, feats, scale_factors = self._detect(images, img_shapes, scale_factors, stage)
+        B, K, _ = det.boxes.shape
+        boxes = det.boxes if scale_factors is None else det.boxes * scale_factors[:, None, :]
+        bidx = torch.arange(B, dtype=boxes.dtype, device=boxes.device)
+        rois = torch.cat([bidx[:, None, None].expand(B, K, 1), boxes], dim=-1).reshape(B * K, 5)
+        mfeats = stage("mask_roi_align",
+                       lambda: self.roi_features(feats, rois, self.mask_roi_size))
+
+        def mask_head():
+            logits = self.roi_head.mask_head(mfeats)                  # (B*K, classes, 2s, 2s)
+            lab = det.labels.reshape(-1).long().clamp(0, self.num_classes - 1)
+            sel = logits[torch.arange(B * K, device=logits.device), lab]
+            return torch.sigmoid(sel).reshape(B, K, *sel.shape[1:])
+
+        return det, stage("mask_head", mask_head)
 
     @torch.no_grad()
     def extract_proposals(self, images, img_shapes):
@@ -260,3 +320,11 @@ class PanoFasterRCNN(nn.Module):
                            stds=self.rcnn_target_stds).reshape(B, P, -1)
         return scores, clip_boxes(dec, img_shapes[:, 0, None, None],
                                   img_shapes[:, 1, None, None])
+
+
+class MaskRCNN(PanoFasterRCNN):
+    """Faster R-CNN with the FCN mask branch (the reference's `MaskRCNN`, the
+    JAX package's `detectors.py:441`): `with_mask` is on by default."""
+
+    def __init__(self, *args, with_mask: bool = True, **kwargs):
+        super().__init__(*args, with_mask=with_mask, **kwargs)

@@ -1,5 +1,5 @@
 """Shared building blocks: dtype-following Linear/Conv, LayerNorm, Mlp,
-DropPath, the conv stem and PatchMerging.
+DropPath, the conv stem, Swin's single-conv patch embed and PatchMerging.
 
 Counterpart of `panoswintransformerobjectdetection_tpu/models/layers.py`.
 Parameters are kept in float32; `dtype` is the compute type of a layer, as
@@ -190,6 +190,31 @@ class ConvStemPatchEmbed(nn.Module):
         else:
             h1 = stem_conv(x, self.kernel_weights(x.dtype))
             x = patch_projection(h1, self.proj[6].weight, self.proj[6].bias)
+        if self.norm is not None:
+            x = self.norm(x)
+        return x.to(self.dtype or x.dtype)
+
+
+class SingleConvPatchEmbed(nn.Module):
+    """Stock Swin patch embed: one patch-stride conv (`proj`), then LayerNorm
+    (`norm`, with `use_norm`), the input zero-padded on the right and the
+    bottom to a multiple of the patch.  Input (B, H, W, in_chans) NHWC;
+    output (B, ceil(H/ps), ceil(W/ps), embed_dim), in the compute type."""
+
+    def __init__(self, patch_size: int = 4, embed_dim: int = 96, in_chans: int = 3,
+                 use_norm: bool = True, dtype=None):
+        super().__init__()
+        self.patch_size = patch_size
+        self.proj = nn.Conv2d(in_chans, embed_dim, patch_size, stride=patch_size)
+        self.norm = LayerNorm(embed_dim) if use_norm else None
+        self.dtype = dtype
+
+    def forward(self, x):
+        ps = self.patch_size
+        x = x.to(self.dtype or x.dtype)
+        H, W = x.shape[1], x.shape[2]
+        x = F.pad(x, (0, 0, 0, (-W) % ps, 0, (-H) % ps))
+        x = conv(self.proj, x.permute(0, 3, 1, 2), self.dtype).permute(0, 2, 3, 1)
         if self.norm is not None:
             x = self.norm(x)
         return x.to(self.dtype or x.dtype)

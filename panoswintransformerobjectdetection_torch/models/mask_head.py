@@ -1,0 +1,95 @@
+"""FCN mask head and the paste of its masks into the image (Mask R-CNN's
+test-time mask branch).
+
+Counterpart of `FCNMaskHead` and `paste_masks` in
+`panoswintransformerobjectdetection_tpu/models/mask_head.py` (the
+reference's `mask_heads/fcn_mask_head.py`): 4 x (3 x 3 conv + ReLU), a 2 x 2
+stride-2 transposed conv + ReLU and a 1 x 1 conv to per-class logits on the
+14 x 14 RoI features; `paste_masks` is the inverse bilinear resample of each
+detection's 28 x 28 probabilities into the image, thresholded.  Module
+names are the reference checkpoint's (`roi_head.mask_head.convs.{i}.conv`,
+`.upsample`, `.conv_logits`).  The head has no compute type, as the JAX
+head has none: with float32 parameters it computes in float32 whatever the
+features' type.  The training side (mask targets, the mask loss) comes with
+Mask R-CNN training (ROADMAP.md, Queue 1, item 17).
+"""
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from .layers import conv
+
+
+class _ConvModule(nn.Module):
+    """Holds a conv under `.conv`, as the reference's `ConvModule` does."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+
+
+class FCNMaskHead(nn.Module):
+    def __init__(self, in_channels: int = 256, num_classes: int = 80, num_convs: int = 4,
+                 conv_out_channels: int = 256):
+        super().__init__()
+        self.convs = nn.ModuleList(
+            _ConvModule(in_channels if i == 0 else conv_out_channels, conv_out_channels)
+            for i in range(num_convs))
+        self.upsample = nn.ConvTranspose2d(conv_out_channels, conv_out_channels, 2, stride=2)
+        self.conv_logits = nn.Conv2d(conv_out_channels, num_classes, 1)
+
+    def forward(self, roi_feats: torch.Tensor) -> torch.Tensor:
+        """roi_feats (R, s, s, C) -> mask logits (R, num_classes, 2s, 2s), f32."""
+        x = roi_feats.permute(0, 3, 1, 2)
+        for m in self.convs:
+            x = torch.relu(conv(m.conv, x, None))
+        up = self.upsample
+        x = torch.relu(F.conv_transpose2d(x.to(up.weight.dtype), up.weight, up.bias,
+                                          stride=up.stride))
+        return conv(self.conv_logits, x, None)
+
+
+def paste_masks(mask_probs: torch.Tensor, boxes: torch.Tensor, img_h: int, img_w: int,
+                thr: float = 0.5) -> torch.Tensor:
+    """Paste (K, m, m) RoI mask probabilities into (K, img_h, img_w) bool
+    maps: `paste_mask_values` >= thr."""
+    return paste_mask_values(mask_probs, boxes, img_h, img_w) >= thr
+
+
+def paste_mask_values(mask_probs: torch.Tensor, boxes: torch.Tensor, img_h: int,
+                      img_w: int) -> torch.Tensor:
+    """(K, img_h, img_w) float32 probabilities of (K, m, m) RoI masks in the
+    image, boxes (K, 4) xyxy: pixel centre (x + 0.5, y + 0.5) maps to (x +
+    0.5 - x1) / w * m - 0.5 on the mask's grid (w, h at least 1e-3), where
+    the four neighbours' bilinear blend (their indices clamped to the mask)
+    is taken in the JAX function's order; a pixel outside (-1, m) on either
+    axis is 0.  A gather on the tensors' device."""
+    K, m, _ = mask_probs.shape
+    dev = mask_probs.device
+    ys = torch.arange(img_h, dtype=torch.float32, device=dev)[None, :, None]
+    xs = torch.arange(img_w, dtype=torch.float32, device=dev)[None, None, :]
+    boxes = boxes.float()
+    x1 = boxes[:, 0, None, None]
+    y1 = boxes[:, 1, None, None]
+    w = torch.clamp(boxes[:, 2, None, None] - x1, min=1e-3)
+    h = torch.clamp(boxes[:, 3, None, None] - y1, min=1e-3)
+    gx = (xs + 0.5 - x1) / w * m - 0.5                       # (K, 1, W)
+    gy = (ys + 0.5 - y1) / h * m - 0.5                       # (K, H, 1)
+    x0, y0 = torch.floor(gx), torch.floor(gy)
+    wx, wy = gx - x0, gy - y0
+    flat = mask_probs.float().reshape(K, m * m)
+
+    def g(yi, xi):
+        yi = yi.long().clamp(0, m - 1)
+        xi = xi.long().clamp(0, m - 1)
+        idx = (yi * m + xi).reshape(K, img_h * img_w)
+        return torch.gather(flat, 1, idx).reshape(K, img_h, img_w)
+
+    val = (g(y0, x0) * (1 - wx) * (1 - wy) + g(y0, x0 + 1) * wx * (1 - wy)
+           + g(y0 + 1, x0) * (1 - wx) * wy + g(y0 + 1, x0 + 1) * wx * wy)
+    inside = (gx > -1) & (gx < m) & (gy > -1) & (gy < m)
+    return torch.where(inside, val, torch.zeros((), device=dev))
+
+
+__all__ = ["FCNMaskHead", "paste_masks", "paste_mask_values"]

@@ -63,23 +63,23 @@ def prepare_window_uv(uv, shift_size: int, ws: int):
     return haversine(uv_wins, uv_wins)
 
 
-class WindowAttention(nn.Module):
-    """Window attention with the dual-table spherical bias."""
+class _WindowAttentionBase(nn.Module):
+    """qkv -> attention with a per-window bias and any mask -> proj; a
+    subclass holds the bias tables and makes the bias (`bias`)."""
 
     def __init__(self, dim: int, window_size: int, num_heads: int, dtype=None,
                  fused: bool = False, qkv_bias: bool = True, qk_scale: Optional[float] = None):
         super().__init__()
-        t = (2 * window_size - 1) ** 2
         self.num_heads = num_heads
         self.qk_scale = qk_scale
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
-        self.sphere_position_alpha_table_Te = nn.Parameter(torch.zeros(t, num_heads))
-        self.sphere_position_beta_table_Te = nn.Parameter(torch.zeros(t, num_heads))
-        self.register_buffer("rel_index", torch.from_numpy(
-            make_relative_position_index(window_size)), persistent=False)
         self.dtype = dtype
         self.fused = fused
+
+    def bias(self, hav) -> torch.Tensor:
+        """(nW or 1, heads, O, O) attention bias."""
+        raise NotImplementedError
 
     def forward(self, x, nW: int, hav=None, mask=None):
         """x: (B*nW, O, c) windows; hav: (nW, O, O) in pano mode, None in
@@ -89,9 +89,7 @@ class WindowAttention(nn.Module):
         hd = c // h
         scale = self.qk_scale or hd ** -0.5
         qkv = dense(self.qkv, x, self.dtype).reshape(n, O, 3, h, hd)
-        bias = sphere_bias(self.sphere_position_alpha_table_Te,
-                           self.sphere_position_beta_table_Te, self.rel_index, hav)
-        bias = bias.expand(nW, h, O, O)
+        bias = self.bias(hav).expand(nW, h, O, O)
         if self.fused:
             if mask is not None:
                 bias = bias + mask[:, None]
@@ -109,10 +107,29 @@ class WindowAttention(nn.Module):
         return dense(self.proj, out.reshape(n, O, c), self.dtype)
 
 
+class WindowAttention(_WindowAttentionBase):
+    """Window attention with the dual-table spherical bias."""
+
+    def __init__(self, dim: int, window_size: int, num_heads: int, dtype=None,
+                 fused: bool = False, qkv_bias: bool = True, qk_scale: Optional[float] = None):
+        super().__init__(dim, window_size, num_heads, dtype, fused, qkv_bias, qk_scale)
+        t = (2 * window_size - 1) ** 2
+        self.sphere_position_alpha_table_Te = nn.Parameter(torch.zeros(t, num_heads))
+        self.sphere_position_beta_table_Te = nn.Parameter(torch.zeros(t, num_heads))
+        self.register_buffer("rel_index", torch.from_numpy(
+            make_relative_position_index(window_size)), persistent=False)
+
+    def bias(self, hav) -> torch.Tensor:
+        return sphere_bias(self.sphere_position_alpha_table_Te,
+                           self.sphere_position_beta_table_Te, self.rel_index, hav)
+
+
 class PanoSwinBlock(nn.Module):
     """One (shifted) window block.  Pano mode applies the pano transition on
     every block, shift 0 included, before padding; planar mode pads first,
     then rolls by -shift and masks across the roll's seams."""
+
+    attention = WindowAttention
 
     def __init__(self, dim: int, num_heads: int, window_size: int, shift_size: int,
                  mlp_ratio: float = 4.0, dtype=None, pano_mode: bool = True,
@@ -123,7 +140,7 @@ class PanoSwinBlock(nn.Module):
         self.shift_size = shift_size
         self.pano_mode = pano_mode
         self.norm1 = LayerNorm(dim)
-        self.attn = WindowAttention(dim, window_size, num_heads, dtype, fused, qkv_bias, qk_scale)
+        self.attn = self.attention(dim, window_size, num_heads, dtype, fused, qkv_bias, qk_scale)
         self.norm2 = LayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
         self.drop_path1 = DropPath(drop_path)

@@ -8,7 +8,8 @@ maps, with a windowed Pallas kernel and a dense fallback, because the TPU
 serialises gathers.
 
 Direct route (`roi_align`, kernel K3): per axis and bin at most four
-distinct taps, gathered from the RoI's own level.  On a CUDA tensor that is
+distinct taps, gathered from the RoI's own level, at 7 x 7 bins (the bbox
+head) or 14 x 14 (the mask head; forward only, under inference).  On a CUDA tensor that is
 the kernel `csrc/roi_align.cu`, forward and backward (the gradient of the
 maps is the transposed gather, `roi_align_backward`); on a CPU tensor the
 vectorised twin `roi_align_plain`, which does the same arithmetic in the
@@ -38,7 +39,8 @@ import torch
 from . import cuda_build
 from .autograd import backward_through_plain
 
-OUT_SIZE = 7
+OUT_SIZE = 7         # the bbox head's bins a side, the default
+KERNEL_OUT_SIZES = (7, 14)   # the sizes K3's forward is built for: bbox and mask heads
 SAMPLES = 2          # fixed sample grid per bin side (sampling_ratio=2)
 FINEST_SCALE = 56
 MAX_LEVELS = 4
@@ -58,11 +60,13 @@ LAUNCH_ARGTYPES = [ctypes.POINTER(_RoiLevels), ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_float, ctypes.c_void_p]
 # K3's forward entries in `csrc/roi_align.cu`: one thread a channel for
-# float32 (the first version, whose bfloat16 instantiation only
-# `chip_smoke.py` calls, to time the redesign against it), vectorised
+# float32 (the first version, whose bfloat16 instantiation, at 7 x 7 bins
+# only, `chip_smoke.py` calls to time the redesign against it), vectorised
 # gathers with stage-one reuse for bfloat16.  Both count as launches of K3
-# and take the same C arguments (`LAUNCH_ARGTYPES`).
+# and take the same C arguments (`FORWARD_ARGTYPES`: the backward's, with
+# the output size before the stream).
 ENTRIES = {torch.float32: "roi_align_launch", torch.bfloat16: "roi_align_bf16_launch"}
+FORWARD_ARGTYPES = LAUNCH_ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_void_p]
 
 
 def _div(a: torch.Tensor, d: float) -> torch.Tensor:
@@ -87,14 +91,14 @@ def roi_levels(rois: torch.Tensor, num_levels: int,
     return lvl.clamp(0, num_levels - 1)
 
 
-def _axis_taps(start, bin_sz, size, dtype):
+def _axis_taps(start, bin_sz, size, dtype, out_size: int = OUT_SIZE):
     """Merged taps of each bin along one axis.
 
-    start, bin_sz, size: (R,) float32.  Returns idx (R, 7, 4) int64 and
-    weights (R, 7, 4) float32 holding values of `dtype`; a repeated column
-    keeps weight 0 after its first occurrence.
+    start, bin_sz, size: (R,) float32.  Returns idx (R, o, 4) int64 and
+    weights (R, o, 4) float32 holding values of `dtype`, o = `out_size`; a
+    repeated column keeps weight 0 after its first occurrence.
     """
-    o = torch.arange(OUT_SIZE, dtype=torch.float32, device=start.device)
+    o = torch.arange(out_size, dtype=torch.float32, device=start.device)
     off = (torch.arange(SAMPLES, dtype=torch.float32, device=start.device) + 0.5) / SAMPLES
     v = start[:, None, None] + bin_sz[:, None, None] * (o[None, :, None] + off[None, None, :])
     sizef = size[:, None, None]
@@ -104,7 +108,7 @@ def _axis_taps(start, bin_sz, size, dtype):
     v1 = torch.minimum(v0 + 1, sizef - 1)
     frac = vc - v0
     # candidates per bin: (sample 0 tap 0, sample 0 tap 1, sample 1 tap 0, ...)
-    col = torch.stack([v0, v1], dim=-1).flatten(2)                       # (R, 7, 4)
+    col = torch.stack([v0, v1], dim=-1).flatten(2)                       # (R, o, 4)
     wt = torch.stack([(1.0 - frac) * inside, frac * inside], dim=-1).flatten(2)
     zero = torch.zeros((), dtype=torch.float32, device=start.device)
     eq = col[..., :, None] == col[..., None, :]                          # [k, m]
@@ -129,7 +133,7 @@ def batch_index(rois: torch.Tensor, batch: int):
     return torch.where(valid, b, torch.zeros_like(b)).long(), valid
 
 
-def _roi_taps(feats, rois, strides):
+def _roi_taps(feats, rois, strides, out_size: int = OUT_SIZE):
     """Per-RoI level, batch index and the merged taps of both axes."""
     L = len(feats)
     lvl = roi_levels(rois, L)
@@ -140,23 +144,24 @@ def _roi_taps(feats, rois, strides):
     heights = torch.tensor([f.shape[1] for f in feats], dtype=torch.float32, device=dev)[lvl]
     widths = torch.tensor([f.shape[2] for f in feats], dtype=torch.float32, device=dev)[lvl]
     dtype = feats[0].dtype
-    ys, yw = _axis_taps(rois[:, 2] * inv - 0.5, _div((rois[:, 4] - rois[:, 2]) * inv, OUT_SIZE),
-                        heights, dtype)
-    xs, xw = _axis_taps(rois[:, 1] * inv - 0.5, _div((rois[:, 3] - rois[:, 1]) * inv, OUT_SIZE),
-                        widths, dtype)
+    ys, yw = _axis_taps(rois[:, 2] * inv - 0.5, _div((rois[:, 4] - rois[:, 2]) * inv, out_size),
+                        heights, dtype, out_size)
+    xs, xw = _axis_taps(rois[:, 1] * inv - 0.5, _div((rois[:, 3] - rois[:, 1]) * inv, out_size),
+                        widths, dtype, out_size)
     return lvl, bidx, valid, (ys, yw), (xs, xw)
 
 
 def tap_rows(feats: Sequence[torch.Tensor], rois: torch.Tensor,
-             strides: Sequence[int] = (4, 8, 16, 32)):
+             strides: Sequence[int] = (4, 8, 16, 32), out_size: int = OUT_SIZE):
     """Where every tap reads, and its weights.
 
     With all levels flattened into one (N, C) table, a tap's row is
-    level offset + (b * Hl + y) * Wl + x.  Returns rows (R, 7i, 4k1, 7j, 4k2)
-    int64, w1 (R, 7i, 4k1) and w2 (R, 7j, 4k2) float32, where i runs over
-    the bins of the axis contracted first (x for wide maps, else y).
+    level offset + (b * Hl + y) * Wl + x.  Returns rows (R, oi, 4k1, oj, 4k2)
+    int64, w1 (R, oi, 4k1) and w2 (R, oj, 4k2) float32, o = `out_size`,
+    where i runs over the bins of the axis contracted first (x for wide
+    maps, else y).
     """
-    lvl, bidx, _, (ys, yw), (xs, xw) = _roi_taps(feats, rois, strides)
+    lvl, bidx, _, (ys, yw), (xs, xw) = _roi_taps(feats, rois, strides, out_size)
     sizes = [f.shape[0] * f.shape[1] * f.shape[2] for f in feats]
     offsets = torch.tensor([0] + sizes[:-1], device=rois.device).cumsum(0)[lvl]
     Hl = torch.tensor([f.shape[1] for f in feats], device=rois.device)[lvl]
@@ -164,8 +169,8 @@ def tap_rows(feats: Sequence[torch.Tensor], rois: torch.Tensor,
     base = offsets + bidx * Hl * Wl
     if _w_first(feats):
         i1, w1, i2, w2 = xs, xw, ys, yw
-        row = i2[:, None, None, :, :]               # (R, 1, 1, 7j, 4k2)
-        col = i1[:, :, :, None, None]               # (R, 7i, 4k1, 1, 1)
+        row = i2[:, None, None, :, :]               # (R, 1, 1, oj, 4k2)
+        col = i1[:, :, :, None, None]               # (R, oi, 4k1, 1, 1)
     else:
         i1, w1, i2, w2 = ys, yw, xs, xw
         row = i1[:, :, :, None, None]
@@ -175,35 +180,36 @@ def tap_rows(feats: Sequence[torch.Tensor], rois: torch.Tensor,
 
 
 def roi_align_plain(feats: Sequence[torch.Tensor], rois: torch.Tensor,
-                    strides: Sequence[int] = (4, 8, 16, 32)) -> torch.Tensor:
-    """Plain PyTorch twin of the kernel.
+                    strides: Sequence[int] = (4, 8, 16, 32),
+                    out_size: int = OUT_SIZE) -> torch.Tensor:
+    """Plain PyTorch twin of the kernel, at any `out_size`.
 
     feats: L <= 4 maps (B, Hl, Wl, C) of one dtype; rois: (R, 5) float32
-    (batch, x1, y1, x2, y2) in image pixels.  Returns (R, 7, 7, C); a RoI
-    whose batch index lies outside [0, B) gets zeros.
+    (batch, x1, y1, x2, y2) in image pixels.  Returns (R, o, o, C), o =
+    `out_size`; a RoI whose batch index lies outside [0, B) gets zeros.
     """
     C = feats[0].shape[-1]
     dtype = feats[0].dtype
     R = rois.shape[0]
-    rows, w1, w2 = tap_rows(feats, rois, strides)
+    rows, w1, w2 = tap_rows(feats, rois, strides, out_size)
     # upcast before the gather: autograd then sums a map's gradient in f32
     table = torch.cat([f.reshape(-1, C) for f in feats]).float()
-    g = table[rows]                                 # (R, 7i, 4k1, 7j, 4k2, C)
+    g = table[rows]                                 # (R, oi, 4k1, oj, 4k2, C)
     # stage one over k1 in the kernel's order, then stage two over k2
     t = None
     for k1 in range(w1.shape[-1]):
         p = w1[:, :, k1, None, None, None] * g[:, :, k1]
-        t = p if t is None else t + p               # (R, 7i, 7j, 4k2, C)
+        t = p if t is None else t + p               # (R, oi, oj, 4k2, C)
     t = t.to(dtype).float()
     u = None
     for k2 in range(w2.shape[-1]):
         p = w2[:, None, :, k2, None] * t[:, :, :, k2]
-        u = p if u is None else u + p               # (R, 7i, 7j, C)
+        u = p if u is None else u + p               # (R, oi, oj, C)
     _, valid = batch_index(rois, feats[0].shape[0])
     u = torch.where(valid[:, None, None, None], u.to(dtype), torch.zeros((), dtype=dtype))
     if _w_first(feats):
         u = u.transpose(1, 2)
-    return u.reshape(R, OUT_SIZE, OUT_SIZE, C)
+    return u.reshape(R, out_size, out_size, C)
 
 
 def level_struct(tensors, strides) -> _RoiLevels:
@@ -224,10 +230,13 @@ def _check_rois(rois, what):
         raise ValueError(f"{what}: rois must be (R, 5), got {tuple(rois.shape)}")
 
 
-def _roi_align_forward(feats, rois, strides) -> torch.Tensor:
+def _roi_align_forward(feats, rois, strides, out_size: int) -> torch.Tensor:
     """Launch K3's forward kernel on CUDA tensors: the entry for their type
-    (`ENTRIES`, recorded in `roi_align.last_entry`)."""
+    (`ENTRIES`, recorded in `roi_align.last_entry`), at `out_size` 7 or 14."""
     L = len(feats)
+    if out_size not in KERNEL_OUT_SIZES:
+        raise ValueError(f"roi_align: kernel K3 is built for {KERNEL_OUT_SIZES} bins a side, "
+                         f"not {out_size} (ROADMAP.md, Queue 2)")
     dtype = feats[0].dtype
     C = feats[0].shape[-1]
     if not 1 <= L <= MAX_LEVELS or len(strides) < L:
@@ -242,14 +251,16 @@ def _roi_align_forward(feats, rois, strides) -> torch.Tensor:
     feats = [f.contiguous() for f in feats]
     rois = rois.contiguous()
     R = rois.shape[0]
-    out = torch.empty((R, OUT_SIZE, OUT_SIZE, C), dtype=dtype, device=rois.device)
+    out = torch.empty((R, out_size, out_size, C), dtype=dtype, device=rois.device)
     levels = level_struct(feats, strides)
-    fn = cuda_build.function("roi_align", ENTRIES[dtype], LAUNCH_ARGTYPES)
+    fn = cuda_build.function("roi_align", ENTRIES[dtype], FORWARD_ARGTYPES)
     stream = torch.cuda.current_stream(rois.device).cuda_stream
     status = fn(ctypes.byref(levels), rois.data_ptr(), out.data_ptr(), R, feats[0].shape[0],
-                C, _DTYPE_CODE[dtype], int(_w_first(feats)), float(FINEST_SCALE), stream)
+                C, _DTYPE_CODE[dtype], int(_w_first(feats)), float(FINEST_SCALE), out_size,
+                stream)
     cuda_build.check(status, f"roi_align kernel launch ({ENTRIES[dtype]})")
     roi_align.launches += 1
+    roi_align.launches_by_size[out_size] += 1
     roi_align.last_entry = ENTRIES[dtype]
     return out
 
@@ -303,6 +314,11 @@ def roi_align_backward(grad_out: torch.Tensor, rois: torch.Tensor,
         return roi_align_backward_plain(grad_out, rois, shapes, dtype, strides)
     if grad_out.device.type != "cuda":
         raise ValueError(f"roi_align_backward: unsupported device {grad_out.device}")
+    if grad_out.dim() == 4 and grad_out.shape[1] != OUT_SIZE:
+        raise NotImplementedError(
+            f"roi_align_backward: kernel K3's backward is built for {OUT_SIZE} x {OUT_SIZE} "
+            f"bins; at {grad_out.shape[1]} x {grad_out.shape[2]} it comes with Mask R-CNN "
+            "training (ROADMAP.md, Queue 1, item 17)")
     L = len(shapes)
     B, C = shapes[0][0], shapes[0][3]
     R = rois.shape[0]
@@ -349,36 +365,38 @@ class _RoIAlign(torch.autograd.Function):
     """K3 on the card: forward kernel, backward kernel."""
 
     @staticmethod
-    def forward(ctx, rois, strides, *feats):
+    def forward(ctx, rois, strides, out_size, *feats):
         ctx.strides = tuple(strides)
         ctx.shapes = [tuple(f.shape) for f in feats]
         ctx.dtype = feats[0].dtype
         ctx.save_for_backward(rois)
-        return _roi_align_forward(list(feats), rois, strides)
+        return _roi_align_forward(list(feats), rois, strides, out_size)
 
     @staticmethod
     def backward(ctx, grad):
         rois, = ctx.saved_tensors
         grads = roi_align_backward(grad, rois, ctx.shapes, ctx.dtype, ctx.strides)
-        return (None, None, *grads)
+        return (None, None, None, *grads)
 
 
 def roi_align(feats: Sequence[torch.Tensor], rois: torch.Tensor,
-              strides: Sequence[int] = (4, 8, 16, 32)) -> torch.Tensor:
+              strides: Sequence[int] = (4, 8, 16, 32), out_size: int = OUT_SIZE) -> torch.Tensor:
     """K3.  Same contract as `roi_align_plain`.  Differentiable in the maps
-    (`roi_align_backward`), not in the rois.
+    (`roi_align_backward`, 7 x 7 bins only), not in the rois.
 
-    A CPU tensor takes the twin; a CUDA tensor launches the kernel or raises.
+    A CPU tensor takes the twin, at any `out_size`; a CUDA tensor launches
+    the kernel (7 or 14 bins a side) or raises.
     """
     feats = list(feats)
     if rois.device.type == "cpu":
-        return roi_align_plain(feats, rois.detach(), strides)
+        return roi_align_plain(feats, rois.detach(), strides, out_size)
     if rois.device.type != "cuda":
         raise ValueError(f"roi_align: unsupported device {rois.device}")
-    return _RoIAlign.apply(rois.detach(), tuple(strides), *feats)
+    return _RoIAlign.apply(rois.detach(), tuple(strides), out_size, *feats)
 
 
 roi_align.launches = 0
+roi_align.launches_by_size = dict.fromkeys(KERNEL_OUT_SIZES, 0)   # the launches at each size
 roi_align.last_entry = None
 
 
@@ -550,12 +568,18 @@ def dense_level_operands(feats: Sequence[torch.Tensor], rois: torch.Tensor,
 
 
 def multilevel_roi_align_dense(feats: Sequence[torch.Tensor], rois: torch.Tensor,
-                               strides: Sequence[int] = (4, 8, 16, 32)) -> torch.Tensor:
+                               strides: Sequence[int] = (4, 8, 16, 32),
+                               out_size: int = OUT_SIZE) -> torch.Tensor:
     """The dense route: same values as `roi_align`, through `dense_crop` on
-    every level.  The rois must be grouped by image in batch order, R = B *
-    P, as `rois.reshape(B * P, 5)` builds them: column 0 is not read.
-    Wide maps are transposed, so that stage one contracts W.
+    every level, at 7 x 7 bins only (the mask head pools through the direct
+    route).  The rois must be grouped by image in batch order, R = B * P, as
+    `rois.reshape(B * P, 5)` builds them: column 0 is not read.  Wide maps
+    are transposed, so that stage one contracts W.
     """
+    if out_size != OUT_SIZE:
+        raise NotImplementedError(f"multilevel_roi_align_dense: the dense route (kernel K4) "
+                                  f"pools {OUT_SIZE} x {OUT_SIZE} bins only, not {out_size} "
+                                  "(ROADMAP.md, Queue 2)")
     feats = list(feats)
     if _w_first(feats):
         out = multilevel_roi_align_dense([f.transpose(1, 2) for f in feats],

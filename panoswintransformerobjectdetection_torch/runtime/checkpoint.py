@@ -4,11 +4,17 @@ BatchNorm folding for inference.
 
 `from_jax_variables` is the inverse of `convert_detector` in
 `panoswintransformerobjectdetection_tpu/runtime/checkpoint.py`: it takes the
-(params, batch_stats) trees of a JAX `PanoFasterRCNN` as numpy arrays and
-returns a state dict in the reference's key layout, which the port's
-detector loads with `load_state_dict`.  Layouts: conv HWIO -> OIHW, Dense
-(in, out) -> Linear (out, in), LayerNorm scale -> weight, and `shared_fc0`'s
-input reordered from the JAX (h, w, C) flatten to the reference's (C, h, w).
+(params, batch_stats) trees of a JAX `PanoFasterRCNN` or `MaskRCNN`, with a
+PanoSwin or a stock Swin backbone, as numpy arrays and returns a state dict
+in the reference's key layout, which the port's detector loads with
+`load_state_dict`.  Layouts: conv HWIO -> OIHW, Dense (in, out) -> Linear
+(out, in), LayerNorm scale -> weight, `shared_fc0`'s input reordered from
+the JAX (h, w, C) flatten to the reference's (C, h, w), and the mask head's
+`nn.ConvTranspose` kernel (kh, kw, in, out) flipped in both spatial axes to
+`ConvTranspose2d`'s (in, out, kh, kw) (flax's transposed conv does not flip
+its kernel; torch's does).  The JAX `convert_detector` converts no mask
+head key, so the JAX package cannot load a reference Mask R-CNN `.pth`
+whole; the port loads one with `load_state_dict`.
 
 A reference checkpoint loads without a converter, since the port's keys
 are the reference's (`load_torch_state_dict`, `load_reference_weights`,
@@ -108,11 +114,61 @@ def from_jax_backbone(params: Dict[str, Any],
     return sd
 
 
+def from_jax_swin_backbone(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX `SwinTransformer` variables -> the port backbone's state dict (the
+    reference's keys, as `convert_swin_backbone` reads them)."""
+    sd: Dict[str, torch.Tensor] = {}
+    pe = params["patch_embed"]
+    _conv(sd, "patch_embed.proj", pe["proj"])
+    if "norm" in pe:
+        _ln(sd, "patch_embed.norm", pe["norm"])
+    if "absolute_pos_embed" in params:           # (1, s, s, C) -> (1, C, s, s)
+        sd["absolute_pos_embed"] = _t(np.asarray(params["absolute_pos_embed"])
+                                      .transpose(0, 3, 1, 2))
+    i = 0
+    while f"layers_{i}_blocks_0" in params:
+        j = 0
+        while f"layers_{i}_blocks_{j}" in params:
+            blk, key = params[f"layers_{i}_blocks_{j}"], f"layers.{i}.blocks.{j}"
+            _ln(sd, key + ".norm1", blk["norm1"])
+            _ln(sd, key + ".norm2", blk["norm2"])
+            _linear(sd, key + ".attn.qkv", blk["attn"]["qkv"])
+            _linear(sd, key + ".attn.proj", blk["attn"]["proj"])
+            sd[key + ".attn.relative_position_bias_table"] = _t(
+                blk["attn"]["relative_position_bias_table"])
+            _linear(sd, key + ".mlp.fc1", blk["mlp"]["fc1"])
+            _linear(sd, key + ".mlp.fc2", blk["mlp"]["fc2"])
+            j += 1
+        if f"layers_{i}_downsample" in params:
+            down = params[f"layers_{i}_downsample"]
+            _ln(sd, f"layers.{i}.downsample.norm", down["norm"])
+            _linear(sd, f"layers.{i}.downsample.reduction", down["reduction"])
+        if f"norm{i}" in params:
+            _ln(sd, f"norm{i}", params[f"norm{i}"])
+        i += 1
+    return sd
+
+
+def _mask_head(sd, key, p):
+    i = 0
+    while f"conv{i}" in p:
+        _conv(sd, f"{key}.convs.{i}.conv", p[f"conv{i}"])
+        i += 1
+    k = np.asarray(p["upsample"]["kernel"])                   # (kh, kw, in, out)
+    sd[key + ".upsample.weight"] = _t(k[::-1, ::-1].transpose(2, 3, 0, 1))
+    sd[key + ".upsample.bias"] = _t(p["upsample"]["bias"])
+    _conv(sd, key + ".conv_logits", p["conv_logits"])
+
+
 def from_jax_variables(params: Dict[str, Any], batch_stats: Dict[str, Any],
                        roi_size: int = 7) -> Dict[str, torch.Tensor]:
     """JAX detector variables -> the port's state dict (reference keys)."""
-    sd = {"backbone." + k: v for k, v in
-          from_jax_backbone(params["backbone_m"], batch_stats.get("backbone_m", {})).items()}
+    bb = params["backbone_m"]
+    if "layers_0_blocks_0" in bb:
+        bb_sd = from_jax_swin_backbone(bb)
+    else:
+        bb_sd = from_jax_backbone(bb, batch_stats.get("backbone_m", {}))
+    sd = {"backbone." + k: v for k, v in bb_sd.items()}
     neck = params["neck_m"]
     i = 0
     while f"lateral_{i}" in neck:
@@ -132,6 +188,8 @@ def from_jax_variables(params: Dict[str, Any], batch_stats: Dict[str, Any],
     _linear(sd, "roi_head.bbox_head.shared_fcs.1", head["shared_fc1"])
     _linear(sd, "roi_head.bbox_head.fc_cls", head["fc_cls"])
     _linear(sd, "roi_head.bbox_head.fc_reg", head["fc_reg"])
+    if "mask_head_m" in params:
+        _mask_head(sd, "roi_head.mask_head", params["mask_head_m"])
     return sd
 
 
@@ -197,13 +255,14 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
 def load_reference_weights(model: nn.Module, sd: Dict[str, torch.Tensor],
                            strict: bool = True) -> None:
     """Load a reference-format state dict into `model` with
-    `load_state_dict(strict=strict)`.  A sphere-bias table made for another
-    window size (its length tells which) is resized first with
-    `resize_bias_table`."""
+    `load_state_dict(strict=strict)`.  A bias table made for another window
+    size (its length tells which: PanoSwin's sphere tables, Swin's relative
+    position table) is resized first with `resize_bias_table`."""
     own = model.state_dict()
     sd = dict(sd)
     for key, table in sd.items():
-        if key.endswith("_table_Te") and key in own and table.shape != own[key].shape:
+        if (key.endswith(("_table_Te", "relative_position_bias_table")) and key in own
+                and table.shape != own[key].shape):
             side = math.isqrt(table.shape[0])
             dst = math.isqrt(own[key].shape[0])
             sd[key] = resize_bias_table(table, (side + 1) // 2, (dst + 1) // 2)
@@ -211,16 +270,19 @@ def load_reference_weights(model: nn.Module, sd: Dict[str, torch.Tensor],
 
 
 def load_backbone_weights(backbone: nn.Module, sd: Dict[str, torch.Tensor]) -> None:
-    """A reference PanoSwin backbone checkpoint (`SimplePanoSwinTransformer`'s
-    keys, `module.` stripped) into `backbone`, as the JAX package's
-    `convert_panoswin_backbone` reads it: the stem, the absolute encoder, the
-    stages and the out-norms, bias tables of another window size resized
-    (`load_reference_weights`).  Keys of other modules (a classifier's head
-    and last norm) are left out; the absolute encoder, the stem's LayerNorm
-    and the out-norms, which the converter takes only when present, keep
-    the backbone's own values when absent; any other missing key raises."""
+    """A reference backbone checkpoint (`module.` stripped) into `backbone`:
+    a PanoSwin one (`SimplePanoSwinTransformer`'s keys) as the JAX package's
+    `convert_panoswin_backbone` reads it, a stock Swin one (an ImageNet
+    classifier's, `swin_transformer.py`'s keys) as `convert_swin_backbone`
+    reads it: the stem or patch embed, the absolute encoder or position
+    table, the stages and the out-norms, bias tables of another window size
+    resized (`load_reference_weights`).  Keys of other modules (a
+    classifier's head and last norm) are left out; the absolute encoder or
+    table, the stem's LayerNorm and the out-norms, which the converters take
+    only when present, keep the backbone's own values when absent; any
+    other missing key raises.  Swin has no BatchNorm to fold."""
     own = backbone.state_dict()
-    optional = ("abs_encoder.", "patch_embed.norm.", "norm")
+    optional = ("abs_encoder.", "absolute_pos_embed", "patch_embed.norm.", "norm")
     missing = [k for k in own if k not in sd and not k.startswith(optional)
                and not k.endswith("num_batches_tracked")]
     if missing:

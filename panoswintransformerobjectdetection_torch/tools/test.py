@@ -1,14 +1,15 @@
 """Evaluate a checkpoint on a config's test set (the reference's `tools/test.py`).
 
     python -m panoswintransformerobjectdetection_torch.tools.test <config> [<checkpoint>] \\
-        --eval bbox [proposal] [--classwise] [--out results.pkl] [--batch-size N] [--tta]
+        --eval bbox [segm] [proposal] [--classwise] [--out results.pkl] [--batch-size N] [--tta]
 
 Counterpart of the JAX package's `tools/test.py`: the config (`_base_`
 inheritance, `runtime/config.py`), the detector from the config and a
 reference `.pth` (`init_detector`; no checkpoint means random weights from
-seed 0), the test dataset (`build_dataset`), `single_device_test` (or,
-with `--tta`, `apis/tta.aug_test_detector` on each image at the config's
-`tta` scales and flip), then the COCOeval-exact `dataset.evaluate`.  Prints
+seed 0), the test dataset (`build_dataset`), `single_device_test` (with
+masks when `segm` is asked for, which needs a Mask R-CNN config; or, with
+`--tta`, `apis/tta.aug_test_detector` on each image at the config's `tta`
+scales and flip), then the COCOeval-exact `dataset.evaluate`.  Prints
 the metrics as JSON (NaN, a class without ground truth, as null), writes
 the per-image results to `--out` as a pickle, and returns the metrics.
 Runs on the card unless `--device cpu` is given; distributed evaluation is

@@ -47,8 +47,7 @@ from torch_port_common import single_torch_thread, tiny_odd_detector  # noqa: F4
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(ROOT, "configs", "panoswin", "*.py")))
 # Configs whose model the port does not build yet: another backbone, masks.
-UNPORTED = {"faster_rcnn_panoswin_v2_tiny_streetwin.py": "backbone type",
-            "mask_rcnn_panoswin_tiny_coco.py": "detector type"}
+UNPORTED = {"faster_rcnn_panoswin_v2_tiny_streetwin.py": "backbone type"}
 NORM = ([123.675, 116.28, 103.53], [58.395, 57.12, 57.375])
 
 
@@ -90,9 +89,10 @@ def test_build_detector_from_config(path):
     want = torch.bfloat16 if cfg["model"].get("compute_dtype") == "bfloat16" else None
     assert model.backbone.patch_embed.dtype == want
     assert model.test_cfg == cfg["model"]["test_cfg"]
+    assert model.with_mask == cfg["model"].get("with_mask", False)
 
 
-@pytest.mark.parametrize("option,value", [("with_mask", True), ("roi_sampling_ratio", 0),
+@pytest.mark.parametrize("option,value", [("type", "CascadeRCNN"), ("roi_sampling_ratio", 0),
                                           ("bbox_roi_size", 14), ("pisa", {}),
                                           ("bbox_head", {"type": "DoubleConvFCBBoxHead"}),
                                           ("roi_extractor", "generic")])

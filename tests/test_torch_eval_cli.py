@@ -245,7 +245,7 @@ def test_single_device_test_refuses(setup):
     ds = _dataset(tb, setup)
     with pytest.raises(ValueError, match="the model is on cpu"):
         single_device_test(setup["model"], ds, device="meta")
-    with pytest.raises(NotImplementedError, match="masks.*item 17"):
+    with pytest.raises(ValueError, match="needs a detector with a mask head"):
         single_device_test(setup["model"], ds, with_masks=True, device="cpu")
     with pytest.raises(NotImplementedError, match="item 16"):
         multi_host_test(setup["model"], ds)

@@ -9,6 +9,7 @@ Tolerances: K1 float32 1e-4 * max(1, max|ref|) (sums in another order);
 bfloat16 4 * 2**-8 * max|ref|, since a different f32 summation order can
 flip the rounding of an h0 value and h1's own rounding adds one unit.  K3
 must be exact: kernel and twin do the same operations in the same order.
+K3 at 14 x 14 bins (the mask head) is held to the same.
 K2 float32 1e-5 * max(1, max|ref|) (sums in another order); bfloat16
 4 * 2**-8 * max|ref|, since another f32 summation order (the tensor cores'
 for bf16) can flip the bf16 rounding of p, which moves an output by about
@@ -96,10 +97,12 @@ def _roi_case(seed, B=2, P=48, H=256, W=512, C=320):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("out_size", [7, 14], ids=["o7", "o14"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("wide", [True, False])
-def test_roi_align_kernel_matches_twin(cuda_device, dtype, wide):
-    """C = 320 leaves a partial 128-channel slice; tall maps take H first."""
+def test_roi_align_kernel_matches_twin(cuda_device, dtype, wide, out_size):
+    """C = 320 leaves a partial 128-channel slice; tall maps take H first;
+    7 x 7 bins (the bbox head) and 14 x 14 (the mask head)."""
     feats, rois = _roi_case(2)
     if not wide:
         feats = [f.transpose(0, 2, 1, 3).copy() for f in feats]
@@ -107,11 +110,12 @@ def test_roi_align_kernel_matches_twin(cuda_device, dtype, wide):
     tf = [torch.from_numpy(f).to(dtype).to(cuda_device) for f in feats]
     tr = torch.from_numpy(rois).to(cuda_device)
     before = ra.roi_align.launches
-    got = ra.roi_align(tf, tr, STRIDES)
+    got = ra.roi_align(tf, tr, STRIDES, out_size)
     torch.cuda.synchronize()
     assert ra.roi_align.launches == before + 1
     assert ra.roi_align.last_entry == ra.ENTRIES[dtype]
-    assert torch.equal(got, ra.roi_align_plain(tf, tr, STRIDES))
+    assert got.shape == (rois.shape[0], out_size, out_size, 320)
+    assert torch.equal(got, ra.roi_align_plain(tf, tr, STRIDES, out_size))
 
 
 @pytest.mark.cuda
@@ -152,17 +156,18 @@ def test_roi_align_kernel_unaligned_levels_and_no_rois(cuda_device, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("out_size", [7, 14], ids=["o7", "o14"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_roi_align_kernel_bad_batch_index(cuda_device, dtype):
+def test_roi_align_kernel_bad_batch_index(cuda_device, dtype, out_size):
     """A RoI whose batch index lies outside [0, B), or is NaN, pools zeros
     in the kernel as in the twin, and the other RoIs are untouched."""
     feats, rois = _roi_case(3, P=8)
     rois[[1, 5, 9], 0] = [2.0, -1.0, np.nan]
     tf = [torch.from_numpy(f).to(dtype).to(cuda_device) for f in feats]
     tr = torch.from_numpy(rois).to(cuda_device)
-    got = ra.roi_align(tf, tr, STRIDES)
+    got = ra.roi_align(tf, tr, STRIDES, out_size)
     assert ra.roi_align.last_entry == ra.ENTRIES[dtype]
-    assert torch.equal(got, ra.roi_align_plain(tf, tr, STRIDES))
+    assert torch.equal(got, ra.roi_align_plain(tf, tr, STRIDES, out_size))
     assert not got[[1, 5, 9]].any() and got[[0, 2, 8]].any()
 
 
@@ -187,15 +192,26 @@ def test_wrappers_refuse_bad_input(cuda_device):
                      torch.zeros((1, 5), device=cuda_device), STRIDES)
     # the C entries refuse what they do not take: the vectorised entry any
     # type but bfloat16, no channels, five levels
-    fn = cuda_build.function("roi_align", ra.ENTRIES[torch.bfloat16], ra.LAUNCH_ARGTYPES)
+    fn = cuda_build.function("roi_align", ra.ENTRIES[torch.bfloat16], ra.FORWARD_ARGTYPES)
     out = torch.empty((1, 7, 7, 4), device=cuda_device)
     rois = torch.zeros((1, 5), device=cuda_device)
     stream = torch.cuda.current_stream().cuda_stream
     levels = ra.level_struct([f.bfloat16() for f in feats], STRIDES)
-    for dtype_code, C, count in ((0, 4, 1), (1, 0, 1), (1, 4, 5)):
+    # ... and an output size other than 7 and 14
+    for dtype_code, C, count, o in ((0, 4, 1, 7), (1, 0, 1, 7), (1, 4, 5, 7), (1, 4, 1, 10)):
         levels.num_levels = count
         assert fn(ctypes.byref(levels), rois.data_ptr(), out.data_ptr(), 1, 1, C, dtype_code, 1,
-                  56.0, stream) != 0
+                  56.0, o, stream) != 0
+    # the first-version entry takes bfloat16 at 7 only (the vectorised
+    # entry serves it at 14), and float32 at 7 and 14
+    first = cuda_build.function("roi_align", ra.ENTRIES[torch.float32], ra.FORWARD_ARGTYPES)
+    levels.num_levels = 1
+    assert first(ctypes.byref(levels), rois.data_ptr(), out.data_ptr(), 1, 1, 4, 1, 1, 56.0, 14,
+                 stream) != 0
+    # the backward is built for 7 x 7 bins only
+    with pytest.raises(NotImplementedError, match="item 17"):
+        ra.roi_align_backward(torch.zeros((1, 14, 14, 4), device=cuda_device), rois,
+                              [(1, 8, 16, 4)], torch.float32, STRIDES)
 
 
 def _attention_case(seed, B, nW, h, O, d, dtype, device):

@@ -61,8 +61,10 @@ def test_default_device_is_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_flagship(tiny=True)
     nano = str(ROOT / "configs" / "panoswin" / "faster_rcnn_panoswin_nano_demo.py")
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        init_detector(nano)
+    mask = str(ROOT / "configs" / "swin" / "mask_rcnn_swin_tiny_patch4_window7_coco.py")
+    for config in (nano, mask):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            init_detector(config)
     model = build_flagship(tiny=True, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         single_device_test(model, [])
@@ -70,6 +72,8 @@ def test_default_device_is_the_card(monkeypatch):
                  lambda args: image_demo.main(["frame.jpg", *args])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main([nano])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        test_cli.main([mask, "--eval", "bbox", "segm"])
 
 
 def test_cpu_tensors_take_the_twins():
@@ -85,8 +89,12 @@ def test_cpu_tensors_take_the_twins():
     assert torch.equal(stem_conv.stem_conv(args[0], packed), stem_conv.stem_conv_plain(*args))
     feats = [torch.rand(1, 8 // s, 16 // s, 4) for s in (1, 2, 4, 8)]
     rois = torch.tensor([[0.0, 1.0, 2.0, 20.0, 12.0]])
+    by_size = dict(roi_align.roi_align.launches_by_size)
     out = roi_align.roi_align(feats, rois, (4, 8, 16, 32))
     assert out.shape == (1, 7, 7, 4)
+    mask_out = roi_align.roi_align(feats, rois, (4, 8, 16, 32), 14)
+    assert torch.equal(mask_out, roi_align.roi_align_plain(feats, rois, (4, 8, 16, 32), 14))
+    assert mask_out.shape == (1, 14, 14, 4) and roi_align.roi_align.launches_by_size == by_size
     grads = roi_align.roi_align_backward(torch.ones_like(out), rois, [f.shape for f in feats],
                                          torch.float32, (4, 8, 16, 32))
     assert [g.shape for g in grads] == [f.shape for f in feats] and grads[0].any()
@@ -117,7 +125,7 @@ def test_modules_list_covers_the_slice():
                 "native", "geometry.projection", "data.datasets", "data.wrappers",
                 "data.builder", "data.loader", "apis.test", "utils.visualize", "tools.test",
                 "tools.eval_metric", "tools.image_demo", "runtime.hooks", "apis.train",
-                "tools.train"):
+                "tools.train", "models.layers", "models.swin", "models.mask_head"):
         assert f"{port.__name__}.{sub}" in names
         importlib.import_module(f"{port.__name__}.{sub}")
 

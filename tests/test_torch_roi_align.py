@@ -53,12 +53,13 @@ def _case(seed, B=2, P=6, H=64, W=256, C=128):
     return feats, _rois(rng, B, P, H, W)
 
 
-def _jax(feats, rois, dtype, pallas):
+def _jax(feats, rois, dtype, pallas, out_size=7):
     old = jra.USE_PALLAS_CROP
     try:
         jra.USE_PALLAS_CROP = pallas
         per_image = rois.shape[0] // feats[0].shape[0]
         out = quick_jit(lambda fs, r: jra.multilevel_roi_align(fs, r, strides=STRIDES,
+                                                               out_size=out_size,
                                                                per_image=per_image),
                         [jnp.asarray(f, dtype) for f in feats], jnp.asarray(rois))
     finally:
@@ -66,15 +67,19 @@ def _jax(feats, rois, dtype, pallas):
     return np.asarray(out, np.float32)
 
 
+@pytest.mark.parametrize("out_size", [7, 14], ids=["o7", "o14"])
 @pytest.mark.parametrize("pallas", [True, False], ids=["pallas_interpret", "xla"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_twin_matches_jax(dtype, pallas):
+def test_twin_matches_jax(dtype, pallas, out_size):
+    """7 x 7 bins (the bbox head) and 14 x 14 (the mask head's
+    `multilevel_roi_align(out_size=14)`)."""
     feats, rois = _case(0)
-    ref = _jax(feats, rois, jnp.dtype(dtype), pallas)
+    ref = _jax(feats, rois, jnp.dtype(dtype), pallas, out_size)
     tdt = getattr(torch, dtype)
     got = tra.roi_align([torch.from_numpy(f).to(tdt) for f in feats],
-                        torch.from_numpy(rois), STRIDES)
-    assert got.shape == ref.shape and got.dtype == tdt
+                        torch.from_numpy(rois), STRIDES, out_size)
+    assert got.shape == ref.shape == (rois.shape[0], out_size, out_size, 128)
+    assert got.dtype == tdt
     tol = 1e-4 if dtype == "float32" else 2 * 2.0 ** -8 * float(np.abs(ref).max())
     np.testing.assert_allclose(got.float().numpy(), ref, atol=tol)
 
