@@ -118,9 +118,30 @@ Phases (each raises on failure, so any failure exits non-zero):
      detections: segm_mAP and bbox_mAP 1.  Phase 3 holds K3 at 14 against
      its twin on the mask branch's shapes (2 x 100 RoIs on 800 x 1088, C
      256) in f32 and bf16, with its times and bound;
- 10. a JSON line for the evaluation, one for the training loop, one for
-     Mask R-CNN serving, a JSON line per kernel, the card's name and power
-     limit, then the result line.
+ 10. Swin-T Mask R-CNN training: (a) the mstrain config (`configs/swin/
+     mask_rcnn_swin_tiny_patch4_window7_mstrain_480-800_adamw_1x_coco.py`:
+     Swin-T 2-2-6-2, window 7, FPN 256, 80 classes, the mask head) at full
+     width and depth in bf16, random weights from `--seed`, through
+     `train_detector` and the config's own `train_pipeline` (masks filled
+     from polygons, flip, multi-scale resize 480-800, pad 32) after
+     `FramesFromMemory`, batch 2, 8 synthetic 480 x 640 frames with 1-4
+     polygons each, 1 epoch of 4 steps: each step's `loss_mask`, loss and
+     gradient norm (all finite), step time, loop images/s, and K3's
+     launches by entry, the counts set to empty just before each step and
+     read just after: once at 7 and once at 14, forward and backward, all
+     through the bf16 entries, and no other kernel; (b) a nano Swin Mask
+     R-CNN in f32, TF32 off, one `forward_train` with masks and its backward
+     on the card (K3's backward at 14 through its f32 entry) and on the CPU
+     from the same weights, batch and sampler noise: losses within 1e-4
+     relative, every gradient within 1e-5 + 2e-3 * max|g|; then K3's
+     backward at 14 against its twin, both entries, on 2 x 128 random RoIs
+     over an 800 x 1088 batch's levels and on the RoIs that (a)'s first step
+     pooled at 14, the bf16 entry bit-equal on two launches, with the
+     times of both entries, the first version at bf16, the twin and the
+     bound;
+ 11. a JSON line for the evaluation, one for the training loop, one for
+     Mask R-CNN serving, one for Mask R-CNN training, a JSON line per
+     kernel, the card's name and power limit, then the result line.
 Without a CUDA card it exits with an error and prints no result.
 """
 
@@ -309,7 +330,7 @@ def kernel_k3(dev, ra):
     base = [torch.from_numpy(rng.standard_normal((B, H // s, W // s, C)).astype(np.float32))
             for s in (4, 8, 16, 32)]
     strides = (4, 8, 16, 32)
-    previous = cuda_build.function("roi_align", ra.ENTRIES[torch.float32], ra.FORWARD_ARGTYPES)
+    previous = cuda_build.function("roi_align", ra.ENTRIES[torch.float32], ra.LAUNCH_ARGTYPES)
     rec = {}
     for dt in (torch.float32, torch.bfloat16):
         feats = [f.to(dt).to(dev) for f in base]
@@ -602,12 +623,12 @@ def level_maps(rng, dev, dt, C=256):
 
 
 def k3_backward_times(ra, rois, cot, shapes, strides):
-    """K3's backward in bf16 on one RoI set: the bf16 entry held against
-    autograd through the twin and timed beside the first version (f32
-    maps zeroed, its bf16 instantiation, the cast: what the wrapper did
-    before) and the twin."""
+    """K3's backward in bf16 on one RoI set, at cot's o x o bins: the bf16
+    entry held against autograd through the twin and timed beside the first
+    version (f32 maps zeroed, its bf16 instantiation, the cast: what the
+    wrapper did before) and the twin."""
     from panoswintransformerobjectdetection_torch.ops import cuda_build
-    C = cot.shape[-1]
+    C, o = cot.shape[-1], cot.shape[1]
     got = ra.roi_align_backward(cot, rois, shapes, torch.bfloat16, strides)
     again = ra.roi_align_backward(cot, rois, shapes, torch.bfloat16, strides)
     entry = ra.roi_align_backward.last_entry
@@ -621,8 +642,9 @@ def k3_backward_times(ra, rois, cot, shapes, strides):
         maps = [g.view(s) for g, s in zip(flat.split(sizes), shapes)]
         # the first version's entry at dtype code 1 (bfloat16); no wrapper calls it so
         cuda_build.check(first(ctypes.byref(ra.level_struct(maps, strides)), rois.data_ptr(),
-                               cot.data_ptr(), rois.shape[0], B, C, 1, 1,
-                               float(ra.FINEST_SCALE), torch.cuda.current_stream().cuda_stream),
+                               cot.data_ptr(), rois.shape[0], shapes[0][0], C, 1,
+                               int(ra._w_first(shapes)), float(ra.FINEST_SCALE), o,
+                               torch.cuda.current_stream().cuda_stream),
                          "roi_align_backward_launch (first version, bf16)")
         return [m.bfloat16() for m in maps]
 
@@ -639,7 +661,7 @@ def k3_backward_times(ra, rois, cot, shapes, strides):
     plain_ms = time_ms(lambda: ra.roi_align_backward_plain(cot, rois, shapes, torch.bfloat16,
                                                            strides), 2)
     nbytes = 2 * (cot.numel() + sum(sizes)) + rois.numel() * 4
-    ops = n * 49 * C * (16 + 4) * 2
+    ops = n * o * o * C * (16 + 4) * 2
     bound = max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3
     levels = ra.roi_levels(rois, len(shapes))
     return {"rois": n, "rois_by_level": [int((levels == l).sum()) for l in range(len(shapes))],
@@ -1796,14 +1818,16 @@ def mask_pass(model, dataset, dev, counters, ra):
     times = {}
     for fn in counters.values():
         fn.launches = 0
-    ra.roi_align.launches_by_size = dict.fromkeys(ra.KERNEL_OUT_SIZES, 0)
+    ra.roi_align.launches_by_entry = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     results = single_device_test(model, dataset, batch_size=2, with_masks=True, device=dev,
                                  stage=stage_timer(times))
     seconds = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
-    return results, seconds, times, launches, dict(ra.roi_align.launches_by_size)
+    by_size = {o: sum(n for (_, size), n in ra.roi_align.launches_by_entry.items() if size == o)
+               for o in ra.KERNEL_OUT_SIZES}
+    return results, seconds, times, launches, by_size
 
 
 def check_mask_launches(launches, by_size, n_batches, entry, ra, what):
@@ -2044,6 +2068,317 @@ def mask_rcnn_path(dev, ident, counters, ra, seed):
     return rec
 
 
+MASK_TRAIN_CONFIG = ("configs/swin/"
+                     "mask_rcnn_swin_tiny_patch4_window7_mstrain_480-800_adamw_1x_coco.py")
+MASK_TRAIN_FRAMES, MASK_TRAIN_BATCH = 8, 2
+# A step of Swin-T Mask R-CNN: K3 once at 7 (the bbox head) and once at 14
+# (the mask head), forward and backward, each through its bf16 entry.
+MASK_TRAIN_BY_ENTRY = {"forward": {("roi_align_bf16_launch", 7): 1,
+                                   ("roi_align_bf16_launch", 14): 1},
+                       "backward": {("roi_align_backward_bf16_launch", 7): 1,
+                                    ("roi_align_backward_bf16_launch", 14): 1}}
+
+
+class MaskLoopRecord(LoopRecord):
+    """`LoopRecord`, and K3's launches of each step by (entry, bins a side),
+    forward and backward, the counts set to empty just before the step and
+    read just after."""
+
+    def __init__(self, counters, ra):
+        super().__init__(counters)
+        self.ra, self.by_entry = ra, []
+
+    def _counted(self, fn, into):
+        self.ra.roi_align.launches_by_entry = {}
+        self.ra.roi_align_backward.launches_by_entry = {}
+        out = super()._counted(fn, into)
+        self.by_entry.append({"forward": dict(self.ra.roi_align.launches_by_entry),
+                              "backward": dict(self.ra.roi_align_backward.launches_by_entry)})
+        return out
+
+
+def by_entry_text(counts):
+    return ", ".join(f"{entry} at {o}: {n}" for (entry, o), n in sorted(counts.items()))
+
+
+def write_trained_like_pth(model, directory, seed):
+    """`flagship.init_weights(model, seed)`, then every bias and every
+    LayerNorm's shift N(0, 0.02) and scale 1 + N(0, 0.1) from `seed`,
+    written as a reference checkpoint.  With `init_weights`' zero biases,
+    the tokens of a window that is all padding stay exactly 0 through every
+    Swin block, each LayerNorm there divides by sqrt(eps), and the gradient
+    grows by about 316 a LayerNorm (a gradient norm of 1e18 after 8 of them
+    at a tiny width on the CPU, more than float32 holds at Swin-T's depth);
+    a trained model has no such zeros."""
+    from panoswintransformerobjectdetection_torch.flagship import init_weights
+    init_weights(model, seed)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".bias"):
+                p.add_(torch.randn(p.shape, generator=g) * 0.02)
+            elif "norm" in name.split(".")[-2]:
+                p.add_(torch.randn(p.shape, generator=g) * 0.1)
+    path = os.path.join(directory, f"trained_like_{seed}.pth")
+    torch.save({"state_dict": model.state_dict()}, path)
+    return path
+
+
+def mask_train_full_width(dev, ident, counters, ra, seed, directory):
+    """10a: the Swin-T Mask R-CNN mstrain config in bf16 through
+    `train_detector` and its own `train_pipeline`, from weights with nonzero
+    biases (`write_trained_like_pth`); returns the record and the mask RoIs
+    (and map shapes) that the first step pooled at 14."""
+    from panoswintransformerobjectdetection_torch.apis.inference import build_detector_from_cfg
+    from panoswintransformerobjectdetection_torch.apis.train import train_detector
+    from panoswintransformerobjectdetection_torch.data.datasets import CocoDataset
+    from panoswintransformerobjectdetection_torch.runtime.config import load_config
+    cfg = load_config(MASK_TRAIN_CONFIG)
+    cfg["model"]["compute_dtype"] = "bfloat16"
+    classes = CocoDataset.CLASSES
+    rng = np.random.default_rng(seed + 10)
+    frames = (rng.random((MASK_TRAIN_FRAMES, 480, 640, 3)) * 255).astype(np.uint8)
+    ann_file = write_ann(os.path.join(directory, "mask_train.json"), frames, classes,
+                         polygon_annotations(rng, MASK_TRAIN_FRAMES, 480, 640, len(classes)))
+    dataset = in_memory_dataset(dict(cfg["data"]["train"], classes=classes), ann_file, frames)
+    steps = [p["type"] for p in cfg["data"]["train"]["pipeline"]]
+    model = build_detector_from_cfg(cfg)
+    path = write_trained_like_pth(model, directory, seed)
+    captured, roi_features = [], model.roi_features
+
+    def capture(feats, rois, out_size=7):
+        if out_size == 14 and not captured:
+            captured.append((rois.detach().clone(), [tuple(f.shape) for f in feats[:4]]))
+        return roi_features(feats, rois, out_size)
+
+    model.roi_features = capture
+    record = MaskLoopRecord(counters, ra)
+    opt, sched = cfg["optimizer"], cfg["lr_config"]
+    torch.cuda.reset_peak_memory_stats()
+    train_detector(model, dataset, work_dir=os.path.join(directory, "mask_train"),
+                   total_epochs=1,
+                   batch_size=MASK_TRAIN_BATCH, base_lr=opt["lr"],
+                   weight_decay=opt["weight_decay"], warmup_iters=sched["warmup_iters"],
+                   decay_epochs=sched["step"], log_interval=1, seed=seed, hooks=[record],
+                   device=dev, stage=record.stage, num_workers=2, load_from=path)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    model.roi_features = roi_features
+    breakdown = mask_train_stage_times(model, dataset, dev, seed, opt)
+    n_steps = MASK_TRAIN_FRAMES // MASK_TRAIN_BATCH
+    per_step = {name: 0 for name in counters}
+    per_step.update({"roi_align (K3)": 2, "roi_align_backward (K3 backward)": 2})
+    if len(record.step_launches) != n_steps or len(record.steps) != n_steps:
+        raise AssertionError(f"10a: {len(record.steps)} steps, expected {n_steps}")
+    for counts, entries in zip(record.step_launches, record.by_entry):
+        expect_launches(counts, per_step, "10a training step")
+        if entries != MASK_TRAIN_BY_ENTRY:
+            raise AssertionError(f"10a: K3's launches by entry {entries}, expected "
+                                 f"{MASK_TRAIN_BY_ENTRY}")
+    bad = [m for m in record.steps if not all(np.isfinite(v) for v in m.values())]
+    if bad or not all(m["loss_mask"] > 0 for m in record.steps):
+        raise AssertionError(f"10a: a loss is not finite or loss_mask is 0: {record.steps}")
+    loop_s = sum(end - start for start, end, _ in record.epochs)
+    host = {k: sum(v) * 1e3 for k, v in record.times.items()}
+    step_ms = [t * 1e3 for t in record.times["step"]]
+    rec = {"config": os.path.basename(MASK_TRAIN_CONFIG), "dtype": "bfloat16",
+           "pipeline": steps, "frames": MASK_TRAIN_FRAMES, "batch": MASK_TRAIN_BATCH,
+           "steps": n_steps, "card": ident, "images_per_s": MASK_TRAIN_FRAMES / loop_s,
+           "loop_ms": loop_s * 1e3, "step_ms": step_ms,
+           "median_step_ms": statistics.median(step_ms), "stage_ms": host,
+           "loader_share": host["load"] / (loop_s * 1e3), "peak_memory_gib": peak,
+           "losses": [{k: m[k] for k in ("loss_mask", "loss", "grad_norm")}
+                      for m in record.steps],
+           "stage_breakdown_ms": breakdown, "launches_step": per_step,
+           "k3_launches_step_by_entry": {d: {f"{e} o={o}": n for (e, o), n in c.items()}
+                                         for d, c in MASK_TRAIN_BY_ENTRY.items()},
+           "launches": {name: sum(c[name] for c in record.step_launches) for name in counters},
+           "backward_launches_by_size": {o: sum(n for e in record.by_entry
+                                                for (_, size), n in e["backward"].items()
+                                                if size == o) for o in (7, 14)}}
+    for i, (m, sec) in enumerate(zip(record.steps, step_ms)):
+        print(f"    (a) step {i + 1}: loss_mask {m['loss_mask']:.6f}, loss {m['loss']:.6f}, "
+              f"grad_norm {m['grad_norm']:.6f}, {sec:.3f} ms")
+    print(f"    (a) {rec['config']} (Swin-T Mask R-CNN, 80 classes, bf16, random weights with "
+          f"nonzero biases from --seed): {n_steps} steps of {MASK_TRAIN_BATCH} frames of 480 x "
+          f"640 through "
+          f"{'/'.join(steps[1:])}: {rec['images_per_s']:.3f} images/s with the loader (2 "
+          f"threads), median step {rec['median_step_ms']:.3f} ms, host ms "
+          f"{{{', '.join(f'{k}: {v:.3f}' for k, v in host.items())}}}, loader share "
+          f"{rec['loader_share']:.3f}, peak memory {peak:.2f} GiB; every step's K3 launches: "
+          f"forward {by_entry_text(MASK_TRAIN_BY_ENTRY['forward'])}; backward "
+          f"{by_entry_text(MASK_TRAIN_BY_ENTRY['backward'])}; no other kernel; card {ident}")
+    print(f"    (a) where a step goes, the trained model on the loop's first batch, each stage "
+          f"synchronised, median of 2 after a warm-up, ms: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in breakdown.items()))
+    del model
+    return rec, captured[0]
+
+
+def mask_train_stage_times(model, dataset, dev, seed, opt):
+    """Host ms of each stage of a Mask R-CNN training step (`forward_train`'s
+    `MASK_TRAIN_STAGES`, then backward and optimizer), the card synchronised
+    around each: 3 steps of `model` on its loader's first batch, the median
+    of the last 2."""
+    from panoswintransformerobjectdetection_torch.apis.train import BATCH_KEYS
+    from panoswintransformerobjectdetection_torch.data.loader import DetDataLoader
+    from panoswintransformerobjectdetection_torch.runtime.optim import make_optimizer
+    from panoswintransformerobjectdetection_torch.runtime.train import make_train_step
+    batch = next(iter(DetDataLoader(dataset, batch_size=MASK_TRAIN_BATCH, seed=seed,
+                                    num_workers=0)))
+    tensors = {k: torch.from_numpy(batch[k]).to(dev) for k in BATCH_KEYS if k in batch}
+    optimizer, scheduler = make_optimizer(model, base_lr=opt["lr"],
+                                          weight_decay=opt["weight_decay"])
+    step = make_train_step(model, optimizer, scheduler)
+    times = {}
+    for i in range(3):
+        step(tensors, generator=torch.Generator().manual_seed(seed + i),
+             stage=stage_timer(times if i else {}))
+    return {k: statistics.median(v) * 1e3 for k, v in times.items()}
+
+
+def mask_train_nano_card_vs_cpu(dev, ra):
+    """10b: a nano Swin Mask R-CNN in f32, TF32 off: one `forward_train`
+    with masks and its backward on the card (kernels; K3's backward at 14
+    through the f32 entry) and on the CPU (plain versions), the same weights,
+    batch and sampler noise (one CPU generator seed).  Tolerances: losses
+    1e-4 relative; each gradient 1e-5 + 2e-3 * max|g|, as
+    `train_reference_check` holds the flagship's (f32 sums in another order
+    through every layer, and cuDNN's and cuBLAS's own algorithms)."""
+    from panoswintransformerobjectdetection_torch.apis.inference import build_detector_from_cfg
+    from panoswintransformerobjectdetection_torch.flagship import init_weights
+    cfg = {"model": dict(NANO_MASK_MODEL, train_cfg={
+        "rpn": {"pos_iou_thr": 0.7, "neg_iou_thr": 0.3, "min_pos_iou": 0.3, "num_samples": 64,
+                "pos_fraction": 0.5},
+        "rpn_proposal": {"nms_pre": 128, "max_per_img": 32, "iou_threshold": 0.7,
+                         "min_bbox_size": 0},
+        "rcnn": {"pos_iou_thr": 0.5, "neg_iou_thr": 0.5, "min_pos_iou": 0.5, "num_samples": 32,
+                 "pos_fraction": 0.25}})}
+    masks = torch.zeros((2, 3, 64, 128), dtype=torch.uint8)
+    boxes = torch.tensor([[[4., 2., 44., 34.], [30., 10., 90., 60.], [70., 4., 124., 40.]]] * 2)
+    for g, (x1, y1, x2, y2) in enumerate(boxes[0].long().tolist()):
+        masks[:, g, y1:y2, x1:x2] = 1
+        masks[:, g, y1 + (y2 - y1) // 3:y2 - (y2 - y1) // 3, x1:x1 + (x2 - x1) // 2] = 0
+    rng = np.random.default_rng(6)
+    batch = {"images": torch.from_numpy(rng.standard_normal((2, 64, 128, 3)).astype(np.float32)),
+             "img_shapes": torch.tensor([[64., 128.], [64., 128.]]), "gt_boxes": boxes,
+             "gt_labels": torch.tensor([[0, 3, 4], [1, 2, 0]]),
+             "gt_valid": torch.ones(2, 3, dtype=torch.bool), "gt_masks": masks}
+    defaults = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    outs, grads = {}, {}
+    for where in (dev, torch.device("cpu")):
+        model = build_detector_from_cfg(cfg)
+        init_weights(model, 3)
+        model.to(where).train()
+        ra.roi_align_backward.launches_by_entry = {}
+        out = model.forward_train(**{k: v.to(where) for k, v in batch.items()},
+                                  generator=torch.Generator().manual_seed(7))
+        sum(v for k, v in out.items() if "loss" in k).backward()
+        outs[where.type] = {k: float(v.detach()) for k, v in out.items()}
+        grads[where.type] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        if where.type == "cuda":
+            entries = dict(ra.roi_align_backward.launches_by_entry)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = defaults
+    want = {("roi_align_backward_launch", 7): 1, ("roi_align_backward_launch", 14): 1}
+    if entries != want:
+        raise AssertionError(f"10b: K3's backward launched {entries}, expected {want}")
+    loss_err = max(abs(outs["cuda"][k] - v) / max(abs(v), 1e-6) for k, v in outs["cpu"].items())
+    if loss_err > 1e-4 or not outs["cpu"]["loss_mask"] > 0:
+        raise AssertionError(f"10b: card {outs['cuda']}, CPU {outs['cpu']}")
+    worst = (0.0, "")
+    for name, ref in grads["cpu"].items():
+        scale = float(ref.abs().max())
+        err = float((grads["cuda"][name] - ref).abs().max())
+        worst = max(worst, (err / max(scale, 1e-30), name))
+        if not err <= 1e-5 + 2e-3 * scale:
+            raise AssertionError(f"10b: gradient of {name}: card against CPU {err}, max|g| "
+                                 f"{scale}")
+    print(f"    (b) nano Swin Mask R-CNN, f32, TF32 off, 2 frames of 64 x 128 with 3 masks "
+          f"each: card vs CPU losses within {loss_err:.3g} relative (tolerance 1e-4; loss_mask "
+          f"card {outs['cuda']['loss_mask']:.7f}, CPU {outs['cpu']['loss_mask']:.7f}); "
+          f"{len(grads['cpu'])} gradients within 1e-5 + 2e-3 * max|g| (worst "
+          f"{worst[0]:.3g} of max|g|, {worst[1]}); K3's backward on the card "
+          f"{by_entry_text(entries)}: ok")
+    return {"loss_rel_err": loss_err, "worst_grad_rel_err": worst[0], "worst_grad": worst[1],
+            "backward_by_entry": {f"{e} o={o}": n for (e, o), n in entries.items()}}
+
+
+def kernel_k3_backward_mask(dev, ra, sampled):
+    """K3's backward at 14 x 14 bins, both entries against autograd through
+    the twin (`roi_align_backward_plain`) and timed, on 2 x 128 random RoIs
+    over the four FPN levels of an 800 x 1088 batch (C = 256) and on the
+    RoIs that 10a's first step pooled for its mask head (on its own maps'
+    shapes).  Tolerance: f32 1e-5 * max(1, max|ref|) (atomic adds in any
+    order); bf16 2 units of 2**-8 * max|ref| (each pixel's f32 sum rounded
+    once, after adds in another order); the bf16 entry the same bits on two
+    launches.  Returns the bf16 and the f32 records."""
+    strides = (4, 8, 16, 32)
+    C, o = 256, 14
+    rng = np.random.default_rng(32)
+    random_rois = rpn_like_rois(rng, 128, *MASK_FRAME).to(dev)
+    sets = {"random": (random_rois, [(B, MASK_FRAME[0] // s, MASK_FRAME[1] // s, C)
+                                     for s in strides]),
+            "sampled": (sampled[0].float().contiguous(), sampled[1])}
+    bf16, f32 = {}, {}
+    for label, (rois, shapes) in sets.items():
+        cot = torch.from_numpy(rng.standard_normal((rois.shape[0], o, o, C)).astype(np.float32))
+        cot = cot.to(dev)
+        times = k3_backward_times(ra, rois, cot.bfloat16(), shapes, strides)
+        bf16[label] = times
+        got = ra.roi_align_backward(cot, rois, shapes, torch.float32, strides)
+        entry = ra.roi_align_backward.last_entry
+        ref = ra.roi_align_backward_plain(cot, rois, shapes, torch.float32, strides)
+        err = 0.0
+        for level, (a, b) in enumerate(zip(got, ref)):
+            scale = float(b.abs().max())
+            err = max(err, check(f"K3 backward o=14 f32 level {level}, {label} RoIs, entry "
+                                 f"{entry}", a, b, 1e-5 * max(1.0, scale)))
+        del got, ref
+        ms = time_ms(lambda: ra.roi_align_backward(cot, rois, shapes, torch.float32, strides),
+                     20)
+        plain_ms = time_ms(lambda: ra.roi_align_backward_plain(cot, rois, shapes,
+                                                               torch.float32, strides), 2)
+        nbytes = 4 * (cot.numel() + sum(int(np.prod(s)) for s in shapes)) + rois.numel() * 4
+        ops = rois.shape[0] * o * o * C * (16 + 4) * 2
+        f32[label] = {"rois": rois.shape[0], "rois_by_level": times["rois_by_level"],
+                      "entry": entry, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3,
+                      "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
+                      else "operations"}
+        b, f = bf16[label], f32[label]
+        print(f"  K3 backward o=14, {label} RoIs ({b['rois']}, by level {b['rois_by_level']}, "
+              f"maps {shapes[0][1]} x {shapes[0][2]} and coarser): bf16 owner-computes "
+              f"{b['ms']:.4f} ms ({b['bound_ms'] / b['ms']:.3f} of its {b['bound_ms']:.4f} ms "
+              f"bound, {b['bound_by']}), bit-equal on two launches; the first version at bf16 "
+              f"with zeroing and cast {b['previous_ms']:.4f} ms; f32 entry {f['ms']:.4f} ms "
+              f"(bound {f['bound_ms']:.4f} ms); autograd through the twin bf16 "
+              f"{b['plain_ms']:.4f} ms, f32 {f['plain_ms']:.4f} ms; no single PyTorch call "
+              f"computes it")
+    common = {"route": "cuda",
+              "source": "panoswintransformerobjectdetection_torch/csrc/roi_align.cu",
+              "replaces": "panoswintransformerobjectdetection_tpu/ops/roi_align.py:356",
+              "shares_kernel_of": "roi_align_backward (K3 backward)", "out_size": o,
+              "library_ms": None}
+    keys = ("entry", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    return [dict(common, name="roi_align_backward o=14 bf16 (K3 backward)",
+                 previous_ms=bf16["random"]["previous_ms"], bitwise_repeatable=True,
+                 **{k: bf16["random"][k] for k in keys}, roi_sets=bf16),
+            dict(common, name="roi_align_backward o=14 f32 (K3 backward)",
+                 **{k: f32["random"][k] for k in keys}, roi_sets=f32)]
+
+
+def mask_training_path(dev, ident, counters, ra, seed):
+    """Phase 10: Swin-T Mask R-CNN training on the card; returns its record
+    and the two records of K3's backward at 14."""
+    with tempfile.TemporaryDirectory() as directory:
+        rec, sampled = mask_train_full_width(dev, ident, counters, ra, seed, directory)
+    rec["nano_card_vs_cpu"] = mask_train_nano_card_vs_cpu(dev, ra)
+    kernels = kernel_k3_backward_mask(dev, ra, sampled)
+    kernels[0]["launches"] = rec["backward_launches_by_size"][14]
+    kernels[1]["launches"] = 1
+    return rec, kernels
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Drive the PyTorch port on one CUDA card.")
     parser.add_argument("--seed", type=int, default=0,
@@ -2177,6 +2512,12 @@ def main(argv=None) -> int:
           "TF32 defaults except in (c)")
     masks = mask_rcnn_path(dev, ident, counters, ra, args.seed)
 
+    print("[10] Swin-T Mask R-CNN training on the card: train_detector over the mstrain config's "
+          "own train_pipeline (masks, flip, multi-scale resize, pad), bf16; the nano model card "
+          "vs CPU in f32 with TF32 off; K3's backward at 14 x 14 against its twin; PyTorch's "
+          "TF32 defaults elsewhere")
+    mask_training, backward_14 = mask_training_path(dev, ident, counters, ra, args.seed)
+
     for rec in records:
         key = rec.get("shares_kernel_of", rec["name"])
         if key in ("dense_crop (K4)", "roi_align_backward (K3 backward)"):
@@ -2194,14 +2535,19 @@ def main(argv=None) -> int:
         rec["launches_mask_rcnn"] = (masks["9a"]["k3_launches_by_size"][7]
                                      + masks["9b"]["k3_launches_by_size"][7]
                                      if key == "roi_align (K3)" else 0)
+        # at 7 x 7 bins, over 10a's steps
+        rec["launches_mask_training"] = (mask_training["steps"] if key in (
+            "roi_align (K3)", "roi_align_backward (K3 backward)") else 0)
     # K3 at 14: its main path is phase 9's mask branch, 9b (bf16) and 9a (f32)
     for rec, label in zip(mask_records, ("9b", "9a")):
         rec["launches"] = masks[label]["k3_launches_by_size"][14]
-    records += mask_records
-    print("[10] records")
+    mask_records[0]["launches_mask_training"] = mask_training["steps"]
+    records += mask_records + backward_14
+    print("[11] records")
     print(json.dumps({"evaluation": {k: v for k, v in evaluation.items() if k != "k1_f32"}}))
     print(json.dumps({"training_loop": loop}))
     print(json.dumps({"mask_rcnn": masks}))
+    print(json.dumps({"mask_rcnn_training": mask_training}))
     print(json.dumps({"kernels": records}))
     print(ident)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -40,6 +40,7 @@ from ..device import resolve_device
 from ..flagship import init_weights
 from ..models.detectors import run_stage
 from ..models.panoswin import PanoSwinTransformer
+from ..models.swin import SwinTransformer
 from ..runtime.checkpoint import (load_backbone_weights, load_checkpoint, load_torch_state_dict,
                                   save_checkpoint)
 from ..runtime.hooks import NumClassCheckHook
@@ -53,7 +54,9 @@ logger = logging.getLogger("panoswin_torch")
 # the loader (pipeline and collation on the host unless worker threads made
 # it already), its copy to the device, and the training step.
 TRAIN_LOOP_STAGES = ("load", "copy", "step")
-BATCH_KEYS = ("images", "img_shapes", "gt_boxes", "gt_labels", "gt_valid")
+# What the step reads of a batch; `gt_masks` only where the pipeline loads
+# masks.
+BATCH_KEYS = ("images", "img_shapes", "gt_boxes", "gt_labels", "gt_valid", "gt_masks")
 
 
 def set_random_seed(seed: int, deterministic: bool = False) -> torch.Generator:
@@ -85,7 +88,8 @@ def apply_init_weights(model, load_from: Optional[str] = None,
                        pretrained: Optional[str] = None) -> None:
     """`load_from`: a whole detector's reference `.pth` (or an `epoch_{n}`
     checkpoint) through `apis/inference.load_weights`.  Otherwise
-    `pretrained`: a reference PanoSwin backbone `.pth` into
+    `pretrained`: a reference PanoSwin backbone `.pth`, or a stock Swin
+    ImageNet one (its classifier's `head.*` and `norm.*` left out), into
     `model.backbone` (`runtime/checkpoint.load_backbone_weights`)."""
     if load_from:
         load_weights(model, load_from)
@@ -93,11 +97,12 @@ def apply_init_weights(model, load_from: Optional[str] = None,
         return
     if not pretrained:
         return
-    if not isinstance(model.backbone, PanoSwinTransformer):
-        raise NotImplementedError(f"pretrained init of a {type(model.backbone).__name__} "
-                                  "backbone is not ported yet (ROADMAP.md, Queue 1, item 17)")
+    name = type(model.backbone).__name__
+    if not isinstance(model.backbone, (PanoSwinTransformer, SwinTransformer)):
+        raise NotImplementedError(f"pretrained init of a {name} backbone is not ported yet "
+                                  "(ROADMAP.md, Queue 1, item 17)")
     load_backbone_weights(model.backbone, load_torch_state_dict(pretrained))
-    logger.info("initialized PanoSwinTransformer backbone from %s", pretrained)
+    logger.info("initialized %s backbone from %s", name, pretrained)
 
 
 def train_detector(model, dataset, *, work_dir: str, total_epochs: int = 12,
@@ -163,7 +168,7 @@ def train_detector(model, dataset, *, work_dir: str, total_epochs: int = 12,
                 i = 0
                 while (batch := stage("load", lambda: next(batches, None))) is not None:
                     tensors = stage("copy", lambda: {k: torch.from_numpy(batch[k]).to(dev)
-                                                     for k in BATCH_KEYS})
+                                                     for k in BATCH_KEYS if k in batch})
                     kwargs = step_randomness(model, seed, step, batch)
                     metrics = stage("step", lambda: step_fn(tensors, **kwargs))
                     step += 1

@@ -1,6 +1,5 @@
 // Multilevel RoIAlign: every RoI pooled to (O, O, C) from its own FPN level,
-// O = 7 (the bbox head) or 14 (the mask head) in the forward, 7 in the
-// backward.
+// O = 7 (the bbox head) or 14 (the mask head), forward and backward.
 //
 // Replaces the Pallas kernel `_windowed_kernel`
 // (panoswintransformerobjectdetection_tpu/ops/roi_align_pallas.py:205) and,
@@ -114,7 +113,21 @@
 // so the coarsest level's blocks come first in the grid, and their long
 // lists overlap the fine levels' work.
 //
-// What holds it at 8-9x its bound (NVIDIA H100 80GB HBM3, 700 W):
+// At O = 14 (the mask head's positives, 2 x 128 RoIs, C = 256) a RoI's
+// staged gradient is 196 bins, 100 KB at VEC = 8: two stages leave room for
+// one block an SM, so a block there has 16 warps (a tile of 8 x 16 pixels)
+// and the SM keeps the 16 warps and 128 registers a thread that two blocks
+// of 8 warps give at O = 7; each staged RoI also serves twice the pixels.
+// A warp holds two of a RoI's 56 taps of each axis a lane, and the rows of
+// the tile that each bin i has a tap on in four words of 4 bins (two at 7).
+// The function reads 26 MB of grad_out and writes the four bf16 maps of an
+// 800 x 1088 batch (74 MB), about 0.03 ms at 3.35 TB/s: bound by bytes.
+// Measured (NVIDIA H100 80GB HBM3, 700 W): 0.171 ms on 2 x 128 random RoIs,
+// 5.8x the bound; 0.278 ms on the RoIs a training step samples, which
+// cluster on level 0 around a few objects, so that a few tiles list most
+// RoIs and each such list is walked by one block.
+//
+// What holds it at 8-9x its bound at O = 7 (NVIDIA H100 80GB HBM3, 700 W):
 // the arithmetic.  A warp spends some 800 instructions on a small RoI (all
 // seven bins i on its rows, two or three bins j on its column, 8 channels
 // a lane), and the training step's 1280 RoIs give some 60000 such (RoI,
@@ -130,7 +143,6 @@
 
 namespace {
 
-constexpr int BACKWARD_O = 7;   // the backward's output bins per side (the bbox head's)
 constexpr int S = 2;        // samples per bin side
 constexpr int K = 2 * S;    // candidate taps per bin
 constexpr int MAX_LEVELS = 4;
@@ -290,11 +302,10 @@ __global__ void roi_align_kernel(RoiLevels levels, const float* __restrict__ roi
   }
 }
 
-template <typename T>
+template <typename T, int O>
 __global__ void roi_align_backward_kernel(RoiLevels levels, const float* __restrict__ rois,
                                           const T* __restrict__ grad_out, int batch, int C,
                                           int w_first, float finest_scale) {
-  constexpr int O = BACKWARD_O;
   __shared__ RoiTaps<O> taps;
   const int r = blockIdx.x;
   const int t = threadIdx.x;
@@ -494,17 +505,23 @@ int launch(const RoiLevels& levels, const float* rois, void* out, int R, int bat
 
 namespace owner {
 
-constexpr int O = BACKWARD_O;
-using Taps = RoiTaps<O>;
 constexpr int TILE = 8;                   // pixels a warp owns along a1
-constexpr int WARPS = 8;                  // a warp per pixel of the tile along a2
-constexpr int THREADS = 32 * WARPS;
 constexpr int LIST = 2048;                // RoIs a block filters at a time
-constexpr int PER_THREAD = LIST / THREADS;
-constexpr int MIN_BLOCKS = 2;
-constexpr int TAPS = O * K;               // candidate taps of a RoI along one axis
 constexpr unsigned FULL = 0xffffffffu;
-static_assert(TILE * O >= 32 && TILE * O <= 64, "a warp zeroes its w1 rows in two stores");
+
+// The block at O bins a side: a warp per pixel of the tile along a2, 8 warps
+// and two blocks an SM at O = 7; 16 warps and one block an SM at O = 14,
+// where two stages of a RoI's gradient take 200 KB (see the note above).
+template <int O>
+struct Shape {
+  static constexpr int WARPS = O <= 8 ? 8 : 16;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int MIN_BLOCKS = O <= 8 ? 2 : 1;
+  static constexpr int PER_THREAD = LIST / THREADS;
+  static constexpr int TAPS = O * K;                // candidate taps of a RoI along one axis
+  static constexpr int LANE_TAPS = (TAPS + 31) / 32;   // of them, a lane holds
+  static_assert(O <= 16 && LIST % THREADS == 0, "a lane holds at most two taps an axis");
+};
 
 // What a block needs to choose a RoI: its level (-1: it adds nothing), its
 // image, and its footprint on each axis, lo | hi << 16 over its taps of
@@ -520,11 +537,12 @@ struct Plan {
   int tiles1[MAX_LEVELS], tiles2[MAX_LEVELS];   // tiles of an image along a1, a2
 };
 
-// One RoI as a block stages it: its gradient (49 bins, 32 * VEC channels)
-// and its taps; two stages, the next RoI's copied while one is added.
-template <int VEC> constexpr int D_BYTES = O * O * 32 * VEC * 2;
-template <int VEC> constexpr int STAGE_BYTES = D_BYTES<VEC> + int(sizeof(Taps));
-template <int VEC> constexpr int SMEM_BYTES = 2 * STAGE_BYTES<VEC>;
+// One RoI as a block stages it: its gradient (O * O bins, 32 * VEC
+// channels) and its taps; two stages, the next RoI's copied while one is
+// added.
+template <int O, int VEC> constexpr int D_BYTES = O * O * 32 * VEC * 2;
+template <int O, int VEC> constexpr int STAGE_BYTES = D_BYTES<O, VEC> + int(sizeof(RoiTaps<O>));
+template <int O, int VEC> constexpr int SMEM_BYTES = 2 * STAGE_BYTES<O, VEC>;
 
 // An asynchronous copy of BYTES (2, 4, 8 or 16) from device to shared
 // memory; 2 bytes, below `cp.async`'s least, go by a plain load and store.
@@ -547,30 +565,32 @@ template <int N> __device__ __forceinline__ void copy_wait() {
 
 // The whole block copies RoI r's gradient (this block's channels) and taps
 // into a stage.
-template <int VEC>
+template <int O, int VEC>
 __device__ __forceinline__ void stage_roi(char* stage, const __nv_bfloat16* grad_out,
-                                          const Taps* taps, int r, int C, int c0) {
-  for (int q = threadIdx.x; q < O * O * 32; q += THREADS) {
+                                          const RoiTaps<O>* taps, int r, int C, int c0) {
+  for (int q = threadIdx.x; q < O * O * 32; q += Shape<O>::THREADS) {
     const int bin = q / 32, c = c0 + (q % 32) * VEC;
     if (c < C)
       copy_async<2 * VEC>(stage + q * 2 * VEC, grad_out + (size_t(r) * O * O + bin) * C + c);
   }
-  char* tstage = stage + D_BYTES<VEC>;
-  for (int q = threadIdx.x; q < int(sizeof(Taps)) / 16; q += THREADS)
+  char* tstage = stage + D_BYTES<O, VEC>;
+  for (int q = threadIdx.x; q < int(sizeof(RoiTaps<O>)) / 16; q += Shape<O>::THREADS)
     copy_async<16>(tstage + q * 16, reinterpret_cast<const char*>(taps + r) + q * 16);
   copy_commit();
 }
 
 // One block of 32 threads a RoI: its taps and header.
+template <int O>
 __global__ void roi_meta_kernel(RoiLevels levels, const float* __restrict__ rois, int batch,
                                 int w_first, float finest_scale, Header* __restrict__ headers,
-                                Taps* __restrict__ taps) {
-  __shared__ Taps t;
+                                RoiTaps<O>* __restrict__ taps) {
+  static_assert(2 * O <= 32, "the taps take 2 * O threads of the block");
+  __shared__ RoiTaps<O> t;
   const int r = blockIdx.x, lane = threadIdx.x;
   roi_taps<__nv_bfloat16, O>(levels, rois + size_t(r) * 5, batch, finest_scale, t);
   const int* src = reinterpret_cast<const int*>(&t);
   int* dst = reinterpret_cast<int*>(taps + r);
-  for (int k = lane; k < int(sizeof(Taps) / 4); k += 32) dst[k] = src[k];
+  for (int k = lane; k < int(sizeof(RoiTaps<O>) / 4); k += 32) dst[k] = src[k];
   // lane 0 the footprint along a1, lane 1 along a2
   const int a1 = w_first ? 1 : 0;
   const int ax = lane == 0 ? a1 : 1 - a1;
@@ -609,17 +629,20 @@ __device__ __forceinline__ void add_products(float w, const typename vec::Chunk<
   }
 }
 
-template <int VEC>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+template <int O, int VEC>
+__global__ void __launch_bounds__(Shape<O>::THREADS, Shape<O>::MIN_BLOCKS)
 roi_align_backward_owner_kernel(RoiLevels maps, Plan plan, const Header* __restrict__ headers,
-                                const Taps* __restrict__ taps,
+                                const RoiTaps<O>* __restrict__ taps,
                                 const __nv_bfloat16* __restrict__ grad_out, int R, int C,
                                 int w_first) {
+  using Sh = Shape<O>;
+  constexpr int WARPS = Sh::WARPS, PER_THREAD = Sh::PER_THREAD;
+  constexpr int TAPS = Sh::TAPS, LANE_TAPS = Sh::LANE_TAPS;
   __shared__ int list[LIST];
   __shared__ int list_span[LIST];         // the listed RoIs' footprints along a2
   __shared__ int warp_count[WARPS];
   __shared__ float w1s[WARPS][TILE][O];   // each warp's w1 of the RoI at hand, by row
-  extern __shared__ float4 smem_store[];  // SMEM_BYTES<VEC>: two stages
+  extern __shared__ float4 smem_store[];  // SMEM_BYTES<O, VEC>: two stages
   char* smem = reinterpret_cast<char*>(smem_store);
 
   int lvl = 0, blk = int(blockIdx.x) - plan.first_block[0];
@@ -693,12 +716,12 @@ roi_align_backward_owner_kernel(RoiLevels maps, Plan plan, const Header* __restr
     // memory, in order, the next one's copy in flight while this one is
     // added; a warp adds the ones whose footprint holds its column.
     const int c0 = blockIdx.y * 32 * VEC;
-    if (total > 0) stage_roi<VEC>(smem, grad_out, taps, list[0], C, c0);
+    if (total > 0) stage_roi<O, VEC>(smem, grad_out, taps, list[0], C, c0);
     for (int q = 0; q < total; ++q) {
-      char* stage = smem + (q & 1) * STAGE_BYTES<VEC>;
+      char* stage = smem + (q & 1) * STAGE_BYTES<O, VEC>;
       if (q + 1 < total) {
-        stage_roi<VEC>(smem + ((q + 1) & 1) * STAGE_BYTES<VEC>, grad_out, taps, list[q + 1], C,
-                       c0);
+        stage_roi<O, VEC>(smem + ((q + 1) & 1) * STAGE_BYTES<O, VEC>, grad_out, taps,
+                          list[q + 1], C, c0);
         copy_wait<1>();
       } else {
         copy_wait<0>();
@@ -706,33 +729,49 @@ roi_align_backward_owner_kernel(RoiLevels maps, Plan plan, const Header* __restr
       __syncthreads();
       const int sp = list_span[q];
       if (owns && p2 >= (sp & 0xffff) && p2 <= (sp >> 16)) {     // the same for the warp
-        const Taps& tp = *reinterpret_cast<const Taps*>(stage + D_BYTES<VEC>);
-        int ia = -1, ib = -1;     // lane l: tap l of a1 and of a2
-        float wa = 0.f, wb = 0.f;
-        if (lane < TAPS) {
-          ia = (&tp.idx[a1][0][0])[lane];
-          wa = (&tp.w[a1][0][0])[lane];
-          ib = (&tp.idx[a2][0][0])[lane];
-          wb = (&tp.w[a2][0][0])[lane];
+        const RoiTaps<O>& tp = *reinterpret_cast<const RoiTaps<O>*>(stage + D_BYTES<O, VEC>);
+        // lane l: taps l and l + 32 of a1 and of a2, where there are that many
+        int ia[LANE_TAPS], ib[LANE_TAPS];
+        float wa[LANE_TAPS], wb[LANE_TAPS];
+#pragma unroll
+        for (int h = 0; h < LANE_TAPS; ++h) {
+          const int k = lane + 32 * h;
+          ia[h] = ib[h] = -1;
+          wa[h] = wb[h] = 0.f;
+          if (k < TAPS) {
+            ia[h] = (&tp.idx[a1][0][0])[k];
+            wa[h] = (&tp.w[a1][0][0])[k];
+            ib[h] = (&tp.idx[a2][0][0])[k];
+            wb[h] = (&tp.w[a2][0][0])[k];
+          }
         }
         // w1 by row of the tile: a bin has at most one tap of nonzero
         // weight on a pixel (repeated columns carry weight 0)
         float* w1 = &w1s[warp][0][0];
-        w1[lane] = 0.f;
-        if (lane < TILE * O - 32) w1[lane + 32] = 0.f;
+#pragma unroll
+        for (int k = 0; k < TILE * O; k += 32)
+          if (k + lane < TILE * O) w1[k + lane] = 0.f;
         __syncwarp();
-        const bool in1 = wa != 0.f && ia >= o1 && ia < o1 + TILE;
-        if (in1) w1s[warp][ia - o1][lane / K] = wa;
-        // rows of bin i: the tile's rows that it has a tap on, 8 bits a bin
-        const int bit = in1 ? (lane / K % 4) * TILE + ia - o1 : 0;
-        const unsigned rows_lo = __reduce_or_sync(FULL, in1 && lane < 4 * K ? 1u << bit : 0u);
-        const unsigned rows_hi = __reduce_or_sync(FULL, in1 && lane >= 4 * K ? 1u << bit : 0u);
-        const unsigned m2 = __ballot_sync(FULL, wb != 0.f && ib == p2);
+        // rows of each bin i: the tile's rows that it has a tap on, 8 bits
+        // a bin, 4 bins a word; tap k's bin k / K lies in word k / 16
+        unsigned rows[2 * LANE_TAPS];
+        unsigned m2[LANE_TAPS];
+#pragma unroll
+        for (int h = 0; h < LANE_TAPS; ++h) {
+          const int k = lane + 32 * h;
+          const bool in1 = wa[h] != 0.f && ia[h] >= o1 && ia[h] < o1 + TILE;
+          if (in1) w1s[warp][ia[h] - o1][k / K] = wa[h];
+          const unsigned bit = in1 ? 1u << ((k / K % 4) * TILE + ia[h] - o1) : 0u;
+          rows[2 * h] = __reduce_or_sync(FULL, lane < 4 * K ? bit : 0u);
+          rows[2 * h + 1] = __reduce_or_sync(FULL, lane >= 4 * K ? bit : 0u);
+          m2[h] = __ballot_sync(FULL, wb[h] != 0.f && ib[h] == p2);
+        }
         float w2[O];                    // w2 of each bin j on this warp's column
 #pragma unroll
         for (int j = 0; j < O; ++j) {
-          const unsigned bits = (m2 >> (K * j)) & 0xfu;
-          const float v = __shfl_sync(FULL, wb, K * j + (bits ? __ffs(bits) - 1 : 0));
+          const int h = K * j / 32, s = K * j % 32;
+          const unsigned bits = (m2[h] >> s) & 0xfu;
+          const float v = __shfl_sync(FULL, wb[h], s + (bits ? __ffs(bits) - 1 : 0));
           w2[j] = bits ? v : 0.f;
         }
         __syncwarp();
@@ -744,8 +783,8 @@ roi_align_backward_owner_kernel(RoiLevels maps, Plan plan, const Header* __restr
         const V* dv = reinterpret_cast<const V*>(stage) + lane;
 #pragma unroll
         for (int i = 0; i < O; ++i) {
-          const unsigned rows = ((i < 4 ? rows_lo : rows_hi) >> ((i % 4) * TILE)) & 0xffu;
-          if (!rows) continue;                                     // the same for the warp
+          const unsigned rw = (rows[i / 4] >> ((i % 4) * TILE)) & 0xffu;
+          if (!rw) continue;                                       // the same for the warp
           float a[VEC];
 #pragma unroll
           for (int e = 0; e < VEC; ++e) a[e] = 0.f;
@@ -755,7 +794,7 @@ roi_align_backward_owner_kernel(RoiLevels maps, Plan plan, const Header* __restr
               add_products<VEC>(w2[j], dv[(w_first ? j * O + i : i * O + j) * 32], a);
 #pragma unroll
           for (int t = 0; t < TILE; ++t)
-            if (rows >> t & 1u) {
+            if (rw >> t & 1u) {
               const float w = w1s[warp][t][i];
 #pragma unroll
               for (int e = 0; e < VEC; ++e) acc[t][e] = __fmaf_rn(w, a[e], acc[t][e]);
@@ -779,20 +818,61 @@ roi_align_backward_owner_kernel(RoiLevels maps, Plan plan, const Header* __restr
       }
 }
 
-template <int VEC>
-int launch(const RoiLevels& maps, const Plan& plan, const Header* headers, const Taps* taps,
-           const void* grad_out, int R, int C, int w_first, cudaStream_t stream) {
+template <int O, int VEC>
+int launch_width(const RoiLevels& maps, const Plan& plan, const Header* headers,
+                 const RoiTaps<O>* taps, const void* grad_out, int R, int C, int w_first,
+                 cudaStream_t stream) {
   int blocks = 0;
   for (int l = 0; l < maps.num_levels; ++l) blocks += plan.blocks[l];
   if (blocks == 0) return 0;
   static const int attributes = int(cudaFuncSetAttribute(
-      roi_align_backward_owner_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES<VEC>));
+      roi_align_backward_owner_kernel<O, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES<O, VEC>));
   if (attributes) return attributes;
   dim3 grid(blocks, (C + 32 * VEC - 1) / (32 * VEC));
-  roi_align_backward_owner_kernel<VEC><<<grid, THREADS, SMEM_BYTES<VEC>, stream>>>(
+  roi_align_backward_owner_kernel<O, VEC><<<grid, Shape<O>::THREADS, SMEM_BYTES<O, VEC>, stream>>>(
       maps, plan, headers, taps, static_cast<const __nv_bfloat16*>(grad_out), R, C, w_first);
   return int(cudaGetLastError());
+}
+
+// The workspace of R RoIs: a header and the taps of each.
+template <int O>
+long long workspace_bytes(int R) {
+  return (long long)R * (sizeof(Header) + sizeof(RoiTaps<O>));
+}
+
+// The plan, the per-RoI kernel, then the owner kernel at the widest chunk.
+template <int O>
+int launch(const RoiLevels& levels, const float* rois, const void* grad_out, int R, int batch,
+           int C, int w_first, float finest_scale, void* workspace, cudaStream_t s) {
+  Plan plan{};
+  long long blocks = 0;
+  for (int l = levels.num_levels - 1; l >= 0; --l) {
+    const int H = levels.height[l], W = levels.width[l];
+    if (H < 0 || W < 0 || H >= (1 << 15) || W >= (1 << 15)) return int(cudaErrorInvalidValue);
+    const int N1 = w_first ? W : H, N2 = w_first ? H : W;
+    plan.first_block[l] = int(blocks);
+    plan.tiles1[l] = (N1 + TILE - 1) / TILE;
+    plan.tiles2[l] = (N2 + Shape<O>::WARPS - 1) / Shape<O>::WARPS;
+    const long long level_blocks = (long long)batch * plan.tiles1[l] * plan.tiles2[l];
+    if (blocks + level_blocks >= (1LL << 31)) return int(cudaErrorInvalidValue);
+    plan.blocks[l] = int(level_blocks);
+    blocks += level_blocks;
+  }
+  auto* headers = static_cast<Header*>(workspace);
+  auto* taps = reinterpret_cast<RoiTaps<O>*>(headers + R);
+  if (R > 0) {
+    roi_meta_kernel<O><<<R, 32, 0, s>>>(levels, rois, batch, w_first, finest_scale, headers,
+                                        taps);
+    const int status = int(cudaGetLastError());
+    if (status) return status;
+  }
+  switch (vec::chunk_width(levels, grad_out, C)) {
+    case 8: return launch_width<O, 8>(levels, plan, headers, taps, grad_out, R, C, w_first, s);
+    case 4: return launch_width<O, 4>(levels, plan, headers, taps, grad_out, R, C, w_first, s);
+    case 2: return launch_width<O, 2>(levels, plan, headers, taps, grad_out, R, C, w_first, s);
+    default: return launch_width<O, 1>(levels, plan, headers, taps, grad_out, R, C, w_first, s);
+  }
 }
 
 }  // namespace owner
@@ -841,25 +921,27 @@ extern "C" int roi_align_launch(const RoiLevels* levels, const void* rois, void*
 
 // The maps' gradient.  levels: float32 gradient maps (B, Hl, Wl, C),
 // contiguous and zeroed by the caller, which this adds into; grad_out
-// (R, 7, 7, C) of the feature type `dtype`; the rest as above.
+// (R, O, O, C) of the feature type `dtype`, O = out_size, 7 or 14; the rest
+// as above.
 extern "C" int roi_align_backward_launch(const RoiLevels* levels, const void* rois,
                                          const void* grad_out, int R, int batch, int C,
                                          int dtype, int w_first, float finest_scale,
-                                         void* stream) {
-  if (levels->num_levels < 1 || levels->num_levels > MAX_LEVELS) return int(cudaErrorInvalidValue);
+                                         int out_size, void* stream) {
+  if (!valid_levels(levels) || (dtype != 0 && dtype != 1) || (out_size != 7 && out_size != 14))
+    return int(cudaErrorInvalidValue);
   if (R == 0) return 0;
   dim3 grid(R, (C + THREADS - 1) / THREADS);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* r = static_cast<const float*>(rois);
-  if (dtype == 0)
-    roi_align_backward_kernel<float><<<grid, THREADS, 0, s>>>(
-        *levels, r, static_cast<const float*>(grad_out), batch, C, w_first, finest_scale);
-  else if (dtype == 1)
-    roi_align_backward_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
-        *levels, r, static_cast<const __nv_bfloat16*>(grad_out), batch, C, w_first,
-        finest_scale);
-  else
-    return int(cudaErrorInvalidValue);
+  const auto go = [&](auto dt, auto o) {
+    using T = decltype(dt);
+    roi_align_backward_kernel<T, decltype(o)::value><<<grid, THREADS, 0, s>>>(
+        *levels, r, static_cast<const T*>(grad_out), batch, C, w_first, finest_scale);
+  };
+  if (dtype == 0 && out_size == 7) go(float{}, std::integral_constant<int, 7>{});
+  else if (dtype == 0) go(float{}, std::integral_constant<int, 14>{});
+  else if (out_size == 7) go(__nv_bfloat16{}, std::integral_constant<int, 7>{});
+  else go(__nv_bfloat16{}, std::integral_constant<int, 14>{});
   return int(cudaGetLastError());
 }
 
@@ -877,53 +959,33 @@ extern "C" int roi_align_bf16_launch(const RoiLevels* levels, const void* rois, 
   return vec::launch<14>(*levels, r, out, R, batch, C, w_first, finest_scale, s);
 }
 
-// The bf16 entry's workspace, in bytes: a header and the taps of every RoI.
-extern "C" long long roi_align_backward_bf16_workspace(int R) {
-  return (long long)R * (sizeof(owner::Header) + sizeof(owner::Taps));
+// The bf16 entry's workspace at O = out_size (7 or 14), in bytes: a header
+// and the taps of every RoI; -1 for another size.
+extern "C" long long roi_align_backward_bf16_workspace(int R, int out_size) {
+  return out_size == 7 ? owner::workspace_bytes<7>(R)
+                       : out_size == 14 ? owner::workspace_bytes<14>(R) : -1;
 }
 
 // The maps' gradient in bfloat16, deterministic.  levels: the bf16 gradient
 // maps (B, Hl, Wl, C), contiguous, which this writes whole (the caller
-// need not zero them); grad_out (R, 7, 7, C) bf16; dtype must be 1;
-// workspace: device memory of `roi_align_backward_bf16_workspace(R)` bytes
-// or more, 16-byte aligned.  The rest as for the float32 entry.
+// need not zero them); grad_out (R, O, O, C) bf16, O = out_size, 7 or 14;
+// dtype must be 1; workspace: device memory of
+// `roi_align_backward_bf16_workspace(R, out_size)` bytes or more, 16-byte
+// aligned.  The rest as for the float32 entry.
 extern "C" int roi_align_backward_bf16_launch(const RoiLevels* levels, const void* rois,
                                               const void* grad_out, int R, int batch, int C,
                                               int dtype, int w_first, float finest_scale,
-                                              void* workspace, long long workspace_bytes,
-                                              void* stream) {
-  const int L = levels->num_levels;
-  if (L < 1 || L > MAX_LEVELS || dtype != 1 || C < 1 || R < 0 || batch < 0 ||
-      workspace_bytes < roi_align_backward_bf16_workspace(R) ||
-      reinterpret_cast<uintptr_t>(workspace) % 16)
+                                              int out_size, void* workspace,
+                                              long long workspace_bytes, void* stream) {
+  const long long need = roi_align_backward_bf16_workspace(R, out_size);
+  if (!valid_levels(levels) || dtype != 1 || C < 1 || R < 0 || batch < 0 || need < 0 ||
+      workspace_bytes < need || reinterpret_cast<uintptr_t>(workspace) % 16)
     return int(cudaErrorInvalidValue);
-  owner::Plan plan{};
-  long long blocks = 0;
-  for (int l = L - 1; l >= 0; --l) {
-    const int H = levels->height[l], W = levels->width[l];
-    if (H < 0 || W < 0 || H >= (1 << 15) || W >= (1 << 15)) return int(cudaErrorInvalidValue);
-    const int N1 = w_first ? W : H, N2 = w_first ? H : W;
-    plan.first_block[l] = int(blocks);
-    plan.tiles1[l] = (N1 + owner::TILE - 1) / owner::TILE;
-    plan.tiles2[l] = (N2 + owner::WARPS - 1) / owner::WARPS;
-    const long long level_blocks = (long long)batch * plan.tiles1[l] * plan.tiles2[l];
-    if (blocks + level_blocks >= (1LL << 31)) return int(cudaErrorInvalidValue);
-    plan.blocks[l] = int(level_blocks);
-    blocks += level_blocks;
-  }
-  auto* headers = static_cast<owner::Header*>(workspace);
-  auto* taps = reinterpret_cast<owner::Taps*>(headers + R);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (R > 0) {
-    owner::roi_meta_kernel<<<R, 32, 0, s>>>(*levels, static_cast<const float*>(rois), batch,
-                                            w_first, finest_scale, headers, taps);
-    const int status = int(cudaGetLastError());
-    if (status) return status;
-  }
-  switch (vec::chunk_width(*levels, grad_out, C)) {
-    case 8: return owner::launch<8>(*levels, plan, headers, taps, grad_out, R, C, w_first, s);
-    case 4: return owner::launch<4>(*levels, plan, headers, taps, grad_out, R, C, w_first, s);
-    case 2: return owner::launch<2>(*levels, plan, headers, taps, grad_out, R, C, w_first, s);
-    default: return owner::launch<1>(*levels, plan, headers, taps, grad_out, R, C, w_first, s);
-  }
+  const float* r = static_cast<const float*>(rois);
+  if (out_size == 7)
+    return owner::launch<7>(*levels, r, grad_out, R, batch, C, w_first, finest_scale, workspace,
+                            s);
+  return owner::launch<14>(*levels, r, grad_out, R, batch, C, w_first, finest_scale, workspace,
+                           s);
 }

@@ -7,16 +7,22 @@ Counterpart of those in `panoswintransformerobjectdetection_tpu/data/
 transforms.py`.  Each transform takes and returns a `results` dict: `img`
 (H, W, 3) float32 BGR, `img_shape`, `ori_shape`, `scale_factor` (4,),
 `pad_shape` after `Pad`, `pano_ratio_v` after `PanoCheck`, and `gt_bboxes`
-and `gt_labels` after `LoadAnnotations`.  The card's machine has no OpenCV,
+and `gt_labels` (and `gt_masks`, (n, H, W) uint8 bitmaps, with
+`with_mask`) after `LoadAnnotations`.  The card's machine has no OpenCV,
 so `Resize` is PyTorch's bilinear `F.interpolate` (half-pixel centres, no
 antialias) where the JAX package calls `cv2.resize(INTER_LINEAR)`: same
 sizes and scale factors, pixel values within about 0.01 of OpenCV's on
-0-255 images.  Only `LoadImageFromFile` reads with OpenCV, imported when it
-runs.  Each augmentation draws from Python's `random` in the calls and the
-order of the JAX transform, so that one seed gives both packages the same
+0-255 images.  The masks are filled as `cv2.fillPoly` fills them
+(`data/fill_poly.py`) and resized as `cv2.INTER_NEAREST` resizes them
+(`resize_nearest`), both pixel for pixel; `RandomFlip` and `Pad` carry
+them, and the augmentations that the JAX package leaves them behind in
+(`PanoStretch`, `RollAug`, `RandomCrop`) refuse them.  Only
+`LoadImageFromFile` reads with OpenCV, imported when it runs.  Each
+augmentation draws from Python's `random` in the calls and the order of
+the JAX transform, so that one seed gives both packages the same
 draws; `pano_stretch` resamples with scipy's `map_coordinates`, as the JAX
-package does.  The photometric distortion (OpenCV's HSV), InstaBoost and
-masks are ROADMAP.md, Queue 1, item 17.
+package does.  The photometric distortion (OpenCV's HSV) and InstaBoost
+are ROADMAP.md, Queue 1, item 17.
 """
 
 import random
@@ -25,6 +31,8 @@ from typing import Sequence
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from .fill_poly import fill_poly
 
 
 class Compose:
@@ -65,20 +73,57 @@ class LoadImageFromFile:
 class LoadAnnotations:
     """The parsed boxes and labels of `results["ann_info"]` as `gt_bboxes`
     and `gt_labels` (the pano variant's BFoV conversion runs when the
-    dataset parses).  Masks are not ported (ROADMAP.md, Queue 1, item 17)."""
+    dataset parses).  `with_mask`: `gt_masks`, one (H, W) uint8 bitmap an
+    object at the image's size, its COCO polygons (those of 3 points or
+    more, truncated to integers) filled together as `cv2.fillPoly` fills
+    them, or, without such a polygon, its box (corners truncated to
+    integers)."""
 
     def __init__(self, with_bbox: bool = True, with_mask: bool = False, **_):
-        if with_mask:
-            raise NotImplementedError("LoadAnnotations(with_mask=True) is not ported yet "
-                                      "(ROADMAP.md, Queue 1, item 17)")
         self.with_bbox = with_bbox
+        self.with_mask = with_mask
 
     def __call__(self, results):
         ann = results["ann_info"]
         results["gt_bboxes"] = ann["bboxes"].astype(np.float32).copy()
         results["gt_labels"] = ann["labels"].astype(np.int64).copy()
+        if self.with_mask:
+            h, w = results["img"].shape[:2]
+            polys = ann.get("polys") or [None] * len(results["gt_bboxes"])
+            masks = np.zeros((len(polys), h, w), np.uint8)
+            for i, pl in enumerate(polys):
+                pts = [np.asarray(pp, np.float64).reshape(-1, 2).astype(np.int32)
+                       for pp in pl or () if len(pp) >= 6]
+                if pts:
+                    fill_poly(masks[i], pts, 1)
+                    continue
+                x1, y1, x2, y2 = results["gt_bboxes"][i].astype(int)
+                masks[i, max(y1, 0):y2, max(x1, 0):x2] = 1
+            results["gt_masks"] = masks
         return results
 
+
+def resize_nearest(masks: np.ndarray, new_w: int, new_h: int) -> np.ndarray:
+    """`cv2.resize(m, (new_w, new_h), interpolation=cv2.INTER_NEAREST)` of
+    each (H, W) mask of `masks` (n, H, W): destination pixel x reads source
+    floor(x * (1 / (new_w / W))), in double precision, clamped to W - 1
+    (OpenCV's `resizeNN`), and so for y."""
+    h, w = masks.shape[1:]
+
+    def source(n_dst, n_src):
+        inv = 1.0 / (n_dst / n_src)
+        return np.minimum(np.floor(np.arange(n_dst) * inv).astype(np.int64), n_src - 1)
+
+    return np.ascontiguousarray(masks[:, source(new_h, h)[:, None], source(new_w, w)[None, :]])
+
+
+def refuse_masks(results, name: str) -> None:
+    """Raise where `results` carries masks that `name` would leave behind
+    (the JAX transform moves the image and the boxes but not the masks)."""
+    if "gt_masks" in results:
+        raise NotImplementedError(f"{name} with masks (LoadAnnotations(with_mask=True)): the "
+                                  "JAX package leaves the masks as they are while the image "
+                                  "moves; no config pairs them")
 
 def resize_image(img: np.ndarray, new_w: int, new_h: int) -> np.ndarray:
     """Bilinear resize of an (H, W, C) image, half-pixel centres, float32."""
@@ -147,6 +192,8 @@ def _resized(results, new_w: int, new_h: int, clip: bool):
             b[:, 0::2] = b[:, 0::2].clip(0, new_w)
             b[:, 1::2] = b[:, 1::2].clip(0, new_h)
         results["gt_bboxes"] = b
+    if "gt_masks" in results and len(results["gt_masks"]):
+        results["gt_masks"] = resize_nearest(results["gt_masks"], new_w, new_h)
     return results
 
 
@@ -175,7 +222,10 @@ class Pad:
     def __call__(self, results):
         img = results["img"]
         h, w = img.shape[:2]
-        img = np.pad(img, ((0, -h % self.size_divisor), (0, -w % self.size_divisor), (0, 0)))
+        ph, pw = -h % self.size_divisor, -w % self.size_divisor
+        img = np.pad(img, ((0, ph), (0, pw), (0, 0)))
+        if (ph or pw) and "gt_masks" in results and len(results["gt_masks"]):
+            results["gt_masks"] = np.pad(results["gt_masks"], ((0, 0), (0, ph), (0, pw)))
         results["img"] = img
         results["pad_shape"] = img.shape
         return results
@@ -192,7 +242,7 @@ class PanoCheck:
 
 class RandomFlip:
     """Horizontal flip with probability `flip_ratio` (one `random.random()`
-    draw); boxes mirrored as w - x.  Sets `flip`."""
+    draw); boxes mirrored as w - x, masks mirrored.  Sets `flip`."""
 
     def __init__(self, flip_ratio: float = 0.5):
         self.flip_ratio = flip_ratio
@@ -207,6 +257,8 @@ class RandomFlip:
                 flipped = b.copy()
                 flipped[:, 0], flipped[:, 2] = img.shape[1] - b[:, 2], img.shape[1] - b[:, 0]
                 results["gt_bboxes"] = flipped
+            if "gt_masks" in results and len(results["gt_masks"]):
+                results["gt_masks"] = np.ascontiguousarray(results["gt_masks"][:, :, ::-1])
         return results
 
 
@@ -259,6 +311,7 @@ class PanoStretch:
         self.kxy = kxy
 
     def __call__(self, results):
+        refuse_masks(results, "PanoStretch")
         if random.random() >= self.chance:
             return results
         kx = random.uniform(1.0, self.kxy[0])
@@ -288,6 +341,7 @@ class RollAug:
         self.clip01 = clip01
 
     def __call__(self, results):
+        refuse_masks(results, "RollAug")
         if random.random() >= self.chance:
             return results
         img = results["img"]
@@ -320,6 +374,7 @@ class RandomCrop:
         self.allow_negative_crop = allow_negative_crop
 
     def __call__(self, results):
+        refuse_masks(results, "RandomCrop")
         img = results["img"]
         h, w = img.shape[:2]
         lo, hi = self.crop_size

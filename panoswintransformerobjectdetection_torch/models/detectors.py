@@ -6,7 +6,8 @@ there as `PanoFasterRCNN`): `extract_feat`, `simple_test` with the default
 test configuration, the two steps of test-time augmentation
 (`extract_proposals`, `bbox_for_rois`) and `forward_train` with the default
 training configuration (random sampler, L1 box loss); and `MaskRCNN`'s
-test-time mask branch (`simple_test_masks`).  The backbone is a PanoSwin
+mask branch, at test time (`simple_test_masks`) and in training (the mask
+loss of `forward_train`).  The backbone is a PanoSwin
 (`models/panoswin.py`) or a stock Swin (`models/swin.py`).  Submodule names
 follow the reference's state-dict keys (`backbone.`, `neck.`, `rpn_head.`,
 `roi_head.bbox_head.`, `roi_head.mask_head.`).
@@ -18,12 +19,12 @@ import torch
 import torch.nn as nn
 
 from ..core.anchors import AnchorGenerator
-from ..core.bbox import clip_boxes, delta_decode
+from ..core.bbox import bbox_overlaps, clip_boxes, delta_decode
 from ..core.sampler import sampler_noise
 from ..ops.nms import DetResult
 from ..ops.roi_align import multilevel_roi_align_dense, roi_align
 from .fpn import FPN
-from .mask_head import FCNMaskHead
+from .mask_head import FCNMaskHead, mask_head_loss, mask_targets
 from .panoswin import PanoSwinTransformer
 from .roi_head import (Shared2FCBBoxHead, bbox_head_detections, bbox_head_loss,
                        sample_rois_for_training)
@@ -62,6 +63,9 @@ MASK_STAGES = STAGES + ("mask_roi_align", "mask_head")
 # The stages of one `forward_train`, in order.
 TRAIN_STAGES = ("stem", "backbone", "fpn", "rpn_head", "rpn_loss", "proposals", "sampling",
                 "roi_align", "bbox_head", "bbox_loss")
+# The stages of one `forward_train` of a detector with a mask head, given
+# `gt_masks`: those of `TRAIN_STAGES`, then the mask branch.
+MASK_TRAIN_STAGES = TRAIN_STAGES + ("mask_roi_align", "mask_head", "mask_targets", "mask_loss")
 # Options of the training configuration that are not ported yet.
 _UNPORTED_RCNN = ("sampler", "reg_loss", "reg_loss_weight")
 
@@ -161,14 +165,17 @@ class PanoFasterRCNN(nn.Module):
             return multilevel_roi_align_dense(feats[:nlvl], rois, self.featmap_strides, out_size)
         return roi_align(feats[:nlvl], rois, self.featmap_strides, out_size)
 
-    def forward_train(self, images, img_shapes, gt_boxes, gt_labels, gt_valid,
+    def forward_train(self, images, img_shapes, gt_boxes, gt_labels, gt_valid, gt_masks=None,
                       noise: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None,
                       generator: Optional[torch.Generator] = None,
                       stage: Callable = run_stage) -> Dict[str, torch.Tensor]:
         """images (B, H, W, 3); img_shapes (B, 2) unpadded (h, w); gt_boxes
-        (B, G, 4) xyxy; gt_labels (B, G); gt_valid (B, G) bool.  Inputs are
-        moved to the model's device.  Returns `loss_rpn_cls`,
-        `loss_rpn_bbox`, `loss_cls`, `loss_bbox` and `acc`.
+        (B, G, 4) xyxy; gt_labels (B, G); gt_valid (B, G) bool; gt_masks
+        (B, G, H', W') {0, 1} bitmaps, read only by a detector with a mask
+        head.  Inputs are moved to the model's device.  Returns
+        `loss_rpn_cls`, `loss_rpn_bbox`, `loss_cls`, `loss_bbox` and `acc`,
+        and `loss_mask` where there is a mask head and `gt_masks`
+        (`_mask_loss`).
 
         The two samplers' uniform noise is `noise["rpn"]`, two (B, anchors)
         tensors, and `noise["rcnn"]`, two (B, G + proposals) tensors; what is
@@ -177,15 +184,12 @@ class PanoFasterRCNN(nn.Module):
         from its own loss alone.  The module must be in train mode: the stem
         then runs with live BatchNorm, whereas the eval stem runs kernel K1,
         which has no backward.  Each stage (`TRAIN_STAGES`) runs as
-        `stage(name, fn)`, as in `simple_test`.
+        `stage(name, fn)`, as in `simple_test` (`MASK_TRAIN_STAGES` with
+        the mask branch).
         """
         if not self.training:
             raise RuntimeError("forward_train needs train mode (call .train()): the eval "
                                "stem runs kernel K1, which has no backward")
-        if self.with_mask:
-            raise NotImplementedError("Mask R-CNN training (mask targets, the mask loss, "
-                                      "K3's backward at 14 x 14) is not ported yet (ROADMAP.md, "
-                                      "Queue 1, item 17)")
         dev = self.device
         noise = dict(noise or {})
         images = torch.as_tensor(images, device=dev)
@@ -226,7 +230,35 @@ class PanoFasterRCNN(nn.Module):
         cls, reg = stage("bbox_head", lambda: self.roi_head.bbox_head(roi_feats))
         out.update(stage("bbox_loss", lambda: bbox_head_loss(cls, reg, samples,
                                                              self.num_classes)))
+        if self.with_mask and gt_masks is not None:
+            out["loss_mask"] = self._mask_loss(feats, samples, torch.as_tensor(
+                gt_masks, device=dev), gt_boxes, gt_valid, stage)
         return out
+
+    def _mask_loss(self, feats, samples, gt_masks, gt_boxes, gt_valid, stage):
+        """The mask branch's loss (JAX `_mask_train_outputs`): the positives
+        are the first `num_samples * pos_fraction` slots of each image; their
+        features are pooled with kernel K3 at `mask_roi_size` bins, whose
+        backward is K3's backward; each slot's target is its ground truth of
+        largest IoU among the valid ones, cropped from `gt_masks`."""
+        rc = self.train_cfg["rcnn"]
+        pos_cap = int(rc["num_samples"] * rc["pos_fraction"])
+        pos_rois = samples.rois[:, :pos_cap]                          # (B, Pc, 5)
+        flat = pos_rois.reshape(-1, 5)
+        mfeats = stage("mask_roi_align", lambda: self.roi_features(feats, flat,
+                                                                  self.mask_roi_size))
+        logits = stage("mask_head", lambda: self.roi_head.mask_head(mfeats))
+
+        def targets():
+            ious = bbox_overlaps(gt_boxes, pos_rois[..., 1:5])         # (B, G, Pc)
+            ious = torch.where(gt_valid[:, :, None], ious, torch.full_like(ious, -1.0))
+            return mask_targets(gt_masks, flat, ious.argmax(1).reshape(-1),
+                                2 * self.mask_roi_size)
+
+        tgts = stage("mask_targets", targets)
+        return stage("mask_loss", lambda: mask_head_loss(
+            logits, tgts, samples.labels[:, :pos_cap].reshape(-1),
+            samples.bbox_weights[:, :pos_cap].reshape(-1)))
 
     @torch.no_grad()
     def simple_test(self, images, img_shapes, scale_factors=None,

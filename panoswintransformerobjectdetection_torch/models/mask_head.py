@@ -1,23 +1,27 @@
-"""FCN mask head and the paste of its masks into the image (Mask R-CNN's
-test-time mask branch).
+"""FCN mask head, its training targets and loss, and the paste of its masks
+into the image (Mask R-CNN's mask branch).
 
-Counterpart of `FCNMaskHead` and `paste_masks` in
+Counterpart of `FCNMaskHead`, `mask_targets_from_bitmaps`,
+`mask_head_loss` and `paste_masks` in
 `panoswintransformerobjectdetection_tpu/models/mask_head.py` (the
 reference's `mask_heads/fcn_mask_head.py`): 4 x (3 x 3 conv + ReLU), a 2 x 2
 stride-2 transposed conv + ReLU and a 1 x 1 conv to per-class logits on the
-14 x 14 RoI features; `paste_masks` is the inverse bilinear resample of each
-detection's 28 x 28 probabilities into the image, thresholded.  Module
+14 x 14 RoI features; `mask_targets` crops each positive RoI's matched
+ground-truth bitmap to 28 x 28 with aligned RoIAlign; `mask_head_loss` is
+the per-pixel BCE on the matched class's channel; `paste_masks` is the
+inverse bilinear resample of each detection's 28 x 28 probabilities into
+the image, thresholded.  Module
 names are the reference checkpoint's (`roi_head.mask_head.convs.{i}.conv`,
 `.upsample`, `.conv_logits`).  The head has no compute type, as the JAX
 head has none: with float32 parameters it computes in float32 whatever the
-features' type.  The training side (mask targets, the mask loss) comes with
-Mask R-CNN training (ROADMAP.md, Queue 1, item 17).
+features' type.
 """
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.roi_align import _axis_taps, _div
 from .layers import conv
 
 
@@ -48,6 +52,55 @@ class FCNMaskHead(nn.Module):
         x = torch.relu(F.conv_transpose2d(x.to(up.weight.dtype), up.weight, up.bias,
                                           stride=up.stride))
         return conv(self.conv_logits, x, None)
+
+
+@torch.no_grad()
+def mask_targets(gt_masks: torch.Tensor, rois: torch.Tensor, gt_idx: torch.Tensor,
+                 out_size: int = 28) -> torch.Tensor:
+    """Each RoI's matched ground-truth bitmap cropped and resized to (out_size,
+    out_size): single-level aligned RoIAlign at scale 1 with 2 x 2 samples a
+    bin, clipped to [0, 1] (JAX `mask_targets_from_bitmaps`, per image).
+
+    gt_masks (B, G, H, W) {0, 1} (uint8 or float), padded as the loader pads
+    them; rois (R, 5) (image index, x1, y1, x2, y2); gt_idx (R,) the matched
+    ground truth of each RoI in its image.  Returns (R, out_size, out_size)
+    float32.  Where the JAX function gathers whole bitmaps for dense
+    interpolation matrices, this reads only each bin's taps: per axis and bin
+    the merged taps of K3's twin (`ops/roi_align._axis_taps`), at most 4
+    rows and 4 columns, in float32.
+    """
+    B, G, H, W = gt_masks.shape
+    R = rois.shape[0]
+    rois = rois.float()
+    dev = rois.device
+    hs = torch.full((R,), float(H), device=dev)
+    ws = torch.full((R,), float(W), device=dev)
+    ys, yw = _axis_taps(rois[:, 2] - 0.5, _div(rois[:, 4] - rois[:, 2], out_size), hs,
+                        torch.float32, out_size)
+    xs, xw = _axis_taps(rois[:, 1] - 0.5, _div(rois[:, 3] - rois[:, 1], out_size), ws,
+                        torch.float32, out_size)
+    plane = rois[:, 0].long() * G + gt_idx.long()                   # (R,)
+    rows = (plane[:, None, None] * H + ys) * W                      # (R, o, 4)
+    taps = gt_masks.reshape(-1)[rows[:, :, :, None, None] + xs[:, None, None]].float()
+    t = (yw[:, :, :, None, None] * taps).sum(2)                     # (R, o, o, 4)
+    out = (xw[:, None] * t).sum(-1)
+    return out.clamp(0.0, 1.0)
+
+
+def mask_head_loss(mask_logits: torch.Tensor, targets: torch.Tensor, labels: torch.Tensor,
+                   weights: torch.Tensor) -> torch.Tensor:
+    """Per-pixel binary cross entropy on the channel of each RoI's class
+    (labels clipped to the classes), targets thresholded at 0.5, averaged
+    over each RoI, then weighted by `weights` (1 for the positives) and
+    divided by their sum (at least 1).  mask_logits (R, classes, m, m);
+    targets (R, m, m); labels, weights (R,)."""
+    R = mask_logits.shape[0]
+    lab = labels.long().clamp(0, mask_logits.shape[1] - 1)
+    logits = mask_logits[torch.arange(R, device=mask_logits.device), lab]
+    t = (targets >= 0.5).to(logits.dtype)
+    bce = logits.clamp(min=0) - logits * t + torch.log1p(torch.exp(-logits.abs()))
+    w = weights.to(logits.dtype)
+    return (bce.mean(dim=(1, 2)) * w).sum() / w.sum().clamp(min=1.0)
 
 
 def paste_masks(mask_probs: torch.Tensor, boxes: torch.Tensor, img_h: int, img_w: int,
@@ -92,4 +145,5 @@ def paste_mask_values(mask_probs: torch.Tensor, boxes: torch.Tensor, img_h: int,
     return torch.where(inside, val, torch.zeros((), device=dev))
 
 
-__all__ = ["FCNMaskHead", "paste_masks", "paste_mask_values"]
+__all__ = ["FCNMaskHead", "mask_targets", "mask_head_loss", "paste_masks",
+           "paste_mask_values"]

@@ -22,10 +22,11 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.windows import make_relative_position_index, swin_attention_mask
 from .layers import LayerNorm, PatchMerging, SingleConvPatchEmbed
-from .panoswin import PanoSwinBlock, _WindowAttentionBase
+from .panoswin import PanoSwinBlock, PanoSwinTransformer, _WindowAttentionBase
 
 
 class SwinWindowAttention(_WindowAttentionBase):
@@ -59,13 +60,19 @@ class SwinBlock(PanoSwinBlock):
 
 class SwinLayer(nn.Module):
     """One stage: blocks with shift 0 and window_size // 2 in turn, then
-    PatchMerging (all stages but the last)."""
+    PatchMerging (all stages but the last).
+
+    `use_checkpoint`: while gradients are recorded, each block runs under
+    `torch.utils.checkpoint`, as the JAX stage wraps it in `nn.remat`, with
+    its two DropPath masks drawn before the call and handed in, as the
+    PanoSwin stage does (`models/panoswin.BasicLayer`)."""
 
     def __init__(self, dim: int, depth: int, num_heads: int, window_size: int,
                  mlp_ratio: float, downsample: bool, dtype, drop_path: Sequence[float],
-                 qkv_bias: bool, qk_scale: Optional[float]):
+                 qkv_bias: bool, qk_scale: Optional[float], use_checkpoint: bool = False):
         super().__init__()
         self.window_size = window_size
+        self.use_checkpoint = use_checkpoint
         self.blocks = nn.ModuleList(
             SwinBlock(dim, num_heads, window_size, 0 if d % 2 == 0 else window_size // 2,
                       mlp_ratio, dtype, drop_path[d], qkv_bias, qk_scale)
@@ -82,7 +89,12 @@ class SwinLayer(nn.Module):
             if shift and shift not in masks:
                 masks[shift] = swin_attention_mask(H + (-H) % ws, W + (-W) % ws, ws, shift,
                                                    device=x.device)
-            x = blk(x, None, masks.get(shift))
+            if self.use_checkpoint and torch.is_grad_enabled():
+                keep = (blk.drop_path1.keep_mask(x), blk.drop_path2.keep_mask(x))
+                x = checkpoint(blk, x, None, masks.get(shift), keep, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = blk(x, None, masks.get(shift))
         return x
 
 
@@ -93,9 +105,9 @@ class SwinTransformer(nn.Module):
     `ape` adds the learned absolute position table of the pretraining size,
     resized to the patch grid by torch's bicubic `F.interpolate`, as the
     reference resizes it.  `drop_path_rate` is the last block's DropPath
-    rate (train mode only).  `use_checkpoint` (activation checkpointing) is
-    not ported: it comes with Mask R-CNN training (ROADMAP.md, Queue 1,
-    item 17).
+    rate (train mode only); `set_drop_path_generator` gives every DropPath
+    one explicit generator.  `use_checkpoint`: activation checkpointing of
+    every block (`SwinLayer`).
     """
 
     def __init__(self, patch_size: int = 4, in_chans: int = 3, embed_dim: int = 96,
@@ -107,10 +119,6 @@ class SwinTransformer(nn.Module):
                  out_indices: Sequence[int] = (0, 1, 2, 3), pretrain_img_size: int = 224,
                  use_checkpoint: bool = False, dtype=None):
         super().__init__()
-        if use_checkpoint:
-            raise NotImplementedError("SwinTransformer(use_checkpoint=True) is not ported yet: "
-                                      "it comes with Mask R-CNN training (ROADMAP.md, Queue 1, "
-                                      "item 17)")
         self.patch_embed = SingleConvPatchEmbed(patch_size, embed_dim, in_chans, patch_norm,
                                                 dtype)
         if ape:
@@ -125,11 +133,13 @@ class SwinTransformer(nn.Module):
         self.layers = nn.ModuleList(
             SwinLayer(embed_dim * 2 ** i, depths[i], num_heads[i], window_size, mlp_ratio,
                       i < n - 1, dtype, dpr[starts[i]:starts[i] + depths[i]], qkv_bias,
-                      qk_scale)
+                      qk_scale, use_checkpoint)
             for i in range(n))
         self.out_indices = tuple(out_indices)
         for i in self.out_indices:
             self.add_module(f"norm{i}", LayerNorm(embed_dim * 2 ** i))
+
+    set_drop_path_generator = PanoSwinTransformer.set_drop_path_generator
 
     def forward(self, images):
         return self.forward_from_embed(self.patch_embed(images))

@@ -9,9 +9,9 @@ serialises gathers.
 
 Direct route (`roi_align`, kernel K3): per axis and bin at most four
 distinct taps, gathered from the RoI's own level, at 7 x 7 bins (the bbox
-head) or 14 x 14 (the mask head; forward only, under inference).  On a CUDA tensor that is
-the kernel `csrc/roi_align.cu`, forward and backward (the gradient of the
-maps is the transposed gather, `roi_align_backward`); on a CPU tensor the
+head) or 14 x 14 (the mask head).  On a CUDA tensor that is the kernel
+`csrc/roi_align.cu`, forward and backward at both sizes (the gradient of
+the maps is the transposed gather, `roi_align_backward`); on a CPU tensor the
 vectorised twin `roi_align_plain`, which does the same arithmetic in the
 same order, with autograd through it.
 
@@ -40,7 +40,7 @@ from . import cuda_build
 from .autograd import backward_through_plain
 
 OUT_SIZE = 7         # the bbox head's bins a side, the default
-KERNEL_OUT_SIZES = (7, 14)   # the sizes K3's forward is built for: bbox and mask heads
+KERNEL_OUT_SIZES = (7, 14)   # the sizes K3 is built for, forward and backward: bbox and mask heads
 SAMPLES = 2          # fixed sample grid per bin side (sampling_ratio=2)
 FINEST_SCALE = 56
 MAX_LEVELS = 4
@@ -56,17 +56,17 @@ class _RoiLevels(ctypes.Structure):
                 ("num_levels", ctypes.c_int)]
 
 
+# The C arguments of K3's forward entries and of its backward's float32
+# entry: levels, rois, output (or gradient), R, batch, C, dtype code,
+# w_first, finest scale, output size, stream.
 LAUNCH_ARGTYPES = [ctypes.POINTER(_RoiLevels), ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_float, ctypes.c_void_p]
+                   ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 # K3's forward entries in `csrc/roi_align.cu`: one thread a channel for
 # float32 (the first version, whose bfloat16 instantiation, at 7 x 7 bins
 # only, `chip_smoke.py` calls to time the redesign against it), vectorised
-# gathers with stage-one reuse for bfloat16.  Both count as launches of K3
-# and take the same C arguments (`FORWARD_ARGTYPES`: the backward's, with
-# the output size before the stream).
+# gathers with stage-one reuse for bfloat16.  Both count as launches of K3.
 ENTRIES = {torch.float32: "roi_align_launch", torch.bfloat16: "roi_align_bf16_launch"}
-FORWARD_ARGTYPES = LAUNCH_ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_void_p]
 
 
 def _div(a: torch.Tensor, d: float) -> torch.Tensor:
@@ -253,27 +253,35 @@ def _roi_align_forward(feats, rois, strides, out_size: int) -> torch.Tensor:
     R = rois.shape[0]
     out = torch.empty((R, out_size, out_size, C), dtype=dtype, device=rois.device)
     levels = level_struct(feats, strides)
-    fn = cuda_build.function("roi_align", ENTRIES[dtype], FORWARD_ARGTYPES)
+    fn = cuda_build.function("roi_align", ENTRIES[dtype], LAUNCH_ARGTYPES)
     stream = torch.cuda.current_stream(rois.device).cuda_stream
     status = fn(ctypes.byref(levels), rois.data_ptr(), out.data_ptr(), R, feats[0].shape[0],
                 C, _DTYPE_CODE[dtype], int(_w_first(feats)), float(FINEST_SCALE), out_size,
                 stream)
     cuda_build.check(status, f"roi_align kernel launch ({ENTRIES[dtype]})")
-    roi_align.launches += 1
-    roi_align.launches_by_size[out_size] += 1
-    roi_align.last_entry = ENTRIES[dtype]
+    count_launch(roi_align, ENTRIES[dtype], out_size)
     return out
+
+
+def count_launch(wrapper, entry: str, out_size: int) -> None:
+    """One launch of `wrapper`'s kernel through `entry` at `out_size` bins:
+    its count, its count by (entry, size) and its last entry."""
+    wrapper.launches += 1
+    key = (entry, out_size)
+    wrapper.launches_by_entry[key] = wrapper.launches_by_entry.get(key, 0) + 1
+    wrapper.last_entry = entry
 
 
 def roi_align_backward_plain(grad_out: torch.Tensor, rois: torch.Tensor,
                              shapes: Sequence[Sequence[int]], dtype: torch.dtype,
                              strides: Sequence[int] = (4, 8, 16, 32)):
-    """Plain version of K3's backward: autograd through `roi_align_plain`.
-    The function is linear in the maps, so their values are not needed."""
+    """Plain version of K3's backward: autograd through `roi_align_plain` at
+    grad_out's size (R, o, o, C), any o.  The function is linear in the
+    maps, so their values are not needed."""
     feats = [torch.zeros(tuple(s), dtype=dtype, device=rois.device, requires_grad=True)
              for s in shapes]
     with torch.enable_grad():
-        out = roi_align_plain(feats, rois, strides)
+        out = roi_align_plain(feats, rois, strides, grad_out.shape[1])
     return torch.autograd.grad(out, feats, grad_out.to(dtype))
 
 
@@ -287,19 +295,20 @@ BACKWARD_BF16_ARGTYPES = LAUNCH_ARGTYPES[:-1] + [ctypes.c_void_p, ctypes.c_longl
                                                  ctypes.c_void_p]
 
 
-def backward_workspace_bytes(R: int) -> int:
-    """The bf16 entry's workspace for R RoIs (a header and the taps of
-    each), as `csrc/roi_align.cu` sizes it."""
+def backward_workspace_bytes(R: int, out_size: int = OUT_SIZE) -> int:
+    """The bf16 entry's workspace for R RoIs at `out_size` bins (a header
+    and the taps of each), as `csrc/roi_align.cu` sizes it."""
     fn = cuda_build.library("roi_align").roi_align_backward_bf16_workspace
-    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
-    return fn(R)
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_longlong
+    return fn(R, out_size)
 
 
 def roi_align_backward(grad_out: torch.Tensor, rois: torch.Tensor,
                        shapes: Sequence[Sequence[int]], dtype: torch.dtype,
                        strides: Sequence[int] = (4, 8, 16, 32)):
     """K3's backward: the gradient of the level maps (B, Hl, Wl, C), of
-    `shapes` and `dtype`, given grad_out (R, 7, 7, C): every tap's
+    `shapes` and `dtype`, given grad_out (R, o, o, C), o = 7 or 14 on the
+    card (any on the CPU): every tap's
     grad_out * w1 * w2 added to its pixel of the RoI's own level, the
     stage-one gradient w2 * grad_out rounded to `dtype`, the sums in float32
     and rounded once.  The rois get no gradient.
@@ -314,11 +323,11 @@ def roi_align_backward(grad_out: torch.Tensor, rois: torch.Tensor,
         return roi_align_backward_plain(grad_out, rois, shapes, dtype, strides)
     if grad_out.device.type != "cuda":
         raise ValueError(f"roi_align_backward: unsupported device {grad_out.device}")
-    if grad_out.dim() == 4 and grad_out.shape[1] != OUT_SIZE:
-        raise NotImplementedError(
-            f"roi_align_backward: kernel K3's backward is built for {OUT_SIZE} x {OUT_SIZE} "
-            f"bins; at {grad_out.shape[1]} x {grad_out.shape[2]} it comes with Mask R-CNN "
-            "training (ROADMAP.md, Queue 1, item 17)")
+    o = grad_out.shape[1] if grad_out.dim() == 4 else 0
+    if o not in KERNEL_OUT_SIZES:
+        raise ValueError(f"roi_align_backward: kernel K3's backward is built for "
+                         f"{KERNEL_OUT_SIZES} bins a side, not a gradient of "
+                         f"{tuple(grad_out.shape)} (ROADMAP.md, Queue 2)")
     L = len(shapes)
     B, C = shapes[0][0], shapes[0][3]
     R = rois.shape[0]
@@ -327,7 +336,7 @@ def roi_align_backward(grad_out: torch.Tensor, rois: torch.Tensor,
     if dtype not in _DTYPE_CODE or grad_out.dtype != dtype:
         raise TypeError(f"roi_align_backward: maps {dtype}, gradient {grad_out.dtype}")
     _check_rois(rois, "roi_align_backward")
-    if tuple(grad_out.shape) != (R, OUT_SIZE, OUT_SIZE, C) or rois.device != grad_out.device:
+    if tuple(grad_out.shape) != (R, o, o, C) or rois.device != grad_out.device:
         raise ValueError(f"roi_align_backward: gradient {tuple(grad_out.shape)} on "
                          f"{grad_out.device} for {R} rois on {rois.device}, C = {C}")
     if any(len(s) != 4 or s[0] != B or s[3] != C for s in shapes):
@@ -337,11 +346,11 @@ def roi_align_backward(grad_out: torch.Tensor, rois: torch.Tensor,
     dev = grad_out.device
     entry = BACKWARD_ENTRIES[dtype]
     args = (rois.data_ptr(), grad_out.data_ptr(), R, B, C, _DTYPE_CODE[dtype],
-            int(_w_first(shapes)), float(FINEST_SCALE))
+            int(_w_first(shapes)), float(FINEST_SCALE), o)
     stream = torch.cuda.current_stream(dev).cuda_stream
     if dtype == torch.bfloat16:
         grads = [torch.empty(tuple(s), dtype=dtype, device=dev) for s in shapes]
-        workspace = torch.empty(backward_workspace_bytes(R), dtype=torch.uint8, device=dev)
+        workspace = torch.empty(backward_workspace_bytes(R, o), dtype=torch.uint8, device=dev)
         fn = cuda_build.function("roi_align", entry, BACKWARD_BF16_ARGTYPES)
         status = fn(ctypes.byref(level_struct(grads, strides)), *args, workspace.data_ptr(),
                     workspace.numel(), stream)
@@ -352,12 +361,12 @@ def roi_align_backward(grad_out: torch.Tensor, rois: torch.Tensor,
         fn = cuda_build.function("roi_align", entry, LAUNCH_ARGTYPES)
         status = fn(ctypes.byref(level_struct(grads, strides)), *args, stream)
     cuda_build.check(status, f"roi_align backward kernel launch ({entry})")
-    roi_align_backward.launches += 1
-    roi_align_backward.last_entry = entry
+    count_launch(roi_align_backward, entry, o)
     return tuple(grads)
 
 
 roi_align_backward.launches = 0
+roi_align_backward.launches_by_entry = {}     # (entry, out_size) -> launches
 roi_align_backward.last_entry = None
 
 
@@ -382,7 +391,7 @@ class _RoIAlign(torch.autograd.Function):
 def roi_align(feats: Sequence[torch.Tensor], rois: torch.Tensor,
               strides: Sequence[int] = (4, 8, 16, 32), out_size: int = OUT_SIZE) -> torch.Tensor:
     """K3.  Same contract as `roi_align_plain`.  Differentiable in the maps
-    (`roi_align_backward`, 7 x 7 bins only), not in the rois.
+    (`roi_align_backward`), not in the rois.
 
     A CPU tensor takes the twin, at any `out_size`; a CUDA tensor launches
     the kernel (7 or 14 bins a side) or raises.
@@ -396,7 +405,7 @@ def roi_align(feats: Sequence[torch.Tensor], rois: torch.Tensor,
 
 
 roi_align.launches = 0
-roi_align.launches_by_size = dict.fromkeys(KERNEL_OUT_SIZES, 0)   # the launches at each size
+roi_align.launches_by_entry = {}              # (entry, out_size) -> launches
 roi_align.last_entry = None
 
 

@@ -25,7 +25,8 @@ def make_train_step(detector, optimizer: torch.optim.Optimizer, scheduler=None) 
     """Returns step(batch, noise=None, generator=None, stage=...) -> metrics.
 
     batch: dict of `images` (B, H, W, 3), `img_shapes` (B, 2), `gt_boxes`
-    (B, G, 4), `gt_labels` (B, G), `gt_valid` (B, G).  `noise` and
+    (B, G, 4), `gt_labels` (B, G), `gt_valid` (B, G), and `gt_masks` (B, G,
+    H', W') where the loader made them (the mask loss).  `noise` and
     `generator` go to `forward_train`'s samplers.  The step updates the
     detector's parameters and the stem's running statistics in place.
     """
@@ -36,8 +37,9 @@ def make_train_step(detector, optimizer: torch.optim.Optimizer, scheduler=None) 
              stage: Callable = run_stage) -> Dict[str, torch.Tensor]:
         optimizer.zero_grad(set_to_none=True)
         out = detector.forward_train(batch["images"], batch["img_shapes"], batch["gt_boxes"],
-                                     batch["gt_labels"], batch["gt_valid"], noise=noise,
-                                     generator=generator, stage=stage)
+                                     batch["gt_labels"], batch["gt_valid"],
+                                     batch.get("gt_masks"), noise=noise, generator=generator,
+                                     stage=stage)
         total = sum(v for k, v in out.items() if "loss" in k)
         stage("backward", total.backward)
 

@@ -347,5 +347,5 @@ def test_unported_pipeline_steps_raise(step):
         set(jb.PIPELINES)
     with pytest.raises(NotImplementedError, match=f"{step}.*item 17"):
         tb.build_pipeline([{"type": step}])
-    with pytest.raises(NotImplementedError, match="with_mask.*item 17"):
-        ttr.LoadAnnotations(with_mask=True)
+    # masks are ported (`test_torch_mask_pipeline.py`)
+    assert ttr.LoadAnnotations(with_mask=True).with_mask

@@ -20,7 +20,8 @@ the stage-one rounding and one in the result).  K3's backward float32
 1e-5 * max(1, max|ref|) (atomic adds in any order); bfloat16 2 * 2**-8 *
 max|ref| (each pixel's f32 sum is rounded once; the bf16 entry adds w1
 times a sum over the bins j, the plain version each product, in another
-order).  The bf16 entry must give the same bits on every run.
+order).  The bf16 entry must give the same bits on every run.  K3's
+backward is held at 7 and 14 bins a side alike.
 """
 
 import ctypes
@@ -192,7 +193,7 @@ def test_wrappers_refuse_bad_input(cuda_device):
                      torch.zeros((1, 5), device=cuda_device), STRIDES)
     # the C entries refuse what they do not take: the vectorised entry any
     # type but bfloat16, no channels, five levels
-    fn = cuda_build.function("roi_align", ra.ENTRIES[torch.bfloat16], ra.FORWARD_ARGTYPES)
+    fn = cuda_build.function("roi_align", ra.ENTRIES[torch.bfloat16], ra.LAUNCH_ARGTYPES)
     out = torch.empty((1, 7, 7, 4), device=cuda_device)
     rois = torch.zeros((1, 5), device=cuda_device)
     stream = torch.cuda.current_stream().cuda_stream
@@ -204,13 +205,13 @@ def test_wrappers_refuse_bad_input(cuda_device):
                   56.0, o, stream) != 0
     # the first-version entry takes bfloat16 at 7 only (the vectorised
     # entry serves it at 14), and float32 at 7 and 14
-    first = cuda_build.function("roi_align", ra.ENTRIES[torch.float32], ra.FORWARD_ARGTYPES)
+    first = cuda_build.function("roi_align", ra.ENTRIES[torch.float32], ra.LAUNCH_ARGTYPES)
     levels.num_levels = 1
     assert first(ctypes.byref(levels), rois.data_ptr(), out.data_ptr(), 1, 1, 4, 1, 1, 56.0, 14,
                  stream) != 0
-    # the backward is built for 7 x 7 bins only
-    with pytest.raises(NotImplementedError, match="item 17"):
-        ra.roi_align_backward(torch.zeros((1, 14, 14, 4), device=cuda_device), rois,
+    # the backward is built for 7 and 14 bins a side only
+    with pytest.raises(ValueError, match="Queue 2"):
+        ra.roi_align_backward(torch.zeros((1, 10, 10, 4), device=cuda_device), rois,
                               [(1, 8, 16, 4)], torch.float32, STRIDES)
 
 
@@ -412,9 +413,9 @@ def _backward_tol(ref, dtype):
     return 1e-5 * max(1.0, scale) if dtype == torch.float32 else 2 * 2.0 ** -8 * scale
 
 
-def _untouched(feats, rois):
+def _untouched(feats, rois, out_size=7):
     """Per level, the pixels that no tap of nonzero weight names, (B, Hl, Wl)."""
-    rows, w1, w2 = ra.tap_rows(feats, rois, STRIDES)
+    rows, w1, w2 = ra.tap_rows(feats, rois, STRIDES, out_size)
     need = (w1[:, :, :, None, None] != 0) & (w2[:, None, None] != 0)
     _, valid = ra.batch_index(rois, feats[0].shape[0])
     touched = torch.zeros(sum(f.shape[0] * f.shape[1] * f.shape[2] for f in feats),
@@ -427,10 +428,12 @@ def _untouched(feats, rois):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("wide", [True, False])
-def test_roi_align_backward_kernel_matches_autograd_through_twin(cuda_device, dtype, wide):
+@pytest.mark.parametrize("o", [7, 14])
+def test_roi_align_backward_kernel_matches_autograd_through_twin(cuda_device, dtype, wide, o):
     """C = 320 leaves a partial slice of channels; overlapping RoIs add into
     the same pixels; a RoI with a bad batch index adds nothing; pixels no
-    RoI touches are exactly 0; the bf16 entry gives the same bits twice."""
+    RoI touches are exactly 0; the bf16 entry gives the same bits twice; at
+    7 and 14 bins a side (the bbox and the mask head)."""
     feats, rois = _roi_case(6, P=24)
     rois[3, 0] = 7.0
     if not wide:
@@ -438,19 +441,21 @@ def test_roi_align_backward_kernel_matches_autograd_through_twin(cuda_device, dt
         rois = rois[:, [0, 2, 1, 4, 3]].copy()
     tr = torch.from_numpy(rois).to(cuda_device)
     shapes = [f.shape for f in feats]
-    cot = torch.randn((rois.shape[0], 7, 7, 320), generator=torch.Generator().manual_seed(3))
+    cot = torch.randn((rois.shape[0], o, o, 320), generator=torch.Generator().manual_seed(3))
     cot = cot.to(dtype).to(cuda_device)
     before = ra.roi_align_backward.launches
+    by_entry = ra.roi_align_backward.launches_by_entry.get((ra.BACKWARD_ENTRIES[dtype], o), 0)
     got = ra.roi_align_backward(cot, tr, shapes, dtype, STRIDES)
     torch.cuda.synchronize()
     assert ra.roi_align_backward.launches == before + 1
     assert ra.roi_align_backward.last_entry == ra.BACKWARD_ENTRIES[dtype]
+    assert ra.roi_align_backward.launches_by_entry[(ra.BACKWARD_ENTRIES[dtype], o)] == by_entry + 1
     ref = ra.roi_align_backward_plain(cot, tr, shapes, dtype, STRIDES)
     for a, b in zip(got, ref):
         assert a.shape == b.shape and a.dtype == dtype
         torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=_backward_tol(b, dtype))
     tf = [torch.from_numpy(f).to(dtype).to(cuda_device) for f in feats]
-    blanks = _untouched(tf, tr)
+    blanks = _untouched(tf, tr, o)
     assert any(blank.any() for blank in blanks)
     for a, blank in zip(got, blanks):
         assert torch.equal(a[blank], torch.zeros_like(a[blank]))
@@ -460,7 +465,7 @@ def test_roi_align_backward_kernel_matches_autograd_through_twin(cuda_device, dt
     # through autograd: the function's backward is the kernel
     tf = [t.requires_grad_() for t in tf]
     launched = ra.roi_align_backward.launches
-    ra.roi_align(tf, tr, STRIDES).backward(cot)
+    ra.roi_align(tf, tr, STRIDES, o).backward(cot)
     assert ra.roi_align_backward.launches == launched + 1
     for t, b in zip(tf, ref):
         torch.testing.assert_close(t.grad.float(), b.float(), rtol=0, atol=_backward_tol(b, dtype))
@@ -471,18 +476,19 @@ def test_roi_align_backward_kernel_matches_autograd_through_twin(cuda_device, dt
 @pytest.mark.parametrize("wide", [True, False])
 @pytest.mark.parametrize("C", [8, 24, 256])
 @pytest.mark.parametrize("aligned", [True, False])
-def test_roi_align_backward_kernel_channels(cuda_device, dtype, wide, C, aligned):
+@pytest.mark.parametrize("o", [7, 14])
+def test_roi_align_backward_kernel_channels(cuda_device, dtype, wide, C, aligned, o):
     """C = 8, 24 and 256 (one lane, three and all 32 lanes of 16-byte
     chunks in the bf16 entry); a gradient that starts 2 elements into its
     storage forces 4-byte chunks.  64 x 256 maps (wide) and their transpose
-    (tall); R = 2 x 9."""
+    (tall); R = 2 x 9; 7 and 14 bins a side."""
     feats, rois = _roi_case(9, P=9, H=64, W=256, C=C)
     if not wide:
         feats = [f.transpose(0, 2, 1, 3).copy() for f in feats]
         rois = rois[:, [0, 2, 1, 4, 3]].copy()
     tr = torch.from_numpy(rois).to(cuda_device)
     shapes = [f.shape for f in feats]
-    g = torch.randn((rois.shape[0], 7, 7, C), generator=torch.Generator().manual_seed(4))
+    g = torch.randn((rois.shape[0], o, o, C), generator=torch.Generator().manual_seed(4))
     store = torch.zeros(g.numel() + 2, dtype=dtype, device=cuda_device)
     cot = store[:g.numel()] if aligned else store[2:]
     cot = cot.view(g.shape)
@@ -497,13 +503,14 @@ def test_roi_align_backward_kernel_channels(cuda_device, dtype, wide, C, aligned
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_roi_align_backward_kernel_no_rois_and_bad_batch_index(cuda_device, dtype):
+@pytest.mark.parametrize("o", [7, 14])
+def test_roi_align_backward_kernel_no_rois_and_bad_batch_index(cuda_device, dtype, o):
     """R = 0 gives maps of exact zeros (the bf16 entry writes them itself);
     RoIs whose batch index lies outside [0, B), or is NaN, add nothing."""
     feats, rois = _roi_case(10, P=6, H=64, W=128, C=64)
     shapes = [f.shape for f in feats]
     tr = torch.from_numpy(rois).to(cuda_device)
-    cot = torch.randn((rois.shape[0], 7, 7, 64), device=cuda_device).to(dtype)
+    cot = torch.randn((rois.shape[0], o, o, 64), device=cuda_device).to(dtype)
     none = ra.roi_align_backward(cot[:0], tr[:0], shapes, dtype, STRIDES)
     torch.cuda.synchronize()
     assert ra.roi_align_backward.last_entry == ra.BACKWARD_ENTRIES[dtype]
@@ -521,7 +528,8 @@ def test_roi_align_backward_kernel_no_rois_and_bad_batch_index(cuda_device, dtyp
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("clustered", [False, True], ids=["spread", "clustered"])
-def test_roi_align_backward_bf16_many_rois(cuda_device, clustered):
+@pytest.mark.parametrize("o", [7, 14])
+def test_roi_align_backward_bf16_many_rois(cuda_device, clustered, o):
     """More RoIs than a block of the bf16 entry lists at a time (2048), so
     that it lists them in rounds; `clustered` jitters every RoI around one
     box an image, so that a few tiles take them all: the plain version's
@@ -533,7 +541,7 @@ def test_roi_align_backward_bf16_many_rois(cuda_device, clustered):
         rois[:, 1:] = box + rng.uniform(-6, 6, (rois.shape[0], 4)).astype(np.float32)
     shapes = [f.shape for f in feats]
     tr = torch.from_numpy(rois).to(cuda_device)
-    cot = torch.randn((rois.shape[0], 7, 7, 64), generator=torch.Generator().manual_seed(5))
+    cot = torch.randn((rois.shape[0], o, o, 64), generator=torch.Generator().manual_seed(5))
     cot = cot.bfloat16().to(cuda_device)
     got = ra.roi_align_backward(cot, tr, shapes, torch.bfloat16, STRIDES)
     again = ra.roi_align_backward(cot, tr, shapes, torch.bfloat16, STRIDES)
@@ -568,10 +576,13 @@ def test_training_wrappers_refuse_bad_input(cuda_device):
     fn = cuda_build.function("roi_align", ra.BACKWARD_ENTRIES[torch.bfloat16],
                              ra.BACKWARD_BF16_ARGTYPES)
     need = ra.backward_workspace_bytes(2)
-    workspace = torch.empty(need, dtype=torch.uint8, device=cuda_device)
-    for dtype_code, size in ((0, need), (1, need - 1)):
+    assert ra.backward_workspace_bytes(2, 14) > need
+    workspace = torch.empty(ra.backward_workspace_bytes(2, 14), dtype=torch.uint8,
+                            device=cuda_device)
+    # another dtype code, a workspace too small, an output size other than 7 and 14
+    for dtype_code, size, o in ((0, need, 7), (1, need - 1, 7), (1, need, 14), (1, need, 10)):
         assert fn(ctypes.byref(ra.level_struct(maps, STRIDES)), rois.data_ptr(), cot.data_ptr(),
-                  2, 1, 4, dtype_code, 1, 56.0, workspace.data_ptr(), size,
+                  2, 1, 4, dtype_code, 1, 56.0, o, workspace.data_ptr(), size,
                   torch.cuda.current_stream().cuda_stream) != 0
 
 

@@ -29,7 +29,6 @@ import torch
 from panoswintransformerobjectdetection_tpu.apis.test import \
     single_device_test as jax_single_device_test
 from panoswintransformerobjectdetection_tpu.data import builder as jb
-from panoswintransformerobjectdetection_tpu.models import DETECTORS, build
 from panoswintransformerobjectdetection_tpu.models.mask_head import FCNMaskHead as JaxMaskHead
 from panoswintransformerobjectdetection_tpu.models.mask_head import \
     paste_masks as jax_paste_masks
@@ -43,27 +42,19 @@ from panoswintransformerobjectdetection_torch.data import builder as tb
 from panoswintransformerobjectdetection_torch.models.detectors import MaskRCNN
 from panoswintransformerobjectdetection_torch.models.mask_head import (FCNMaskHead,
                                                                        paste_mask_values)
-from panoswintransformerobjectdetection_torch.runtime.checkpoint import (_mask_head,
-                                                                         from_jax_variables)
+from panoswintransformerobjectdetection_torch.runtime.checkpoint import _mask_head
 from panoswintransformerobjectdetection_torch.runtime.config import load_config
 from panoswintransformerobjectdetection_torch.tools import test as test_cli
-from torch_port_common import (quick_jit, random_reference_state_dict,  # noqa: F401
-                               random_variables, single_torch_thread, to_numpy)
+from torch_port_common import (TINY_MASK_RCNN, quick_jit,  # noqa: F401
+                               random_reference_state_dict, random_variables,
+                               single_torch_thread, tiny_swin_mask_rcnn, to_numpy)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SWIN_MASK_CONFIG = os.path.join(ROOT, "configs/swin/mask_rcnn_swin_tiny_patch4_window7_coco.py")
 PANO_MASK_CONFIG = os.path.join(ROOT, "configs/panoswin/mask_rcnn_panoswin_tiny_coco.py")
 H, W, N_IMAGES = 64, 96, 4
 CLASSES = ("a", "b", "c", "d", "e")
-TINY = {"type": "MaskRCNN", "with_mask": True,
-        "backbone": {"type": "SwinTransformer", "embed_dim": 16, "depths": (2, 2, 2, 2),
-                     "num_heads": (1, 2, 2, 4), "window_size": 4, "drop_path_rate": 0.0},
-        "neck": {"type": "FPN", "in_channels": (16, 32, 64, 128), "out_channels": 16,
-                 "num_outs": 5},
-        "num_classes": 5,
-        "test_cfg": {"rpn": {"nms_pre": 256, "max_per_img": 64, "iou_threshold": 0.7,
-                             "min_bbox_size": 0},
-                     "rcnn": {"score_thr": 0.05, "iou_threshold": 0.5, "max_per_img": 8}}}
+TINY = TINY_MASK_RCNN
 PIPELINE = [{"type": "LoadImageFromFile"},
             {"type": "Resize", "img_scale": (H, 1333), "keep_ratio": True},
             {"type": "Normalize", "mean": [123.675, 116.28, 103.53],
@@ -75,13 +66,13 @@ PIPELINE = [{"type": "LoadImageFromFile"},
 
 @pytest.fixture(scope="module")
 def tiny():
-    """The JAX tiny Mask R-CNN, its variables, the port's copy, and
-    `simple_test_masks` of JAX compiled once (`quick_jit`) at the loop's
-    batch shape."""
-    det = build(DETECTORS, dict(TINY))
-    variables = random_variables(det, jnp.zeros((1, H, W, 3), jnp.float32), seed=5)
+    """The JAX tiny Mask R-CNN, its variables, the port's copy (all built
+    once a process, `tiny_swin_mask_rcnn`), and `simple_test_masks` of JAX
+    compiled once (`quick_jit`) at the loop's batch shape."""
+    shared = tiny_swin_mask_rcnn()
+    det, variables = shared["det"], shared["variables"]
     model = build_detector_from_cfg({"model": TINY})
-    model.load_state_dict(from_jax_variables(to_numpy(variables["params"]), {}), strict=True)
+    model.load_state_dict(shared["state_dict"], strict=True)
     model.eval()
     args = (jnp.zeros((2, H, W, 3)), jnp.zeros((2, 2)), jnp.zeros((2, 4)))
     compiled = jax.jit(lambda v, a, b, c: det.apply(v, a, b, c, method=det.simple_test_masks)

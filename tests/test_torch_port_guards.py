@@ -89,12 +89,12 @@ def test_cpu_tensors_take_the_twins():
     assert torch.equal(stem_conv.stem_conv(args[0], packed), stem_conv.stem_conv_plain(*args))
     feats = [torch.rand(1, 8 // s, 16 // s, 4) for s in (1, 2, 4, 8)]
     rois = torch.tensor([[0.0, 1.0, 2.0, 20.0, 12.0]])
-    by_size = dict(roi_align.roi_align.launches_by_size)
+    by_entry = dict(roi_align.roi_align.launches_by_entry)
     out = roi_align.roi_align(feats, rois, (4, 8, 16, 32))
     assert out.shape == (1, 7, 7, 4)
     mask_out = roi_align.roi_align(feats, rois, (4, 8, 16, 32), 14)
     assert torch.equal(mask_out, roi_align.roi_align_plain(feats, rois, (4, 8, 16, 32), 14))
-    assert mask_out.shape == (1, 14, 14, 4) and roi_align.roi_align.launches_by_size == by_size
+    assert mask_out.shape == (1, 14, 14, 4) and roi_align.roi_align.launches_by_entry == by_entry
     grads = roi_align.roi_align_backward(torch.ones_like(out), rois, [f.shape for f in feats],
                                          torch.float32, (4, 8, 16, 32))
     assert [g.shape for g in grads] == [f.shape for f in feats] and grads[0].any()
@@ -125,7 +125,8 @@ def test_modules_list_covers_the_slice():
                 "native", "geometry.projection", "data.datasets", "data.wrappers",
                 "data.builder", "data.loader", "apis.test", "utils.visualize", "tools.test",
                 "tools.eval_metric", "tools.image_demo", "runtime.hooks", "apis.train",
-                "tools.train", "models.layers", "models.swin", "models.mask_head"):
+                "tools.train", "models.layers", "models.swin", "models.mask_head",
+                "data.fill_poly"):
         assert f"{port.__name__}.{sub}" in names
         importlib.import_module(f"{port.__name__}.{sub}")
 

@@ -96,8 +96,8 @@ def test_swin_names_are_the_reference_checkpoint_keys():
         assert key in sd, key
     assert sd["layers.0.blocks.0.attn.relative_position_bias_table"].shape == (169, 1)
     assert "layers.3.downsample.reduction.weight" not in sd
-    with pytest.raises(NotImplementedError, match="item 17"):
-        SwinTransformer(**FOUR, use_checkpoint=True)
+    # activation checkpointing changes no key (its gradients: test_torch_mask_train.py)
+    assert set(SwinTransformer(**FOUR, ape=True, use_checkpoint=True).state_dict()) == set(sd)
 
 
 def test_bias_tables_of_another_window_are_resized():

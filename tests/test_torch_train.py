@@ -24,7 +24,6 @@ can land 2 * lr apart, and is left out.  Running statistics 1e-5.
 import numpy as np
 import jax
 import jax.numpy as jnp
-import optax
 import pytest
 import torch
 
@@ -40,7 +39,8 @@ from panoswintransformerobjectdetection_torch.runtime import train as ttrain
 from panoswintransformerobjectdetection_torch.runtime.checkpoint import (from_jax_backbone,
                                                                          from_jax_variables)
 from torch_port_common import (TINY_TRAIN_CFG, jax_sampler_noise,  # noqa: F401
-                               quick_jit, single_torch_thread, tiny_detector, to_numpy)
+                               quick_jit, recording, single_torch_thread, tiny_detector,
+                               to_numpy)
 
 B, H, W, G = 2, 32, 64, 3
 LR = 1e-2
@@ -102,18 +102,6 @@ def test_train_mode_stem_matches_flax(dtype):
     assert mod.eval().kernel_weights(torch.float32) is not eval_weights
 
 
-def _recording(tx):
-    """`tx`, with the gradients it was given kept in its state."""
-    def init(params):
-        return tx.init(params), jax.tree.map(jnp.zeros_like, params)
-
-    def update(grads, state, params=None):
-        updates, inner = tx.update(grads, state[0], params)
-        return updates, (inner, grads)
-
-    return optax.GradientTransformation(init, update)
-
-
 @pytest.fixture(scope="module")
 def step_pair():
     """One training step on both sides."""
@@ -127,7 +115,7 @@ def step_pair():
                                   np.float32),
              "gt_labels": np.array([[0, 3, 0], [1, 4, 2]], np.int32),
              "gt_valid": np.array([[True, True, False], [True, True, True]])}
-    tx = _recording(make_optimizer(variables["params"], base_lr=LR, warmup_iters=0))
+    tx = recording(make_optimizer(variables["params"], base_lr=LR, warmup_iters=0))
     state = TrainState(step=jnp.zeros((), jnp.int32), params=variables["params"],
                        batch_stats=variables["batch_stats"],
                        opt_state=tx.init(variables["params"]), tx=tx)

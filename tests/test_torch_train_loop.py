@@ -38,7 +38,6 @@ the JAX CLI hands it.
 """
 
 import functools
-import importlib.util
 import json
 import logging
 import os
@@ -69,7 +68,8 @@ from panoswintransformerobjectdetection_torch.runtime import hooks as thooks
 from panoswintransformerobjectdetection_torch.runtime import optim as toptim
 from panoswintransformerobjectdetection_torch.runtime.checkpoint import from_jax_variables
 from panoswintransformerobjectdetection_torch.tools import train as train_cli
-from torch_port_common import (TINY_TRAIN_CFG, jax_sampler_noise,  # noqa: F401
+from torch_port_common import (TINY_TRAIN_CFG, Recorder, adam_mu,  # noqa: F401
+                               jax_step_noise, jax_train_cli, quick_jit_train_step,
                                single_torch_thread, tiny_detector, to_numpy, write_coco_set)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -120,58 +120,6 @@ def reference_pth(tmp_path_factory):
     return path
 
 
-class Recorder(thooks.Hook, jhooks.Hook):
-    """Keeps every step's metrics and the hook calls in order."""
-
-    def __init__(self):
-        self.steps, self.calls = [], []
-
-    def before_train(self, ctx):
-        self.calls.append("before_train")
-
-    def before_epoch(self, ctx):
-        self.calls.append("before_epoch")
-
-    def after_iter(self, ctx):
-        self.calls.append("after_iter")
-        self.steps.append(dict(ctx["metrics"], step=ctx["step"]))
-
-    def after_epoch(self, ctx):
-        self.calls.append("after_epoch")
-
-    def after_train(self, ctx):
-        self.calls.append("after_train")
-
-
-def _quick_jit_train_step(step_fn, mesh):
-    """`jit_train_step` compiled at XLA's backend optimisation level 0."""
-    compiled = {}
-
-    def run(state, batch, rng):
-        if "fn" not in compiled:
-            compiled["fn"] = jax.jit(step_fn).lower(state, batch, rng).compile(
-                compiler_options={"xla_backend_optimization_level": 0})
-        return compiled["fn"](state, batch, rng)
-
-    return run
-
-
-def _jax_step_noise(det, variables, model, seed, step, batch):
-    """The sampler noise of the JAX loop's step `step`: `make_train_step`
-    folds the step into `PRNGKey(seed + 1)`, then 0, splits off the sampler
-    key, and `forward_train` splits that between the RPN and the RoI head."""
-    rng = jax.random.fold_in(jax.random.PRNGKey(seed + 1), step)
-    r1, _ = jax.random.split(jax.random.fold_in(rng, 0))
-    k = det.apply(variables, method=lambda m: m.make_rng("sampler"), rngs={"sampler": r1})
-    k_rpn, k_rcnn = jax.random.split(k)
-    b, h, w = batch["images"].shape[:3]
-    anchors = sum(a.shape[0] for a in model.anchor_gen.grid_anchors(
-        [(-(-h // s), -(-w // s)) for s in (4, 8, 16, 32, 64)]))
-    n_rcnn = batch["gt_boxes"].shape[1] + TINY_TRAIN_CFG["rpn_proposal"]["max_per_img"]
-    return {"noise": {"rpn": jax_sampler_noise(k_rpn, b, anchors),
-                      "rcnn": jax_sampler_noise(k_rcnn, b, n_rcnn)}}
-
-
 @pytest.fixture(scope="module")
 def loops(frames, reference_pth, tmp_path_factory):
     """The JAX loop and the port's, on the same frames, draws and weights."""
@@ -184,7 +132,7 @@ def loops(frames, reference_pth, tmp_path_factory):
     out = {}
     devices = jax.devices
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jtrain, "jit_train_step", _quick_jit_train_step)
+        mp.setattr(jtrain, "jit_train_step", quick_jit_train_step)
         mp.setattr(jinference, "load_weights",
                    functools.partial(jinference.load_weights, config=tiny_model))
         mp.setattr(type(det), "init", lambda self, *args, **kw: variables)
@@ -200,7 +148,7 @@ def loops(frames, reference_pth, tmp_path_factory):
         out["jax"] = {"rec": rec, "evals": evals, "work_dir": work_dir, "state": state}
 
         port = _port_model()
-        mp.setattr(tapi, "step_randomness", functools.partial(_jax_step_noise, det, variables))
+        mp.setattr(tapi, "step_randomness", functools.partial(jax_step_noise, det, variables))
         rec, evals = Recorder(), []
         work_dir = str(tmp_path_factory.mktemp("port_loop"))
         random.seed(21)
@@ -252,18 +200,11 @@ def test_loop_logs_and_checkpoints_match_jax(loops):
     assert "Epoch [2][2/2]" in text and "Eval epoch 2" in text and "load_from" in text
 
 
-def _adam_mu(opt_state):
-    found = [s for s in jax.tree_util.tree_leaves(
-        opt_state, is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState))
-        if isinstance(s, optax.ScaleByAdamState)]
-    return found[0].mu
-
-
 def test_loop_parameters_match_jax(loops):
     state = loops["jax"]["state"]
     stats = to_numpy(state.batch_stats)
     want = from_jax_variables(to_numpy(state.params), stats)
-    mu = from_jax_variables(to_numpy(_adam_mu(state.opt_state)), stats)
+    mu = from_jax_variables(to_numpy(adam_mu(state.opt_state)), stats)
     before = tiny_detector()["state_dict"]
     got = loops["port"]["model"].state_dict()
     lr_sum = LOOP["base_lr"] * (1e-3 + 1e-1)
@@ -402,14 +343,6 @@ def test_use_checkpoint_gradients_are_bit_equal(fused, monkeypatch):
     assert any(g.abs().max() > 0 for n, g in grads[0].items() if "blocks" in n)
 
 
-def _jax_cli():
-    spec = importlib.util.spec_from_file_location("jax_train_cli",
-                                                  os.path.join(ROOT, "tools", "train.py"))
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
-
-
 @pytest.mark.parametrize("config", ["faster_rcnn_panoswin_tiny_bf16_streetwin.py",
                                     "faster_rcnn_panoswin_tiny_indoor360.py"])
 def test_train_cli_hands_train_detector_what_jax_does(config, frames, bfov_frames, monkeypatch,
@@ -427,7 +360,7 @@ def test_train_cli_hands_train_detector_what_jax_does(config, frames, bfov_frame
                         lambda m, ds, **kw: captured.update(port=(m, ds, kw)))
     monkeypatch.setattr(sys, "argv", ["train.py", path, "--work-dir", str(tmp_path), "--seed", "3",
                                       *options])
-    _jax_cli().main()
+    jax_train_cli().main()
     train_cli.main([path, "--work-dir", str(tmp_path), "--seed", "3", "--device", "cpu",
                     *options])
     jax_ds, jax_kw = captured["jax"]

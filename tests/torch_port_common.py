@@ -7,20 +7,26 @@ optimisations: these references run once, so their compile time is their
 cost.  `tiny_detector` builds the JAX tiny flagship and the port's copy of
 its weights once per process, for every module that needs them;
 `tiny_odd_detector` does the same for the odd-depth tiny flagship, whose
-weights are a reference-format state dict.
+weights are a reference-format state dict, and `tiny_swin_mask_rcnn` for the
+tiny Swin Mask R-CNN (serving and training tests alike).
 """
 
 import functools
+import importlib.util
+import os
 
 import numpy as np
 import jax
 import jax.numpy as jnp
+import optax
 import pytest
 import torch
 
 from panoswintransformerobjectdetection_tpu.models import DETECTORS, build
+from panoswintransformerobjectdetection_tpu.runtime import hooks as jhooks
 from panoswintransformerobjectdetection_torch.apis.inference import build_detector_from_cfg
 from panoswintransformerobjectdetection_torch.flagship import flagship_config
+from panoswintransformerobjectdetection_torch.runtime import hooks as thooks
 from panoswintransformerobjectdetection_torch.runtime.checkpoint import from_jax_variables
 
 # A training configuration of the tiny flagship's size: few samples, few
@@ -108,6 +114,92 @@ def jax_sampler_noise(key, batch: int, n: int):
         for dst, k in zip(out, jax.random.split(image_key)):
             dst.append(np.asarray(jax.random.uniform(k, (n,))))
     return tuple(torch.from_numpy(np.stack(o)) for o in out)
+
+
+def jax_step_noise(det, variables, model, seed, step, batch):
+    """The sampler noise of the JAX loop's step `step`, as the keyword
+    arguments of the port's step (`apis/train.step_randomness`'s place):
+    `make_train_step` folds the step into `PRNGKey(seed + 1)`, then 0,
+    splits off the sampler key, and `forward_train` splits that between the
+    RPN and the RoI head.  `TINY_TRAIN_CFG`'s proposals."""
+    rng = jax.random.fold_in(jax.random.PRNGKey(seed + 1), step)
+    r1, _ = jax.random.split(jax.random.fold_in(rng, 0))
+    k = det.apply(variables, method=lambda m: m.make_rng("sampler"), rngs={"sampler": r1})
+    k_rpn, k_rcnn = jax.random.split(k)
+    b, h, w = batch["images"].shape[:3]
+    anchors = sum(a.shape[0] for a in model.anchor_gen.grid_anchors(
+        [(-(-h // s), -(-w // s)) for s in (4, 8, 16, 32, 64)]))
+    n_rcnn = batch["gt_boxes"].shape[1] + TINY_TRAIN_CFG["rpn_proposal"]["max_per_img"]
+    return {"noise": {"rpn": jax_sampler_noise(k_rpn, b, anchors),
+                      "rcnn": jax_sampler_noise(k_rcnn, b, n_rcnn)}}
+
+
+def quick_jit_train_step(step_fn, mesh):
+    """The JAX package's `jit_train_step`, compiled at XLA's backend
+    optimisation level 0 on one device."""
+    compiled = {}
+
+    def run(state, batch, rng):
+        if "fn" not in compiled:
+            compiled["fn"] = jax.jit(step_fn).lower(state, batch, rng).compile(
+                compiler_options={"xla_backend_optimization_level": 0})
+        return compiled["fn"](state, batch, rng)
+
+    return run
+
+
+def recording(tx):
+    """An optax transformation: `tx`, with the gradients it was given kept
+    in its state, (tx's state, gradients)."""
+    def init(params):
+        return tx.init(params), jax.tree.map(jnp.zeros_like, params)
+
+    def update(grads, state, params=None):
+        updates, inner = tx.update(grads, state[0], params)
+        return updates, (inner, grads)
+
+    return optax.GradientTransformation(init, update)
+
+
+def jax_train_cli():
+    """The JAX package's `tools/train.py`, loaded as a module."""
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools",
+                        "train.py")
+    spec = importlib.util.spec_from_file_location("jax_train_cli", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def adam_mu(opt_state):
+    """Adam's first moment in an optax state."""
+    found = [s for s in jax.tree_util.tree_leaves(
+        opt_state, is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState))
+        if isinstance(s, optax.ScaleByAdamState)]
+    return found[0].mu
+
+
+class Recorder(thooks.Hook, jhooks.Hook):
+    """A hook of both loops: every step's metrics and the hook calls in order."""
+
+    def __init__(self):
+        self.steps, self.calls = [], []
+
+    def before_train(self, ctx):
+        self.calls.append("before_train")
+
+    def before_epoch(self, ctx):
+        self.calls.append("before_epoch")
+
+    def after_iter(self, ctx):
+        self.calls.append("after_iter")
+        self.steps.append(dict(ctx["metrics"], step=ctx["step"]))
+
+    def after_epoch(self, ctx):
+        self.calls.append("after_epoch")
+
+    def after_train(self, ctx):
+        self.calls.append("after_train")
 
 
 # The JAX package's own tiny flagship (`__graft_entry__.py:_flagship(tiny=True)`:
@@ -217,3 +309,29 @@ def write_coco_set(root, n_images: int, height: int, width: int, seed: int,
     with open(ann_file, "w") as f:
         json.dump(ann, f)
     return ann_file, img_dir
+
+
+# A tiny Swin Mask R-CNN: embed 16, depths 2-2-2-2, window 4, FPN 16, 5
+# classes, the mask head at the JAX package's fixed 256 channels; the
+# training configuration `TINY_TRAIN_CFG` (4 positive slots an image).
+TINY_MASK_RCNN = {
+    "type": "MaskRCNN", "with_mask": True,
+    "backbone": {"type": "SwinTransformer", "embed_dim": 16, "depths": (2, 2, 2, 2),
+                 "num_heads": (1, 2, 2, 4), "window_size": 4, "drop_path_rate": 0.0},
+    "neck": {"type": "FPN", "in_channels": (16, 32, 64, 128), "out_channels": 16,
+             "num_outs": 5},
+    "num_classes": 5, "train_cfg": TINY_TRAIN_CFG,
+    "test_cfg": {"rpn": {"nms_pre": 256, "max_per_img": 64, "iou_threshold": 0.7,
+                         "min_bbox_size": 0},
+                 "rcnn": {"score_thr": 0.05, "iou_threshold": 0.5, "max_per_img": 8}}}
+
+
+@functools.lru_cache(maxsize=None)
+def tiny_swin_mask_rcnn():
+    """The JAX `MaskRCNN` of `TINY_MASK_RCNN`, random variables for it
+    (`random_variables`, seed 5, from a 64 x 96 sample) and the same weights
+    as the port's state dict (reference keys)."""
+    det = build(DETECTORS, dict(TINY_MASK_RCNN))
+    variables = random_variables(det, jnp.zeros((1, 64, 96, 3), jnp.float32), seed=5)
+    return {"det": det, "variables": variables,
+            "state_dict": from_jax_variables(to_numpy(variables["params"]), {})}
