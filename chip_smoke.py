@@ -139,9 +139,32 @@ Phases (each raises on failure, so any failure exits non-zero):
      pooled at 14, the bf16 entry bit-equal on two launches, with the
      times of both entries, the first version at bf16, the twin and the
      bound;
- 11. a JSON line for the evaluation, one for the training loop, one for
-     Mask R-CNN serving, one for Mask R-CNN training, a JSON line per
-     kernel, the card's name and power limit, then the result line.
+ 11. Cascade Mask R-CNN serving, with the detections' `score_thr` lowered
+     to 0.01 as in phase 9: (a) the Swin-S 3x config (`configs/swin/
+     cascade_mask_rcnn_swin_small_patch4_window7_mstrain_480-800_adamw_3x_coco.py`:
+     Swin-S 2-2-18-2, FPN 256, three class-agnostic Shared2FC stages, one
+     FCN mask head, bf16) with seed-0 weights from a reference `.pth`, 8
+     synthetic 480 x 640 frames with polygon instances (from `--seed`)
+     through the config's test pipeline after `FramesFromMemory`,
+     `single_device_test(with_masks=True)` at batch 2, a warm-up pass then
+     a timed one with the launch counts set to 0 just before it and read
+     just after (K3 three times a batch at 7 and once at 14, its bf16 entry;
+     no other kernel), eval images/s, the median batch, the host ms of each
+     `MASK_EVAL_STAGES` step, peak memory, `evaluate` (bbox, segm: every
+     metric finite), a synchronised breakdown of one request by
+     `CASCADE_MASK_STAGES`, and K3 against its twin (exact) on the last
+     stage's refined RoIs at 7 and the detections' at 14; (b) the Swin-B
+     GIoU 4conv1f config (three Shared4Conv1FC GroupNorm stages, bf16,
+     random weights from seed 0): 3 timed `simple_test_masks` requests
+     with the same launch counts each; (c) a nano cascade with narrow
+     Shared4Conv1FC heads in f32, TF32 off, card against CPU from one
+     `.pth`: detections within 1e-3 px and 1e-4, mask probabilities within
+     1e-4;
+ 12. a JSON line for the evaluation, one for the training loop, one for
+     Mask R-CNN serving, one for Mask R-CNN training, one for Cascade Mask
+     R-CNN serving, a JSON line per kernel (each with its launches in phase
+     11, `launches_cascade`), the card's name and power limit, then the
+     result line.
 Without a CUDA card it exits with an error and prints no result.
 """
 
@@ -189,6 +212,11 @@ IMG_NORM = ([123.675, 116.28, 103.53], [58.395, 57.12, 57.375])
 MASK_CONFIG = "configs/swin/mask_rcnn_swin_tiny_patch4_window7_coco.py"
 MASK_FRAME = (800, 1088)            # the mask config's padded batch from 480 x 640 frames
 MASK_FRAMES, MASK_SCORE_THR = 8, 0.01
+CASCADE_CONFIG = ("configs/swin/cascade_mask_rcnn_swin_small_patch4_window7_mstrain_480-800_"
+                  "adamw_3x_coco.py")
+CASCADE_GIOU_CONFIG = ("configs/swin/cascade_mask_rcnn_swin_base_patch4_window7_mstrain_"
+                       "480-800_giou_4conv1f_adamw_3x_coco.py")
+CASCADE_REQUESTS = 3
 
 
 def time_ms(fn, reps: int, batches: int = 5) -> float:
@@ -1797,12 +1825,12 @@ def polygon_annotations(rng, n_frames, height, width, num_classes):
     return out
 
 
-def mask_config(dtype=None, score_thr=MASK_SCORE_THR):
-    """The Swin-T Mask R-CNN config with the detections' score threshold
-    lowered (random weights give every class about 1/81) and, when given,
-    a compute type."""
+def mask_config(dtype=None, score_thr=MASK_SCORE_THR, path=MASK_CONFIG):
+    """A mask config (the Swin-T Mask R-CNN one by default) with the
+    detections' score threshold lowered (random weights give every class
+    about 1/81) and, when given, a compute type."""
     from panoswintransformerobjectdetection_torch.runtime.config import load_config
-    cfg = load_config(MASK_CONFIG)
+    cfg = load_config(path)
     cfg["model"]["test_cfg"]["rcnn"]["score_thr"] = score_thr
     if dtype:
         cfg["model"]["compute_dtype"] = dtype
@@ -1830,13 +1858,14 @@ def mask_pass(model, dataset, dev, counters, ra):
     return results, seconds, times, launches, by_size
 
 
-def check_mask_launches(launches, by_size, n_batches, entry, ra, what):
-    """K3 once a batch at 7 and once at 14 through `entry`; no other kernel."""
+def check_mask_launches(launches, by_size, n_batches, entry, ra, what, at_7=1):
+    """K3 `at_7` times a batch at 7 (3 for a cascade) and once at 14, through
+    `entry`; no other kernel."""
     expect = {name: 0 for name in launches}
-    expect["roi_align (K3)"] = 2 * n_batches
-    if launches != expect or by_size != {7: n_batches, 14: n_batches}:
+    expect["roi_align (K3)"] = (at_7 + 1) * n_batches
+    if launches != expect or by_size != {7: at_7 * n_batches, 14: n_batches}:
         raise AssertionError(f"{what}: launches {launches}, K3 by size {by_size}; expected "
-                             f"{expect} and {n_batches} at each of 7 and 14")
+                             f"{expect}, {at_7 * n_batches} at 7 and {n_batches} at 14")
     if ra.roi_align.last_entry != entry:
         raise AssertionError(f"{what}: K3 launched {ra.roi_align.last_entry}, not {entry}")
 
@@ -1849,23 +1878,55 @@ def check_mask_results(results, n, what):
         raise AssertionError(f"{what}: results missing, empty or not finite")
 
 
-def mask_full_width(dev, ident, counters, ra, seed, directory):
-    """9a and 9b: the Swin-T Mask R-CNN config at full width, f32 then bf16."""
-    from panoswintransformerobjectdetection_torch.apis.inference import init_detector
-    from panoswintransformerobjectdetection_torch.apis.test import MASK_EVAL_STAGES
+def polygon_dataset(cfg, directory, seed, name, what):
+    """`MASK_FRAMES` seeded 480 x 640 frames with polygon instances of COCO's
+    classes (`polygon_annotations`) through `cfg`'s test pipeline, which
+    must give 800 x 1067 padded to `MASK_FRAME`."""
     from panoswintransformerobjectdetection_torch.data.datasets import CocoDataset
-    cfg = mask_config()
-    path = write_reference_pth(cfg, directory, 0)
-    rng = np.random.default_rng(seed + 9)
+    rng = np.random.default_rng(seed)
     frames = (rng.random((MASK_FRAMES, 480, 640, 3)) * 255).astype(np.uint8)
-    ann_file = write_ann(os.path.join(directory, "coco_instance.json"), frames,
-                         CocoDataset.CLASSES,
+    ann_file = write_ann(os.path.join(directory, name), frames, CocoDataset.CLASSES,
                          polygon_annotations(rng, MASK_FRAMES, 480, 640, len(CocoDataset.CLASSES)))
     dataset = in_memory_dataset(cfg["data"]["test"], ann_file, frames)
     padded = tuple(dataset[0]["img"].shape[:2])
     if padded != MASK_FRAME or tuple(dataset[0]["img_shape"][:2]) != (800, 1067):
-        raise AssertionError(f"9a: the test pipeline gives {dataset[0]['img_shape']} padded "
+        raise AssertionError(f"{what}: the test pipeline gives {dataset[0]['img_shape']} padded "
                              f"to {padded}")
+    return dataset
+
+
+def first_batch(dataset, dev, n=2):
+    """The first `n` records of `dataset` as `simple_test`'s inputs on `dev`."""
+    batch = [dataset[i] for i in range(n)]
+    return (torch.from_numpy(np.stack([b["img"] for b in batch])).to(dev),
+            torch.tensor([list(b["img_shape"][:2]) for b in batch], dtype=torch.float32,
+                         device=dev),
+            torch.from_numpy(np.stack([b["scale_factor"] for b in batch])).to(dev))
+
+
+def captured_roi_inputs(model, inputs):
+    """The (FPN maps, RoIs, bins) of each K3 call of one `simple_test_masks`."""
+    captured, roi_features = [], model.roi_features
+
+    def capture(feats, rois, out_size=7):
+        captured.append(([f.detach() for f in feats[:4]], rois.detach(), out_size))
+        return roi_features(feats, rois, out_size)
+
+    model.roi_features = capture
+    try:
+        model.simple_test_masks(*inputs)
+    finally:
+        del model.roi_features
+    return captured
+
+
+def mask_full_width(dev, ident, counters, ra, seed, directory):
+    """9a and 9b: the Swin-T Mask R-CNN config at full width, f32 then bf16."""
+    from panoswintransformerobjectdetection_torch.apis.inference import init_detector
+    from panoswintransformerobjectdetection_torch.apis.test import MASK_EVAL_STAGES
+    cfg = mask_config()
+    path = write_reference_pth(cfg, directory, 0)
+    dataset = polygon_dataset(cfg, directory, seed + 9, "coco_instance.json", "9a")
     n_batches = MASK_FRAMES // 2
     records = {}
     for label, dtype in (("9a", None), ("9b", "bfloat16")):
@@ -1905,21 +1966,7 @@ def mask_full_width(dev, ident, counters, ra, seed, directory):
             rec["bbox_mAP"], rec["segm_mAP"] = metrics["bbox_mAP"], metrics["segm_mAP"]
             line += (f"; evaluate (bbox, segm) {rec['evaluate_ms']:.3f} ms, every metric finite, "
                      f"bbox_mAP {metrics['bbox_mAP']:.6f}, segm_mAP {metrics['segm_mAP']:.6f}")
-            captured, roi_features = [], model.roi_features
-
-            def capture(feats, rois, out_size=7):
-                captured.append(([f.detach() for f in feats[:4]], rois.detach(), out_size))
-                return roi_features(feats, rois, out_size)
-
-            batch = [dataset[i] for i in range(2)]
-            model.roi_features = capture
-            model.simple_test_masks(
-                torch.from_numpy(np.stack([b["img"] for b in batch])).to(dev),
-                torch.tensor([list(b["img_shape"][:2]) for b in batch], dtype=torch.float32,
-                             device=dev),
-                torch.from_numpy(np.stack([b["scale_factor"] for b in batch])).to(dev))
-            model.roi_features = roi_features
-            feats, rois, o = captured[-1]
+            feats, rois, o = captured_roi_inputs(model, first_batch(dataset, dev))[-1]
             if o != 14:
                 raise AssertionError(f"9a: the mask branch pooled at {o}")
             check(f"K3 o=14 f32 on the mask branch's {rois.shape[0]} RoIs, against the twin",
@@ -2379,6 +2426,190 @@ def mask_training_path(dev, ident, counters, ra, seed):
     return rec, kernels
 
 
+def k3_on_cascade_rois(model, inputs, ra, what):
+    """K3 against its twin (exact) on the RoIs of the cascade's last stage
+    (refined, clipped boxes) at 7 and of its detections at 14."""
+    captured = captured_roi_inputs(model, inputs)
+    if [o for _, _, o in captured] != [7, 7, 7, 14]:
+        raise AssertionError(f"{what}: K3 pooled at {[o for _, _, o in captured]}")
+    errs = {}
+    for (feats, rois, o), label in ((captured[2], "last stage"), (captured[3], "detections")):
+        errs[o] = check(f"{what}: K3 o={o} {str(feats[0].dtype)[6:]} on the {rois.shape[0]} "
+                        f"RoIs of the {label}, against the twin",
+                        ra.roi_align(feats, rois, model.featmap_strides, o),
+                        ra.roi_align_plain(feats, rois, model.featmap_strides, o), 0.0)
+    return errs
+
+
+def cascade_full_width(dev, ident, counters, ra, seed, directory):
+    """11a: the Swin-S Cascade Mask R-CNN 3x config at full width in bf16
+    from a seed-0 reference `.pth`: the eval loop, its launches, a
+    synchronised breakdown of `simple_test_masks` by stage, K3 on the
+    cascade's own RoIs.  Returns the record and the dataset."""
+    from panoswintransformerobjectdetection_torch.apis.inference import init_detector
+    from panoswintransformerobjectdetection_torch.apis.test import (MASK_EVAL_STAGES,
+                                                                    single_device_test)
+    from panoswintransformerobjectdetection_torch.models.cascade import CASCADE_MASK_STAGES
+    cfg = mask_config(path=CASCADE_CONFIG)
+    path = write_reference_pth(cfg, directory, 0)
+    dataset = polygon_dataset(cfg, directory, seed + 11, "cascade.json", "11a")
+    n_batches = MASK_FRAMES // 2
+    model = init_detector(cfg, path, device=dev)
+    single_device_test(model, dataset, batch_size=2, with_masks=True, device=dev)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    results, loop_s, times, launches, by_size = mask_pass(model, dataset, dev, counters, ra)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check_mask_launches(launches, by_size, n_batches, ra.ENTRIES[torch.bfloat16], ra, "11a",
+                        at_7=3)
+    check_mask_results(results, MASK_FRAMES, "11a")
+    per_batch = [sum(times[s][i] for s in MASK_EVAL_STAGES) for i in range(n_batches)]
+    host = {s: sum(times[s]) * 1e3 for s in MASK_EVAL_STAGES}
+    t1 = time.perf_counter()
+    metrics = dataset.evaluate(results, metric=["bbox", "segm"])
+    evaluate_ms = (time.perf_counter() - t1) * 1e3
+    bad = {k: v for k, v in metrics.items() if not np.isfinite(v)}
+    if bad:
+        raise AssertionError(f"11a: metrics not finite: {bad}")
+    inputs = first_batch(dataset, dev)
+    stage_times = {}
+    for i in range(3):
+        model.simple_test_masks(*inputs, stage=stage_timer(stage_times if i else {}))
+    request_ms = {k: statistics.median(stage_times[k]) * 1e3 for k in CASCADE_MASK_STAGES}
+    errs = k3_on_cascade_rois(model, inputs, ra, "11a")
+    rec = {"config": CASCADE_CONFIG, "dtype": "bfloat16", "frames": MASK_FRAMES, "batch": 2,
+           "score_thr": MASK_SCORE_THR, "images_per_s": MASK_FRAMES / loop_s,
+           "loop_ms": loop_s * 1e3, "median_batch_ms": statistics.median(per_batch) * 1e3,
+           "stage_ms": host, "request_stage_ms": request_ms, "peak_gib": peak,
+           "launches": launches, "k3_launches_by_size": by_size,
+           "detections": sum(len(r["boxes"]) for r in results), "evaluate_ms": evaluate_ms,
+           "bbox_mAP": metrics["bbox_mAP"], "segm_mAP": metrics["segm_mAP"],
+           "k3_err_on_cascade_rois": errs}
+    print(f"    (a) {os.path.basename(CASCADE_CONFIG)} (Swin-S 2-2-18-2, three Shared2FC "
+          f"stages, 80 classes, bf16, seed-0 weights from a reference .pth, score_thr "
+          f"{MASK_SCORE_THR}): {MASK_FRAMES} frames of 480 x 640 (800 x 1067, padded to 800 x "
+          f"1088), batch 2, after a warm-up pass: {rec['images_per_s']:.3f} eval images/s "
+          f"({loop_s * 1e3:.3f} ms for the loop), median batch {rec['median_batch_ms']:.3f} "
+          f"ms; host ms over the loop: " + ", ".join(f"{s} {v:.3f}" for s, v in host.items())
+          + "; one synchronised simple_test_masks of the first batch by stage (median of 2, "
+          "ms): " + ", ".join(f"{s} {v:.3f}" for s, v in request_ms.items())
+          + f"; peak memory {peak:.2f} GiB; launches {launches}, K3 by size {by_size}; "
+          f"{rec['detections']} detections; evaluate (bbox, segm) {evaluate_ms:.3f} ms, every "
+          f"metric finite, bbox_mAP {metrics['bbox_mAP']:.6f}, segm_mAP "
+          f"{metrics['segm_mAP']:.6f}; card {ident}")
+    return rec, dataset
+
+
+def cascade_giou_requests(dev, ident, counters, ra, dataset):
+    """11b: the Swin-B GIoU 4conv1f config (its `train_cfg` asks for the GIoU
+    loss, which serving does not read) at full width in bf16, random weights
+    from seed 0: 1 warm-up and `CASCADE_REQUESTS` timed `simple_test_masks`
+    requests on the first two frames of the 11a set, each with the launch
+    counts set to 0 just before it and read just after."""
+    from panoswintransformerobjectdetection_torch.apis.inference import init_detector
+    model = init_detector(mask_config(path=CASCADE_GIOU_CONFIG), seed=0, device=dev)
+    heads = {type(h).__name__ for h in model.roi_head.bbox_head}
+    if heads != {"Shared4Conv1FCBBoxHead"} or len(model.roi_head.bbox_head) != 3:
+        raise AssertionError(f"11b: the config built bbox heads {heads}")
+    inputs = first_batch(dataset, dev)
+    model.simple_test_masks(*inputs)                                # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    latencies, total = [], {}
+    for _ in range(CASCADE_REQUESTS):
+        for fn in counters.values():
+            fn.launches = 0
+        ra.roi_align.launches_by_entry = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        det, probs = model.simple_test_masks(*inputs)
+        torch.cuda.synchronize()
+        latencies.append(time.perf_counter() - t0)
+        launches = {name: fn.launches for name, fn in counters.items()}
+        by_size = {o: sum(n for (_, size), n in ra.roi_align.launches_by_entry.items()
+                          if size == o) for o in ra.KERNEL_OUT_SIZES}
+        check_mask_launches(launches, by_size, 1, ra.ENTRIES[torch.bfloat16], ra, "11b",
+                            at_7=3)
+        for o, n in by_size.items():
+            total[o] = total.get(o, 0) + n
+    if not (det.mask.any() and torch.isfinite(det.boxes).all() and torch.isfinite(probs).all()
+            and probs.shape[-2:] == (28, 28)):
+        raise AssertionError("11b: detections empty or not finite")
+    rec = {"config": CASCADE_GIOU_CONFIG, "dtype": "bfloat16", "batch": 2,
+           "latency_ms": [t * 1e3 for t in latencies],
+           "median_ms": statistics.median(latencies) * 1e3,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "k3_launches_by_size": total, "detections": int(det.mask.sum())}
+    print(f"    (b) {os.path.basename(CASCADE_GIOU_CONFIG)} (Swin-B, three Shared4Conv1FC "
+          f"GroupNorm stages, bf16, random weights from seed 0): {CASCADE_REQUESTS} "
+          f"simple_test_masks requests of 2 frames (800 x 1088) after a warm-up: latency ms "
+          f"{[round(t * 1e3, 3) for t in latencies]}, median {rec['median_ms']:.3f} ms; K3 by "
+          f"size over the requests {total}, no other kernel; peak memory {rec['peak_gib']:.2f} "
+          f"GiB; {rec['detections']} detections in the last; card {ident}")
+    return rec
+
+
+# A nano Swin Cascade Mask R-CNN with narrow Shared4Conv1FC heads (4 groups
+# of 4 channels).
+NANO_CASCADE_MODEL = dict(NANO_MASK_MODEL, type="CascadeMaskRCNN", bbox_head={
+    "type": "Shared4Conv1FCBBoxHead", "norm_groups": 4, "conv_out_channels": 16,
+    "fc_out_channels": 64})
+
+
+def cascade_nano_card_vs_cpu(dev, seed, directory):
+    """11c: the nano cascade in f32, TF32 off, card against CPU from one
+    `.pth` on two seeded 64 x 128 frames (the second's image 60 x 120, scale
+    factors 1.25): detections of equal count an image, each with a partner
+    of the same label, box within 1e-3 px and score within 1e-4, and the
+    partners' mask probabilities within 1e-4.  Returns the errors."""
+    from panoswintransformerobjectdetection_torch.apis.inference import init_detector
+    cfg = {"model": NANO_CASCADE_MODEL}
+    path = write_reference_pth(cfg, directory, 2)
+    rng = np.random.default_rng(seed + 11)
+    inputs = (torch.from_numpy(rng.standard_normal((2, 64, 128, 3)).astype(np.float32)),
+              torch.tensor([[64.0, 128.0], [60.0, 120.0]]),
+              torch.tensor([[1.0] * 4, [1.25] * 4]))
+    det_c, probs_c = init_detector(cfg, path, device="cpu").simple_test_masks(*inputs)
+    defaults = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        det_g, probs_g = init_detector(cfg, path, device=dev).simple_test_masks(
+            *(t.to(dev) for t in inputs))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = defaults
+    got, want = [], []
+    for det, out in ((det_g, got), (det_c, want)):
+        for i in range(2):
+            m = det.mask[i].cpu()
+            out.append({k: getattr(det, k)[i].cpu()[m].numpy()
+                        for k in ("boxes", "scores", "labels")})
+    box_err, score_err = match_detections(got, want, 1e-3, 1e-4, "11c nano cascade card vs CPU")
+    prob_err = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        # each card detection's CPU partner: same label, nearest box
+        d = np.abs(g["boxes"][:, None] - w["boxes"][None]).max(-1, initial=0)
+        d[g["labels"][:, None] != w["labels"][None]] = np.inf
+        if len(d):
+            diff = probs_g[i][det_g.mask[i]].cpu() - probs_c[i][det_c.mask[i]][d.argmin(1)]
+            prob_err = max(prob_err, float(diff.abs().max()))
+    if prob_err > 1e-4 or not sum(len(g["boxes"]) for g in got):
+        raise AssertionError(f"11c: mask probabilities differ by {prob_err} (tolerance 1e-4), "
+                             f"or no detections")
+    print(f"    (c) nano Swin Cascade Mask R-CNN (Shared4Conv1FC heads), f32, TF32 off, 2 "
+          f"frames of 64 x 128, card vs CPU from one .pth: detections per image "
+          f"{[len(g['boxes']) for g in got]} on both, max|box diff| {box_err:.3g} px "
+          f"(tolerance 1e-3), max|score diff| {score_err:.3g} (1e-4), mask probabilities "
+          f"max|diff| {prob_err:.3g} (1e-4)")
+    return {"box_err": box_err, "score_err": score_err, "prob_err": prob_err}
+
+
+def cascade_path(dev, ident, counters, ra, seed):
+    """Phase 11: Cascade Mask R-CNN serving on the card; returns its record."""
+    with tempfile.TemporaryDirectory() as directory:
+        rec, dataset = cascade_full_width(dev, ident, counters, ra, seed, directory)
+        rec = {"11a": rec, "11b": cascade_giou_requests(dev, ident, counters, ra, dataset),
+               "11c": cascade_nano_card_vs_cpu(dev, seed, directory)}
+    return rec
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Drive the PyTorch port on one CUDA card.")
     parser.add_argument("--seed", type=int, default=0,
@@ -2518,6 +2749,12 @@ def main(argv=None) -> int:
           "TF32 defaults elsewhere")
     mask_training, backward_14 = mask_training_path(dev, ident, counters, ra, args.seed)
 
+    print("[11] Cascade Mask R-CNN serving on the card: the Swin-S and Swin-B configs in bf16, "
+          "single_device_test(with_masks=True), evaluate(bbox, segm); K3 three times at 7 and "
+          "once at 14 a batch; the nano cascade card vs CPU in f32 with TF32 off; PyTorch's "
+          "TF32 defaults elsewhere")
+    cascade = cascade_path(dev, ident, counters, ra, args.seed)
+
     for rec in records:
         key = rec.get("shares_kernel_of", rec["name"])
         if key in ("dense_crop (K4)", "roi_align_backward (K3 backward)"):
@@ -2543,11 +2780,19 @@ def main(argv=None) -> int:
         rec["launches"] = masks[label]["k3_launches_by_size"][14]
     mask_records[0]["launches_mask_training"] = mask_training["steps"]
     records += mask_records + backward_14
-    print("[11] records")
+    # 11a and 11b run bf16: K3 at 7 is the bf16 record of phase 3, at 14 the bf16 o=14 record
+    cascade_k3 = {o: cascade["11a"]["k3_launches_by_size"][o]
+                  + cascade["11b"]["k3_launches_by_size"][o] for o in (7, 14)}
+    for rec in records:
+        rec["launches_cascade"] = (cascade_k3[7] if rec["name"] == "roi_align (K3)" else
+                                   cascade_k3[14] if rec["name"] == "roi_align o=14 bfloat16 (K3)"
+                                   else 0)
+    print("[12] records")
     print(json.dumps({"evaluation": {k: v for k, v in evaluation.items() if k != "k1_f32"}}))
     print(json.dumps({"training_loop": loop}))
     print(json.dumps({"mask_rcnn": masks}))
     print(json.dumps({"mask_rcnn_training": mask_training}))
+    print(json.dumps({"cascade_mask_rcnn": cascade}))
     print(json.dumps({"kernels": records}))
     print(ident)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

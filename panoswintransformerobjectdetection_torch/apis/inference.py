@@ -20,26 +20,32 @@ import torch
 from ..data.transforms import Compose, Normalize, Pad, Resize
 from ..device import resolve_device
 from ..flagship import init_weights
+from ..models.cascade import CascadeMaskRCNN, CascadeRCNN
 from ..models.detectors import BACKBONES, MaskRCNN, PanoFasterRCNN
+from ..models.roi_head import BBOX_HEADS
 from ..runtime.checkpoint import load_reference_weights, load_torch_state_dict
 from ..runtime.config import load_config
 
 DETECTOR_TYPES = {"PanoFasterRCNN": PanoFasterRCNN, "FasterRCNN": PanoFasterRCNN,
-                  "MaskRCNN": MaskRCNN}
+                  "MaskRCNN": MaskRCNN, "CascadeRCNN": CascadeRCNN,
+                  "CascadeMaskRCNN": CascadeMaskRCNN}
 COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # `TwoStageDetector` fields (JAX `models/detectors.py:73-105`) that the port
-# takes only at these values: other values select PISA, other bbox heads or
-# RoI extractors, which are not ported.
-_DEFAULT_ONLY = {"pisa": None, "bbox_head": None, "roi_extractor": None,
-                 "roi_sampling_ratio": 2, "bbox_roi_size": 7}
+# takes only at these values: other values select PISA, RoI extractors or
+# other RoI sizes, which are not ported.
+_DEFAULT_ONLY = {"pisa": None, "roi_extractor": None, "roi_sampling_ratio": 2,
+                 "bbox_roi_size": 7}
+# The bbox head's options that the port takes (`models/roi_head.BBOX_HEADS`).
+_BBOX_HEAD_OPTIONS = {"type", "norm_groups", "conv_out_channels", "fc_out_channels"}
 _FPN_DEFAULT_ONLY = {"start_level": 0, "add_extra_convs": False,
                      "relu_before_extra_convs": False}
 _ZOO = "is not ported yet (ROADMAP.md, Queue 1, item 17)"
 
 
 def build_detector_from_cfg(cfg: dict) -> PanoFasterRCNN:
-    """A config's `model` dict -> `PanoFasterRCNN` or `MaskRCNN` (random
-    weights as constructed), with a PanoSwin or a stock Swin backbone.
+    """A config's `model` dict -> `PanoFasterRCNN`, `MaskRCNN`, `CascadeRCNN`
+    or `CascadeMaskRCNN` (random weights as constructed), with a PanoSwin or
+    a stock Swin backbone and a Shared2FC or a Shared4Conv1FC bbox head.
     Types and options that the port does not implement raise
     `NotImplementedError`; `pretrained` (a weight-init directive of the
     training API) is dropped."""
@@ -51,6 +57,10 @@ def build_detector_from_cfg(cfg: dict) -> PanoFasterRCNN:
     for key, default in _DEFAULT_ONLY.items():
         if model.pop(key, default) != default:
             raise NotImplementedError(f"detector option {key}={cfg['model'][key]!r} {_ZOO}")
+    head = model.get("bbox_head")
+    if head is not None and (head.get("type") not in BBOX_HEADS
+                             or not set(head) <= _BBOX_HEAD_OPTIONS):
+        raise NotImplementedError(f"detector option bbox_head={head!r} {_ZOO}")
     backbone = dict(model.pop("backbone"))
     if backbone.get("type", "PanoSwinTransformer") not in BACKBONES:
         raise NotImplementedError(f"backbone type {cfg['model']['backbone']['type']!r} {_ZOO}")

@@ -7,6 +7,7 @@ reference's `MultiScaleFlipAug`, `aug_test` and `merge_aug_bboxes`).  Every
 image and merged by NMS at IoU 0.7; the shared proposals then go through
 each variant's features, class probabilities and decoded boxes are
 averaged over the variants, and one class-wise NMS gives the detections.
+A cascade raises (its `bbox_for_rois`, `models/cascade.TTA_REFUSAL`).
 """
 
 from typing import Dict, Sequence, Tuple

@@ -26,7 +26,7 @@ from ..ops.roi_align import multilevel_roi_align_dense, roi_align
 from .fpn import FPN
 from .mask_head import FCNMaskHead, mask_head_loss, mask_targets
 from .panoswin import PanoSwinTransformer
-from .roi_head import (Shared2FCBBoxHead, bbox_head_detections, bbox_head_loss,
+from .roi_head import (bbox_head_detections, bbox_head_loss, build_bbox_head,
                        sample_rois_for_training)
 from .rpn_head import RPNHead, rpn_loss, rpn_proposals
 from .swin import SwinTransformer
@@ -78,7 +78,7 @@ class RoIHead(nn.Module):
     """Holds the bbox head under `roi_head.bbox_head` and any mask head under
     `roi_head.mask_head`, as the reference does."""
 
-    def __init__(self, bbox_head: Shared2FCBBoxHead, mask_head: Optional[FCNMaskHead] = None):
+    def __init__(self, bbox_head: nn.Module, mask_head: Optional[FCNMaskHead] = None):
         super().__init__()
         self.bbox_head = bbox_head
         if mask_head is not None:
@@ -95,14 +95,17 @@ class PanoFasterRCNN(nn.Module):
                  rcnn_target_stds: Sequence[float] = (0.1, 0.1, 0.2, 0.2),
                  train_cfg: Optional[dict] = None, test_cfg: Optional[dict] = None,
                  compute_dtype: Optional[torch.dtype] = None, roi_align: str = "direct",
-                 with_mask: bool = False, mask_roi_size: int = 14):
+                 with_mask: bool = False, mask_roi_size: int = 14,
+                 bbox_head: Optional[dict] = None):
         """`backbone`: the backbone's arguments, with its `type` (one of
         `BACKBONES`; PanoSwinTransformer when absent).  `roi_align`:
         "direct" pools the RoIs with kernel K3, "dense" with the
         interpolation-matrix route and kernel K4 on each level
         (`ops/roi_align.py`); both compute the same function.  `with_mask`
         adds the FCN mask head (`roi_head.mask_head`), which
-        `simple_test_masks` runs on `mask_roi_size` bins a side."""
+        `simple_test_masks` runs on `mask_roi_size` bins a side.
+        `bbox_head`: the bbox head's config (`roi_head.build_bbox_head`;
+        Shared2FC when None)."""
         super().__init__()
         if roi_align not in ("direct", "dense"):
             raise ValueError(f"roi_align must be 'direct' or 'dense', got {roi_align!r}")
@@ -115,7 +118,8 @@ class PanoFasterRCNN(nn.Module):
         out_ch = neck["out_channels"]
         self.rpn_head = RPNHead(out_ch, 256, len(anchor_scales) * len(anchor_ratios),
                                 compute_dtype)
-        self.roi_head = RoIHead(Shared2FCBBoxHead(out_ch, 7, num_classes, dtype=compute_dtype),
+        self.roi_head = RoIHead(self._make_bbox_head(bbox_head, out_ch, num_classes,
+                                                     compute_dtype),
                                 FCNMaskHead(out_ch, num_classes) if with_mask else None)
         self.with_mask = with_mask
         self.mask_roi_size = mask_roi_size
@@ -127,12 +131,11 @@ class PanoFasterRCNN(nn.Module):
         self.train_cfg = train_cfg or default_train_cfg()
         self.test_cfg = test_cfg or default_test_cfg()
         self.roi_align = roi_align
-        unported = [k for k in _UNPORTED_RCNN if k in self.train_cfg["rcnn"]]
-        if unported:
-            raise NotImplementedError(
-                f"train_cfg['rcnn'] options {unported}: OHEM, ScoreHLR and combined "
-                "samplers, PISA and the IoU box losses are not ported yet (ROADMAP.md, "
-                "Queue 1, item 17)")
+
+    def _make_bbox_head(self, cfg: Optional[dict], in_channels: int, num_classes: int,
+                        dtype: Optional[torch.dtype]) -> nn.Module:
+        """The module under `roi_head.bbox_head` (a subclass's hook)."""
+        return build_bbox_head(cfg, in_channels, num_classes, dtype)
 
     @property
     def device(self) -> torch.device:
@@ -190,6 +193,12 @@ class PanoFasterRCNN(nn.Module):
         if not self.training:
             raise RuntimeError("forward_train needs train mode (call .train()): the eval "
                                "stem runs kernel K1, which has no backward")
+        unported = [k for k in _UNPORTED_RCNN if k in self.train_cfg["rcnn"]]
+        if unported:
+            raise NotImplementedError(
+                f"train_cfg['rcnn'] options {unported}: OHEM, ScoreHLR and combined "
+                "samplers, PISA and the IoU box losses are not ported yet (ROADMAP.md, "
+                "Queue 1, item 17)")
         dev = self.device
         noise = dict(noise or {})
         images = torch.as_tensor(images, device=dev)
@@ -285,15 +294,20 @@ class PanoFasterRCNN(nn.Module):
         feats = stage("backbone", lambda: self.backbone.forward_from_embed(x))
         feats = stage("fpn", lambda: self.neck(feats))
         props = stage("proposals", lambda: self.proposals(feats, img_shapes))
+        return self._roi_detections(feats, props, img_shapes, scale_factors, stage), feats, \
+            scale_factors
+
+    def _roi_detections(self, feats, props, img_shapes, scale_factors, stage) -> DetResult:
+        """The RoI part of `simple_test`: the proposals pooled with K3, the
+        bbox head, the detections (a subclass's hook)."""
         B, P, _ = props.boxes.shape
         rois = self.rois(props)
         roi_feats = stage("roi_align", lambda: self.roi_features(feats, rois))
         cls, reg = stage("bbox_head", lambda: self.roi_head.bbox_head(roi_feats))
-        det = stage("detections", lambda: bbox_head_detections(
+        return stage("detections", lambda: bbox_head_detections(
             cls.reshape(B, P, -1), reg.reshape(B, P, -1), rois.reshape(B, P, 5), img_shapes,
             target_stds=self.rcnn_target_stds, roi_mask=props.mask,
             scale_factors=scale_factors, **self.test_cfg["rcnn"]))
-        return det, feats, scale_factors
 
     @torch.no_grad()
     def simple_test_masks(self, images, img_shapes, scale_factors=None,

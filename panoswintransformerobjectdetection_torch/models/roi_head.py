@@ -1,16 +1,16 @@
-"""Shared2FC bbox head, its training targets and loss, and the test-time
-detection step.
+"""The bbox heads (Shared2FC, and Shared4Conv1FC with GroupNorm), their
+training targets and loss, and the test-time detection step.
 
-Counterpart of `Shared2FCBBoxHead`, `RoISamples`, `sample_rois_for_training`,
-`bbox_head_loss` (the default branch: random sampler, L1) and
-`bbox_head_detections` in
+Counterpart of `Shared2FCBBoxHead`, `Shared4Conv1FCBBoxHead`, `RoISamples`,
+`sample_rois_for_training`, `bbox_head_loss` (the default branch: random
+sampler, L1) and `bbox_head_detections` in
 `panoswintransformerobjectdetection_tpu/models/roi_head.py`.  `shared_fcs.0`
-keeps the reference's weight layout, which reads the RoI feature flattened
-channel-first (C, h, w); the JAX head flattens (h, w, C) with a permuted
-weight (`runtime/checkpoint.py:219 _fc_from_chw`).
+keeps the reference's weight layout, which reads the RoI feature (or the
+last conv's output) flattened channel-first (C, h, w); the JAX heads flatten
+(h, w, C) with a permuted weight (`runtime/checkpoint.py:219 _fc_from_chw`).
 """
 
-from typing import Dict, NamedTuple, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -20,29 +20,105 @@ from ..core.assigner import max_iou_assign
 from ..core.bbox import bbox_overlaps, clip_boxes, delta_decode, delta_encode
 from ..core.sampler import random_sample
 from ..ops.nms import DetResult, multiclass_nms
-from .layers import dense
+from .layers import conv, dense
+
+# flax's `nn.GroupNorm` epsilon (the reference's mmcv GN uses 1e-5)
+GN_EPS = 1e-6
 
 
 class Shared2FCBBoxHead(nn.Module):
-    """flatten -> fc -> ReLU -> fc -> ReLU -> {cls, reg}; logits in f32."""
+    """flatten -> fc -> ReLU -> fc -> ReLU -> {cls, reg}; logits in f32.
+    `reg` has 4 outputs a class, or 4 with `reg_class_agnostic`."""
 
     def __init__(self, in_channels: int = 256, roi_size: int = 7, num_classes: int = 80,
-                 fc_out_channels: int = 1024, dtype=None):
+                 fc_out_channels: int = 1024, reg_class_agnostic: bool = False, dtype=None):
         super().__init__()
         self.shared_fcs = nn.ModuleList([
             nn.Linear(in_channels * roi_size * roi_size, fc_out_channels),
             nn.Linear(fc_out_channels, fc_out_channels)])
         self.fc_cls = nn.Linear(fc_out_channels, num_classes + 1)
-        self.fc_reg = nn.Linear(fc_out_channels, 4 * num_classes)
+        self.fc_reg = nn.Linear(fc_out_channels, 4 if reg_class_agnostic else 4 * num_classes)
         self.dtype = dtype
 
     def forward(self, roi_feats):
-        """roi_feats (R, o, o, C) -> cls (R, C+1), reg (R, 4 * classes)."""
+        """roi_feats (R, o, o, C) -> cls (R, C+1), reg (R, 4 * classes or 4)."""
         x = roi_feats.permute(0, 3, 1, 2).reshape(roi_feats.shape[0], -1)
         for fc in self.shared_fcs:
             x = torch.relu(dense(fc, x, self.dtype))
         return (dense(self.fc_cls, x, self.dtype).float(),
                 dense(self.fc_reg, x, self.dtype).float())
+
+
+def group_norm(x: torch.Tensor, gn: nn.GroupNorm) -> torch.Tensor:
+    """`gn` as flax 0.12's `nn.GroupNorm` computes it on NCHW `x`: statistics
+    in float32 with the fast variance max(E[x^2] - E[x]^2, 0), (x - mean) *
+    (rsqrt(var + eps) * scale) + bias, in float32 whatever the type of `x`."""
+    R, C = x.shape[:2]
+    G = gn.num_groups
+    g = x.float().reshape(R, G, -1)
+    mean = g.mean(-1, keepdim=True)
+    var = ((g * g).mean(-1, keepdim=True) - mean * mean).clamp(min=0.0)
+    mul = torch.rsqrt(var + gn.eps).expand(-1, -1, C // G).reshape(R, C, 1, 1)
+    mul = mul * gn.weight.float()[:, None, None]
+    mean = mean.expand(-1, -1, C // G).reshape(R, C, 1, 1)
+    return (x.float() - mean) * mul + gn.bias.float()[:, None, None]
+
+
+class _ConvGN(nn.Module):
+    """A 3 x 3 conv without bias under `.conv` and its GroupNorm under `.gn`,
+    as the reference's `ConvModule` with `norm_cfg=dict(type="GN")` keeps
+    them."""
+
+    def __init__(self, in_channels: int, out_channels: int, num_groups: int):
+        super().__init__()
+        self.conv = nn.Conv2d(in_channels, out_channels, 3, padding=1, bias=False)
+        self.gn = nn.GroupNorm(num_groups, out_channels, eps=GN_EPS)
+
+
+class Shared4Conv1FCBBoxHead(nn.Module):
+    """4 x (3 x 3 conv -> GroupNorm -> ReLU) -> flatten -> fc -> ReLU -> {cls,
+    reg} (the reference's `convfc_bbox_head.py` head of the GN recipes).
+    With a compute type the convs and fcs run in it and each GroupNorm
+    returns float32, as flax's does (its statistics and parameters are
+    float32); logits in f32."""
+
+    def __init__(self, in_channels: int = 256, roi_size: int = 7, num_classes: int = 80,
+                 conv_out_channels: int = 256, fc_out_channels: int = 1024,
+                 norm_groups: int = 32, reg_class_agnostic: bool = False, dtype=None):
+        super().__init__()
+        self.shared_convs = nn.ModuleList(
+            _ConvGN(in_channels if i == 0 else conv_out_channels, conv_out_channels,
+                    norm_groups) for i in range(4))
+        self.shared_fcs = nn.ModuleList([
+            nn.Linear(conv_out_channels * roi_size * roi_size, fc_out_channels)])
+        self.fc_cls = nn.Linear(fc_out_channels, num_classes + 1)
+        self.fc_reg = nn.Linear(fc_out_channels, 4 if reg_class_agnostic else 4 * num_classes)
+        self.dtype = dtype
+
+    def forward(self, roi_feats):
+        """roi_feats (R, o, o, C) -> cls (R, C+1), reg (R, 4 * classes or 4)."""
+        x = roi_feats.permute(0, 3, 1, 2)
+        for m in self.shared_convs:
+            x = torch.relu(group_norm(conv(m.conv, x, self.dtype), m.gn))
+        x = torch.relu(dense(self.shared_fcs[0], x.reshape(x.shape[0], -1), self.dtype))
+        return (dense(self.fc_cls, x, self.dtype).float(),
+                dense(self.fc_reg, x, self.dtype).float())
+
+
+BBOX_HEADS = {"Shared2FCBBoxHead": Shared2FCBBoxHead,
+              "Shared4Conv1FCBBoxHead": Shared4Conv1FCBBoxHead}
+
+
+def build_bbox_head(cfg: Optional[dict], in_channels: int, num_classes: int,
+                    dtype: Optional[torch.dtype] = None, **defaults) -> nn.Module:
+    """A bbox head from its config (`type` one of `BBOX_HEADS`, Shared2FC when
+    `cfg` is None) on 7 x 7 RoIs of `in_channels`, with the defaults that the
+    JAX registry applies: `num_classes`, the detector's compute type, and
+    `defaults` (e.g. `reg_class_agnostic`) where the config leaves them."""
+    cfg = dict(cfg or {})
+    kind = cfg.pop("type", "Shared2FCBBoxHead")
+    kwargs = {"num_classes": num_classes, "dtype": dtype, **defaults, **cfg}
+    return BBOX_HEADS[kind](in_channels, 7, **kwargs)
 
 
 class RoISamples(NamedTuple):

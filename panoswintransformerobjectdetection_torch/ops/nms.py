@@ -99,11 +99,14 @@ def batched_nms(boxes, scores, idxs, iou_threshold: float, max_out: int,
 def multiclass_nms(multi_boxes: torch.Tensor, multi_scores: torch.Tensor,
                    score_thr: float, iou_threshold: float, max_per_img: int,
                    pre_nms: int = 2000, valid: torch.Tensor = None) -> DetResult:
-    """Class-wise NMS per image.  multi_boxes (B, N, 4C); multi_scores
-    (B, N, C+1) with background last; valid (B, N)."""
+    """Class-wise NMS per image.  multi_boxes (B, N, 4C), or (B, N, 4) class-
+    agnostic boxes that every class shares; multi_scores (B, N, C+1) with
+    background last; valid (B, N)."""
     B, N, Cp1 = multi_scores.shape
     C = Cp1 - 1
     flat_scores = multi_scores[..., :C].reshape(B, N * C)
+    if multi_boxes.shape[-1] == 4:
+        multi_boxes = multi_boxes[:, :, None, :].expand(B, N, C, 4)
     flat_boxes = multi_boxes.reshape(B, N * C, 4)
     flat_labels = torch.arange(C, dtype=torch.int32, device=multi_scores.device).repeat(N)
     ok = flat_scores > score_thr

@@ -12,7 +12,9 @@ in the reference's key layout, which the port's detector loads with
 the JAX (h, w, C) flatten to the reference's (C, h, w), and the mask head's
 `nn.ConvTranspose` kernel (kh, kw, in, out) flipped in both spatial axes to
 `ConvTranspose2d`'s (in, out, kh, kw) (flax's transposed conv does not flip
-its kernel; torch's does).  The JAX `convert_detector` converts no mask
+its kernel; torch's does).  A cascade's `cascade_head_{t}` goes to
+`roi_head.bbox_head.{t}`; its `bbox_head_m`, which no cascade stage runs, is
+left out.  The JAX `convert_detector` converts no mask
 head key, so the JAX package cannot load a reference Mask R-CNN `.pth`
 whole; the port loads one with `load_state_dict`.
 
@@ -25,6 +27,7 @@ state, here through `torch.save`).
 """
 
 import math
+import re
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -160,6 +163,28 @@ def _mask_head(sd, key, p):
     _conv(sd, key + ".conv_logits", p["conv_logits"])
 
 
+def _bbox_head(sd, key, p, roi_size):
+    """A Shared2FC or a Shared4Conv1FC (`conv{i}` without bias, `gn{i}`) bbox
+    head; `shared_fc0` reads the last layer's (h, w, C) flatten."""
+    i = 0
+    while f"conv{i}" in p:
+        sd[f"{key}.shared_convs.{i}.conv.weight"] = _t(
+            np.asarray(p[f"conv{i}"]["kernel"]).transpose(3, 2, 0, 1))
+        sd[f"{key}.shared_convs.{i}.gn.weight"] = _t(p[f"gn{i}"]["scale"])
+        sd[f"{key}.shared_convs.{i}.gn.bias"] = _t(p[f"gn{i}"]["bias"])
+        i += 1
+    k = np.asarray(p["shared_fc0"]["kernel"])             # (h*w*C, out)
+    out_dim = k.shape[1]
+    c = k.shape[0] // (roi_size * roi_size)
+    w = k.T.reshape(out_dim, roi_size, roi_size, c).transpose(0, 3, 1, 2)
+    sd[key + ".shared_fcs.0.weight"] = _t(w.reshape(out_dim, -1))
+    sd[key + ".shared_fcs.0.bias"] = _t(p["shared_fc0"]["bias"])
+    if "shared_fc1" in p:
+        _linear(sd, key + ".shared_fcs.1", p["shared_fc1"])
+    _linear(sd, key + ".fc_cls", p["fc_cls"])
+    _linear(sd, key + ".fc_reg", p["fc_reg"])
+
+
 def from_jax_variables(params: Dict[str, Any], batch_stats: Dict[str, Any],
                        roi_size: int = 7) -> Dict[str, torch.Tensor]:
     """JAX detector variables -> the port's state dict (reference keys)."""
@@ -178,16 +203,12 @@ def from_jax_variables(params: Dict[str, Any], batch_stats: Dict[str, Any],
     for name in ("rpn_conv", "rpn_cls", "rpn_reg"):
         _conv(sd, f"rpn_head.{name}", params["rpn_m"][name])
 
-    head = params["bbox_head_m"]
-    k = np.asarray(head["shared_fc0"]["kernel"])          # (h*w*C, out)
-    out_dim = k.shape[1]
-    c = k.shape[0] // (roi_size * roi_size)
-    w = k.T.reshape(out_dim, roi_size, roi_size, c).transpose(0, 3, 1, 2)
-    sd["roi_head.bbox_head.shared_fcs.0.weight"] = _t(w.reshape(out_dim, -1))
-    sd["roi_head.bbox_head.shared_fcs.0.bias"] = _t(head["shared_fc0"]["bias"])
-    _linear(sd, "roi_head.bbox_head.shared_fcs.1", head["shared_fc1"])
-    _linear(sd, "roi_head.bbox_head.fc_cls", head["fc_cls"])
-    _linear(sd, "roi_head.bbox_head.fc_reg", head["fc_reg"])
+    t = 0
+    while f"cascade_head_{t}" in params:
+        _bbox_head(sd, f"roi_head.bbox_head.{t}", params[f"cascade_head_{t}"], roi_size)
+        t += 1
+    if not t:
+        _bbox_head(sd, "roi_head.bbox_head", params["bbox_head_m"], roi_size)
     if "mask_head_m" in params:
         _mask_head(sd, "roi_head.mask_head", params["mask_head_m"])
     return sd
@@ -257,7 +278,16 @@ def load_reference_weights(model: nn.Module, sd: Dict[str, torch.Tensor],
     """Load a reference-format state dict into `model` with
     `load_state_dict(strict=strict)`.  A bias table made for another window
     size (its length tells which: PanoSwin's sphere tables, Swin's relative
-    position table) is resized first with `resize_bias_table`."""
+    position table) is resized first with `resize_bias_table`.  A cascade
+    checkpoint with a mask head a stage (`roi_head.mask_head.{t}.`, the
+    reference's `CascadeRoIHead`) raises: the port, as the JAX package,
+    keeps one mask head."""
+    staged = sorted({k.split(".")[2] for k in sd if re.match(r"roi_head\.mask_head\.\d+\.", k)})
+    if staged:
+        raise NotImplementedError(
+            f"the checkpoint has a mask head for each of the cascade stages {staged} (the "
+            "reference's CascadeRoIHead averages their sigmoids); the port, as the JAX "
+            "package, keeps one mask head: a known divergence (ROADMAP.md, Queue 3)")
     own = model.state_dict()
     sd = dict(sd)
     for key, table in sd.items():

@@ -92,7 +92,7 @@ def test_build_detector_from_config(path):
     assert model.with_mask == cfg["model"].get("with_mask", False)
 
 
-@pytest.mark.parametrize("option,value", [("type", "CascadeRCNN"), ("roi_sampling_ratio", 0),
+@pytest.mark.parametrize("option,value", [("type", "HybridTaskCascade"), ("roi_sampling_ratio", 0),
                                           ("bbox_roi_size", 14), ("pisa", {}),
                                           ("bbox_head", {"type": "DoubleConvFCBBoxHead"}),
                                           ("roi_extractor", "generic")])

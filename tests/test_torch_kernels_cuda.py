@@ -667,3 +667,43 @@ def test_use_checkpoint_recomputes_k2_and_keeps_the_gradients(cuda_device):
     for name, g in plain_g.items():
         tol = 1e-3 * float(g.abs().max()) + 1e-6
         assert float((ckpt_g[name] - g).abs().max()) <= tol, name
+
+
+@pytest.mark.cuda
+def test_cascade_simple_test_masks_on_the_card(cuda_device, tmp_path):
+    """The nano Swin Cascade Mask R-CNN (Shared4Conv1FC heads) in f32 with
+    TF32 off, card against CPU from one `.pth` (`chip_smoke` 11c):
+    detections within 1e-3 px and 1e-4, mask probabilities within 1e-4;
+    one request launches K3 three times at 7 and once at 14."""
+    from chip_smoke import NANO_CASCADE_MODEL, cascade_nano_card_vs_cpu
+    from panoswintransformerobjectdetection_torch.apis.inference import init_detector
+    errs = cascade_nano_card_vs_cpu(cuda_device, 0, str(tmp_path))
+    assert max(errs["box_err"], errs["prob_err"]) <= 1e-3
+    model = init_detector({"model": NANO_CASCADE_MODEL}, seed=2, device=cuda_device)
+    ra.roi_align.launches_by_entry = {}
+    model.simple_test_masks(torch.randn(2, 64, 128, 3, device=cuda_device),
+                            torch.tensor([[64.0, 128.0]] * 2, device=cuda_device))
+    assert ra.roi_align.launches_by_entry == {(ra.ENTRIES[torch.float32], 7): 3,
+                                              (ra.ENTRIES[torch.float32], 14): 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_kernel_on_refined_rois(cuda_device, dtype):
+    """K3 at 7 on the RoIs that the nano cascade's third stage pools (the
+    second stage's refined boxes, clipped to each image), on its FPN maps
+    in `dtype`, against its twin: exact."""
+    from chip_smoke import NANO_CASCADE_MODEL, captured_roi_inputs
+    from panoswintransformerobjectdetection_torch.apis.inference import init_detector
+    model = init_detector({"model": NANO_CASCADE_MODEL}, seed=2, device=cuda_device)
+    g = torch.Generator().manual_seed(5)
+    inputs = (torch.randn(2, 64, 128, 3, generator=g).to(cuda_device),
+              torch.tensor([[64.0, 128.0], [60.0, 100.0]], device=cuda_device))
+    captured = captured_roi_inputs(model, inputs)
+    assert [o for _, _, o in captured] == [7, 7, 7, 14]
+    feats, rois, _ = captured[2]
+    assert not torch.equal(rois, captured[0][1])
+    feats = [f.to(dtype) for f in feats]
+    got = ra.roi_align(feats, rois, STRIDES, 7)
+    assert ra.roi_align.last_entry == ra.ENTRIES[dtype]
+    assert torch.equal(got, ra.roi_align_plain(feats, rois, STRIDES, 7))

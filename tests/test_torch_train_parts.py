@@ -221,9 +221,13 @@ def test_bbox_head_loss_matches_jax():
 
 
 def test_unported_training_options_raise():
+    """An unported training option builds (the model can serve) and raises
+    in `forward_train`; so does eval mode."""
     cfg = {"rpn": {}, "rpn_proposal": {}, "rcnn": {"sampler": "ohem"}}
+    model = PanoFasterRCNN(**flagship_config(tiny=True), train_cfg=cfg).train()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PanoFasterRCNN(**flagship_config(tiny=True), train_cfg=cfg)
+        model.forward_train(torch.zeros(1, 32, 64, 3), torch.tensor([[32., 64.]]),
+                            torch.zeros(1, 1, 4), torch.zeros(1, 1), torch.ones(1, 1))
     model = PanoFasterRCNN(**flagship_config(tiny=True)).eval()
     with pytest.raises(RuntimeError, match="train mode"):
         model.forward_train(torch.zeros(1, 32, 64, 3), torch.tensor([[32., 64.]]),

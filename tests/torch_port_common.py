@@ -7,8 +7,9 @@ optimisations: these references run once, so their compile time is their
 cost.  `tiny_detector` builds the JAX tiny flagship and the port's copy of
 its weights once per process, for every module that needs them;
 `tiny_odd_detector` does the same for the odd-depth tiny flagship, whose
-weights are a reference-format state dict, and `tiny_swin_mask_rcnn` for the
-tiny Swin Mask R-CNN (serving and training tests alike).
+weights are a reference-format state dict, `tiny_swin_mask_rcnn` for the
+tiny Swin Mask R-CNN (serving and training tests alike) and
+`tiny_swin_cascade` for the tiny Swin Cascade Mask R-CNN of each bbox head.
 """
 
 import functools
@@ -335,3 +336,37 @@ def tiny_swin_mask_rcnn():
     variables = random_variables(det, jnp.zeros((1, 64, 96, 3), jnp.float32), seed=5)
     return {"det": det, "variables": variables,
             "state_dict": from_jax_variables(to_numpy(variables["params"]), {})}
+
+
+# The tiny Swin Mask R-CNN of `TINY_MASK_RCNN` as a Cascade Mask R-CNN, with
+# each of its bbox heads: Shared2FC (the default) and a narrow
+# Shared4Conv1FC (4 groups of 4 channels).
+CASCADE_BBOX_HEADS = {"shared2fc": None,
+                      "4conv1f": {"type": "Shared4Conv1FCBBoxHead", "norm_groups": 4,
+                                  "conv_out_channels": 16}}
+
+
+def tiny_cascade_config(head: str) -> dict:
+    model = dict(TINY_MASK_RCNN, type="CascadeMaskRCNN")
+    if CASCADE_BBOX_HEADS[head] is not None:
+        model["bbox_head"] = dict(CASCADE_BBOX_HEADS[head])
+    return model
+
+
+@functools.lru_cache(maxsize=None)
+def tiny_swin_cascade(head: str):
+    """The JAX `CascadeMaskRCNN` of `tiny_cascade_config(head)`, random
+    variables for it (`random_variables`, seed 7, from a 64 x 96 sample; the
+    GroupNorms' scales 1 + N(0, 0.1) and biases N(0, 0.1)) and the same
+    weights as the port's state dict (reference keys)."""
+    det = build(DETECTORS, tiny_cascade_config(head))
+    variables = random_variables(det, jnp.zeros((1, 64, 96, 3), jnp.float32), seed=7)
+    rng = np.random.default_rng(8)
+    params = to_numpy(variables["params"])
+    for t in range(3):
+        for name, p in params[f"cascade_head_{t}"].items():
+            if name.startswith("gn"):
+                p["scale"] = (1 + 0.1 * rng.standard_normal(p["scale"].shape)).astype(np.float32)
+                p["bias"] = (0.1 * rng.standard_normal(p["bias"].shape)).astype(np.float32)
+    variables = {"params": jax.tree.map(jnp.asarray, params)}
+    return {"det": det, "variables": variables, "state_dict": from_jax_variables(params, {})}
