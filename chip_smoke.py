@@ -160,11 +160,32 @@ Phases (each raises on failure, so any failure exits non-zero):
      Shared4Conv1FC heads in f32, TF32 off, card against CPU from one
      `.pth`: detections within 1e-3 px and 1e-4, mask probabilities within
      1e-4;
- 12. a JSON line for the evaluation, one for the training loop, one for
+ 12. Cascade Mask R-CNN training: (a) the Swin-S 3x config in bf16 at full
+     width and depth through `train_detector` and the config's own
+     `train_pipeline` (masks filled from polygons, flip, multi-scale resize
+     480-800, pad 32) after `FramesFromMemory`, from weights with nonzero
+     biases (`write_trained_like_pth`), batch 2, 8 synthetic 480 x 640
+     frames with polygon instances (from `--seed`), 1 epoch of 4 steps:
+     every loss and gradient norm finite, K3's launches by entry each step
+     (the counts set to empty just before it and read just after): three
+     at 7 forward and three backward, all through the bf16 entries, none at
+     14, no other kernel; the mask head, which no loss reaches, only decayed
+     (within 1e-6 relative of p0 * prod(1 - lr_k * 0.05)); loop images/s,
+     the median step, the loader's share, peak memory, and one synchronised
+     step on a shape already seen by `CASCADE_TRAIN_STAGES`; (b) the nano
+     cascade (narrow Shared4Conv1FC heads) with the GIoU loss in f32, TF32
+     off, one `forward_train` and backward card against CPU from the same
+     weights, batch and noise: losses within 1e-4 relative, gradients
+     within 1e-5 + 2e-3 * max|g|; (c) K3's backward at 7 on the RoIs that
+     (a)'s first step pooled at stages 1 and 2, both entries against the
+     twin, the bf16 entry bit-equal on two launches, with the times of both
+     entries, the bf16 first version, the twin and the bound;
+ 13. a JSON line for the evaluation, one for the training loop, one for
      Mask R-CNN serving, one for Mask R-CNN training, one for Cascade Mask
-     R-CNN serving, a JSON line per kernel (each with its launches in phase
-     11, `launches_cascade`), the card's name and power limit, then the
-     result line.
+     R-CNN serving, one for its training, a JSON line per kernel (each with
+     its launches in phase 11, `launches_cascade`, and in phase 12,
+     `launches_cascade_training`), the card's name and power limit, then
+     the result line.
 Without a CUDA card it exits with an error and prints no result.
 """
 
@@ -2239,9 +2260,11 @@ def mask_train_full_width(dev, ident, counters, ra, seed, directory):
            "k3_launches_step_by_entry": {d: {f"{e} o={o}": n for (e, o), n in c.items()}
                                          for d, c in MASK_TRAIN_BY_ENTRY.items()},
            "launches": {name: sum(c[name] for c in record.step_launches) for name in counters},
-           "backward_launches_by_size": {o: sum(n for e in record.by_entry
-                                                for (_, size), n in e["backward"].items()
-                                                if size == o) for o in (7, 14)}}
+           **{f"{d}_launches_by_size": {o: sum(n for e in record.by_entry
+                                               for (_, size), n in e[d].items() if size == o)
+                                        for o in (7, 14)} for d in ("forward", "backward")},
+           "first_step_backward_launches_14": sum(
+               n for (_, size), n in record.by_entry[0]["backward"].items() if size == 14)}
     for i, (m, sec) in enumerate(zip(record.steps, step_ms)):
         print(f"    (a) step {i + 1}: loss_mask {m['loss_mask']:.6f}, loss {m['loss']:.6f}, "
               f"grad_norm {m['grad_norm']:.6f}, {sec:.3f} ms")
@@ -2422,7 +2445,8 @@ def mask_training_path(dev, ident, counters, ra, seed):
     rec["nano_card_vs_cpu"] = mask_train_nano_card_vs_cpu(dev, ra)
     kernels = kernel_k3_backward_mask(dev, ra, sampled)
     kernels[0]["launches"] = rec["backward_launches_by_size"][14]
-    kernels[1]["launches"] = 1
+    # the launches of 10a's loop that pooled the sampled RoIs: its first step's
+    kernels[1]["launches"] = rec["first_step_backward_launches_14"]
     return rec, kernels
 
 
@@ -2610,6 +2634,292 @@ def cascade_path(dev, ident, counters, ra, seed):
     return rec
 
 
+CASCADE_TRAIN_FRAMES, CASCADE_TRAIN_BATCH = 8, 2
+# A step of Cascade Mask R-CNN: K3 three times at 7 (a bbox stage each),
+# forward and backward, through the bf16 entries; none at 14 (no mask loss).
+CASCADE_TRAIN_BY_ENTRY = {"forward": {("roi_align_bf16_launch", 7): 3},
+                          "backward": {("roi_align_backward_bf16_launch", 7): 3}}
+
+
+def cascade_train_full_width(dev, ident, counters, ra, seed, directory):
+    """12a: the Swin-S Cascade Mask R-CNN 3x config in bf16 through
+    `train_detector` and its own `train_pipeline` (masks loaded, flip,
+    multiscale resize, pad), from weights with nonzero biases
+    (`write_trained_like_pth`), batch 2, 8 synthetic 480 x 640 frames with
+    polygon instances from `seed`, 1 epoch of 4 steps.  Each step's K3
+    launches by entry, the counts set to empty just before it and read just
+    after; every loss and gradient norm finite; the mask head, which no loss
+    reaches, only decayed: p0 * prod(1 - lr_k * 0.05) within 1e-6 relative
+    on its weights, its biases unchanged (an Adam step, about lr_k, would
+    move a weight of 0.02 by 5e-6 relative and more).  Returns the record and the RoIs
+    (and map shapes) that the first step's stages 1 and 2 pooled."""
+    from panoswintransformerobjectdetection_torch.apis.inference import build_detector_from_cfg
+    from panoswintransformerobjectdetection_torch.apis.train import train_detector
+    from panoswintransformerobjectdetection_torch.data.datasets import CocoDataset
+    from panoswintransformerobjectdetection_torch.runtime.config import load_config
+    from panoswintransformerobjectdetection_torch.runtime.optim import (no_decay_mask,
+                                                                        warmup_step_schedule)
+    cfg = load_config(CASCADE_CONFIG)
+    classes = CocoDataset.CLASSES
+    rng = np.random.default_rng(seed + 12)
+    frames = (rng.random((CASCADE_TRAIN_FRAMES, 480, 640, 3)) * 255).astype(np.uint8)
+    ann_file = write_ann(os.path.join(directory, "cascade_train.json"), frames, classes,
+                         polygon_annotations(rng, CASCADE_TRAIN_FRAMES, 480, 640, len(classes)))
+    dataset = in_memory_dataset(dict(cfg["data"]["train"], classes=classes), ann_file, frames)
+    steps = [p["type"] for p in cfg["data"]["train"]["pipeline"]]
+    model = build_detector_from_cfg(cfg)
+    path = write_trained_like_pth(model, directory, seed)
+    decays = no_decay_mask(model)
+    mask_head = {n: p.detach().clone() for n, p in model.named_parameters()
+                 if n.startswith("roi_head.mask_head.")}
+    captured, roi_features = [], model.roi_features
+    by_stage, calls = {t: {"forward": 0, "backward": 0} for t in range(3)}, [0]
+
+    def capture(feats, rois, out_size=7):
+        # a step calls this once a stage, in order; K3's launches of the
+        # stage are read around the call and around its autograd node
+        t = calls[0] % 3
+        calls[0] += 1
+        if len(captured) < 3:
+            captured.append((rois.detach().clone(), [tuple(f.shape) for f in feats[:4]],
+                             out_size))
+        before = ra.roi_align.launches
+        out = roi_features(feats, rois, out_size)
+        by_stage[t]["forward"] += ra.roi_align.launches - before
+        node = out.grad_fn
+        if node is None or "_RoIAlign" not in node.name():
+            raise AssertionError(f"12a: stage {t}'s pooled features come from {node}, not K3")
+        start = []
+        node.register_prehook(lambda grads: start.append(ra.roi_align_backward.launches))
+        node.register_hook(lambda grads_in, grads_out: by_stage[t].__setitem__(
+            "backward", by_stage[t]["backward"] + ra.roi_align_backward.launches - start.pop()))
+        return out
+
+    model.roi_features = capture
+    record = MaskLoopRecord(counters, ra)
+    opt, sched = cfg["optimizer"], cfg["lr_config"]
+    torch.cuda.reset_peak_memory_stats()
+    train_detector(model, dataset, work_dir=os.path.join(directory, "cascade_train"),
+                   total_epochs=1, batch_size=CASCADE_TRAIN_BATCH, base_lr=opt["lr"],
+                   weight_decay=opt["weight_decay"], warmup_iters=sched["warmup_iters"],
+                   decay_epochs=sched["step"], log_interval=1, seed=seed, hooks=[record],
+                   device=dev, stage=record.stage, num_workers=2, load_from=path)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    model.roi_features = roi_features
+    n_steps = CASCADE_TRAIN_FRAMES // CASCADE_TRAIN_BATCH
+    if len(record.step_launches) != n_steps or len(record.steps) != n_steps:
+        raise AssertionError(f"12a: {len(record.steps)} steps, expected {n_steps}")
+    per_step = {name: 0 for name in counters}
+    per_step.update({"roi_align (K3)": 3, "roi_align_backward (K3 backward)": 3})
+    for counts, entries in zip(record.step_launches, record.by_entry):
+        expect_launches(counts, per_step, "12a training step")
+        if entries != CASCADE_TRAIN_BY_ENTRY:
+            raise AssertionError(f"12a: K3's launches by entry {entries}, expected "
+                                 f"{CASCADE_TRAIN_BY_ENTRY}")
+    if by_stage != {t: {"forward": n_steps, "backward": n_steps} for t in range(3)}:
+        raise AssertionError(f"12a: K3's launches by stage {by_stage}, expected one forward "
+                             f"and one backward a stage and step")
+    bad = [m for m in record.steps if not all(np.isfinite(v) for v in m.values())]
+    if bad or [o for _, _, o in captured] != [7, 7, 7]:
+        raise AssertionError(f"12a: a loss is not finite, or K3 pooled at "
+                             f"{[o for _, _, o in captured]}: {record.steps}")
+    lrs = [warmup_step_schedule(opt["lr"], sched["warmup_iters"])(k) for k in range(n_steps)]
+    decay_err = 0.0
+    for name, p0 in mask_head.items():
+        factor = float(np.prod([1 - lr * opt["weight_decay"] for lr in lrs])) \
+            if decays[name] else 1.0
+        want = p0.double() * factor
+        got = dict(model.named_parameters())[name].detach().double().cpu()
+        err = float(((got - want).abs() / want.abs().clamp(min=1e-30)).max())
+        decay_err = max(decay_err, err)
+        if err > 1e-6:
+            raise AssertionError(f"12a: mask head {name} is not its decay-only value "
+                                 f"(relative error {err})")
+    breakdown = cascade_train_stage_times(model, dataset, dev, seed, opt)
+    loop_s = sum(end - start for start, end, _ in record.epochs)
+    host = {k: sum(v) * 1e3 for k, v in record.times.items()}
+    step_ms = [t * 1e3 for t in record.times["step"]]
+    keys = [k for k in record.steps[0] if "loss" in k or k == "grad_norm"]
+    rec = {"config": os.path.basename(CASCADE_CONFIG), "dtype": "bfloat16",
+           "pipeline": steps, "frames": CASCADE_TRAIN_FRAMES, "batch": CASCADE_TRAIN_BATCH,
+           "steps": n_steps, "card": ident,
+           "images_per_s": CASCADE_TRAIN_FRAMES / loop_s, "loop_ms": loop_s * 1e3,
+           "step_ms": step_ms, "median_step_ms": statistics.median(step_ms),
+           "stage_ms": host, "loader_share": host["load"] / (loop_s * 1e3),
+           "peak_memory_gib": peak, "losses": [{k: m[k] for k in keys} for m in record.steps],
+           "mask_head_decay_rel_err": decay_err, "stage_breakdown_ms": breakdown,
+           "launches_step": per_step,
+           "k3_launches_step_by_entry": {d: {f"{e} o={o}": n for (e, o), n in c.items()}
+                                         for d, c in CASCADE_TRAIN_BY_ENTRY.items()},
+           "k3_launches_by_stage": by_stage,
+           "launches": {name: sum(c[name] for c in record.step_launches) for name in counters}}
+    for i, (m, sec) in enumerate(zip(record.steps, step_ms)):
+        print(f"    (a) step {i + 1}: " + ", ".join(f"{k} {m[k]:.6f}" for k in keys)
+              + f", {sec:.3f} ms")
+    print(f"    (a) {rec['config']} (Swin-S 2-2-18-2, three Shared2FC stages, 80 classes, bf16, "
+          f"random weights with nonzero biases from --seed): {n_steps} steps of "
+          f"{CASCADE_TRAIN_BATCH} frames of 480 x 640 through {'/'.join(steps[1:])}: "
+          f"{rec['images_per_s']:.3f} images/s with the loader (2 threads), median step "
+          f"{rec['median_step_ms']:.3f} ms, host ms "
+          f"{{{', '.join(f'{k}: {v:.3f}' for k, v in host.items())}}}, loader share "
+          f"{rec['loader_share']:.3f}, peak memory {peak:.2f} GiB; every step's K3 launches: "
+          f"forward {by_entry_text(CASCADE_TRAIN_BY_ENTRY['forward'])}; backward "
+          f"{by_entry_text(CASCADE_TRAIN_BY_ENTRY['backward'])}; over the loop, by stage "
+          f"{by_stage}; no other kernel; the mask "
+          f"head decay-only within {decay_err:.3g} relative (tolerance 1e-6); card {ident}")
+    print("    (a) where a step goes, the trained model on the loop's first batch, each stage "
+          "synchronised, median of 2 after a warm-up, ms: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in breakdown.items()))
+    del model
+    return rec, captured[1:]
+
+
+def cascade_train_stage_times(model, dataset, dev, seed, opt):
+    """Host ms of each stage of a cascade training step
+    (`CASCADE_TRAIN_STAGES`, then backward and optimizer), the card
+    synchronised around each: 3 steps of `model` on its loader's first
+    batch (a shape already seen), the median of the last 2."""
+    from panoswintransformerobjectdetection_torch.models.cascade import CASCADE_TRAIN_STAGES
+    from panoswintransformerobjectdetection_torch.runtime.train import STEP_STAGES
+    times = mask_train_stage_times(model, dataset, dev, seed, opt)
+    if list(times) != list(CASCADE_TRAIN_STAGES + STEP_STAGES):
+        raise AssertionError(f"12a: a step ran the stages {list(times)}")
+    return times
+
+
+def cascade_train_nano_card_vs_cpu(dev, ra):
+    """12b: the nano cascade (narrow Shared4Conv1FC heads) with the GIoU box
+    loss at weight 10, in f32 with TF32 off: one `forward_train` and its
+    backward on the card (kernels; K3's backward three times at 7 through
+    the f32 entry) and on the CPU (plain versions), the same weights, batch
+    and sampler noise (one CPU generator seed).  Tolerances, 10b's: losses
+    1e-4 relative; each gradient 1e-5 + 2e-3 * max|g|."""
+    from panoswintransformerobjectdetection_torch.apis.inference import build_detector_from_cfg
+    from panoswintransformerobjectdetection_torch.flagship import init_weights
+    cfg = {"model": dict(NANO_CASCADE_MODEL, train_cfg={
+        "rpn": {"pos_iou_thr": 0.7, "neg_iou_thr": 0.3, "min_pos_iou": 0.3, "num_samples": 64,
+                "pos_fraction": 0.5},
+        "rpn_proposal": {"nms_pre": 128, "max_per_img": 32, "iou_threshold": 0.7,
+                         "min_bbox_size": 0},
+        "rcnn": {"pos_iou_thr": 0.5, "neg_iou_thr": 0.5, "min_pos_iou": 0.5, "num_samples": 32,
+                 "pos_fraction": 0.25, "reg_loss": "giou", "reg_loss_weight": 10.0}})}
+    rng = np.random.default_rng(7)
+    batch = {"images": torch.from_numpy(rng.standard_normal((2, 64, 128, 3)).astype(np.float32)),
+             "img_shapes": torch.tensor([[64., 128.], [60., 120.]]),
+             "gt_boxes": torch.tensor([[[4., 2., 44., 34.], [30., 10., 90., 60.],
+                                        [70., 4., 124., 40.]]] * 2),
+             "gt_labels": torch.tensor([[0, 3, 4], [1, 2, 0]]),
+             "gt_valid": torch.tensor([[True, True, True], [True, True, False]])}
+    defaults = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    outs, grads = {}, {}
+    try:
+        for side, where in (("card", dev), ("cpu", torch.device("cpu"))):
+            model = build_detector_from_cfg(cfg)
+            init_weights(model, 3)
+            model.to(where).train()
+            ra.roi_align_backward.launches_by_entry = {}
+            out = model.forward_train(**{k: v.to(where) for k, v in batch.items()},
+                                      generator=torch.Generator().manual_seed(7))
+            sum(v for k, v in out.items() if "loss" in k).backward()
+            outs[side] = {k: float(v.detach()) for k, v in out.items()}
+            grads[side] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+                           if p.grad is not None}
+            if side == "card":
+                entries = dict(ra.roi_align_backward.launches_by_entry)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = defaults
+    loss_err = max(abs(outs["card"][k] - v) / max(abs(v), 1e-6) for k, v in outs["cpu"].items())
+    if loss_err > 1e-4 or not outs["cpu"]["s0.loss_bbox"] > 0:
+        raise AssertionError(f"12b: card {outs['card']}, CPU {outs['cpu']}")
+    if set(grads["card"]) != set(grads["cpu"]) or any("mask_head" in n for n in grads["cpu"]):
+        raise AssertionError("12b: the card and the CPU reached different parameters, or the "
+                             "mask head got a gradient")
+    worst = (0.0, "")
+    for name, ref in grads["cpu"].items():
+        scale = float(ref.abs().max())
+        err = float((grads["card"][name] - ref).abs().max())
+        worst = max(worst, (err / max(scale, 1e-30), name))
+        if not err <= 1e-5 + 2e-3 * scale:
+            raise AssertionError(f"12b: gradient of {name}: card against CPU {err}, max|g| "
+                                 f"{scale}")
+    want = {("roi_align_backward_launch", 7): 3}
+    if entries != want:
+        raise AssertionError(f"12b: K3's backward launched {entries}, expected {want}")
+    print(f"    (b) nano Cascade Mask R-CNN (Shared4Conv1FC heads, GIoU loss at weight 10), f32, "
+          f"TF32 off, 2 frames of 64 x 128: card vs CPU losses within {loss_err:.3g} relative "
+          f"(tolerance 1e-4; s2.loss_bbox card {outs['card']['s2.loss_bbox']:.7f}, CPU "
+          f"{outs['cpu']['s2.loss_bbox']:.7f}); {len(grads['cpu'])} gradients within 1e-5 + "
+          f"2e-3 * max|g| (worst {worst[0]:.3g} of max|g|, {worst[1]}); the mask head got none; "
+          f"K3's backward on the card {by_entry_text(entries)}: ok")
+    return {"loss_rel_err": loss_err, "worst_grad_rel_err": worst[0], "worst_grad": worst[1],
+            "backward_by_entry": {f"{e} o={o}": n for (e, o), n in entries.items()}}
+
+
+def kernel_k3_backward_cascade(dev, ra, sampled):
+    """12c: K3's backward at 7 x 7 bins on the RoIs that 12a's first step
+    pooled at its stages 1 and 2 (the refined, unclipped boxes of the stage
+    before, sampled at IoU 0.6 and 0.7), on that step's map shapes: the bf16
+    entry against autograd through the twin, bit-equal on two launches, and
+    timed beside its first version and the twin (`k3_backward_times`); the
+    f32 entry within 1e-5 * max(1, max|ref|) of the twin, timed.  Returns a
+    record for each stage's RoIs."""
+    strides = (4, 8, 16, 32)
+    rng = np.random.default_rng(33)
+    out = []
+    for t, (rois, shapes, _) in zip((1, 2), sampled):
+        rois = rois.float().contiguous()
+        cot = torch.from_numpy(rng.standard_normal((rois.shape[0], 7, 7, 256)).astype(
+            np.float32)).to(dev)
+        b = k3_backward_times(ra, rois, cot.bfloat16(), shapes, strides)
+        got = ra.roi_align_backward(cot, rois, shapes, torch.float32, strides)
+        entry = ra.roi_align_backward.last_entry
+        ref = ra.roi_align_backward_plain(cot, rois, shapes, torch.float32, strides)
+        f32_err = 0.0
+        for level, (a, r) in enumerate(zip(got, ref)):
+            f32_err = max(f32_err, check(f"K3 backward o=7 f32 level {level}, stage-{t} RoIs, "
+                                         f"entry {entry}", a, r,
+                                         1e-5 * max(1.0, float(r.abs().max()))))
+        del got, ref
+        f32_ms = time_ms(lambda: ra.roi_align_backward(cot, rois, shapes, torch.float32,
+                                                       strides), 20)
+        f32_plain = time_ms(lambda: ra.roi_align_backward_plain(cot, rois, shapes, torch.float32,
+                                                                strides), 2)
+        print(f"  K3 backward o=7, the {b['rois']} stage-{t} RoIs of 12a's first step (by level "
+              f"{b['rois_by_level']}, maps {shapes[0][1]} x {shapes[0][2]} and coarser): bf16 "
+              f"owner-computes {b['ms']:.4f} ms ({b['bound_ms'] / b['ms']:.3f} of its "
+              f"{b['bound_ms']:.4f} ms bound, {b['bound_by']}), bit-equal on two launches; the "
+              f"first version at bf16 with zeroing and cast {b['previous_ms']:.4f} ms; f32 entry "
+              f"{f32_ms:.4f} ms; autograd through the twin bf16 {b['plain_ms']:.4f} ms, f32 "
+              f"{f32_plain:.4f} ms; no single PyTorch call computes it")
+        out.append({"name": f"roi_align_backward o=7 bf16, cascade stage-{t} RoIs (K3 backward)",
+                    "route": "cuda",
+                    "source": "panoswintransformerobjectdetection_torch/csrc/roi_align.cu",
+                    "replaces": "panoswintransformerobjectdetection_tpu/ops/roi_align.py:356",
+                    "shares_kernel_of": "roi_align_backward (K3 backward)", "out_size": 7,
+                    **{k: b[k] for k in ("entry", "max_abs_err", "ms", "previous_ms",
+                                         "plain_ms", "bound_ms", "bound_by", "rois",
+                                         "rois_by_level")},
+                    "bitwise_repeatable": True, "library_ms": None,
+                    "f32": {"entry": entry, "max_abs_err": f32_err, "ms": f32_ms,
+                            "plain_ms": f32_plain}})
+    return out
+
+
+def cascade_training_path(dev, ident, counters, ra, seed):
+    """Phase 12: Cascade Mask R-CNN training on the card; returns its record
+    and the records of K3's backward on the refined RoIs."""
+    with tempfile.TemporaryDirectory() as directory:
+        rec, sampled = cascade_train_full_width(dev, ident, counters, ra, seed, directory)
+    rec["nano_card_vs_cpu"] = cascade_train_nano_card_vs_cpu(dev, ra)
+    kernels = kernel_k3_backward_cascade(dev, ra, sampled)
+    for t, k in zip((1, 2), kernels):
+        # the launches of 12a's loop that pooled stage t's RoIs
+        k["launches"] = k["launches_cascade_training"] = \
+            rec["k3_launches_by_stage"][t]["backward"]
+    return rec, kernels
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Drive the PyTorch port on one CUDA card.")
     parser.add_argument("--seed", type=int, default=0,
@@ -2755,6 +3065,13 @@ def main(argv=None) -> int:
           "TF32 defaults elsewhere")
     cascade = cascade_path(dev, ident, counters, ra, args.seed)
 
+    print("[12] Cascade Mask R-CNN training on the card: train_detector over the Swin-S 3x "
+          "config's own train_pipeline, bf16, K3 three times at 7 forward and backward a step; "
+          "the nano cascade with the GIoU loss card vs CPU in f32 with TF32 off; K3's backward "
+          "at 7 on the refined RoIs; PyTorch's TF32 defaults elsewhere")
+    cascade_training, backward_cascade = cascade_training_path(dev, ident, counters, ra,
+                                                                args.seed)
+
     for rec in records:
         key = rec.get("shares_kernel_of", rec["name"])
         if key in ("dense_crop (K4)", "roi_align_backward (K3 backward)"):
@@ -2773,12 +3090,14 @@ def main(argv=None) -> int:
                                      + masks["9b"]["k3_launches_by_size"][7]
                                      if key == "roi_align (K3)" else 0)
         # at 7 x 7 bins, over 10a's steps
-        rec["launches_mask_training"] = (mask_training["steps"] if key in (
-            "roi_align (K3)", "roi_align_backward (K3 backward)") else 0)
+        rec["launches_mask_training"] = (
+            mask_training["forward_launches_by_size"][7] if key == "roi_align (K3)" else
+            mask_training["backward_launches_by_size"][7]
+            if key == "roi_align_backward (K3 backward)" else 0)
     # K3 at 14: its main path is phase 9's mask branch, 9b (bf16) and 9a (f32)
     for rec, label in zip(mask_records, ("9b", "9a")):
         rec["launches"] = masks[label]["k3_launches_by_size"][14]
-    mask_records[0]["launches_mask_training"] = mask_training["steps"]
+    mask_records[0]["launches_mask_training"] = mask_training["forward_launches_by_size"][14]
     records += mask_records + backward_14
     # 11a and 11b run bf16: K3 at 7 is the bf16 record of phase 3, at 14 the bf16 o=14 record
     cascade_k3 = {o: cascade["11a"]["k3_launches_by_size"][o]
@@ -2787,12 +3106,18 @@ def main(argv=None) -> int:
         rec["launches_cascade"] = (cascade_k3[7] if rec["name"] == "roi_align (K3)" else
                                    cascade_k3[14] if rec["name"] == "roi_align o=14 bfloat16 (K3)"
                                    else 0)
-    print("[12] records")
+        # 12a runs bf16 at 7: K3's record of phase 3 and its backward's
+        rec["launches_cascade_training"] = cascade_training["launches"].get(rec["name"], 0)
+    for rec in backward_cascade:
+        rec["launches_cascade"] = 0
+    records += backward_cascade
+    print("[13] records")
     print(json.dumps({"evaluation": {k: v for k, v in evaluation.items() if k != "k1_f32"}}))
     print(json.dumps({"training_loop": loop}))
     print(json.dumps({"mask_rcnn": masks}))
     print(json.dumps({"mask_rcnn_training": mask_training}))
     print(json.dumps({"cascade_mask_rcnn": cascade}))
+    print(json.dumps({"cascade_training": cascade_training}))
     print(json.dumps({"kernels": records}))
     print(ident)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

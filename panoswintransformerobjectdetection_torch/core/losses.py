@@ -1,8 +1,9 @@
 """Detection losses of the default training configuration.
 
-Counterpart of `_reduce`, `cross_entropy`, `binary_cross_entropy`, `l1_loss`
-and `accuracy` in `panoswintransformerobjectdetection_tpu/core/losses.py`.
-Each takes elementwise weights and an `avg_factor`.
+Counterpart of `_reduce`, `cross_entropy`, `binary_cross_entropy`, `l1_loss`,
+`giou_loss`, `iou_loss` and `accuracy` in
+`panoswintransformerobjectdetection_tpu/core/losses.py`.  Each takes
+elementwise weights and an `avg_factor`.
 """
 
 import torch
@@ -34,6 +35,47 @@ def binary_cross_entropy(logits, targets, weight=None, avg_factor=None):
 
 def l1_loss(pred, target, weight=None, avg_factor=None):
     return _reduce((pred - target).abs(), weight, avg_factor)
+
+
+def _clip(x, lo=None, hi=None):
+    """`jnp.clip`: maximum, then minimum, whose gradient at a tie is half."""
+    if lo is not None:
+        x = torch.maximum(x, torch.full_like(x, lo))
+    if hi is not None:
+        x = torch.minimum(x, torch.full_like(x, hi))
+    return x
+
+
+def _overlap_and_areas(pred, target):
+    """The intersection's area of matched xyxy box pairs (..., 4), and each
+    box's area."""
+    lt = torch.maximum(pred[..., :2], target[..., :2])
+    rb = torch.minimum(pred[..., 2:], target[..., 2:])
+    wh = _clip(rb - lt, 0.0)
+    ap = (pred[..., 2] - pred[..., 0]) * (pred[..., 3] - pred[..., 1])
+    ag = (target[..., 2] - target[..., 0]) * (target[..., 3] - target[..., 1])
+    return wh[..., 0] * wh[..., 1], ap, ag
+
+
+def giou_loss(pred, target, weight=None, avg_factor=None, eps=1e-7):
+    """1 - GIoU over matched xyxy box pairs (..., 4)."""
+    overlap, ap, ag = _overlap_and_areas(pred, target)
+    union = ap + ag - overlap + eps
+    iou = overlap / union
+    elt = torch.minimum(pred[..., :2], target[..., :2])
+    erb = torch.maximum(pred[..., 2:], target[..., 2:])
+    ewh = _clip(erb - elt, 0.0)
+    enclose = ewh[..., 0] * ewh[..., 1] + eps
+    giou = iou - (enclose - union) / enclose
+    return _reduce(1.0 - giou, weight, avg_factor)
+
+
+def iou_loss(pred, target, weight=None, avg_factor=None, eps=1e-6):
+    """-log(IoU) over matched xyxy box pairs (..., 4), the IoU clipped to
+    [eps, 1]."""
+    overlap, ap, ag = _overlap_and_areas(pred, target)
+    iou = overlap / _clip(ap + ag - overlap, eps)
+    return _reduce(-torch.log(_clip(iou, eps, 1.0)), weight, avg_factor)
 
 
 def accuracy(logits, labels, mask=None):

@@ -4,10 +4,11 @@ Counterpart of the `TwoStageDetector` subset that the flagship uses in
 `panoswintransformerobjectdetection_tpu/models/detectors.py` (registered
 there as `PanoFasterRCNN`): `extract_feat`, `simple_test` with the default
 test configuration, the two steps of test-time augmentation
-(`extract_proposals`, `bbox_for_rois`) and `forward_train` with the default
-training configuration (random sampler, L1 box loss); and `MaskRCNN`'s
-mask branch, at test time (`simple_test_masks`) and in training (the mask
-loss of `forward_train`).  The backbone is a PanoSwin
+(`extract_proposals`, `bbox_for_rois`) and `forward_train` (the random
+sampler and the L1, GIoU or IoU box loss; `check_train_cfg` refuses the
+other training options); and `MaskRCNN`'s mask branch, at test time
+(`simple_test_masks`) and in training (the mask loss of `forward_train`).
+The backbone is a PanoSwin
 (`models/panoswin.py`) or a stock Swin (`models/swin.py`).  Submodule names
 follow the reference's state-dict keys (`backbone.`, `neck.`, `rpn_head.`,
 `roi_head.bbox_head.`, `roi_head.mask_head.`).
@@ -26,8 +27,8 @@ from ..ops.roi_align import multilevel_roi_align_dense, roi_align
 from .fpn import FPN
 from .mask_head import FCNMaskHead, mask_head_loss, mask_targets
 from .panoswin import PanoSwinTransformer
-from .roi_head import (bbox_head_detections, bbox_head_loss, build_bbox_head,
-                       sample_rois_for_training)
+from .roi_head import (REG_LOSSES, UNPORTED_LOSS, bbox_head_detections, bbox_head_loss,
+                       build_bbox_head, sample_rois_for_training)
 from .rpn_head import RPNHead, rpn_loss, rpn_proposals
 from .swin import SwinTransformer
 
@@ -66,8 +67,29 @@ TRAIN_STAGES = ("stem", "backbone", "fpn", "rpn_head", "rpn_loss", "proposals", 
 # The stages of one `forward_train` of a detector with a mask head, given
 # `gt_masks`: those of `TRAIN_STAGES`, then the mask branch.
 MASK_TRAIN_STAGES = TRAIN_STAGES + ("mask_roi_align", "mask_head", "mask_targets", "mask_loss")
-# Options of the training configuration that are not ported yet.
-_UNPORTED_RCNN = ("sampler", "reg_loss", "reg_loss_weight")
+
+
+def check_train_cfg(train_cfg: Optional[dict]) -> None:
+    """Raise `NotImplementedError` for a training configuration whose RoI
+    options the port does not train: a `sampler` (OHEM, ScoreHLR, combined)
+    or a `reg_loss` outside `roi_head.REG_LOSSES`, both ROADMAP.md item 17d.
+    `reg_loss` "l1", "giou" or "iou" and `reg_loss_weight` are trained."""
+    rcnn = (train_cfg or default_train_cfg())["rcnn"]
+    if "sampler" in rcnn:
+        raise NotImplementedError(
+            f"train_cfg['rcnn']['sampler']={rcnn['sampler']!r}: the OHEM, ScoreHLR and "
+            "combined samplers are not ported yet (ROADMAP.md, Queue 1, item 17d)")
+    if rcnn.get("reg_loss", "l1") not in REG_LOSSES:
+        raise NotImplementedError(f"train_cfg['rcnn']['reg_loss']={rcnn['reg_loss']!r} "
+                                  f"{UNPORTED_LOSS}")
+
+
+def split_rcnn_cfg(rcnn: dict) -> Tuple[dict, dict]:
+    """`train_cfg["rcnn"]` -> the sampler's arguments and `bbox_head_loss`'s
+    (`reg_loss`, `reg_loss_weight`), popped as the JAX detectors pop them."""
+    sampling = dict(rcnn)
+    return sampling, {"reg_loss": sampling.pop("reg_loss", "l1"),
+                      "reg_loss_weight": sampling.pop("reg_loss_weight", 1.0)}
 
 
 def run_stage(name: str, fn: Callable):
@@ -193,12 +215,7 @@ class PanoFasterRCNN(nn.Module):
         if not self.training:
             raise RuntimeError("forward_train needs train mode (call .train()): the eval "
                                "stem runs kernel K1, which has no backward")
-        unported = [k for k in _UNPORTED_RCNN if k in self.train_cfg["rcnn"]]
-        if unported:
-            raise NotImplementedError(
-                f"train_cfg['rcnn'] options {unported}: OHEM, ScoreHLR and combined "
-                "samplers, PISA and the IoU box losses are not ported yet (ROADMAP.md, "
-                "Queue 1, item 17)")
+        check_train_cfg(self.train_cfg)
         dev = self.device
         noise = dict(noise or {})
         images = torch.as_tensor(images, device=dev)
@@ -230,18 +247,29 @@ class PanoFasterRCNN(nn.Module):
                                      target_stds=self.rpn_target_stds, **tc["rpn_proposal"])
 
         props = stage("proposals", proposals)
+        out.update(self._roi_losses(feats, props, gt_boxes, gt_labels, gt_valid, gt_masks,
+                                    draw, stage))
+        return out
+
+    def _roi_losses(self, feats, props, gt_boxes, gt_labels, gt_valid, gt_masks, draw,
+                    stage) -> Dict[str, torch.Tensor]:
+        """The RoI part of `forward_train` (a subclass's hook): sampling with
+        `noise["rcnn"]`, K3, the bbox head and its loss (`split_rcnn_cfg`),
+        and the mask loss where there is a mask head and `gt_masks`."""
+        rcnn_cfg, reg_loss = split_rcnn_cfg(self.train_cfg["rcnn"])
         samples = stage("sampling", lambda: sample_rois_for_training(
             draw("rcnn", gt_boxes.shape[1] + props.boxes.shape[1]), props.boxes, props.mask,
             gt_boxes, gt_labels, gt_valid, self.num_classes,
-            target_stds=self.rcnn_target_stds, **tc["rcnn"]))
+            target_stds=self.rcnn_target_stds, **rcnn_cfg))
         flat_rois = samples.rois.reshape(-1, 5)
         roi_feats = stage("roi_align", lambda: self.roi_features(feats, flat_rois))
         cls, reg = stage("bbox_head", lambda: self.roi_head.bbox_head(roi_feats))
-        out.update(stage("bbox_loss", lambda: bbox_head_loss(cls, reg, samples,
-                                                             self.num_classes)))
+        out = stage("bbox_loss", lambda: bbox_head_loss(
+            cls, reg, samples, self.num_classes, target_stds=self.rcnn_target_stds,
+            **reg_loss))
         if self.with_mask and gt_masks is not None:
             out["loss_mask"] = self._mask_loss(feats, samples, torch.as_tensor(
-                gt_masks, device=dev), gt_boxes, gt_valid, stage)
+                gt_masks, device=self.device), gt_boxes, gt_valid, stage)
         return out
 
     def _mask_loss(self, feats, samples, gt_masks, gt_boxes, gt_valid, stage):

@@ -2,8 +2,8 @@
 training targets and loss, and the test-time detection step.
 
 Counterpart of `Shared2FCBBoxHead`, `Shared4Conv1FCBBoxHead`, `RoISamples`,
-`sample_rois_for_training`, `bbox_head_loss` (the default branch: random
-sampler, L1) and `bbox_head_detections` in
+`sample_rois_for_training`, `bbox_head_loss` (the random sampler; L1, GIoU
+or IoU box losses, class-agnostic or per class) and `bbox_head_detections` in
 `panoswintransformerobjectdetection_tpu/models/roi_head.py`.  `shared_fcs.0`
 keeps the reference's weight layout, which reads the RoI feature (or the
 last conv's output) flattened channel-first (C, h, w); the JAX heads flatten
@@ -168,22 +168,57 @@ def sample_rois_for_training(noise: Tuple[torch.Tensor, torch.Tensor], proposals
     return RoISamples(rois, labels, sel_m.float(), targets, pos_m.float())
 
 
-def bbox_head_loss(cls_logits, bbox_pred, samples: RoISamples,
-                   num_classes: int) -> Dict[str, torch.Tensor]:
-    """Softmax cross entropy over the sampled rois and L1 on the positive
-    rows' deltas of their own class, both divided by the number of sampled
-    rois; `acc` is the share of sampled rois classified right."""
+# The box losses of `bbox_head_loss`; the JAX package's others raise.
+REG_LOSSES = ("l1", "giou", "iou")
+UNPORTED_LOSS = ("is not ported yet (ROADMAP.md, Queue 1, item 17d: Libra R-CNN's balanced "
+                 "L1, the bounded IoU loss and PISA)")
+
+
+def bbox_head_loss(cls_logits, bbox_pred, samples: RoISamples, num_classes: int,
+                   reg_class_agnostic: bool = False, pisa: Optional[dict] = None,
+                   reg_loss: str = "l1", reg_loss_weight: float = 1.0,
+                   target_stds: Sequence[float] = (0.1, 0.1, 0.2, 0.2)
+                   ) -> Dict[str, torch.Tensor]:
+    """Softmax cross entropy over the sampled rois and a box loss on the
+    positive rows, both divided by the number of sampled rois; `acc` is the
+    share of sampled rois classified right (JAX `bbox_head_loss` without
+    PISA).
+
+    The prediction of a row is its own class's deltas, or with
+    `reg_class_agnostic` the row's one (B, S, 4).  `reg_loss` "l1" is L1 on
+    the deltas (and, as in JAX, does not read `reg_loss_weight`); "giou" and
+    "iou" decode the prediction and the stored target deltas from the
+    sampled rois with `target_stds` (`core/bbox.delta_decode`) and take
+    `losses.giou_loss` or `losses.iou_loss` of the boxes, times
+    `reg_loss_weight`.  A slot of weight 0 decodes some candidate's box; its
+    loss term is finite, and so its gradient is 0."""
+    if pisa:
+        raise NotImplementedError(f"bbox_head_loss: pisa={pisa!r} {UNPORTED_LOSS}")
+    if reg_loss not in REG_LOSSES:
+        raise NotImplementedError(f"bbox_head_loss: reg_loss={reg_loss!r} {UNPORTED_LOSS}")
     B, S = samples.labels.shape
     cls_logits = cls_logits.reshape(B, S, -1)
     num_sampled = samples.label_weights.sum()
     loss_cls = losses.cross_entropy(cls_logits, samples.labels, weight=samples.label_weights,
                                     avg_factor=num_sampled)
     acc = losses.accuracy(cls_logits, samples.labels, samples.label_weights)
-    lab = samples.labels.clamp(0, num_classes - 1)
-    pred = bbox_pred.reshape(B, S, num_classes, 4)
-    pred = torch.gather(pred, 2, lab[..., None, None].expand(-1, -1, 1, 4))[:, :, 0]
-    loss_bbox = losses.l1_loss(pred, samples.bbox_targets,
-                               weight=samples.bbox_weights[..., None], avg_factor=num_sampled)
+    if reg_class_agnostic:
+        pred = bbox_pred.reshape(B, S, 4)
+    else:
+        lab = samples.labels.clamp(0, num_classes - 1)
+        pred = bbox_pred.reshape(B, S, num_classes, 4)
+        pred = torch.gather(pred, 2, lab[..., None, None].expand(-1, -1, 1, 4))[:, :, 0]
+    if reg_loss == "l1":
+        loss_bbox = losses.l1_loss(pred, samples.bbox_targets,
+                                   weight=samples.bbox_weights[..., None],
+                                   avg_factor=num_sampled)
+    else:
+        rois = samples.rois[..., 1:]
+        pred_boxes = delta_decode(rois, pred, stds=target_stds)
+        tgt_boxes = delta_decode(rois, samples.bbox_targets, stds=target_stds)
+        fn = losses.giou_loss if reg_loss == "giou" else losses.iou_loss
+        loss_bbox = fn(pred_boxes, tgt_boxes, weight=samples.bbox_weights,
+                       avg_factor=num_sampled) * reg_loss_weight
     return {"loss_cls": loss_cls, "loss_bbox": loss_bbox, "acc": acc}
 
 

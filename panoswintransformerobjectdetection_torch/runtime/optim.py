@@ -61,6 +61,11 @@ class AccumulatingAdamW(torch.optim.AdamW):
     those updates, as optax's inner chain does.  The mean and the
     micro-step count are optimizer state (`state_dict`), so a run resumes
     between micro-steps as it would have gone on.
+
+    A parameter whose `.grad` is None (no loss reaches it) steps with a zero
+    gradient, as `jax.grad` hands optax one: its moments stay 0, its Adam
+    step is 0, and its weight still decays by lr * weight_decay where its
+    group decays.  Its `.grad` is None again after the step.
     """
 
     def __init__(self, params, grad_clip: float = 0.0, accumulate_steps: int = 1, **adamw):
@@ -93,7 +98,17 @@ class AccumulatingAdamW(torch.optim.AdamW):
     def step(self, closure=None) -> bool:
         if closure is not None:
             raise ValueError("AccumulatingAdamW.step takes no closure")
-        params = [p for p in self._params() if p.grad is not None]
+        params = self._params()
+        unreached = [p for p in params if p.grad is None]
+        for p in unreached:
+            p.grad = torch.zeros_like(p)
+        try:
+            return self._step(params, {id(p) for p in unreached})
+        finally:
+            for p in unreached:
+                p.grad = None
+
+    def _step(self, params, unreached) -> bool:
         k = self.accumulate_steps
         if k > 1:
             n = self.param_groups[0].get("micro_step", 0)
@@ -112,7 +127,29 @@ class AccumulatingAdamW(torch.optim.AdamW):
             if not norm < self.grad_clip:
                 for p in params:
                     p.grad.div_(norm).mul_(self.grad_clip)
-        super().step()
+        # The decoupled decay, taken out of AdamW's step (which applies it
+        # first too), a foreach call a group.  Where a loss reached the
+        # parameter, as AdamW rounds it, p * (1 - lr * wd); where none did,
+        # the decay is the whole update, and optax's order, p + (-lr) * (wd *
+        # p), gives optax's bits.  Either rule for both moves the other's
+        # parameters by an ulp: decay-only weights then miss optax's, and
+        # the loops held against the JAX package's drift.
+        decays = [group["weight_decay"] for group in self.param_groups]
+        for group, wd in zip(self.param_groups, decays):
+            reached = [p for p in group["params"] if id(p) not in unreached]
+            idle = [p for p in group["params"] if id(p) in unreached]
+            if wd and reached:
+                torch._foreach_mul_(reached, 1 - group["lr"] * wd)
+            if wd and idle:
+                update = torch._foreach_mul(idle, wd)
+                torch._foreach_mul_(update, -group["lr"])
+                torch._foreach_add_(idle, update)
+            group["weight_decay"] = 0.0
+        try:
+            super().step()
+        finally:
+            for group, wd in zip(self.param_groups, decays):
+                group["weight_decay"] = wd
         return True
 
 

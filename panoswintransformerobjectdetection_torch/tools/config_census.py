@@ -6,8 +6,9 @@ not.
 Loads every `configs/**/*.py` outside `_base_` that has a `model`, builds
 it with `build_detector_from_cfg` on the meta device (no weights are made)
 and prints one JSON object: the number of configs, the number that build,
-the names of those, and the refusals counted by their message (the first
-cause).  Host only.
+the names of those, the number and names of the built ones whose training
+configuration the port trains (`models/detectors.check_train_cfg`), and the
+refusals counted by their message (the first cause).  Host only.
 """
 
 import argparse
@@ -21,9 +22,10 @@ import sys
 def census(configs_dir: str) -> dict:
     import torch
     from ..apis.inference import build_detector_from_cfg
+    from ..models.detectors import check_train_cfg
     from ..runtime.config import load_config
 
-    built, refused = [], collections.Counter()
+    built, trainable, refused = [], [], collections.Counter()
     paths = sorted(p for p in glob.glob(os.path.join(configs_dir, "**", "*.py"), recursive=True)
                    if "_base_" not in p.split(os.sep))
     total = 0
@@ -34,12 +36,19 @@ def census(configs_dir: str) -> dict:
         total += 1
         try:
             with torch.device("meta"):
-                build_detector_from_cfg(cfg)
+                model = build_detector_from_cfg(cfg)
         except Exception as e:        # every refusal, by its message's first line
             refused[f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"] += 1
-        else:
-            built.append(os.path.relpath(path, configs_dir))
+            continue
+        name = os.path.relpath(path, configs_dir)
+        built.append(name)
+        try:
+            check_train_cfg(model.train_cfg)
+        except NotImplementedError:
+            continue
+        trainable.append(name)
     return {"configs": total, "built": len(built), "built_configs": built,
+            "trainable": len(trainable), "trainable_configs": trainable,
             "refused_by_cause": dict(refused.most_common())}
 
 

@@ -3,9 +3,9 @@ class-agnostic `multiclass_nms`, the bbox heads (Shared2FC class-agnostic,
 Shared4Conv1FC with GroupNorm), each cascade stage, `simple_test` and
 `simple_test_masks`, `single_device_test(with_masks=True)` with
 `evaluate(["bbox", "segm"])` and `tools.test --eval bbox segm`, the eight
-`configs/swin/cascade_mask_rcnn_swin_*` configs, and the refusals (cascade
-training, cascade test-time augmentation, a checkpoint with a mask head a
-stage).
+`configs/swin/cascade_mask_rcnn_swin_*` configs, and the refusals (a
+training sampler, cascade test-time augmentation, a checkpoint with a mask
+head a stage).  Cascade training: `test_torch_cascade_train.py`.
 
 The detector is the tiny Swin Mask R-CNN of `TINY_MASK_RCNN` as a Cascade
 Mask R-CNN (`torch_port_common.tiny_swin_cascade`), with the Shared2FC and
@@ -347,6 +347,9 @@ def test_giou_config_serves_at_a_tiny_width():
 
 
 def _refuse_training(model):
+    """A cascade trains since its training was ported; an OHEM sampler is
+    still refused."""
+    model.train_cfg = dict(model.train_cfg, rcnn=dict(model.train_cfg["rcnn"], sampler="ohem"))
     model.train().forward_train(torch.zeros(1, 64, 96, 3), torch.tensor([[64., 96.]]),
                                 torch.zeros(1, 1, 4), torch.zeros(1, 1), torch.ones(1, 1))
 
@@ -365,7 +368,7 @@ def _refuse_staged_mask_heads(model):
 
 
 @pytest.mark.parametrize("refuse,match", [
-    (_refuse_training, "cascade training.*item 17b"),
+    (_refuse_training, "sampler.*item 17d"),
     (_refuse_tta, "test-time augmentation of a cascade.*bbox_head_m"),
     (_refuse_staged_mask_heads, r"mask head for each of the cascade stages \['0', '1', '2'\]")],
     ids=["forward_train", "aug_test_detector", "per_stage_mask_heads"])

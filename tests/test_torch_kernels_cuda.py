@@ -707,3 +707,55 @@ def test_roi_align_kernel_on_refined_rois(cuda_device, dtype):
     got = ra.roi_align(feats, rois, STRIDES, 7)
     assert ra.roi_align.last_entry == ra.ENTRIES[dtype]
     assert torch.equal(got, ra.roi_align_plain(feats, rois, STRIDES, 7))
+
+
+@pytest.mark.cuda
+def test_cascade_training_on_the_card(cuda_device):
+    """The nano cascade with the GIoU loss, one `forward_train` and backward
+    in f32, card against CPU (`chip_smoke` 12b): losses within 1e-4
+    relative, every gradient within 1e-5 + 2e-3 * max|g|, the mask head
+    without gradient, K3's backward three times at 7 through its f32 entry."""
+    from chip_smoke import cascade_train_nano_card_vs_cpu
+    rec = cascade_train_nano_card_vs_cpu(cuda_device, ra)
+    assert rec["loss_rel_err"] <= 1e-4
+    assert rec["backward_by_entry"] == {f"{ra.BACKWARD_ENTRIES[torch.float32]} o=7": 3}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_backward_on_refined_rois(cuda_device, dtype):
+    """K3's backward at 7 on the RoIs that a training step of the nano cascade
+    pools at its stages 1 and 2 (the refined, unclipped boxes of the stage
+    before), on its FPN maps' shapes, against autograd through the twin; the
+    bf16 entry gives the same bits twice."""
+    from chip_smoke import NANO_CASCADE_MODEL
+    from panoswintransformerobjectdetection_torch.apis.inference import build_detector_from_cfg
+    from panoswintransformerobjectdetection_torch.flagship import init_weights
+    model = build_detector_from_cfg({"model": NANO_CASCADE_MODEL})
+    init_weights(model, 4)
+    model.to(cuda_device).train()
+    captured, roi_features = [], model.roi_features
+
+    def capture(feats, rois, out_size=7):
+        captured.append((rois.detach().clone(), [tuple(f.shape) for f in feats[:4]], out_size))
+        return roi_features(feats, rois, out_size)
+
+    model.roi_features = capture
+    g = torch.Generator().manual_seed(5)
+    model.forward_train(torch.randn(2, 64, 128, 3, generator=g).to(cuda_device),
+                        torch.tensor([[64.0, 128.0], [60.0, 100.0]]),
+                        torch.tensor([[[4., 2., 44., 34.], [30., 10., 90., 60.]]] * 2),
+                        torch.tensor([[0, 3]] * 2), torch.ones(2, 2, dtype=torch.bool),
+                        generator=torch.Generator().manual_seed(6))
+    assert [o for _, _, o in captured] == [7, 7, 7]
+    for rois, shapes, _ in captured[1:]:
+        shapes = [(s[0], s[1], s[2], 24) for s in shapes]
+        cot = torch.randn((rois.shape[0], 7, 7, 24), generator=g).to(dtype).to(cuda_device)
+        got = ra.roi_align_backward(cot, rois, shapes, dtype, STRIDES)
+        assert ra.roi_align_backward.last_entry == ra.BACKWARD_ENTRIES[dtype]
+        ref = ra.roi_align_backward_plain(cot, rois, shapes, dtype, STRIDES)
+        for a, b in zip(got, ref):
+            torch.testing.assert_close(a, b, rtol=0, atol=_backward_tol(b, dtype))
+        if dtype == torch.bfloat16:
+            again = ra.roi_align_backward(cot, rois, shapes, dtype, STRIDES)
+            assert all(torch.equal(a, b) for a, b in zip(got, again))

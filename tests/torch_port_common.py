@@ -117,22 +117,49 @@ def jax_sampler_noise(key, batch: int, n: int):
     return tuple(torch.from_numpy(np.stack(o)) for o in out)
 
 
+def _jax_sampler_key(det, variables, seed, step):
+    """The sampler key of the JAX loop's step `step`: `make_train_step` folds
+    the step into `PRNGKey(seed + 1)`, then 0, and splits off the sampler
+    key, which `forward_train` draws with `make_rng("sampler")`."""
+    rng = jax.random.fold_in(jax.random.PRNGKey(seed + 1), step)
+    r1, _ = jax.random.split(jax.random.fold_in(rng, 0))
+    return det.apply(variables, method=lambda m: m.make_rng("sampler"), rngs={"sampler": r1})
+
+
+def _anchor_count(model, batch):
+    h, w = batch["images"].shape[1:3]
+    return sum(a.shape[0] for a in model.anchor_gen.grid_anchors(
+        [(-(-h // s), -(-w // s)) for s in (4, 8, 16, 32, 64)]))
+
+
 def jax_step_noise(det, variables, model, seed, step, batch):
     """The sampler noise of the JAX loop's step `step`, as the keyword
     arguments of the port's step (`apis/train.step_randomness`'s place):
-    `make_train_step` folds the step into `PRNGKey(seed + 1)`, then 0,
-    splits off the sampler key, and `forward_train` splits that between the
-    RPN and the RoI head.  `TINY_TRAIN_CFG`'s proposals."""
-    rng = jax.random.fold_in(jax.random.PRNGKey(seed + 1), step)
-    r1, _ = jax.random.split(jax.random.fold_in(rng, 0))
-    k = det.apply(variables, method=lambda m: m.make_rng("sampler"), rngs={"sampler": r1})
-    k_rpn, k_rcnn = jax.random.split(k)
-    b, h, w = batch["images"].shape[:3]
-    anchors = sum(a.shape[0] for a in model.anchor_gen.grid_anchors(
-        [(-(-h // s), -(-w // s)) for s in (4, 8, 16, 32, 64)]))
+    `forward_train` splits the sampler key between the RPN and the RoI
+    head.  `TINY_TRAIN_CFG`'s proposals."""
+    k_rpn, k_rcnn = jax.random.split(_jax_sampler_key(det, variables, seed, step))
+    b = batch["images"].shape[0]
     n_rcnn = batch["gt_boxes"].shape[1] + TINY_TRAIN_CFG["rpn_proposal"]["max_per_img"]
-    return {"noise": {"rpn": jax_sampler_noise(k_rpn, b, anchors),
+    return {"noise": {"rpn": jax_sampler_noise(k_rpn, b, _anchor_count(model, batch)),
                       "rcnn": jax_sampler_noise(k_rcnn, b, n_rcnn)}}
+
+
+def jax_cascade_step_noise(det, variables, model, seed, step, batch):
+    """`jax_step_noise` of a cascade: its `forward_train` splits the sampler
+    key in 4 (`models/cascade.py:81`), the first for the RPN and one for
+    each stage t, `noise["rcnn.{t}"]`, of G + `max_per_img` candidates at
+    stage 0 and G + S after it (S = `int(num_samples * pos_fraction) +
+    num_samples` sampled slots, the ground truth appended again).
+    `TINY_TRAIN_CFG`'s proposals and samples."""
+    keys = jax.random.split(_jax_sampler_key(det, variables, seed, step), 4)
+    b, g = batch["gt_boxes"].shape[:2]
+    rcnn = TINY_TRAIN_CFG["rcnn"]
+    slots = int(rcnn["num_samples"] * rcnn["pos_fraction"]) + rcnn["num_samples"]
+    noise = {"rpn": jax_sampler_noise(keys[0], b, _anchor_count(model, batch))}
+    for t in range(3):
+        n = g + (TINY_TRAIN_CFG["rpn_proposal"]["max_per_img"] if t == 0 else slots)
+        noise[f"rcnn.{t}"] = jax_sampler_noise(keys[t + 1], b, n)
+    return {"noise": noise}
 
 
 def quick_jit_train_step(step_fn, mesh):
