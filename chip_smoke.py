@@ -180,12 +180,41 @@ Phases (each raises on failure, so any failure exits non-zero):
      (a)'s first step pooled at stages 1 and 2, both entries against the
      twin, the bf16 entry bit-equal on two launches, with the times of both
      entries, the bf16 first version, the twin and the bound;
- 13. a JSON line for the evaluation, one for the training loop, one for
+ 13. the ResNet-family detectors' serving, with the detections'
+     `score_thr` lowered to 0.01, from reference `.pth` files of random
+     weights (`write_cnn_reference_pth`: BatchNorm away from the identity,
+     `num_batches_tracked` kept, the regression weights scaled by
+     `REG_SCALE`): (a) `configs/faster_rcnn/faster_rcnn_r50_fpn_1x_coco.py`
+     (ResNet-50, FPN 256, 80 classes, f32 as the config is) through
+     `build_dataset` -> `DetDataLoader` -> `single_device_test` ->
+     `evaluate` (bbox) on 16 synthetic 480 x 640 frames with polygon
+     instances (from `--seed`) through the config's test pipeline (800 x
+     1067, padded to 800 x 1088) at the config's batch of 2, a warm-up pass
+     then a timed one with the launch counts set to 0 just before it and
+     read just after (K3's f32 entry 8 times at 7, no other kernel), eval
+     images/s, the median batch, the host ms of each step, every metric
+     finite, K3's f32 entry at 7 against its twin and timed on the first
+     batch's RoIs; (b) `configs/mask_rcnn/mask_rcnn_r50_fpn_1x_coco.py` the
+     same way with masks (`--eval bbox segm`: K3's f32 entry 8 times at 7
+     and 8 at 14), K3's f32 entry at 14 timed on the first batch's mask
+     RoIs; (c) `configs/cascade_rcnn/cascade_mask_rcnn_r50_fpn_1x_coco.py`
+     in bf16 as the config asks (the JAX package cannot build it): 1 warm-up
+     and 5 timed `simple_test_masks` requests on 2 seeded frames of 800 x
+     1344, K3's bf16 entry 3 times at 7 and once at 14 a request and no
+     other kernel, the bf16 backbone's stage outputs within 0.05 * max|ref|
+     of the same weights in f32 (TF32 off); (d) the caffe-style ResNet-50,
+     the ResNeXt-101 32x4d Faster R-CNN and the RegNetX-3.2GF Mask R-CNN
+     configs in f32, TF32 off, at 64 x 128, card against CPU from one
+     `.pth` each: equal detection counts, partners within 1e-3 px and 1e-4,
+     mask probabilities within 1e-4;
+ 14. a JSON line for the evaluation, one for the training loop, one for
      Mask R-CNN serving, one for Mask R-CNN training, one for Cascade Mask
-     R-CNN serving, one for its training, a JSON line per kernel (each with
-     its launches in phase 11, `launches_cascade`, and in phase 12,
-     `launches_cascade_training`), the card's name and power limit, then
-     the result line.
+     R-CNN serving, one for its training, one for the ResNet-family
+     detectors, a JSON line per kernel (each with its launches in phase 11,
+     `launches_cascade`, in phase 12, `launches_cascade_training`, and in
+     phase 13, `launches_resnet`; K3's f32 entry timed on 13a's and 13b's
+     RoIs has rows of its own), the card's name and power limit, then the
+     result line.
 Without a CUDA card it exits with an error and prints no result.
 """
 
@@ -427,6 +456,42 @@ def kernel_k3(dev, ra):
     return rec
 
 
+def k3_record(ra, feats, rois, strides, o, name, what):
+    """K3 on `rois` over `feats` at o x o bins against its twin (exact: the
+    same operations in the same order), with its device time, the twin's
+    and the bound: the bytes this run's RoIs need (each feature row that a
+    tap of nonzero weight reads, once; the RoIs; the output) over the
+    memory rate, or its operations over the peak rate of its type.  Returns
+    a kernel record named `name` that shares K3's row."""
+    got = ra.roi_align(feats, rois, strides, o)
+    ref = ra.roi_align_plain(feats, rois, strides, o)
+    torch.cuda.synchronize()
+    entry = ra.roi_align.last_entry
+    err = check(f"{what}, entry {entry}", got, ref, 0.0)
+    ms = time_ms(lambda: ra.roi_align(feats, rois, strides, o), 20)
+    plain_ms = time_ms(lambda: ra.roi_align_plain(feats, rois, strides, o), 3)
+    rows, w1, w2 = ra.tap_rows(feats, rois, strides, o)
+    need = (w1[:, :, :, None, None] != 0) & (w2[:, None, None] != 0)
+    size, C = got.element_size(), feats[0].shape[-1]
+    nbytes = (torch.unique(rows[need]).numel() * C * size + rois.numel() * 4
+              + got.numel() * size)
+    ops = rois.shape[0] * o * o * C * (16 + 4) * 2
+    peak = BF16_OPS_PER_S if got.dtype == torch.bfloat16 else F32_OPS_PER_S
+    bound = max(nbytes / HBM_BYTES_PER_S, ops / peak) * 1e3
+    rec = {"name": name, "route": "cuda",
+           "source": "panoswintransformerobjectdetection_torch/csrc/roi_align.cu",
+           "replaces": "panoswintransformerobjectdetection_tpu/ops/roi_align_pallas.py:205",
+           "shares_kernel_of": "roi_align (K3)", "out_size": o, "entry": entry,
+           "rois": rois.shape[0], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound,
+           "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / peak else "operations",
+           "library_ms": None}
+    print(f"  {name}: kernel {ms:.4f} ms ({bound / ms:.3f} of the bound), twin "
+          f"{plain_ms:.3f} ms, no single PyTorch call computes it, bound {bound:.4f} ms "
+          f"({rec['bound_by']}, {nbytes / 1e6:.1f} MB)")
+    return rec
+
+
 def kernel_k3_mask(dev, ra):
     """K3 at 14 x 14 bins on the mask branch's shapes: 2 x 100 RoIs over
     the four FPN levels of an 800 x 1088 batch, C = 256; both entries
@@ -441,35 +506,10 @@ def kernel_k3_mask(dev, ra):
     records = []
     for dt in (torch.bfloat16, torch.float32):
         feats = [f.to(dt).to(dev) for f in base]
-        got = ra.roi_align(feats, rois, strides, o)
-        ref = ra.roi_align_plain(feats, rois, strides, o)
-        torch.cuda.synchronize()
         name = str(dt)[6:]
-        err = check(f"K3 roi_align o=14 {name} 4 levels C 256, 2 x 100 RoIs on 800 x 1088, "
-                    f"entry {ra.roi_align.last_entry}", got, ref, 0.0)
-        entry = ra.roi_align.last_entry
-        ms = time_ms(lambda: ra.roi_align(feats, rois, strides, o), 20)
-        plain_ms = time_ms(lambda: ra.roi_align_plain(feats, rois, strides, o), 3)
-        rows, w1, w2 = ra.tap_rows(feats, rois, strides, o)
-        need = (w1[:, :, :, None, None] != 0) & (w2[:, None, None] != 0)
-        size = got.element_size()
-        nbytes = (torch.unique(rows[need]).numel() * C * size + rois.numel() * 4
-                  + got.numel() * size)
-        ops = rois.shape[0] * o * o * C * (16 + 4) * 2
-        peak = BF16_OPS_PER_S if dt == torch.bfloat16 else F32_OPS_PER_S
-        bound = max(nbytes / HBM_BYTES_PER_S, ops / peak) * 1e3
-        rec = {"name": f"roi_align o=14 {name} (K3)", "route": "cuda",
-               "source": "panoswintransformerobjectdetection_torch/csrc/roi_align.cu",
-               "replaces": "panoswintransformerobjectdetection_tpu/ops/roi_align_pallas.py:205",
-               "shares_kernel_of": "roi_align (K3)", "out_size": o, "entry": entry,
-               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-               "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / peak else "operations",
-               "library_ms": None}
-        line = (f"  K3 o=14 {name}: kernel {ms:.4f} ms ({bound / ms:.3f} of the bound), twin "
-                f"{plain_ms:.3f} ms, no single PyTorch call computes it, bound {bound:.4f} ms "
-                f"({rec['bound_by']}, {nbytes / 1e6:.1f} MB)")
-        print(line)
-        records.append(rec)
+        records.append(k3_record(ra, feats, rois, strides, o, f"roi_align o=14 {name} (K3)",
+                                 f"K3 roi_align o=14 {name} 4 levels C 256, 2 x 100 RoIs on "
+                                 "800 x 1088"))
     return records
 
 
@@ -1899,15 +1939,15 @@ def check_mask_results(results, n, what):
         raise AssertionError(f"{what}: results missing, empty or not finite")
 
 
-def polygon_dataset(cfg, directory, seed, name, what):
-    """`MASK_FRAMES` seeded 480 x 640 frames with polygon instances of COCO's
+def polygon_dataset(cfg, directory, seed, name, what, n_frames=MASK_FRAMES):
+    """`n_frames` seeded 480 x 640 frames with polygon instances of COCO's
     classes (`polygon_annotations`) through `cfg`'s test pipeline, which
     must give 800 x 1067 padded to `MASK_FRAME`."""
     from panoswintransformerobjectdetection_torch.data.datasets import CocoDataset
     rng = np.random.default_rng(seed)
-    frames = (rng.random((MASK_FRAMES, 480, 640, 3)) * 255).astype(np.uint8)
+    frames = (rng.random((n_frames, 480, 640, 3)) * 255).astype(np.uint8)
     ann_file = write_ann(os.path.join(directory, name), frames, CocoDataset.CLASSES,
-                         polygon_annotations(rng, MASK_FRAMES, 480, 640, len(CocoDataset.CLASSES)))
+                         polygon_annotations(rng, n_frames, 480, 640, len(CocoDataset.CLASSES)))
     dataset = in_memory_dataset(cfg["data"]["test"], ann_file, frames)
     padded = tuple(dataset[0]["img"].shape[:2])
     if padded != MASK_FRAME or tuple(dataset[0]["img_shape"][:2]) != (800, 1067):
@@ -1925,8 +1965,9 @@ def first_batch(dataset, dev, n=2):
             torch.from_numpy(np.stack([b["scale_factor"] for b in batch])).to(dev))
 
 
-def captured_roi_inputs(model, inputs):
-    """The (FPN maps, RoIs, bins) of each K3 call of one `simple_test_masks`."""
+def captured_roi_inputs(model, inputs, masks=True):
+    """The (FPN maps, RoIs, bins) of each K3 call of one `simple_test_masks`
+    (`simple_test` without `masks`)."""
     captured, roi_features = [], model.roi_features
 
     def capture(feats, rois, out_size=7):
@@ -1935,7 +1976,7 @@ def captured_roi_inputs(model, inputs):
 
     model.roi_features = capture
     try:
-        model.simple_test_masks(*inputs)
+        (model.simple_test_masks if masks else model.simple_test)(*inputs)
     finally:
         del model.roi_features
     return captured
@@ -2920,10 +2961,302 @@ def cascade_training_path(dev, ident, counters, ra, seed):
     return rec, kernels
 
 
+RESNET_FASTER_CONFIG = "configs/faster_rcnn/faster_rcnn_r50_fpn_1x_coco.py"
+RESNET_MASK_CONFIG = "configs/mask_rcnn/mask_rcnn_r50_fpn_1x_coco.py"
+RESNET_CASCADE_CONFIG = "configs/cascade_rcnn/cascade_mask_rcnn_r50_fpn_1x_coco.py"
+# 13d: a caffe-style, a grouped and a RegNet backbone, card against CPU.
+RESNET_CARD_VS_CPU = ("configs/faster_rcnn/faster_rcnn_r50_caffe_fpn_1x_coco.py",
+                      "configs/faster_rcnn/faster_rcnn_x101_32x4d_fpn_1x_coco.py",
+                      "configs/regnet/mask_rcnn_regnetx-3.2GF_fpn_1x_coco.py")
+RESNET_FRAMES = 16
+RESNET_CASCADE_FRAME = (800, 1344)
+# The RPN's and the bbox heads' regression weights are scaled by this in the
+# random ResNet detectors' weights, so that their boxes stay near the
+# anchors and proposals they refine (with the init's spread most are
+# clipped flat at the border).
+REG_SCALE = 0.05
+
+
+def write_cnn_reference_pth(config, directory, seed, name):
+    """Random weights from `seed` for the CNN-backbone detector of `config`
+    (a dict), written as a reference checkpoint with the backbone's
+    `num_batches_tracked`: `flagship.init_weights`, then every BatchNorm
+    drawn away from the identity (scales in [0.5, 1.5], biases and means
+    N(0, 0.1), variances in [0.5, 2]) and the regression weights scaled by
+    `REG_SCALE`."""
+    from panoswintransformerobjectdetection_torch.apis.inference import build_detector_from_cfg
+    from panoswintransformerobjectdetection_torch.flagship import init_weights
+    model = build_detector_from_cfg(config)
+    init_weights(model, seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.copy_(torch.rand(m.weight.shape, generator=g) + 0.5)
+                m.bias.copy_(torch.randn(m.bias.shape, generator=g) * 0.1)
+                m.running_mean.copy_(torch.randn(m.running_mean.shape, generator=g) * 0.1)
+                m.running_var.copy_(torch.rand(m.running_var.shape, generator=g) * 1.5 + 0.5)
+            elif name.endswith(("rpn_reg", "fc_reg")):
+                m.weight.mul_(REG_SCALE)
+    sd = model.state_dict()
+    if not any(k.endswith("num_batches_tracked") for k in sd):
+        raise AssertionError("the CNN detector's state dict has no num_batches_tracked")
+    path = os.path.join(directory, f"{name}.pth")
+    torch.save({"state_dict": {"module." + k: v for k, v in sd.items()}}, path)
+    return path
+
+
+def resnet_eval(dev, ident, counters, ra, seed, directory, config, label, with_masks, timed):
+    """13a (Faster R-CNN) and 13b (Mask R-CNN): a ResNet-50 config in f32 as
+    it is, from a seed-0 reference `.pth`, through `build_dataset` ->
+    `DetDataLoader` -> `single_device_test` -> `evaluate` on
+    `RESNET_FRAMES` synthetic 480 x 640 frames with polygon instances, at the
+    config's batch: a warm-up pass, a timed pass with the launch counts set
+    to 0 just before it and read just after (K3's f32 entry once a batch at
+    7, and at 14 with masks; no other kernel), every metric finite; then K3's
+    f32 entry against its twin on the first batch's RoIs at each size, timed
+    at the sizes in `timed`.  Returns the record and the K3 records."""
+    from panoswintransformerobjectdetection_torch.apis.inference import init_detector
+    from panoswintransformerobjectdetection_torch.apis.test import (EVAL_STAGES,
+                                                                    MASK_EVAL_STAGES,
+                                                                    single_device_test)
+    cfg = mask_config(path=config)
+    batch = cfg["data"]["samples_per_gpu"]
+    path = write_cnn_reference_pth(cfg, directory, 0, label)
+    model = init_detector(cfg, path, device=dev)
+    dataset = polygon_dataset(cfg, directory, seed + 13, f"resnet_{label}.json", label,
+                              RESNET_FRAMES)
+    single_device_test(model, dataset, batch_size=batch, with_masks=with_masks,
+                       device=dev)                                      # warm-up
+    times = {}
+    for fn in counters.values():
+        fn.launches = 0
+    ra.roi_align.launches_by_entry = {}
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = single_device_test(model, dataset, batch_size=batch, with_masks=with_masks,
+                                 device=dev, stage=stage_timer(times))
+    loop_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = {name: fn.launches for name, fn in counters.items()}
+    by_entry = dict(ra.roi_align.launches_by_entry)
+    n_batches = RESNET_FRAMES // batch
+    f32 = ra.ENTRIES[torch.float32]
+    want = {(f32, 7): n_batches, **({(f32, 14): n_batches} if with_masks else {})}
+    expect = {name: 0 for name in counters}
+    expect["roi_align (K3)"] = sum(want.values())
+    if launches != expect or by_entry != want:
+        raise AssertionError(f"{label}: launches {launches}, K3 by entry {by_entry}; expected "
+                             f"{expect}, {want}")
+    if with_masks:
+        check_mask_results(results, RESNET_FRAMES, label)
+    elif len(results) != RESNET_FRAMES or not sum(len(r["boxes"]) for r in results) or not all(
+            np.isfinite(r["boxes"]).all() and np.isfinite(r["scores"]).all() for r in results):
+        raise AssertionError(f"{label}: results missing, empty or not finite")
+    stages = MASK_EVAL_STAGES if with_masks else EVAL_STAGES
+    per_batch = [sum(times[s][i] for s in stages) for i in range(n_batches)]
+    host = {s: sum(times[s]) * 1e3 for s in stages}
+    metric = ["bbox", "segm"] if with_masks else ["bbox"]
+    t1 = time.perf_counter()
+    metrics = dataset.evaluate(results, metric=metric)
+    evaluate_ms = (time.perf_counter() - t1) * 1e3
+    bad = {k: v for k, v in metrics.items() if not np.isfinite(v)}
+    if bad:
+        raise AssertionError(f"{label}: metrics not finite: {bad}")
+    rec = {"config": config, "dtype": "float32", "frames": RESNET_FRAMES, "batch": batch,
+           "score_thr": MASK_SCORE_THR, "images_per_s": RESNET_FRAMES / loop_s,
+           "loop_ms": loop_s * 1e3, "median_batch_ms": statistics.median(per_batch) * 1e3,
+           "stage_ms": host, "evaluate_ms": evaluate_ms, "peak_gib": peak,
+           "launches": launches, "k3_launches_by_size": {o: n for (_, o), n in want.items()},
+           "detections": sum(len(r["boxes"]) for r in results),
+           **{k: metrics[k] for k in ("bbox_mAP", "segm_mAP") if k in metrics}}
+    print(f"    ({label[-1]}) {os.path.basename(config)} (ResNet-50, FPN 256, 80 classes, f32, "
+          f"seed-0 weights from a reference .pth, BatchNorm away from the identity, score_thr "
+          f"{MASK_SCORE_THR}): {RESNET_FRAMES} frames of 480 x 640 (800 x 1067, padded to "
+          f"800 x 1088), batch {batch}, after a warm-up pass: {rec['images_per_s']:.3f} eval "
+          f"images/s ({loop_s * 1e3:.3f} ms for the loop), median batch "
+          f"{rec['median_batch_ms']:.3f} ms; host ms over the loop: "
+          + ", ".join(f"{s} {v:.3f}" for s, v in host.items())
+          + f"; evaluate ({', '.join(metric)}) {evaluate_ms:.3f} ms, every metric finite, "
+          + ", ".join(f"{k} {metrics[k]:.6f}" for k in ("bbox_mAP", "segm_mAP") if k in metrics)
+          + f"; peak memory {peak:.2f} GiB; launches {launches}, K3 by entry {by_entry}; "
+          f"{rec['detections']} detections; card {ident}")
+    captured = captured_roi_inputs(model, first_batch(dataset, dev, batch), with_masks)
+    if [o for _, _, o in captured] != [7, 14][:1 + with_masks]:
+        raise AssertionError(f"{label}: K3 pooled at {[o for _, _, o in captured]}")
+    kernels = []
+    for feats, rois, o in captured:
+        what = f"{label}: K3 o={o} f32 on the first batch's {rois.shape[0]} RoIs"
+        if o in timed:
+            kernels.append(k3_record(ra, feats, rois, model.featmap_strides, o,
+                                     f"roi_align o={o} float32 (K3), ResNet-50 {label} RoIs",
+                                     what))
+        else:
+            check(f"{what}, against the twin", ra.roi_align(feats, rois, model.featmap_strides, o),
+                  ra.roi_align_plain(feats, rois, model.featmap_strides, o), 0.0)
+    del model
+    return rec, kernels
+
+
+def resnet_cascade_requests(dev, ident, counters, ra, directory):
+    """13c: the R-50 Cascade Mask R-CNN config in bf16 as it is (the JAX
+    package cannot build it), from a seed-0 reference `.pth`: 1 warm-up and
+    `REQUESTS` timed `simple_test_masks` requests on 2 seeded frames of 800 x
+    1344, each with the launch counts set to 0 just before it and read just
+    after (K3's bf16 entry 3 times at 7 and once at 14, no other kernel);
+    then the bf16 backbone's stage outputs against the same weights in f32
+    on the card (TF32 off), within the CPU test's bfloat16 tolerance,
+    0.05 * max|ref| a stage."""
+    from panoswintransformerobjectdetection_torch.apis.inference import init_detector
+    cfg = mask_config(path=RESNET_CASCADE_CONFIG)
+    if cfg["model"].get("compute_dtype") != "bfloat16":
+        raise AssertionError("13c: the cascade config is no longer bf16")
+    path = write_cnn_reference_pth(cfg, directory, 0, "13c")
+    model = init_detector(cfg, path, device=dev)
+    h, w = RESNET_CASCADE_FRAME
+    g = torch.Generator(device=dev).manual_seed(13)
+    inputs = (torch.randn((2, h, w, 3), generator=g, device=dev),
+              torch.tensor([[float(h), float(w)]] * 2, device=dev), torch.ones((2, 4), device=dev))
+    model.simple_test_masks(*inputs)                                # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    latencies, total = [], {}
+    bf16 = ra.ENTRIES[torch.bfloat16]
+    for _ in range(REQUESTS):
+        for fn in counters.values():
+            fn.launches = 0
+        ra.roi_align.launches_by_entry = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        det, probs = model.simple_test_masks(*inputs)
+        torch.cuda.synchronize()
+        latencies.append(time.perf_counter() - t0)
+        launches = {name: fn.launches for name, fn in counters.items()}
+        by_entry = dict(ra.roi_align.launches_by_entry)
+        expect = {name: 0 for name in counters}
+        expect["roi_align (K3)"] = 4
+        if launches != expect or by_entry != {(bf16, 7): 3, (bf16, 14): 1}:
+            raise AssertionError(f"13c: launches {launches}, K3 by entry {by_entry}")
+        for (_, o), n in by_entry.items():
+            total[o] = total.get(o, 0) + n
+    if not (det.mask.any() and torch.isfinite(det.boxes).all()
+            and torch.isfinite(probs.float()).all() and probs.shape[-2:] == (28, 28)):
+        raise AssertionError("13c: detections empty or not finite")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    reference = init_detector(dict(cfg, model={k: v for k, v in cfg["model"].items()
+                                               if k != "compute_dtype"}), path, device=dev)
+    defaults = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            ref = reference.backbone(inputs[0])
+            got = model.backbone(inputs[0])
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = defaults
+    stage_err = []
+    for i, (a, b) in enumerate(zip(got, ref)):
+        if a.dtype != torch.bfloat16 or b.dtype != torch.float32:
+            raise AssertionError(f"13c: backbone stage {i} is {a.dtype} against {b.dtype}")
+        scale = float(b.abs().max())
+        stage_err.append(check(f"13c: bf16 backbone stage {i} against f32 (max|ref| "
+                               f"{scale:.3f})", a, b, 0.05 * scale) / scale)
+    rec = {"config": RESNET_CASCADE_CONFIG, "dtype": "bfloat16", "batch": 2,
+           "frame": list(RESNET_CASCADE_FRAME), "latency_ms": [t * 1e3 for t in latencies],
+           "median_ms": statistics.median(latencies) * 1e3, "peak_gib": peak,
+           "k3_launches_by_size": total, "detections": int(det.mask.sum()),
+           "backbone_rel_err": stage_err}
+    print(f"    (c) {os.path.basename(RESNET_CASCADE_CONFIG)} (ResNet-50, three Shared2FC "
+          f"stages, one mask head, bf16 as the config asks, seed-0 weights from a reference "
+          f".pth): {REQUESTS} simple_test_masks requests of 2 frames of {h} x {w} after a "
+          f"warm-up: latency ms {[round(t * 1e3, 3) for t in latencies]}, median "
+          f"{rec['median_ms']:.3f} ms, {2e3 / rec['median_ms']:.3f} images/s; K3 by size over "
+          f"the requests {total}, bf16 entry, no other kernel; peak memory {peak:.2f} GiB; "
+          f"{rec['detections']} detections in the last; bf16 backbone against f32 (TF32 "
+          f"off) max|diff| / max|ref| by stage {[f'{e:.3g}' for e in stage_err]} (tolerance "
+          f"0.05); card {ident}")
+    del model, reference
+    return rec
+
+
+def resnet_card_vs_cpu(dev, seed, directory):
+    """13d: a caffe-style ResNet-50, a ResNeXt-101 32x4d and a RegNetX-3.2GF
+    config in f32 as they are, TF32 off, at 64 x 128, card against CPU from
+    one `.pth` each, on two seeded frames (the second's image 60 x 120,
+    scale factors 1.25): detections of equal count an image, each with a
+    partner of the same label, box within 1e-3 px and score within 1e-4
+    (the card-against-CPU score tolerance of 7b, 9c and 11c: f32 sums in
+    another order through the ResNeXt-101's 33 blocks move a score by about
+    7e-6), and the Mask R-CNN's partners' mask probabilities within 1e-4."""
+    from panoswintransformerobjectdetection_torch.apis.inference import init_detector
+    from panoswintransformerobjectdetection_torch.runtime.config import load_config
+    rng = np.random.default_rng(seed + 14)
+    inputs = (torch.from_numpy(rng.standard_normal((2, 64, 128, 3)).astype(np.float32)),
+              torch.tensor([[64.0, 128.0], [60.0, 120.0]]),
+              torch.tensor([[1.0] * 4, [1.25] * 4]))
+    records = {}
+    for config in RESNET_CARD_VS_CPU:
+        cfg = load_config(config)
+        name = os.path.basename(config)
+        path = write_cnn_reference_pth(cfg, directory, 1, name[:-3])
+        masks = cfg["model"]["type"] == "MaskRCNN"
+
+        def run(where):
+            model = init_detector(cfg, path, device=where)
+            args = [t.to(where) for t in inputs]
+            return model.simple_test_masks(*args) if masks else (model.simple_test(*args), None)
+
+        det_c, probs_c = run("cpu")
+        defaults = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            det_g, probs_g = run(dev)
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = defaults
+        got, want = [], []
+        for det, out in ((det_g, got), (det_c, want)):
+            for i in range(2):
+                m = det.mask[i].cpu()
+                out.append({k: getattr(det, k)[i].cpu()[m].numpy()
+                            for k in ("boxes", "scores", "labels")})
+        box_err, score_err = match_detections(got, want, 1e-3, 1e-4, f"13d {name}")
+        prob_err = 0.0
+        for i, (g, w) in enumerate(zip(got, want) if masks else ()):
+            d = np.abs(g["boxes"][:, None] - w["boxes"][None]).max(-1, initial=0)
+            d[g["labels"][:, None] != w["labels"][None]] = np.inf
+            if len(d):
+                diff = probs_g[i][det_g.mask[i]].cpu() - probs_c[i][det_c.mask[i]][d.argmin(1)]
+                prob_err = max(prob_err, float(diff.abs().max()))
+        n = [len(g["boxes"]) for g in got]
+        if prob_err > 1e-4 or not sum(n):
+            raise AssertionError(f"13d {name}: mask probabilities differ by {prob_err} "
+                                 f"(tolerance 1e-4), or no detections ({n})")
+        records[name] = {"detections": n, "box_err": box_err, "score_err": score_err,
+                         **({"prob_err": prob_err} if masks else {})}
+        print(f"    (d) {name}, f32, TF32 off, 2 frames of 64 x 128, card vs CPU from one "
+              f".pth: detections per image {n} on both, max|box diff| {box_err:.3g} px "
+              f"(tolerance 1e-3), max|score diff| {score_err:.3g} (1e-4)"
+              + (f", mask probabilities max|diff| {prob_err:.3g} (1e-4)" if masks else ""))
+    return records
+
+
+def resnet_path(dev, ident, counters, ra, seed):
+    """Phase 13: the ResNet-family detectors' serving on the card; returns
+    its record and the K3 records of 13a and 13b's RoIs."""
+    with tempfile.TemporaryDirectory() as directory:
+        faster, k3_faster = resnet_eval(dev, ident, counters, ra, seed, directory,
+                                        RESNET_FASTER_CONFIG, "13a", False, (7,))
+        mask, k3_mask = resnet_eval(dev, ident, counters, ra, seed, directory,
+                                    RESNET_MASK_CONFIG, "13b", True, (14,))
+        rec = {"13a": faster, "13b": mask,
+               "13c": resnet_cascade_requests(dev, ident, counters, ra, directory),
+               "13d": resnet_card_vs_cpu(dev, seed, directory)}
+    return rec, k3_faster + k3_mask
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Drive the PyTorch port on one CUDA card.")
     parser.add_argument("--seed", type=int, default=0,
-                        help="seed of phases 7 and 8's synthetic frames and boxes")
+                        help="seed of the synthetic frames and boxes of phases 7-13")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3072,6 +3405,12 @@ def main(argv=None) -> int:
     cascade_training, backward_cascade = cascade_training_path(dev, ident, counters, ra,
                                                                 args.seed)
 
+    print("[13] ResNet-family detectors serving on the card: the R-50 Faster and Mask R-CNN "
+          "configs in f32 through the eval loop, the R-50 Cascade Mask R-CNN in bf16, a caffe "
+          "ResNet-50, a ResNeXt-101 and a RegNetX-3.2GF card vs CPU in f32 with TF32 off; "
+          "PyTorch's TF32 defaults elsewhere")
+    resnet, resnet_k3 = resnet_path(dev, ident, counters, ra, args.seed)
+
     for rec in records:
         key = rec.get("shares_kernel_of", rec["name"])
         if key in ("dense_crop (K4)", "roi_align_backward (K3 backward)"):
@@ -3111,13 +3450,29 @@ def main(argv=None) -> int:
     for rec in backward_cascade:
         rec["launches_cascade"] = 0
     records += backward_cascade
-    print("[13] records")
+    # 13a and 13b run K3's f32 entry (7 and 14), 13c its bf16 entries
+    f32_7 = resnet["13a"]["k3_launches_by_size"][7] + resnet["13b"]["k3_launches_by_size"][7]
+    resnet_k3_launches = {"roi_align (K3)": resnet["13c"]["k3_launches_by_size"][7],
+                          "roi_align o=14 bfloat16 (K3)": resnet["13c"]["k3_launches_by_size"][14],
+                          "roi_align o=14 float32 (K3)": resnet["13b"]["k3_launches_by_size"][14],
+                          resnet_k3[0]["name"]: f32_7,
+                          resnet_k3[1]["name"]: resnet["13b"]["k3_launches_by_size"][14]}
+    for rec in resnet_k3:                      # their main path is phase 13
+        rec["launches"] = resnet_k3_launches[rec["name"]]
+        for key in records[0]:
+            if key.startswith("launches_"):
+                rec[key] = 0
+    records += resnet_k3
+    for rec in records:
+        rec["launches_resnet"] = resnet_k3_launches.get(rec["name"], 0)
+    print("[14] records")
     print(json.dumps({"evaluation": {k: v for k, v in evaluation.items() if k != "k1_f32"}}))
     print(json.dumps({"training_loop": loop}))
     print(json.dumps({"mask_rcnn": masks}))
     print(json.dumps({"mask_rcnn_training": mask_training}))
     print(json.dumps({"cascade_mask_rcnn": cascade}))
     print(json.dumps({"cascade_training": cascade_training}))
+    print(json.dumps({"resnet_detectors": resnet}))
     print(json.dumps({"kernels": records}))
     print(ident)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

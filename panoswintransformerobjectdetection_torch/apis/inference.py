@@ -44,8 +44,10 @@ _ZOO = "is not ported yet (ROADMAP.md, Queue 1, item 17)"
 
 def build_detector_from_cfg(cfg: dict) -> PanoFasterRCNN:
     """A config's `model` dict -> `PanoFasterRCNN`, `MaskRCNN`, `CascadeRCNN`
-    or `CascadeMaskRCNN` (random weights as constructed), with a PanoSwin or
-    a stock Swin backbone and a Shared2FC or a Shared4Conv1FC bbox head.
+    or `CascadeMaskRCNN` (random weights as constructed), with a PanoSwin, a
+    stock Swin, a ResNet, a ResNeXt or a RegNet backbone, each computing in
+    `compute_dtype` (the JAX package's CNN backbones take none), and a
+    Shared2FC or a Shared4Conv1FC bbox head.
     Types and options that the port does not implement raise
     `NotImplementedError`; `pretrained` (a weight-init directive of the
     training API) is dropped."""

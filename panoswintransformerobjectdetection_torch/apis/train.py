@@ -38,7 +38,7 @@ import torch
 from ..data.loader import DetDataLoader
 from ..device import resolve_device
 from ..flagship import init_weights
-from ..models.detectors import run_stage
+from ..models.detectors import check_train_backbone, run_stage
 from ..models.panoswin import PanoSwinTransformer
 from ..models.swin import SwinTransformer
 from ..runtime.checkpoint import (load_backbone_weights, load_checkpoint, load_torch_state_dict,
@@ -90,7 +90,8 @@ def apply_init_weights(model, load_from: Optional[str] = None,
     checkpoint) through `apis/inference.load_weights`.  Otherwise
     `pretrained`: a reference PanoSwin backbone `.pth`, or a stock Swin
     ImageNet one (its classifier's `head.*` and `norm.*` left out), into
-    `model.backbone` (`runtime/checkpoint.load_backbone_weights`)."""
+    `model.backbone` (`runtime/checkpoint.load_backbone_weights`).  A CNN
+    backbone's `pretrained` raises (`models/detectors.check_train_backbone`)."""
     if load_from:
         load_weights(model, load_from)
         logger.info("load_from %s", load_from)
@@ -98,6 +99,7 @@ def apply_init_weights(model, load_from: Optional[str] = None,
     if not pretrained:
         return
     name = type(model.backbone).__name__
+    check_train_backbone(model.backbone)
     if not isinstance(model.backbone, (PanoSwinTransformer, SwinTransformer)):
         raise NotImplementedError(f"pretrained init of a {name} backbone is not ported yet "
                                   "(ROADMAP.md, Queue 1, item 17)")

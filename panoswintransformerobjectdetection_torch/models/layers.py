@@ -33,7 +33,7 @@ def conv(layer: nn.Conv2d, x: torch.Tensor, dtype: Optional[torch.dtype]) -> tor
     dt = dtype or torch.promote_types(x.dtype, layer.weight.dtype)
     bias = None if layer.bias is None else layer.bias.to(dt)
     return F.conv2d(x.to(dt), layer.weight.to(dt), bias, stride=layer.stride,
-                    padding=layer.padding)
+                    padding=layer.padding, dilation=layer.dilation, groups=layer.groups)
 
 
 class LayerNorm(nn.LayerNorm):

@@ -5,7 +5,8 @@ BatchNorm folding for inference.
 `from_jax_variables` is the inverse of `convert_detector` in
 `panoswintransformerobjectdetection_tpu/runtime/checkpoint.py`: it takes the
 (params, batch_stats) trees of a JAX `PanoFasterRCNN` or `MaskRCNN`, with a
-PanoSwin or a stock Swin backbone, as numpy arrays and returns a state dict
+PanoSwin, a stock Swin, or a ResNet, ResNeXt or RegNet backbone
+(`from_jax_cnn_backbone`), as numpy arrays and returns a state dict
 in the reference's key layout, which the port's detector loads with
 `load_state_dict`.  Layouts: conv HWIO -> OIHW, Dense (in, out) -> Linear
 (out, in), LayerNorm scale -> weight, `shared_fc0`'s input reordered from
@@ -16,7 +17,9 @@ its kernel; torch's does).  A cascade's `cascade_head_{t}` goes to
 `roi_head.bbox_head.{t}`; its `bbox_head_m`, which no cascade stage runs, is
 left out.  The JAX `convert_detector` converts no mask
 head key, so the JAX package cannot load a reference Mask R-CNN `.pth`
-whole; the port loads one with `load_state_dict`.
+whole, and its `load_weights` reads every backbone but PanoSwin's with the
+Swin keys, so it cannot load a reference ResNet detector `.pth` either; the
+port loads both with `load_state_dict`.
 
 A reference checkpoint loads without a converter, since the port's keys
 are the reference's (`load_torch_state_dict`, `load_reference_weights`,
@@ -35,6 +38,7 @@ import torch
 import torch.nn as nn
 
 from ..geometry.resample import _torch_cubic_weights
+from ..models.detectors import check_train_backbone
 from ..ops.stem_conv import BN_EPS, fold_bn
 
 
@@ -50,7 +54,8 @@ def _linear(sd, key, p):
 
 def _conv(sd, key, p):
     sd[key + ".weight"] = _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
-    sd[key + ".bias"] = _t(p["bias"])
+    if "bias" in p:
+        sd[key + ".bias"] = _t(p["bias"])
 
 
 def _ln(sd, key, p):
@@ -152,6 +157,39 @@ def from_jax_swin_backbone(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def from_jax_cnn_backbone(params: Dict[str, Any],
+                          batch_stats: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX `ResNet`, `ResNeXt` or `RegNet` variables -> the port backbone's
+    state dict, the reference's (torchvision's) keys: `conv1`, `bn1`, block
+    `layer{i}_{j}` to `layer{i}.{j}`, its `downsample_conv` and
+    `downsample_bn` to `downsample.0` and `downsample.1`; flax BatchNorm's
+    `scale`, `bias` and statistics `mean`, `var` to `weight`, `bias`,
+    `running_mean`, `running_var` (the JAX `convert_resnet_backbone`
+    reversed)."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def conv_bn(src, stats, conv, bn, key, bn_key):
+        _conv(sd, key, src[conv])
+        _bn(sd, bn_key, src[bn], stats[bn], np.shape(src[conv]["kernel"])[-1])
+
+    conv_bn(params, batch_stats, "conv1", "bn1", "conv1", "bn1")
+    i = 1
+    while f"layer{i}_0" in params:
+        j = 0
+        while f"layer{i}_{j}" in params:
+            blk, st, key = params[f"layer{i}_{j}"], batch_stats[f"layer{i}_{j}"], f"layer{i}.{j}"
+            n = 1
+            while f"conv{n}" in blk:
+                conv_bn(blk, st, f"conv{n}", f"bn{n}", f"{key}.conv{n}", f"{key}.bn{n}")
+                n += 1
+            if "downsample_conv" in blk:
+                conv_bn(blk, st, "downsample_conv", "downsample_bn", f"{key}.downsample.0",
+                        f"{key}.downsample.1")
+            j += 1
+        i += 1
+    return sd
+
+
 def _mask_head(sd, key, p):
     i = 0
     while f"conv{i}" in p:
@@ -191,6 +229,8 @@ def from_jax_variables(params: Dict[str, Any], batch_stats: Dict[str, Any],
     bb = params["backbone_m"]
     if "layers_0_blocks_0" in bb:
         bb_sd = from_jax_swin_backbone(bb)
+    elif "layer1_0" in bb:
+        bb_sd = from_jax_cnn_backbone(bb, batch_stats["backbone_m"])
     else:
         bb_sd = from_jax_backbone(bb, batch_stats.get("backbone_m", {}))
     sd = {"backbone." + k: v for k, v in bb_sd.items()}
@@ -310,7 +350,9 @@ def load_backbone_weights(backbone: nn.Module, sd: Dict[str, torch.Tensor]) -> N
     classifier's head and last norm) are left out; the absolute encoder or
     table, the stem's LayerNorm and the out-norms, which the converters take
     only when present, keep the backbone's own values when absent; any
-    other missing key raises.  Swin has no BatchNorm to fold."""
+    other missing key raises.  Swin has no BatchNorm to fold.  A CNN
+    backbone raises: its `pretrained` init belongs to its training."""
+    check_train_backbone(backbone)
     own = backbone.state_dict()
     optional = ("abs_encoder.", "absolute_pos_embed", "patch_embed.norm.", "norm")
     missing = [k for k in own if k not in sd and not k.startswith(optional)

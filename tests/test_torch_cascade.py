@@ -29,18 +29,12 @@ import numpy as np
 import pytest
 import torch
 
-from panoswintransformerobjectdetection_tpu.apis.test import \
-    single_device_test as jax_single_device_test
-from panoswintransformerobjectdetection_tpu.data import builder as jb
 from panoswintransformerobjectdetection_tpu.models import roi_head as jroi
 from panoswintransformerobjectdetection_tpu.models import cascade as jcascade
 from panoswintransformerobjectdetection_tpu.ops.nms import multiclass_nms as jax_multiclass_nms
 from panoswintransformerobjectdetection_torch.apis.inference import (build_detector_from_cfg,
                                                                      init_detector)
-from panoswintransformerobjectdetection_torch.apis.test import (MASK_EVAL_STAGES,
-                                                                single_device_test)
 from panoswintransformerobjectdetection_torch.apis.tta import aug_test_detector
-from panoswintransformerobjectdetection_torch.data import builder as tb
 from panoswintransformerobjectdetection_torch.models import roi_head as troi
 from panoswintransformerobjectdetection_torch.models.cascade import (CASCADE_MASK_STAGES,
                                                                      STAGE_STDS, CascadeMaskRCNN)
@@ -48,8 +42,7 @@ from panoswintransformerobjectdetection_torch.ops.nms import multiclass_nms
 from panoswintransformerobjectdetection_torch.runtime.checkpoint import (_bbox_head,
                                                                          load_reference_weights)
 from panoswintransformerobjectdetection_torch.runtime.config import load_config
-from panoswintransformerobjectdetection_torch.tools import test as test_cli
-from test_torch_mask_rcnn import _match, _polygons, _write_set
+from test_torch_mask_rcnn import _loop_matches_jax, _match
 from torch_port_common import (CASCADE_BBOX_HEADS, quick_jit,  # noqa: F401
                                random_variables, single_torch_thread, tiny_cascade_config,
                                tiny_swin_cascade, to_numpy)
@@ -246,57 +239,10 @@ def test_single_device_test_with_masks_matches_jax(tiny, tmp_path, monkeypatch):
     flips: 1 of 3545 in one mask of the 4conv1f cascade), metrics within
     1e-4;
     `tools.test --eval bbox segm` on the same weights from a `.pth` gives
-    the port's metrics."""
-    from panoswintransformerobjectdetection_torch.core import rle
-    rng = np.random.default_rng(6)
-    frames = (rng.random((N_IMAGES, H, W, 3)) * 255).astype(np.uint8)
-    empty = _write_set(str(tmp_path), "first.json", frames, [])
-    jit = jax.jit
-    monkeypatch.setattr(jax, "jit", lambda fn, **kw: (lambda v, *a: tiny["run"](*a)[0])
-                        if fn.__name__ == "run" else jit(fn, **kw))
-    want = jax_single_device_test(tiny["det"], tiny["variables"], jb.build_dataset(empty),
-                                  batch_size=2, with_masks=True)
-    monkeypatch.undo()
-    calls = []
-    got = single_device_test(tiny["model"], tb.build_dataset(empty), batch_size=2,
-                             with_masks=True, device="cpu",
-                             stage=lambda name, fn: calls.append(name) or fn())
-    assert calls == list(MASK_EVAL_STAGES) * (N_IMAGES // 2) + ["load"]
-    pixels = flips = 0
-    for i, (g, w) in enumerate(zip(got, want)):
-        assert len(g["masks"]) == len(g["boxes"]) > 0
-        for gm, j in zip(g["masks"], _match(g, w, f"image {i}")):
-            a, b = rle.decode(gm), rle.decode(w["masks"][j])
-            pixels += int(a.sum())
-            flips += int((a != b).sum())
-    assert pixels > 0 and flips <= pixels // 1000
-    gt = []
-    for i, w in enumerate(want):
-        for box, label, m in zip(w["boxes"], w["labels"], w["masks"]):
-            x1, y1, x2, y2 = (box + rng.uniform(-2, 2, 4)).tolist()
-            if x2 - x1 >= 1 and y2 - y1 >= 1 and rle.area(m) > 0:
-                seg = dict(m, counts=m["counts"].decode() if isinstance(m["counts"], bytes)
-                           else m["counts"])
-                gt.append({"image_id": i, "category_id": int(label) + 1, "iscrowd": 0,
-                           "bbox": [x1, y1, x2 - x1, y2 - y1], "area": float(rle.area(m)),
-                           "segmentation": seg})
-    scored = _write_set(str(tmp_path), "gt.json", frames, gt + _polygons(rng, N_IMAGES))
-    metrics = ["bbox", "segm"]
-    ref = jb.build_dataset(scored).evaluate(want, metric=metrics)
-    mine = tb.build_dataset(scored).evaluate(got, metric=metrics)
-    assert ref["segm_mAP"] > 0.1 and ref["bbox_mAP"] > 0.1
-    for k, v in ref.items():
-        assert abs(mine[k] - v) <= 1e-4, (k, mine[k], v)
-    if tiny["head"] != "shared2fc":
-        return
-    pth, cfg_file = str(tmp_path / "tiny.pth"), str(tmp_path / "tiny_cascade.py")
-    torch.save({"state_dict": tiny["model"].state_dict()}, pth)
-    with open(cfg_file, "w") as f:
-        f.write(f"model = {tiny_cascade_config(tiny['head'])!r}\n"
-                f"data = {dict(samples_per_gpu=2, test=scored)!r}\n")
-    cli = test_cli.main([cfg_file, pth, "--eval", "bbox", "segm", "--batch-size", "2",
-                         "--device", "cpu"])
-    assert cli == mine
+    the port's metrics (`test_torch_mask_rcnn._loop_matches_jax`)."""
+    _loop_matches_jax(lambda *a: tiny["run"](*a)[0], tiny["det"], tiny["variables"],
+                      tiny["model"], tiny_cascade_config(tiny["head"])
+                      if tiny["head"] == "shared2fc" else None, tmp_path, monkeypatch)
 
 
 @pytest.mark.parametrize("name", CASCADE_CONFIGS)

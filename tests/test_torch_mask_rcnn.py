@@ -198,6 +198,65 @@ def _write_set(root, name, frames, anns):
             "pipeline": PIPELINE, "test_mode": True, "classes": CLASSES}
 
 
+def _loop_matches_jax(jax_run, det, variables, model, model_cfg, tmp_path, monkeypatch):
+    """The port's `single_device_test(with_masks=True)` of `model` against
+    the JAX package's on `det` (its jit replaced by `jax_run`, the module's
+    `simple_test_masks` compiled once), then both packages'
+    `evaluate(["bbox", "segm"])` on ground truth made from JAX's detections
+    and masks (and more polygons): equal detections, bitmaps equal but for
+    at most one pixel in 1000 (a pixel whose probability lies within
+    rounding of 0.5 flips), metrics within 1e-4; with `model_cfg`,
+    `tools.test --eval bbox segm` on the same weights from a `.pth` gives
+    the port's metrics."""
+    rng = np.random.default_rng(6)
+    frames = (rng.random((N_IMAGES, H, W, 3)) * 255).astype(np.uint8)
+    empty = _write_set(str(tmp_path), "first.json", frames, [])
+    jit = jax.jit
+    monkeypatch.setattr(jax, "jit", lambda fn, **kw: (lambda v, *a: jax_run(*a))
+                        if fn.__name__ == "run" else jit(fn, **kw))
+    want = jax_single_device_test(det, variables, jb.build_dataset(empty), batch_size=2,
+                                  with_masks=True)
+    monkeypatch.undo()
+    calls = []
+    got = single_device_test(model, tb.build_dataset(empty), batch_size=2, with_masks=True,
+                             device="cpu", stage=lambda name, fn: calls.append(name) or fn())
+    assert calls == list(MASK_EVAL_STAGES) * (N_IMAGES // 2) + ["load"]
+    pixels = flips = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert len(g["masks"]) == len(g["boxes"]) > 0
+        for gm, j in zip(g["masks"], _match(g, w, f"image {i}")):
+            a, b = rle.decode(gm), rle.decode(w["masks"][j])
+            pixels += int(a.sum())
+            flips += int((a != b).sum())
+    assert pixels > 0 and flips <= pixels // 1000
+    gt = []
+    for i, w in enumerate(want):
+        for box, label, m in zip(w["boxes"], w["labels"], w["masks"]):
+            x1, y1, x2, y2 = (box + rng.uniform(-2, 2, 4)).tolist()
+            if x2 - x1 >= 1 and y2 - y1 >= 1 and rle.area(m) > 0:
+                seg = dict(m, counts=m["counts"].decode() if isinstance(m["counts"], bytes)
+                           else m["counts"])
+                gt.append({"image_id": i, "category_id": int(label) + 1, "iscrowd": 0,
+                           "bbox": [x1, y1, x2 - x1, y2 - y1], "area": float(rle.area(m)),
+                           "segmentation": seg})
+    scored = _write_set(str(tmp_path), "gt.json", frames, gt + _polygons(rng, N_IMAGES))
+    metrics = ["bbox", "segm"]
+    ref = jb.build_dataset(scored).evaluate(want, metric=metrics)
+    mine = tb.build_dataset(scored).evaluate(got, metric=metrics)
+    assert ref["segm_mAP"] > 0.1 and ref["bbox_mAP"] > 0.1
+    for k, v in ref.items():
+        assert abs(mine[k] - v) <= 1e-4, (k, mine[k], v)
+    if model_cfg is None:
+        return
+    pth, cfg_file = str(tmp_path / "model.pth"), str(tmp_path / "model_cfg.py")
+    torch.save({"state_dict": model.state_dict()}, pth)
+    with open(cfg_file, "w") as f:
+        f.write(f"model = {model_cfg!r}\ndata = {dict(samples_per_gpu=2, test=scored)!r}\n")
+    cli = test_cli.main([cfg_file, pth, "--eval", "bbox", "segm", "--batch-size", "2",
+                         "--device", "cpu"])
+    assert cli == mine
+
+
 def test_single_device_test_with_masks_matches_jax(tiny, tmp_path, monkeypatch):
     """The port's loop against the JAX package's own `single_device_test(
     with_masks=True)` (its jit compiled at XLA's backend optimisation level

@@ -86,6 +86,34 @@ def random_variables(module, *samples, seed: int):
     return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
+def perturb_batch_norm(variables, seed: int):
+    """numpy `variables` (params, batch_stats) with every BatchNorm drawn
+    away from the identity, from `seed`: scales uniform in [0.5, 1.5],
+    biases and means N(0, 0.1), variances uniform in [0.5, 2].  A BatchNorm
+    is a params dict with a `scale` (flax's LayerNorm and GroupNorm too, so
+    this is for trees that hold none) and a batch_stats dict."""
+    rng = np.random.default_rng(seed)
+
+    def walk(tree, stats):
+        out = {}
+        for k in sorted(tree):
+            v = tree[k]
+            if isinstance(v, dict):
+                out[k] = walk(v, stats)
+            elif stats:
+                out[k] = (rng.standard_normal(v.shape) * 0.1 if k == "mean"
+                          else rng.uniform(0.5, 2.0, v.shape)).astype(np.float32)
+            elif "scale" in tree and k in ("scale", "bias"):
+                out[k] = (rng.uniform(0.5, 1.5, v.shape) if k == "scale"
+                          else rng.standard_normal(v.shape) * 0.1).astype(np.float32)
+            else:
+                out[k] = v
+        return out
+
+    return dict(variables, params=walk(variables["params"], False),
+                batch_stats=walk(variables["batch_stats"], True))
+
+
 @functools.lru_cache(maxsize=None)
 def tiny_detector():
     """The JAX `PanoFasterRCNN` at `flagship_config(tiny=True)` with
