@@ -207,14 +207,54 @@ Phases (each raises on failure, so any failure exits non-zero):
      configs in f32, TF32 off, at 64 x 128, card against CPU from one
      `.pth` each: equal detection counts, partners within 1e-3 px and 1e-4,
      mask probabilities within 1e-4;
- 14. a JSON line for the evaluation, one for the training loop, one for
+ 14. ResNet-family training and the Res2Net and ResNeSt detectors, from
+     reference `.pth` files of random weights (`write_cnn_reference_pth`)
+     through `load_from`, on synthetic 480 x 640 frames with polygon
+     instances (from `--seed`) through each config's own train pipeline
+     after `FramesFromMemory`, batch 2, the first step a warm-up, each
+     step's K3 launches by entry with the counts set to empty just before
+     it and read just after: (a) `configs/faster_rcnn/
+     faster_rcnn_r50_fpn_1x_coco.py` in f32 through `train_detector`, 4
+     steps (800 x 1088 after padding): K3's f32 entry once forward and once
+     backward at 7, no other kernel; every loss finite, every parameter
+     moved, every running statistic and `num_batches_tracked` as loaded
+     (`norm_eval`); loop images/s, the median step, host ms by stage, peak
+     memory; (b) `configs/gcnet/mask_rcnn_r50_fpn_syncbn-backbone_1x_coco.py`
+     (`norm_eval=False`) the same way with masks loaded (the config's
+     pipeline loads boxes only): K3's f32 entry at 7 and 14 forward and
+     backward; bn1's running statistics one momentum step a step towards
+     `batch_norm_train` of the step's own input; (c) `configs/cascade_rcnn/
+     cascade_mask_rcnn_r50_fpn_1x_coco.py` in bf16 as the config asks: K3's
+     bf16 entries three times forward and three backward at 7, never at 14;
+     one `forward_train`'s losses against the same step in f32 (TF32 off)
+     on one batch, weights and noise (`CASCADE_BF16_LOSS_REL`); (d) one
+     `forward_train` and backward of a detector on the caffe R-50
+     (`norm_eval=False`, `frozen_stages=1`), ResNeXt-101 32x4d, RegNetX-3.2GF,
+     Res2Net-101 (its residual branches scaled by 0.2) and ResNeSt-50, f32,
+     TF32 off, 64 x 128, card against CPU: losses within 1e-4 relative,
+     the neck's and heads' gradients within 1e-5 + 2e-3 * max|g| against
+     a CPU pass from the card's backbone maps, running statistics within
+     1e-4; each backbone's gradients in f64 card against CPU
+     (`f64_backbone_card_vs_cpu`); a
+     torchvision, a Detectron (`tools/detectron2pytorch.py`) and a pycls
+     backbone file of seeded values through `pretrained`: the same stage
+     outputs on the card as on the CPU; (e) the Res2Net-101 and ResNeSt-50
+     Faster R-CNN configs in f32: 1 warm-up and 3 timed `simple_test`
+     requests on 2 frames of 800 x 1344 (K3's f32 entry once at 7); the
+     ResNeSt-50 Mask R-CNN mstrain config with masks loaded, 3 steps (K3's
+     f32 entry at 7 and 14, forward and backward); (f) K3's backward at 7 on
+     the 2 x 512 RoIs that (a)'s first step sampled: the f32 entry against
+     autograd through the twin and timed with its bound, the bf16
+     owner-computes entry and its first version on the same RoIs;
+ 15. a JSON line for the evaluation, one for the training loop, one for
      Mask R-CNN serving, one for Mask R-CNN training, one for Cascade Mask
      R-CNN serving, one for its training, one for the ResNet-family
-     detectors, a JSON line per kernel (each with its launches in phase 11,
-     `launches_cascade`, in phase 12, `launches_cascade_training`, and in
-     phase 13, `launches_resnet`; K3's f32 entry timed on 13a's and 13b's
-     RoIs has rows of its own), the card's name and power limit, then the
-     result line.
+     detectors, one for their training, a JSON line per kernel (each with
+     its launches in phase 11, `launches_cascade`, in phase 12,
+     `launches_cascade_training`, in phase 13, `launches_resnet`, and in
+     phase 14, `launches_resnet_training`; K3's f32 entry timed on 13a's and
+     13b's RoIs and its f32 backward on 14a's have rows of their own), the
+     card's name and power limit, then the result line.
 Without a CUDA card it exits with an error and prints no result.
 """
 
@@ -2977,27 +3017,35 @@ RESNET_CASCADE_FRAME = (800, 1344)
 REG_SCALE = 0.05
 
 
-def write_cnn_reference_pth(config, directory, seed, name):
+def write_cnn_reference_pth(config, directory, seed, name, residual_scale=1.0):
     """Random weights from `seed` for the CNN-backbone detector of `config`
     (a dict), written as a reference checkpoint with the backbone's
     `num_batches_tracked`: `flagship.init_weights`, then every BatchNorm
     drawn away from the identity (scales in [0.5, 1.5], biases and means
     N(0, 0.1), variances in [0.5, 2]) and the regression weights scaled by
-    `REG_SCALE`."""
+    `REG_SCALE`; the scale and shift of each residual branch's last
+    BatchNorm times `residual_scale` (a trained deep network's branches are
+    small against the identity; with the draws above the maps of a
+    101-layer Res2Net grow until its logits reach tens)."""
     from panoswintransformerobjectdetection_torch.apis.inference import build_detector_from_cfg
     from panoswintransformerobjectdetection_torch.flagship import init_weights
     model = build_detector_from_cfg(config)
     init_weights(model, seed)
     g = torch.Generator().manual_seed(seed + 1)
     with torch.no_grad():
-        for name, m in model.named_modules():
+        for key, m in model.named_modules():
             if isinstance(m, torch.nn.BatchNorm2d):
                 m.weight.copy_(torch.rand(m.weight.shape, generator=g) + 0.5)
                 m.bias.copy_(torch.randn(m.bias.shape, generator=g) * 0.1)
                 m.running_mean.copy_(torch.randn(m.running_mean.shape, generator=g) * 0.1)
                 m.running_var.copy_(torch.rand(m.running_var.shape, generator=g) * 1.5 + 0.5)
-            elif name.endswith(("rpn_reg", "fc_reg")):
+            elif key.endswith(("rpn_reg", "fc_reg")):
                 m.weight.mul_(REG_SCALE)
+        for stage in model.backbone.stages:
+            for block in stage:
+                last = block.bn3 if hasattr(block, "bn3") else block.bn2
+                last.weight.mul_(residual_scale)
+                last.bias.mul_(residual_scale)
     sd = model.state_dict()
     if not any(k.endswith("num_batches_tracked") for k in sd):
         raise AssertionError("the CNN detector's state dict has no num_batches_tracked")
@@ -3253,10 +3301,708 @@ def resnet_path(dev, ident, counters, ra, seed):
     return rec, k3_faster + k3_mask
 
 
+RESNET_TRAIN_MASK_CONFIG = "configs/gcnet/mask_rcnn_r50_fpn_syncbn-backbone_1x_coco.py"
+RESNET_TRAIN_FRAMES, RESNET_TRAIN_BATCH = 8, 2
+# 14d: one `forward_train` of a detector on each backbone, card against CPU
+# (config, backbone options, `write_cnn_reference_pth`'s residual_scale).
+# Unscaled, the random Res2Net-101's logits reach 45 and its f32 loss_cls
+# agreed card against CPU to 4.5e-4 only (NVIDIA H100 80GB HBM3, 700 W);
+# its residual branches scaled by 0.2, its logits stay near a trained network's
+# (loss_cls 4.9 against log(81) = 4.4) and a 1e-7 relative change of the
+# input moves its losses by 1e-7 on the CPU.
+RESNET_TRAIN_CARD_VS_CPU = (
+    ("configs/faster_rcnn/faster_rcnn_r50_caffe_fpn_1x_coco.py",
+     {"norm_eval": False, "frozen_stages": 1}, 1.0),
+    ("configs/faster_rcnn/faster_rcnn_x101_32x4d_fpn_1x_coco.py", {}, 1.0),
+    ("configs/regnet/mask_rcnn_regnetx-3.2GF_fpn_1x_coco.py", {}, 1.0),
+    ("configs/res2net/faster_rcnn_r2_101_fpn_2x_coco.py", {}, 0.2),
+    ("configs/resnest/faster_rcnn_s50_fpn_1x_coco.py", {}, 1.0))
+RES2NET_SERVE_CONFIG = "configs/res2net/faster_rcnn_r2_101_fpn_2x_coco.py"
+RESNEST_SERVE_CONFIG = "configs/resnest/faster_rcnn_s50_fpn_1x_coco.py"
+RESNEST_TRAIN_CONFIG = ("configs/resnest/"
+                        "mask_rcnn_s50_fpn_syncbn-backbone+head_mstrain_1x_coco.py")
+# 14c: the bf16 cascade's losses against its own f32 step on the same batch,
+# weights and noise.  bf16 keeps 8 bits: the backbone's stages differ from
+# f32 by about 1e-2 of their largest value (13c), the RPN's scores by as
+# much, so its top-k proposals, and with them the sampled RoIs and their
+# targets, can differ; each loss is a mean over the sampled slots.
+CASCADE_BF16_LOSS_REL, CASCADE_BF16_ACC_ABS = 0.1, 0.1
+
+
+def train_config(path, dtype=None, masks=False):
+    """A config for a training run on the card: its compute type set when
+    given; with `masks`, its train pipeline's `LoadAnnotations` loads the
+    instances' masks too (the repo's R-50 and ResNeSt Mask R-CNN configs load
+    boxes only, as the JAX package would train them, without a mask loss;
+    the reference's `coco_instance` pipeline loads masks)."""
+    from panoswintransformerobjectdetection_torch.runtime.config import load_config
+    cfg = load_config(path)
+    if dtype:
+        cfg["model"]["compute_dtype"] = dtype
+    if masks:
+        cfg["data"]["train"]["pipeline"] = [
+            dict(p, with_mask=True) if p["type"] == "LoadAnnotations" else p
+            for p in cfg["data"]["train"]["pipeline"]]
+    return cfg
+
+
+class ResNetLoopRecord(MaskLoopRecord):
+    """`MaskLoopRecord`, and with `bn_model` each step's check of the first
+    BatchNorm's running statistics: one momentum step towards the batch
+    statistics of the step's input to it (`layers.batch_norm_train` on a
+    copy, recomputed from the batch and the step's own conv1 weights), and
+    `num_batches_tracked` one more."""
+
+    def __init__(self, counters, ra, bn_model=None):
+        super().__init__(counters, ra)
+        self.bn_model, self.batch, self.bn_err = bn_model, None, []
+
+    def stage(self, name, fn):
+        if name == "copy":
+            def keep():
+                self.batch = fn()
+                return self.batch
+            return super().stage(name, keep)
+        if name != "step" or self.bn_model is None:
+            return super().stage(name, fn)
+        import copy
+        from panoswintransformerobjectdetection_torch.models.layers import batch_norm_train, conv
+        bb = self.bn_model.backbone
+        want = copy.deepcopy(bb.bn1)
+        with torch.no_grad():
+            batch_norm_train(want, conv(bb.conv1, self.batch["images"].permute(0, 3, 1, 2),
+                                        bb.dtype))
+        out = super().stage(name, fn)
+        err = 0.0
+        for key in ("running_mean", "running_var"):
+            got, ref = getattr(bb.bn1, key), getattr(want, key)
+            err = max(err, float((got - ref).abs().max()) / max(1.0, float(ref.abs().max())))
+        if err > 1e-5 or int(bb.bn1.num_batches_tracked) != int(want.num_batches_tracked):
+            raise AssertionError(f"14b: bn1's running statistics are not one momentum step "
+                                 f"towards the batch's (relative error {err}), or "
+                                 f"num_batches_tracked {int(bb.bn1.num_batches_tracked)} != "
+                                 f"{int(want.num_batches_tracked)}")
+        self.bn_err.append(err)
+        return out
+
+
+def resnet_train_loop(dev, ident, counters, ra, seed, directory, config, label, by_entry, *,
+                      dtype=None, masks=False, frames=RESNET_TRAIN_FRAMES, warmup=1,
+                      bn_check=False, capture=False):
+    """A ResNet-family config through `train_detector` and its own train
+    pipeline after `FramesFromMemory`, from a reference `.pth` of random
+    weights (`write_cnn_reference_pth`, `load_from`): `frames` synthetic 480
+    x 640 frames with polygon instances from `seed`, batch 2, one epoch,
+    the first `warmup` steps untimed.  Each step's K3 launches by entry, the
+    counts set to empty just before it and read just after, must be
+    `by_entry`, and no other kernel may launch; every loss finite; every
+    parameter outside a mask head that no loss reaches moved; with
+    `norm_eval` every running statistic and `num_batches_tracked` as loaded,
+    else `num_batches_tracked` one more a step (`bn_check`: bn1's statistics
+    one momentum step a step, `ResNetLoopRecord`).  Returns the record, the
+    launches by (direction, entry, size) and, with `capture`, the RoIs (and
+    map shapes) that the first step pooled at 7."""
+    from panoswintransformerobjectdetection_torch.apis.inference import build_detector_from_cfg
+    from panoswintransformerobjectdetection_torch.apis.train import train_detector
+    from panoswintransformerobjectdetection_torch.data.datasets import CocoDataset
+    cfg = train_config(config, dtype, masks)
+    classes = CocoDataset.CLASSES
+    rng = np.random.default_rng(seed + 140 + sum(map(ord, label)))
+    arrays = (rng.random((frames, 480, 640, 3)) * 255).astype(np.uint8)
+    ann_file = write_ann(os.path.join(directory, f"{label}.json"), arrays, classes,
+                         polygon_annotations(rng, frames, 480, 640, len(classes)))
+    dataset = in_memory_dataset(dict(cfg["data"]["train"], classes=classes), ann_file, arrays)
+    model = build_detector_from_cfg(cfg)
+    path = write_cnn_reference_pth(cfg, directory, seed, label)
+    start = {k[len("module."):]: v for k, v in
+             torch.load(path, weights_only=True)["state_dict"].items()}
+    captured, roi_features = [], model.roi_features
+    if capture:
+        def pool(feats, rois, out_size=7):
+            if out_size == 7 and not captured:
+                captured.append((rois.detach().clone(), [tuple(f.shape) for f in feats[:4]]))
+            return roi_features(feats, rois, out_size)
+        model.roi_features = pool
+    record = ResNetLoopRecord(counters, ra, model if bn_check else None)
+    opt, sched = cfg["optimizer"], cfg["lr_config"]
+    torch.cuda.reset_peak_memory_stats()
+    train_detector(model, dataset, work_dir=os.path.join(directory, label), total_epochs=1,
+                   batch_size=RESNET_TRAIN_BATCH, base_lr=opt["lr"],
+                   weight_decay=opt["weight_decay"], warmup_iters=sched["warmup_iters"],
+                   decay_epochs=sched["step"], log_interval=1, seed=seed, hooks=[record],
+                   device=dev, stage=record.stage, num_workers=2, load_from=path)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if capture:
+        del model.roi_features
+    n_steps = frames // RESNET_TRAIN_BATCH
+    if len(record.step_launches) != n_steps or len(record.steps) != n_steps:
+        raise AssertionError(f"{label}: {len(record.steps)} steps, expected {n_steps}")
+    per_step = {name: 0 for name in counters}
+    per_step["roi_align (K3)"] = sum(by_entry["forward"].values())
+    per_step["roi_align_backward (K3 backward)"] = sum(by_entry["backward"].values())
+    for counts, entries in zip(record.step_launches, record.by_entry):
+        expect_launches(counts, per_step, f"{label} training step")
+        if entries != by_entry:
+            raise AssertionError(f"{label}: K3's launches by entry {entries}, expected {by_entry}")
+    keys = [k for k in record.steps[0] if "loss" in k or k == "grad_norm"]
+    if not all(np.isfinite(m[k]) for m in record.steps for k in keys) or (
+            masks and not all(m["loss_mask"] > 0 for m in record.steps)):
+        raise AssertionError(f"{label}: a loss is not finite, or no mask loss: {record.steps}")
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    still = [k for k, _ in model.named_parameters()
+             if torch.equal(state[k], start[k]) and not k.startswith("roi_head.mask_head.")]
+    stats = [k for k in state if "running" in k or "num_batches" in k]
+    live = not cfg["model"]["backbone"].get("norm_eval", True)
+    moved_stats = [k for k in stats if not torch.equal(state[k], start[k])]
+    nbt = {int(state[k]) - int(start[k]) for k in stats if "num_batches" in k}
+    if still or (moved_stats if not live else len(moved_stats) != len(stats) or nbt != {n_steps}):
+        raise AssertionError(f"{label}: parameters that did not move {still[:5]}; running "
+                             f"statistics moved {len(moved_stats)} of {len(stats)} "
+                             f"(norm_eval {not live}), num_batches_tracked + {nbt}")
+    timed = range(warmup, n_steps)
+    step_ms = [record.times["step"][i] * 1e3 for i in timed]
+    loop_ms = sum((record.times["load"][i] + record.times["copy"][i] + record.times["step"][i])
+                  * 1e3 for i in timed)
+    host = {k: sum(v[i] for i in timed) * 1e3 for k, v in record.times.items()}
+    launches = {}
+    for entries in record.by_entry:
+        for direction, counts in entries.items():
+            for (entry, o), n in counts.items():
+                launches[(direction, entry, o)] = launches.get((direction, entry, o), 0) + n
+    rec = {"config": config, "dtype": dtype or "float32", "backbone": cfg["model"]["backbone"],
+           "pipeline": [p["type"] for p in cfg["data"]["train"]["pipeline"]],
+           "masks_loaded": masks, "frames": frames, "batch": RESNET_TRAIN_BATCH,
+           "steps": n_steps, "warmup_steps": warmup, "card": ident,
+           "images_per_s": len(timed) * RESNET_TRAIN_BATCH / (loop_ms / 1e3),
+           "loop_ms": loop_ms, "step_ms": step_ms, "median_step_ms": statistics.median(step_ms),
+           "stage_ms": host, "peak_memory_gib": peak,
+           "losses": [{k: m[k] for k in keys} for m in record.steps],
+           "launches_step": per_step,
+           "k3_launches_step_by_entry": {d: {f"{e} o={o}": n for (e, o), n in c.items()}
+                                         for d, c in by_entry.items()},
+           "running_statistics": "moved" if live else "unchanged",
+           **({"bn1_momentum_step_rel_err": record.bn_err} if bn_check else {})}
+    for i, m in enumerate(record.steps):
+        print(f"    ({label[-1]}) step {i + 1}{' (warm-up)' if i < warmup else ''}: "
+              + ", ".join(f"{k} {m[k]:.6f}" for k in keys) + f", {record.times['step'][i] * 1e3:.3f} ms")
+    print(f"    ({label[-1]}) {os.path.basename(config)} ({type(model.backbone).__name__}, "
+          f"{rec['dtype']}, random weights from a reference .pth, BatchNorm away from the "
+          f"identity, norm_eval {not live}): {n_steps} steps of {RESNET_TRAIN_BATCH} frames of "
+          f"480 x 640 through {'/'.join(rec['pipeline'][1:])}, {len(timed)} timed: "
+          f"{rec['images_per_s']:.3f} images/s over the timed steps with the loader (2 "
+          f"threads), median step {rec['median_step_ms']:.3f} ms, host ms "
+          f"{{{', '.join(f'{k}: {v:.3f}' for k, v in host.items())}}}, peak memory "
+          f"{peak:.2f} GiB; every step's K3 launches: forward "
+          f"{by_entry_text(by_entry['forward'])}; backward {by_entry_text(by_entry['backward'])};"
+          f" no other kernel; every parameter moved; running statistics {rec['running_statistics']}"
+          + (f", bn1 one momentum step a step within {max(record.bn_err):.3g} (tolerance 1e-5)"
+             if bn_check else "") + f"; card {ident}")
+    del model
+    return rec, launches, (captured[0] if capture else None)
+
+
+def cascade_bf16_against_f32(dev, seed, directory, path):
+    """14c's check: one `forward_train` of the R-50 cascade in bf16 and in
+    f32 (TF32 off) from the same `.pth`, on the same batch (two seeded
+    frames of 800 x 1088 with 3 boxes each) and sampler noise (one CPU
+    generator seed): each loss within `CASCADE_BF16_LOSS_REL` relative,
+    each accuracy within `CASCADE_BF16_ACC_ABS`."""
+    from panoswintransformerobjectdetection_torch.apis.inference import (build_detector_from_cfg,
+                                                                         load_weights)
+    rng = np.random.default_rng(seed + 143)
+    h, w = MASK_FRAME
+    batch = {"images": torch.from_numpy(rng.standard_normal((2, h, w, 3)).astype(np.float32)),
+             "img_shapes": torch.tensor([[800.0, 1067.0]] * 2),
+             "gt_boxes": torch.tensor([[[100., 80., 400., 380.], [500., 300., 900., 700.],
+                                        [40., 500., 300., 780.]]] * 2),
+             "gt_labels": torch.tensor([[0, 2, 56], [17, 3, 1]]),
+             "gt_valid": torch.ones((2, 3), dtype=torch.bool)}
+    outs = {}
+    defaults = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dtype in ("bfloat16", None):
+            cfg = train_config(RESNET_CASCADE_CONFIG)
+            if dtype is None:
+                cfg["model"].pop("compute_dtype")
+            model = build_detector_from_cfg(cfg)
+            load_weights(model, path)
+            model.to(dev).train()
+            with torch.no_grad():
+                out = model.forward_train(**{k: v.to(dev) for k, v in batch.items()},
+                                          generator=torch.Generator().manual_seed(seed))
+            outs[dtype or "float32"] = {k: float(v) for k, v in out.items()}
+            del model
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = defaults
+    err = {}
+    for k, ref in outs["float32"].items():
+        got = outs["bfloat16"][k]
+        err[k] = abs(got - ref) if "acc" in k else abs(got - ref) / max(abs(ref), 1e-6)
+        tol = CASCADE_BF16_ACC_ABS if "acc" in k else CASCADE_BF16_LOSS_REL
+        if not (np.isfinite(got) and err[k] <= tol):
+            raise AssertionError(f"14c: bf16 {k} {got} against f32 {ref} (tolerance {tol})")
+    print(f"    (c) one forward_train of the cascade in bf16 against f32 (TF32 off), same .pth, "
+          f"batch of 2 x 800 x 1088 and sampler noise: "
+          + ", ".join(f"{k} {outs['bfloat16'][k]:.5f} / {v:.5f}" for k, v in outs["float32"].items())
+          + f"; losses within {max(v for k, v in err.items() if 'acc' not in k):.3g} relative "
+          f"(tolerance {CASCADE_BF16_LOSS_REL}), accuracies within "
+          f"{max(v for k, v in err.items() if 'acc' in k):.3g} (tolerance {CASCADE_BF16_ACC_ABS})")
+    return {"bf16": outs["bfloat16"], "f32": outs["float32"], "err": err}
+
+
+def seeded_backbone_state(backbone, seed):
+    """A state dict of `backbone`'s keys with seeded values: convs N(0,
+    1/fan_in), Linear N(0, 0.02), BatchNorm scales in [0.5, 1.5], biases and
+    means N(0, 0.1), variances in [0.5, 2]."""
+    g = torch.Generator().manual_seed(seed)
+    out = {}
+    for k, v in backbone.state_dict().items():
+        if k.endswith("num_batches_tracked"):
+            out[k] = torch.tensor(5)
+        elif k.endswith("running_var"):
+            out[k] = torch.rand(v.shape, generator=g) * 1.5 + 0.5
+        elif v.dim() == 4:
+            out[k] = torch.randn(v.shape, generator=g) * v[0].numel() ** -0.5
+        elif v.dim() == 2:
+            out[k] = torch.randn(v.shape, generator=g) * 0.02
+        elif k.endswith("weight"):
+            out[k] = torch.rand(v.shape, generator=g) + 0.5
+        else:
+            out[k] = torch.randn(v.shape, generator=g) * 0.1
+    return out
+
+
+def pretrained_files(directory, seed):
+    """A torchvision ResNet-50 `.pth` (its `fc` classifier included), a
+    Detectron R-50 `.pkl` (caffe2 blobs, affine-channel BatchNorm) through
+    `tools/detectron2pytorch.py`, and a pycls RegNetX-3.2GF `.pyth`
+    (`model_state`, its head), of seeded values: (config, file) pairs."""
+    import pickle
+    from panoswintransformerobjectdetection_torch.models.backbones_extra import RegNet
+    from panoswintransformerobjectdetection_torch.models.resnet import ResNet
+    from panoswintransformerobjectdetection_torch.tools import detectron2pytorch
+    tv = seeded_backbone_state(ResNet(depth=50), seed)
+    tv_path = os.path.join(directory, "resnet50-seeded.pth")
+    torch.save(dict(tv, **{"fc.weight": torch.zeros(1000, 2048), "fc.bias": torch.zeros(1000)}),
+               tv_path)
+    blobs = {"pred_w": np.zeros((1000, 2048), np.float32)}
+    caffe = {"conv1": "branch2a", "conv2": "branch2b", "conv3": "branch2c",
+             "downsample.0": "branch1"}
+    for k, v in seeded_backbone_state(ResNet(depth=50), seed + 1).items():
+        module, leaf = k.rsplit(".", 1)
+        if leaf not in ("weight", "bias"):
+            continue
+        if module in ("conv1", "bn1"):
+            name = "conv1" if module == "conv1" else "res_conv1_bn"
+        else:
+            layer, j, sub = module.split(".", 2)
+            stem = f"res{int(layer[5:]) + 1}_{j}"
+            name = (f"{stem}_{caffe[sub]}" if sub in caffe else
+                    f"{stem}_{caffe['downsample.0' if sub == 'downsample.1' else 'conv' + sub[-1]]}_bn")
+        suffix = "_b" if leaf == "bias" else ("_s" if name.endswith("_bn") else "_w")
+        blobs[name + suffix] = v.numpy()
+    pkl = os.path.join(directory, "R-50.pkl")
+    with open(pkl, "wb") as f:
+        pickle.dump({"blobs": blobs}, f)
+    det_path = os.path.join(directory, "R-50-detectron.pth")
+    detectron2pytorch.main([pkl, det_path, "50"])
+    pycls = {}
+    for k, v in seeded_backbone_state(RegNet(arch="regnetx_3.2gf"), seed + 2).items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        if k.startswith(("conv1.", "bn1.")):
+            pycls[k.replace("conv1.", "stem.conv.").replace("bn1.", "stem.bn.")] = v
+            continue
+        layer, j, rest = k.split(".", 2)
+        for n, sub in ((1, "a"), (2, "b"), (3, "c")):
+            rest = rest.replace(f"conv{n}.", f"f.{sub}.").replace(f"bn{n}.", f"f.{sub}_bn.")
+        rest = rest.replace("downsample.0.", "proj.").replace("downsample.1.", "bn.")
+        pycls[f"s{layer[5:]}.b{int(j) + 1}.{rest}"] = v
+    pycls["head.fc.weight"] = torch.zeros(1000, 1008)
+    pycls_path = os.path.join(directory, "RegNetX-3.2GF-seeded.pyth")
+    torch.save({"model_state": pycls, "epoch": 100}, pycls_path)
+    return [(RESNET_FASTER_CONFIG, tv_path), (RESNET_FASTER_CONFIG, det_path),
+            ("configs/regnet/mask_rcnn_regnetx-3.2GF_fpn_1x_coco.py", pycls_path)]
+
+
+def f64_backbone_card_vs_cpu(dev, cfg, path, seed):
+    """The detector's backbone alone in float64 on the card (cuDNN's f64
+    convolutions) and on the CPU, in train mode as the config has it, from
+    the `.pth`'s weights, on 2 seeded frames of 64 x 128 with a seeded
+    cotangent a stage: stages within 1e-9 * max|ref|, every gradient within
+    1e-9 * G + 1e-6 * max|g| (G the largest entry of any), the running
+    statistics within 1e-6 relative.  Returns the worst gradient error as a
+    share of max|g|."""
+    from panoswintransformerobjectdetection_torch.models.detectors import BACKBONES
+    options = dict(cfg["model"]["backbone"])
+    sd = {k[len("module.backbone."):]: v for k, v in
+          torch.load(path, weights_only=True)["state_dict"].items()
+          if k.startswith("module.backbone.")}
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((2, 64, 128, 3), generator=g, dtype=torch.float64)
+    runs = {}
+    for side, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        bb = BACKBONES[options["type"]](**{k: v for k, v in options.items() if k != "type"},
+                                        dtype=torch.float64)
+        bb.load_state_dict(sd)
+        bb.to(where).train()
+        outs = bb(x.to(where))
+        cots = [torch.randn(o.shape, generator=torch.Generator().manual_seed(seed + i),
+                            dtype=torch.float64) for i, o in enumerate(outs)]
+        sum((o * c.to(where)).sum() for o, c in zip(outs, cots)).backward()
+        runs[side] = ([o.detach().cpu() for o in outs],
+                      {n: p.grad.detach().cpu() for n, p in bb.named_parameters()
+                       if p.grad is not None},
+                      {k: v.cpu() for k, v in bb.state_dict().items() if "running" in k})
+    (o_g, g_g, s_g), (o_c, g_c, s_c) = runs["card"], runs["cpu"]
+    for i, (a, b) in enumerate(zip(o_g, o_c)):
+        if float((a - b).abs().max()) > 1e-9 * float(b.abs().max()):
+            raise AssertionError(f"14d f64 backbone stage {i}: card against CPU "
+                                 f"{float((a - b).abs().max())}")
+    scale = max(float(v.abs().max()) for v in g_c.values())
+    if set(g_g) != set(g_c):
+        raise AssertionError("14d f64 backbone: the card and the CPU reached different parameters")
+    worst = 0.0
+    for n, ref in g_c.items():
+        err = float((g_g[n] - ref).abs().max())
+        worst = max(worst, err / max(float(ref.abs().max()), 1e-300))
+        if err > 1e-9 * scale + 1e-6 * float(ref.abs().max()):
+            raise AssertionError(f"14d f64 backbone gradient {n}: {err}, max|g| "
+                                 f"{float(ref.abs().max())}")
+    for k, ref in s_c.items():
+        if float((s_g[k] - ref).abs().max()) > 1e-6 * max(1.0, float(ref.abs().max())):
+            raise AssertionError(f"14d f64 backbone running statistic {k}")
+    return worst
+
+
+def resnet_train_card_vs_cpu(dev, counters, ra, seed, directory):
+    """14d: one `forward_train` and its backward of a detector on each of
+    `RESNET_TRAIN_CARD_VS_CPU` (80 classes, the configs' training
+    configuration) in f32, TF32 off, at 64 x 128 on the card (K3's f32 entry
+    once at 7 forward and backward, the counts set to 0 just before and read
+    just after) and on the CPU, from one `.pth` (`write_cnn_reference_pth`),
+    the same batch and sampler noise: every loss within 1e-4 relative; every
+    gradient of the neck and heads within 1e-5 + 2e-3 * max|g| against a
+    second CPU pass that starts from the card's backbone maps (the neck and
+    heads on their own; from the CPU's own maps they inherit the backbone's
+    sensitivity, up to 0.62 of that tolerance under a 1e-7 input change on
+    the caffe R-50 with live BatchNorm, 0.93 seen card against CPU); the running
+    statistics within 1e-4 of 1 + |ref| and `num_batches_tracked` equal.
+    The backbones' gradients are held in float64 (`f64_backbone_card_vs_cpu`,
+    the statistics there within 1e-6): in f32 a 50- to 101-layer backbone of
+    random weights moves its gradients by up to 160 times 1e-5 + 2e-3 *
+    max|g| when its input moves by 1e-7 relative (measured on the CPU with
+    these weights: the caffe R-50 with live BatchNorm, and Res2Net-101 by
+    4.8 times), and the caffe R-50's live statistics by 1.4e-5 of 1 + |ref|
+    (2.6e-5 at 1e-6), so a card-against-CPU difference of that size says
+    nothing of a fault.  Then the three backbone
+    files of `pretrained_files` through `apis.train.apply_init_weights`:
+    the same stage outputs on the card as on the CPU (f32, TF32 off,
+    1e-4 * max|ref|).  Returns the records and the launches."""
+    from panoswintransformerobjectdetection_torch.apis.inference import (build_detector_from_cfg,
+                                                                         load_weights)
+    from panoswintransformerobjectdetection_torch.apis.train import apply_init_weights
+    from panoswintransformerobjectdetection_torch.runtime.config import load_config
+    rng = np.random.default_rng(seed + 144)
+    batch = {"images": torch.from_numpy(rng.standard_normal((2, 64, 128, 3)).astype(np.float32)),
+             "img_shapes": torch.tensor([[64., 128.], [60., 120.]]),
+             "gt_boxes": torch.tensor([[[4., 2., 44., 34.], [30., 10., 90., 60.],
+                                        [70., 4., 124., 40.]]] * 2),
+             "gt_labels": torch.tensor([[0, 3, 4], [1, 2, 0]]),
+             "gt_valid": torch.tensor([[True, True, True], [True, True, False]])}
+    f32 = (ra.ENTRIES[torch.float32], 7)
+    f32_back = (ra.BACKWARD_ENTRIES[torch.float32], 7)
+    records, launches = {}, {}
+    defaults = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for config, options, residual_scale in RESNET_TRAIN_CARD_VS_CPU:
+            cfg = load_config(config)
+            cfg["model"]["backbone"].update(options)
+            name = os.path.basename(config)[:-3]
+            path = write_cnn_reference_pth(cfg, directory, 1, "14d_" + name,
+                                           residual_scale=residual_scale)
+            outs, grads, stats, maps = {}, {}, {}, []
+            for side, where in (("card", dev), ("cpu", torch.device("cpu")),
+                                ("cpu_from_card_maps", torch.device("cpu"))):
+                model = build_detector_from_cfg(cfg)
+                load_weights(model, path)
+                model.to(where).train()
+                stages = model.backbone.forward_from_embed
+                if side == "card":
+                    def keep(x, stages=stages):
+                        feats = stages(x)
+                        maps[:] = [f.detach().cpu() for f in feats]
+                        return feats
+                    model.backbone.forward_from_embed = keep
+                    for fn in counters.values():
+                        fn.launches = 0
+                    ra.roi_align.launches_by_entry = {}
+                    ra.roi_align_backward.launches_by_entry = {}
+                elif side == "cpu_from_card_maps":
+                    model.backbone.forward_from_embed = lambda x: tuple(maps)
+                out = model.forward_train(**{k: v.to(where) for k, v in batch.items()},
+                                          generator=torch.Generator().manual_seed(7))
+                sum(v for k, v in out.items() if "loss" in k).backward()
+                if side == "card":
+                    torch.cuda.synchronize()
+                    counts = {n: fn.launches for n, fn in counters.items()}
+                    entries = (dict(ra.roi_align.launches_by_entry),
+                               dict(ra.roi_align_backward.launches_by_entry))
+                    expect = {n: 0 for n in counters}
+                    expect.update({"roi_align (K3)": 1, "roi_align_backward (K3 backward)": 1})
+                    if counts != expect or entries != ({f32: 1}, {f32_back: 1}):
+                        raise AssertionError(f"14d {name}: launches {counts}, by entry {entries}")
+                    for key in (("forward",) + f32, ("backward",) + f32_back):
+                        launches[key] = launches.get(key, 0) + 1
+                outs[side] = {k: float(v.detach()) for k, v in out.items()}
+                grads[side] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+                               if p.grad is not None}
+                stats[side] = {k: v.cpu() for k, v in model.state_dict().items()
+                               if "running" in k or "num_batches" in k}
+                if side == "cpu":
+                    names = [n for n, _ in model.named_parameters()]
+                del model
+            loss_err = max(abs(outs["card"][k] - v) / max(abs(v), 1e-6)
+                           for k, v in outs["cpu"].items())
+            if loss_err > 1e-4 or not all(np.isfinite(v) for v in outs["card"].values()):
+                raise AssertionError(f"14d {name}: card {outs['card']}, CPU {outs['cpu']}")
+            if set(grads["card"]) != set(grads["cpu"]):
+                raise AssertionError(f"14d {name}: the card and the CPU reached different "
+                                     "parameters")
+            # no masks in the batch: a mask head gets no gradient
+            frozen = [n for n in names if n not in grads["cpu"]
+                      and not n.startswith("roi_head.mask_head.")]
+            want_frozen = [n for n in frozen if n.startswith(
+                ("backbone.conv1.", "backbone.bn1.", "backbone.layer1."))]
+            if frozen != (want_frozen if options.get("frozen_stages") == 1 else []):
+                raise AssertionError(f"14d {name}: parameters without a gradient {frozen[:4]}")
+            worst = (0.0, "")
+            for n, ref in grads["cpu_from_card_maps"].items():
+                scale = float(ref.abs().max())
+                err = float((grads["card"][n] - ref).abs().max())
+                worst = max(worst, (err / max(scale, 1e-30), n))
+                if err > 1e-5 + 2e-3 * scale:
+                    raise AssertionError(f"14d {name}: gradient of {n}: card against CPU {err}, "
+                                         f"max|g| {scale}")
+            if set(grads["cpu_from_card_maps"]) != {n for n in grads["cpu"]
+                                                   if not n.startswith("backbone.")}:
+                raise AssertionError(f"14d {name}: the neck and heads reached other parameters "
+                                     "from the card's maps")
+            stat_err = 0.0
+            for k, ref in stats["cpu"].items():
+                got = stats["card"][k]
+                if "num_batches" in k:
+                    if not torch.equal(got, ref):
+                        raise AssertionError(f"14d {name}: {k} {got} against {ref}")
+                    continue
+                err = float(((got - ref).abs() / (1.0 + ref.abs())).max())
+                stat_err = max(stat_err, err)
+                if err > 1e-4:
+                    raise AssertionError(f"14d {name}: running statistic {k} differs by {err}")
+            live = not cfg["model"]["backbone"].get("norm_eval", True)
+            f64_worst = f64_backbone_card_vs_cpu(dev, cfg, path, seed + 145)
+            records[name] = {"backbone": cfg["model"]["backbone"],
+                             "residual_scale": residual_scale, "loss_rel_err": loss_err,
+                             "head_grad_worst_rel": worst[0], "head_grad_worst": worst[1],
+                             "running_stat_err": stat_err, "live_batch_norm": live,
+                             "frozen_params": len(frozen), "f64_backbone_grad_worst_rel": f64_worst}
+            print(f"    (d) {name} ({cfg['model']['backbone']['type']}"
+                  f"{', norm_eval False, frozen_stages 1' if live else ''}), f32, TF32 off, 2 "
+                  f"frames of 64 x 128, card vs CPU: losses within {loss_err:.3g} relative "
+                  f"(tolerance 1e-4), neck and head gradients within {worst[0]:.3g} of max|g| "
+                  f"({worst[1]}; tolerance 1e-5 + 2e-3 * max|g|), running statistics within "
+                  f"{stat_err:.3g} of 1 + |ref| (1e-4), {len(frozen)} frozen parameters without a gradient; "
+                  f"the backbone in f64 card vs CPU: gradients within {f64_worst:.3g} of max|g| "
+                  f"(tolerance 1e-9 * G + 1e-6 * max|g|)")
+        files = {}
+        with tempfile.TemporaryDirectory() as files_dir:
+            for config, path in pretrained_files(files_dir, seed + 146):
+                model = build_detector_from_cfg(load_config(config))
+                apply_init_weights(model, pretrained=path)
+                bb = model.backbone.eval()
+                x = torch.from_numpy(rng.standard_normal((1, 64, 128, 3)).astype(np.float32))
+                with torch.no_grad():
+                    ref = bb(x)
+                    got = bb.to(dev)(x.to(dev))
+                err = 0.0
+                for i, (a, b) in enumerate(zip(got, ref)):
+                    e = float((a.cpu() - b).abs().max()) / float(b.abs().max())
+                    err = max(err, e)
+                    if e > 1e-4:
+                        raise AssertionError(f"14d {os.path.basename(path)} stage {i}: card "
+                                             f"against CPU {e} of max|ref|")
+                files[os.path.basename(path)] = err
+                print(f"    (d) pretrained {os.path.basename(path)} into "
+                      f"{type(bb).__name__}: stage outputs card vs CPU within {err:.3g} of "
+                      f"max|ref| (tolerance 1e-4)")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = defaults
+    return {"detectors": records, "pretrained_files": files}, launches
+
+
+def resnet_family_requests(dev, ident, counters, ra, directory, config, label):
+    """14e: a Res2Net or ResNeSt Faster R-CNN config in f32 as it is, from a
+    reference `.pth` of random weights: 1 warm-up and `CASCADE_REQUESTS`
+    timed `simple_test` requests on 2 seeded frames of 800 x 1344, each with
+    the launch counts set to 0 just before it and read just after (K3's f32
+    entry once at 7, no other kernel); detections finite."""
+    from panoswintransformerobjectdetection_torch.apis.inference import init_detector
+    cfg = mask_config(path=config)
+    path = write_cnn_reference_pth(cfg, directory, 0, label)
+    model = init_detector(cfg, path, device=dev)
+    h, w = RESNET_CASCADE_FRAME
+    g = torch.Generator(device=dev).manual_seed(14)
+    inputs = (torch.randn((2, h, w, 3), generator=g, device=dev),
+              torch.tensor([[float(h), float(w)]] * 2, device=dev), torch.ones((2, 4), device=dev))
+    model.simple_test(*inputs)                                      # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    latencies, launches = [], {}
+    f32 = (ra.ENTRIES[torch.float32], 7)
+    for _ in range(CASCADE_REQUESTS):
+        for fn in counters.values():
+            fn.launches = 0
+        ra.roi_align.launches_by_entry = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        det = model.simple_test(*inputs)
+        torch.cuda.synchronize()
+        latencies.append(time.perf_counter() - t0)
+        counts = {name: fn.launches for name, fn in counters.items()}
+        expect = {name: 0 for name in counters}
+        expect["roi_align (K3)"] = 1
+        if counts != expect or ra.roi_align.launches_by_entry != {f32: 1}:
+            raise AssertionError(f"{label}: launches {counts}, K3 by entry "
+                                 f"{ra.roi_align.launches_by_entry}")
+        launches[("forward",) + f32] = launches.get(("forward",) + f32, 0) + 1
+    if not (det.mask.any() and torch.isfinite(det.boxes).all()
+            and torch.isfinite(det.scores).all()):
+        raise AssertionError(f"{label}: detections empty or not finite")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rec = {"config": config, "backbone": cfg["model"]["backbone"]["type"], "dtype": "float32",
+           "batch": 2, "frame": list(RESNET_CASCADE_FRAME),
+           "latency_ms": [t * 1e3 for t in latencies],
+           "median_ms": statistics.median(latencies) * 1e3, "peak_gib": peak,
+           "detections": int(det.mask.sum())}
+    print(f"    (e) {os.path.basename(config)} ({rec['backbone']}, f32, random weights from a "
+          f"reference .pth): {CASCADE_REQUESTS} simple_test requests of 2 frames of {h} x {w} "
+          f"after a warm-up: latency ms {[round(t * 1e3, 3) for t in latencies]}, median "
+          f"{rec['median_ms']:.3f} ms, {2e3 / rec['median_ms']:.3f} images/s; K3's f32 entry "
+          f"once at 7 a request, no other kernel; peak memory {peak:.2f} GiB; "
+          f"{rec['detections']} detections in the last; card {ident}")
+    del model
+    return rec, launches
+
+
+def kernel_k3_backward_resnet(dev, ra, sampled):
+    """14f: K3's backward at 7 x 7 bins on the RoIs that 14a's first step
+    sampled (2 x 512 over an 800 x 1088 batch's maps, R-50): the f32 entry
+    (the first version, atomics) against autograd through the twin within
+    1e-5 * max(1, max|ref|), timed beside the twin, with its bound (f32
+    bytes over the memory rate, or its operations over the f32 rate); the
+    bf16 owner-computes entry on the same RoIs against the twin and
+    bit-equal twice, and the first version at bf16 (`k3_backward_times`).
+    Returns the record."""
+    strides = (4, 8, 16, 32)
+    rois, shapes = sampled
+    rois = rois.float().contiguous()
+    C, o = 256, 7
+    rng = np.random.default_rng(34)
+    cot = torch.from_numpy(rng.standard_normal((rois.shape[0], o, o, C)).astype(np.float32))
+    cot = cot.to(dev)
+    b = k3_backward_times(ra, rois, cot.bfloat16(), shapes, strides)
+    got = ra.roi_align_backward(cot, rois, shapes, torch.float32, strides)
+    entry = ra.roi_align_backward.last_entry
+    if entry != ra.BACKWARD_ENTRIES[torch.float32]:
+        raise AssertionError(f"14f: K3's backward launched {entry} at f32")
+    ref = ra.roi_align_backward_plain(cot, rois, shapes, torch.float32, strides)
+    err = 0.0
+    for level, (a, r) in enumerate(zip(got, ref)):
+        err = max(err, check(f"K3 backward o=7 f32 level {level}, 14a's sampled RoIs, entry "
+                             f"{entry}", a, r, 1e-5 * max(1.0, float(r.abs().max()))))
+    del got, ref
+    ms = time_ms(lambda: ra.roi_align_backward(cot, rois, shapes, torch.float32, strides), 20)
+    plain_ms = time_ms(lambda: ra.roi_align_backward_plain(cot, rois, shapes, torch.float32,
+                                                           strides), 2)
+    nbytes = 4 * (cot.numel() + sum(int(np.prod(s)) for s in shapes)) + rois.numel() * 4
+    ops = rois.shape[0] * o * o * C * (16 + 4) * 2
+    bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+    print(f"  K3 backward o=7 f32, the {b['rois']} RoIs 14a's first step sampled (by level "
+          f"{b['rois_by_level']}, maps {shapes[0][1]} x {shapes[0][2]} and coarser): f32 entry "
+          f"{ms:.4f} ms ({bound / ms:.3f} of its {bound:.4f} ms bound, "
+          f"{'bytes' if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S else 'operations'}), "
+          f"autograd through the twin {plain_ms:.4f} ms; the bf16 owner-computes entry "
+          f"{b['ms']:.4f} ms, bit-equal on two launches, its first version at bf16 with "
+          f"zeroing and cast {b['previous_ms']:.4f} ms; no single PyTorch call computes it")
+    return {"name": "roi_align_backward o=7 f32 (K3 backward), ResNet-50 sampled RoIs",
+            "route": "cuda", "source": "panoswintransformerobjectdetection_torch/csrc/roi_align.cu",
+            "replaces": "panoswintransformerobjectdetection_tpu/ops/roi_align.py:356",
+            "shares_kernel_of": "roi_align_backward (K3 backward)", "out_size": o,
+            "entry": entry, "rois": b["rois"], "rois_by_level": b["rois_by_level"],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
+            else "operations", "library_ms": None, "previous_ms": b["previous_ms"],
+            "bf16": {k: b[k] for k in ("entry", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                       "bound_by", "bitwise_repeatable")}}
+
+
+def resnet_training_path(dev, ident, counters, ra, seed):
+    """Phase 14: ResNet-family training and the Res2Net and ResNeSt
+    detectors on the card; returns its record, the launches of its main
+    paths by (direction, entry, bins) and the record of K3's f32 backward on
+    14a's RoIs."""
+    f32, bf16 = ra.ENTRIES[torch.float32], ra.ENTRIES[torch.bfloat16]
+    f32_b, bf16_b = ra.BACKWARD_ENTRIES[torch.float32], ra.BACKWARD_ENTRIES[torch.bfloat16]
+    launches, rec, seconds = {}, {}, {}
+    at7 = {"forward": {(f32, 7): 1}, "backward": {(f32_b, 7): 1}}
+    at7_14 = {"forward": {(f32, 7): 1, (f32, 14): 1}, "backward": {(f32_b, 7): 1, (f32_b, 14): 1}}
+
+    def run(label, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        seconds[label] = time.perf_counter() - t0
+        for k, n in out[1].items():
+            launches[k] = launches.get(k, 0) + n
+        return out
+
+    with tempfile.TemporaryDirectory() as directory:
+        rec["14a"], _, sampled = run("14a", lambda: resnet_train_loop(
+            dev, ident, counters, ra, seed, directory, RESNET_FASTER_CONFIG, "14a", at7,
+            capture=True))
+        rec["14b"], _, _ = run("14b", lambda: resnet_train_loop(
+            dev, ident, counters, ra, seed, directory, RESNET_TRAIN_MASK_CONFIG, "14b", at7_14,
+            masks=True, bn_check=True))
+        rec["14c"], _, _ = run("14c", lambda: resnet_train_loop(
+            dev, ident, counters, ra, seed, directory, RESNET_CASCADE_CONFIG, "14c",
+            {"forward": {(bf16, 7): 3}, "backward": {(bf16_b, 7): 3}}, dtype="bfloat16"))
+        t0 = time.perf_counter()
+        rec["14c"]["bf16_against_f32"] = cascade_bf16_against_f32(
+            dev, seed, directory, os.path.join(directory, "14c.pth"))
+        seconds["14c_check"] = time.perf_counter() - t0
+        rec["14d"], _ = run("14d", lambda: resnet_train_card_vs_cpu(dev, counters, ra, seed,
+                                                                     directory))
+        rec["14e"] = {}
+        for config, label in ((RES2NET_SERVE_CONFIG, "14e_res2net"),
+                              (RESNEST_SERVE_CONFIG, "14e_resnest")):
+            rec["14e"][label[4:]], _ = run(label, lambda: resnet_family_requests(
+                dev, ident, counters, ra, directory, config, label))
+        rec["14e"]["resnest_training"], _, _ = run("14e_resnest_training", lambda: (
+            resnet_train_loop(dev, ident, counters, ra, seed, directory, RESNEST_TRAIN_CONFIG,
+                              "14e", at7_14, masks=True, frames=6)))
+    t0 = time.perf_counter()
+    kernel = kernel_k3_backward_resnet(dev, ra, sampled)
+    seconds["14f"] = time.perf_counter() - t0
+    rec["seconds"] = seconds
+    print("    phase 14 seconds by part: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    rec["launches_by_entry"] = {f"{d} {e} o={o}": n for (d, e, o), n in sorted(launches.items())}
+    return rec, launches, kernel
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Drive the PyTorch port on one CUDA card.")
     parser.add_argument("--seed", type=int, default=0,
-                        help="seed of the synthetic frames and boxes of phases 7-13")
+                        help="seed of the synthetic frames and boxes of phases 7-14")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3411,6 +4157,15 @@ def main(argv=None) -> int:
           "PyTorch's TF32 defaults elsewhere")
     resnet, resnet_k3 = resnet_path(dev, ident, counters, ra, args.seed)
 
+    print("[14] ResNet-family training and the Res2Net and ResNeSt detectors on the card: the "
+          "R-50 Faster R-CNN (f32), the live-BatchNorm R-50 Mask R-CNN (f32) and the R-50 "
+          "Cascade Mask R-CNN (bf16) through train_detector; five backbones' forward_train "
+          "card vs CPU in f32 with TF32 off, their backbones in f64; pretrained files; Res2Net-101 "
+          "and ResNeSt-50 serving, ResNeSt-50 Mask R-CNN training; K3's f32 backward on 14a's "
+          "RoIs; PyTorch's TF32 defaults elsewhere")
+    resnet_training, training_launches, k3_backward_resnet = resnet_training_path(
+        dev, ident, counters, ra, args.seed)
+
     for rec in records:
         key = rec.get("shares_kernel_of", rec["name"])
         if key in ("dense_crop (K4)", "roi_align_backward (K3 backward)"):
@@ -3465,7 +4220,21 @@ def main(argv=None) -> int:
     records += resnet_k3
     for rec in records:
         rec["launches_resnet"] = resnet_k3_launches.get(rec["name"], 0)
-    print("[14] records")
+    # 14f's row: its main path is phase 14
+    for key in records[0]:
+        if key.startswith("launches_"):
+            k3_backward_resnet[key] = 0
+    records.append(k3_backward_resnet)
+    # phase 14's main paths: every K3 row takes the launches of its own
+    # direction, entry and bins (rows of one entry and size, timed on other
+    # RoIs, take the same count)
+    directions = {"roi_align (K3)": "forward", "roi_align_backward (K3 backward)": "backward"}
+    for rec in records:
+        direction = directions.get(rec.get("shares_kernel_of", rec["name"]))
+        rec["launches_resnet_training"] = (training_launches.get(
+            (direction, rec.get("entry"), rec.get("out_size", 7)), 0) if direction else 0)
+    k3_backward_resnet["launches"] = k3_backward_resnet["launches_resnet_training"]
+    print("[15] records")
     print(json.dumps({"evaluation": {k: v for k, v in evaluation.items() if k != "k1_f32"}}))
     print(json.dumps({"training_loop": loop}))
     print(json.dumps({"mask_rcnn": masks}))
@@ -3473,6 +4242,7 @@ def main(argv=None) -> int:
     print(json.dumps({"cascade_mask_rcnn": cascade}))
     print(json.dumps({"cascade_training": cascade_training}))
     print(json.dumps({"resnet_detectors": resnet}))
+    print(json.dumps({"resnet_training": resnet_training}))
     print(json.dumps({"kernels": records}))
     print(ident)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -38,9 +38,7 @@ import torch
 from ..data.loader import DetDataLoader
 from ..device import resolve_device
 from ..flagship import init_weights
-from ..models.detectors import check_train_backbone, run_stage
-from ..models.panoswin import PanoSwinTransformer
-from ..models.swin import SwinTransformer
+from ..models.detectors import BACKBONES, run_stage
 from ..runtime.checkpoint import (load_backbone_weights, load_checkpoint, load_torch_state_dict,
                                   save_checkpoint)
 from ..runtime.hooks import NumClassCheckHook
@@ -88,10 +86,15 @@ def apply_init_weights(model, load_from: Optional[str] = None,
                        pretrained: Optional[str] = None) -> None:
     """`load_from`: a whole detector's reference `.pth` (or an `epoch_{n}`
     checkpoint) through `apis/inference.load_weights`.  Otherwise
-    `pretrained`: a reference PanoSwin backbone `.pth`, or a stock Swin
-    ImageNet one (its classifier's `head.*` and `norm.*` left out), into
-    `model.backbone` (`runtime/checkpoint.load_backbone_weights`).  A CNN
-    backbone's `pretrained` raises (`models/detectors.check_train_backbone`)."""
+    `pretrained`: a backbone's checkpoint file into `model.backbone`
+    (`runtime/checkpoint.load_backbone_weights`): a reference PanoSwin one,
+    a stock Swin ImageNet one (its classifier's `head.*` and `norm.*` left
+    out), a torchvision or mmdet ResNet(-eXt) one (`fc.*` left out; the
+    output of `tools/detectron2pytorch.py` too), a pycls RegNet one (or
+    `tools/regnet2pytorch.py`'s output), as the JAX
+    `_apply_init_weights` converts each.  A backbone of another type, a URL
+    or a `torchvision://` name raises
+    (`runtime/checkpoint.load_torch_state_dict`)."""
     if load_from:
         load_weights(model, load_from)
         logger.info("load_from %s", load_from)
@@ -99,8 +102,7 @@ def apply_init_weights(model, load_from: Optional[str] = None,
     if not pretrained:
         return
     name = type(model.backbone).__name__
-    check_train_backbone(model.backbone)
-    if not isinstance(model.backbone, (PanoSwinTransformer, SwinTransformer)):
+    if not isinstance(model.backbone, tuple(BACKBONES.values())):
         raise NotImplementedError(f"pretrained init of a {name} backbone is not ported yet "
                                   "(ROADMAP.md, Queue 1, item 17)")
     load_backbone_weights(model.backbone, load_torch_state_dict(pretrained))

@@ -9,9 +9,9 @@ sampler and the L1, GIoU or IoU box loss; `check_train_cfg` refuses the
 other training options); and `MaskRCNN`'s mask branch, at test time
 (`simple_test_masks`) and in training (the mask loss of `forward_train`).
 The backbone is a PanoSwin
-(`models/panoswin.py`), a stock Swin (`models/swin.py`), or, at test time
-only, a ResNet, ResNeXt (`models/resnet.py`) or RegNet
-(`models/backbones_extra.py`).  Submodule names
+(`models/panoswin.py`), a stock Swin (`models/swin.py`), a ResNet, ResNeXt
+(`models/resnet.py`), RegNet, Res2Net or ResNeSt
+(`models/backbones_extra.py`), at test time and in training.  Submodule names
 follow the reference's state-dict keys (`backbone.`, `neck.`, `rpn_head.`,
 `roi_head.bbox_head.`, `roi_head.mask_head.`).
 """
@@ -26,18 +26,19 @@ from ..core.bbox import bbox_overlaps, clip_boxes, delta_decode
 from ..core.sampler import sampler_noise
 from ..ops.nms import DetResult
 from ..ops.roi_align import multilevel_roi_align_dense, roi_align
-from .backbones_extra import RegNet
+from .backbones_extra import RegNet, Res2Net, ResNeSt
 from .fpn import FPN
 from .mask_head import FCNMaskHead, mask_head_loss, mask_targets
 from .panoswin import PanoSwinTransformer
-from .resnet import TRAINING_REFUSAL, CNNBackbone, ResNet, ResNeXt
+from .resnet import ResNet, ResNeXt
 from .roi_head import (REG_LOSSES, UNPORTED_LOSS, bbox_head_detections, bbox_head_loss,
                        build_bbox_head, sample_rois_for_training)
 from .rpn_head import RPNHead, rpn_loss, rpn_proposals
 from .swin import SwinTransformer
 
 BACKBONES = {"PanoSwinTransformer": PanoSwinTransformer, "SwinTransformer": SwinTransformer,
-             "ResNet": ResNet, "ResNeXt": ResNeXt, "RegNet": RegNet}
+             "ResNet": ResNet, "ResNeXt": ResNeXt, "RegNet": RegNet, "Res2Net": Res2Net,
+             "ResNeSt": ResNeSt}
 
 
 def default_train_cfg() -> dict:
@@ -87,15 +88,6 @@ def check_train_cfg(train_cfg: Optional[dict]) -> None:
     if rcnn.get("reg_loss", "l1") not in REG_LOSSES:
         raise NotImplementedError(f"train_cfg['rcnn']['reg_loss']={rcnn['reg_loss']!r} "
                                   f"{UNPORTED_LOSS}")
-
-
-def check_train_backbone(backbone: nn.Module) -> None:
-    """Raise `NotImplementedError` for a backbone that the port does not
-    train: the CNN backbones (ResNet, ResNeXt, RegNet) serve only, since
-    `frozen_stages` and live BatchNorm (`norm_eval=False`) are not ported
-    (ROADMAP.md, Queue 1, item 17c, training)."""
-    if isinstance(backbone, CNNBackbone):
-        raise NotImplementedError(TRAINING_REFUSAL.format(name=type(backbone).__name__))
 
 
 def split_rcnn_cfg(rcnn: dict) -> Tuple[dict, dict]:
@@ -220,13 +212,13 @@ class PanoFasterRCNN(nn.Module):
         tensors, and `noise["rcnn"]`, two (B, G + proposals) tensors; what is
         not handed in is drawn from `generator` (`core/sampler.sampler_noise`).
         The proposals are constants of the RoI stage: the RPN gets gradient
-        from its own loss alone.  The module must be in train mode: the stem
-        then runs with live BatchNorm, whereas the eval stem runs kernel K1,
-        which has no backward.  Each stage (`TRAIN_STAGES`) runs as
-        `stage(name, fn)`, as in `simple_test` (`MASK_TRAIN_STAGES` with
-        the mask branch).  A CNN backbone raises (`check_train_backbone`).
+        from its own loss alone.  The module must be in train mode: the
+        PanoSwin stem then runs with live BatchNorm, whereas the eval stem
+        runs kernel K1, which has no backward; a CNN backbone's BatchNorms
+        run live unless its `norm_eval` is set.  Each stage (`TRAIN_STAGES`)
+        runs as `stage(name, fn)`, as in `simple_test` (`MASK_TRAIN_STAGES`
+        with the mask branch).
         """
-        check_train_backbone(self.backbone)
         if not self.training:
             raise RuntimeError("forward_train needs train mode (call .train()): the eval "
                                "stem runs kernel K1, which has no backward")

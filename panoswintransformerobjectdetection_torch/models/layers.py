@@ -93,22 +93,25 @@ class DropPath(nn.Module):
         return torch.where(keep_mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def batch_norm_train(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
-    """Train-mode BatchNorm on NCHW `x` with flax's numerics: statistics in
-    float32 over (B, H, W), the variance as mean(x^2) - mean(x)^2, the
-    result in float32, and the running statistics moved by `bn.momentum`
-    towards the batch's mean and its *biased* variance
-    (`torch.nn.BatchNorm2d` would store the unbiased one).  The running
-    statistics are updated in place."""
-    xf = x.float()
-    mean = xf.mean(dim=(0, 2, 3))
-    var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
+def batch_norm_train(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> torch.Tensor:
+    """Train-mode BatchNorm on `x` of channels in dim 1 (NCHW, or (B, C))
+    with flax's numerics: statistics in float32 (float64 for a float64 `x`)
+    over every other dim, the variance as mean(x^2) - mean(x)^2, the result
+    in that type, and the running statistics moved by `bn.momentum` towards
+    the batch's mean and its *biased* variance (`torch.nn.BatchNorm2d`
+    would store the unbiased one).  The running statistics are updated in
+    place."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    dims = (0,) + tuple(range(2, x.dim()))
+    mean = xf.mean(dim=dims)
+    var = ((xf * xf).mean(dim=dims) - mean * mean).clamp(min=0.0)
     with torch.no_grad():
         bn.running_mean.mul_(1.0 - bn.momentum).add_(mean, alpha=bn.momentum)
         bn.running_var.mul_(1.0 - bn.momentum).add_(var, alpha=bn.momentum)
         bn.num_batches_tracked.add_(1)
+    shape = (-1,) + (1,) * (x.dim() - 2)
     scale = torch.rsqrt(var + bn.eps) * bn.weight
-    return (xf - mean[:, None, None]) * scale[:, None, None] + bn.bias[:, None, None]
+    return (xf - mean.view(shape)) * scale.view(shape) + bn.bias.view(shape)
 
 
 class ConvStemPatchEmbed(nn.Module):

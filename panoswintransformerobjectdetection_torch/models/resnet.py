@@ -1,5 +1,5 @@
 """ResNet and ResNeXt backbones, as the model zoo's Faster, Mask and Cascade
-R-CNN configs use them, at test time.
+R-CNN configs use them, at test time and in training.
 
 Counterpart of `panoswintransformerobjectdetection_tpu/models/resnet.py`
 (`BasicBlock`, `Bottleneck`, `ARCH`, `ResNet`, `ResNeXt`): the 7 x 7 / 2
@@ -17,13 +17,20 @@ keys: `conv1`, `bn1`, `layer{i}.{j}.conv{1,2,3}`, `bn{1,2,3}`,
 The convolutions are cuDNN's, as XLA runs the JAX package's: no Pallas
 kernel is on this path.  Parameters stay float32; `dtype` is the compute
 type of the convolutions, as in the port's other backbones (the JAX
-`ResNet` takes no `dtype`, so JAX cannot build the bf16 configs).  Each
-BatchNorm normalises with its running statistics in float32 and returns
-the compute type.  Inputs and outputs are NHWC; the convolutions run on
-channels-last NCHW views.
+`ResNet` takes no `dtype`, so JAX cannot build the bf16 configs).  Inputs
+and outputs are NHWC; the convolutions run on channels-last NCHW views.
 
-Training is not ported: `frozen_stages` and `norm_eval` are stored and
-`forward_train` refuses the backbone (`TRAINING_REFUSAL`).  The DCN, GCB
+BatchNorm: with the backbone in train mode and `norm_eval` False, every
+BatchNorm normalises with the batch's statistics and moves its running
+ones (`layers.batch_norm_train`, flax's numerics: JAX's `bn_train = train
+and not norm_eval`); otherwise with its running statistics, which then do
+not move.  Either way in float32, the result in the compute type, and the
+affine parameters get gradients.  `nn.BatchNorm2d`'s own forward is never
+called.  `frozen_stages` >= 0 detaches the stem's output, >= i + 1 stage
+i's (JAX's `stop_gradient`): the frozen parameters get no gradient, but
+they stay parameters that the optimizer decays, and their BatchNorms
+follow `norm_eval` as the others do, as in JAX (the reference instead
+sets `requires_grad=False` and keeps them in eval mode).  The DCN, GCB
 and GeneralizedAttention options and DetectoRS's `rfp_feats` raise
 (`UNPORTED_OPS`).
 """
@@ -34,18 +41,24 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import conv
+from .layers import batch_norm_train, conv
 
 UNPORTED_OPS = ("is not ported yet (ROADMAP.md, Queue 1, item 17d: the ops deform_conv and "
                 "gen_attention)")
-TRAINING_REFUSAL = ("training a {name} backbone (frozen_stages, norm_eval=False, a pretrained "
-                    "init) is not ported yet (ROADMAP.md, Queue 1, item 17c, training)")
 
 
-def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
-    """flax's eval BatchNorm with float32 parameters: the running statistics
-    in float32, the result in `dtype` (float32 when None)."""
-    y = F.batch_norm(x.float(), bn.running_mean, bn.running_var, bn.weight, bn.bias, eps=bn.eps)
+def batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
+               dtype: Optional[torch.dtype], live: bool = False) -> torch.Tensor:
+    """flax's BatchNorm with float32 parameters, computed in float32 (in
+    float64 for a float64 `x`, which the CPU tests use), the result in
+    `dtype` (float32 when None): with `live`, the batch's statistics, the
+    running ones moved (`layers.batch_norm_train`); else the running
+    statistics."""
+    if live:
+        return batch_norm_train(bn, x).to(dtype or torch.float32)
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    y = F.batch_norm(xf, *(t.to(xf.dtype) for t in (bn.running_mean, bn.running_var)),
+                     *(t.to(xf.dtype) for t in (bn.weight, bn.bias)), eps=bn.eps)
     return y.to(dtype or torch.float32)
 
 
@@ -62,16 +75,19 @@ def downsample(cin: int, cout: int, stride: int) -> nn.Sequential:
 
 class ResidualBlock(nn.Module):
     """The residual sum: relu(branch + identity), the identity through
-    `downsample` where there is one."""
+    `downsample` (its last two modules: the conv, the BatchNorm) where there
+    is one.  `live`: BatchNorm with the batch's statistics."""
 
-    def identity(self, x):
+    def conv_bn(self, conv_layer, bn, x, live):
+        return batch_norm(bn, conv(conv_layer, x, self.dtype), self.dtype, live)
+
+    def identity(self, x, live):
         if self.downsample is None:
             return x.to(self.dtype or torch.float32)
-        return batch_norm(self.downsample[1], conv(self.downsample[0], x, self.dtype),
-                          self.dtype)
+        return self.conv_bn(self.downsample[-2], self.downsample[-1], x, live)
 
-    def forward(self, x):
-        return torch.relu(self.branch(x) + self.identity(x))
+    def forward(self, x, live: bool = False):
+        return torch.relu(self.branch(x, live) + self.identity(x, live))
 
 
 class BasicBlock(ResidualBlock):
@@ -88,9 +104,9 @@ class BasicBlock(ResidualBlock):
         self.downsample = downsample(inplanes, planes, stride) if with_downsample else None
         self.dtype = dtype
 
-    def branch(self, x):
-        y = torch.relu(batch_norm(self.bn1, conv(self.conv1, x, self.dtype), self.dtype))
-        return batch_norm(self.bn2, conv(self.conv2, y, self.dtype), self.dtype)
+    def branch(self, x, live):
+        y = torch.relu(self.conv_bn(self.conv1, self.bn1, x, live))
+        return self.conv_bn(self.conv2, self.bn2, y, live)
 
 
 class Bottleneck(ResidualBlock):
@@ -115,10 +131,10 @@ class Bottleneck(ResidualBlock):
                            if with_downsample else None)
         self.dtype = dtype
 
-    def branch(self, x):
-        y = torch.relu(batch_norm(self.bn1, conv(self.conv1, x, self.dtype), self.dtype))
-        y = torch.relu(batch_norm(self.bn2, conv(self.conv2, y, self.dtype), self.dtype))
-        return batch_norm(self.bn3, conv(self.conv3, y, self.dtype), self.dtype)
+    def branch(self, x, live):
+        y = torch.relu(self.conv_bn(self.conv1, self.bn1, x, live))
+        y = torch.relu(self.conv_bn(self.conv2, self.bn2, y, live))
+        return self.conv_bn(self.conv3, self.bn3, y, live)
 
 
 ARCH = {
@@ -140,26 +156,49 @@ def check_plugins(**options) -> None:
 
 class CNNBackbone(nn.Module):
     """What the CNN backbones share: the detector's two hooks, the stem
-    (`patch_embed`, the name of the Swin backbones' stem: `conv1`, `bn1`,
-    ReLU, `pool`) and the stages after it (`forward_from_embed`, over
-    `self.stages`)."""
+    (`patch_embed`, the name of the Swin backbones' stem: `stem_layers`,
+    then `pool`) and the stages after it (`forward_from_embed`, over
+    `self.stages`), BatchNorm live in train mode unless `norm_eval`, and
+    `frozen_stages` (-1 where a backbone takes none)."""
+
+    frozen_stages = -1
+
+    def live_bn(self) -> bool:
+        """Whether the BatchNorms use the batch's statistics (JAX's
+        `bn_train = train and not self.norm_eval`)."""
+        return self.training and not self.norm_eval
+
+    def set_drop_path_generator(self, generator) -> None:
+        """The training loop's hook for the Swin backbones' DropPath; a CNN
+        backbone draws nothing."""
 
     def forward(self, images):
         return self.forward_from_embed(self.patch_embed(images))
 
+    def stem_layers(self):
+        """The stem's (conv, BatchNorm) pairs, each followed by a ReLU."""
+        return ((self.conv1, self.bn1),)
+
     def patch_embed(self, images):
         """images (B, H, W, 3) -> the stem's output, NHWC."""
+        live = self.live_bn()
         x = images.permute(0, 3, 1, 2)
-        x = torch.relu(batch_norm(self.bn1, conv(self.conv1, x, self.dtype), self.dtype))
-        return self.pool(x).permute(0, 2, 3, 1)
+        for conv_layer, bn in self.stem_layers():
+            x = torch.relu(batch_norm(bn, conv(conv_layer, x, self.dtype), self.dtype, live))
+        x = self.pool(x).permute(0, 2, 3, 1)
+        return x.detach() if self.frozen_stages >= 0 else x
 
     def forward_from_embed(self, x):
         """The stages after the stem -> NHWC maps in the compute type, one
         for each of `out_indices`."""
+        live = self.live_bn()
         x = x.permute(0, 3, 1, 2)
         outs = []
         for i, stage in enumerate(self.stages):
-            x = stage(x)
+            for block in stage:
+                x = block(x, live)
+            if self.frozen_stages >= i + 1:
+                x = x.detach()
             if i in self.out_indices:
                 outs.append(x.permute(0, 2, 3, 1))
         return tuple(outs)
@@ -224,4 +263,4 @@ class ResNeXt(ResNet):
 
 
 __all__ = ["batch_norm", "max_pool_stem", "ResidualBlock", "BasicBlock", "Bottleneck", "ARCH",
-           "CNNBackbone", "ResNet", "ResNeXt", "TRAINING_REFUSAL", "UNPORTED_OPS"]
+           "CNNBackbone", "ResNet", "ResNeXt", "UNPORTED_OPS"]

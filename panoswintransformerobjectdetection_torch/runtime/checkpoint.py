@@ -5,8 +5,8 @@ BatchNorm folding for inference.
 `from_jax_variables` is the inverse of `convert_detector` in
 `panoswintransformerobjectdetection_tpu/runtime/checkpoint.py`: it takes the
 (params, batch_stats) trees of a JAX `PanoFasterRCNN` or `MaskRCNN`, with a
-PanoSwin, a stock Swin, or a ResNet, ResNeXt or RegNet backbone
-(`from_jax_cnn_backbone`), as numpy arrays and returns a state dict
+PanoSwin, a stock Swin, or a ResNet, ResNeXt, RegNet, Res2Net or ResNeSt
+backbone (`from_jax_cnn_backbone`), as numpy arrays and returns a state dict
 in the reference's key layout, which the port's detector loads with
 `load_state_dict`.  Layouts: conv HWIO -> OIHW, Dense (in, out) -> Linear
 (out, in), LayerNorm scale -> weight, `shared_fc0`'s input reordered from
@@ -23,13 +23,17 @@ port loads both with `load_state_dict`.
 
 A reference checkpoint loads without a converter, since the port's keys
 are the reference's (`load_torch_state_dict`, `load_reference_weights`,
-`load_backbone_weights` for a backbone's own checkpoint);
+`load_backbone_weights` for a backbone's own checkpoint: a Swin or
+PanoSwin one, a torchvision or mmdet ResNet(-eXt) one, or a pycls RegNet
+one through `regnet_from_pycls`, the mapping that
+`tools/regnet2pytorch.py` writes out);
 `save_checkpoint` and `load_checkpoint` keep a training run's model,
 optimizer, schedule, step and host random states (the JAX package's orbax
 state, here through `torch.save`).
 """
 
 import math
+import os
 import re
 from typing import Any, Dict, Optional
 
@@ -38,8 +42,13 @@ import torch
 import torch.nn as nn
 
 from ..geometry.resample import _torch_cubic_weights
-from ..models.detectors import check_train_backbone
 from ..ops.stem_conv import BN_EPS, fold_bn
+
+# The file names behind the `torchvision://` names of the reference's
+# checkpoint loader (`mmcv_custom/checkpoint.py`); the port downloads none.
+TORCHVISION_FILES = {"resnet18": "resnet18-f37072fd.pth", "resnet50": "resnet50-0676ba61.pth",
+                     "resnet101": "resnet101-63fe2227.pth",
+                     "resnext101_32x8d": "resnext101_32x8d-8ba56ff5.pth"}
 
 
 def _t(a) -> torch.Tensor:
@@ -159,32 +168,52 @@ def from_jax_swin_backbone(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
 def from_jax_cnn_backbone(params: Dict[str, Any],
                           batch_stats: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX `ResNet`, `ResNeXt` or `RegNet` variables -> the port backbone's
-    state dict, the reference's (torchvision's) keys: `conv1`, `bn1`, block
-    `layer{i}_{j}` to `layer{i}.{j}`, its `downsample_conv` and
-    `downsample_bn` to `downsample.0` and `downsample.1`; flax BatchNorm's
-    `scale`, `bias` and statistics `mean`, `var` to `weight`, `bias`,
-    `running_mean`, `running_var` (the JAX `convert_resnet_backbone`
-    reversed)."""
+    """JAX `ResNet`, `ResNeXt`, `RegNet`, `Res2Net` or `ResNeSt` variables ->
+    the port backbone's state dict, the reference's (torchvision's) keys:
+    `conv1`, `bn1` (ResNeSt's `stem{i}`, `stem_bn{i}` to `stem.{3i}`,
+    `stem.{3i + 1}`), block `layer{i}_{j}` to `layer{i}.{j}`, its
+    `conv{1,2,3}` and `bn{1,2,3}`, Res2Net's `conv2_{k}` and `bn2_{k}` to
+    `convs.{k - 1}` and `bns.{k - 1}`, ResNeSt's `splat` (`conv`, `bn`,
+    `fc1`, `fc1_bn`, `fc2`) to `conv2.{conv, bn0, fc1, bn1, fc2}`, and
+    `downsample_conv`, `downsample_bn` to `downsample.0`, `.1` (ResNeSt's
+    `.1`, `.2`, after its average pool); flax BatchNorm's `scale`, `bias`
+    and statistics `mean`, `var` to `weight`, `bias`, `running_mean`,
+    `running_var` (the JAX `convert_resnet_backbone` reversed)."""
     sd: Dict[str, torch.Tensor] = {}
 
     def conv_bn(src, stats, conv, bn, key, bn_key):
         _conv(sd, key, src[conv])
         _bn(sd, bn_key, src[bn], stats[bn], np.shape(src[conv]["kernel"])[-1])
 
-    conv_bn(params, batch_stats, "conv1", "bn1", "conv1", "bn1")
+    if "stem0" in params:
+        for i in range(3):
+            conv_bn(params, batch_stats, f"stem{i}", f"stem_bn{i}", f"stem.{3 * i}",
+                    f"stem.{3 * i + 1}")
+    else:
+        conv_bn(params, batch_stats, "conv1", "bn1", "conv1", "bn1")
     i = 1
     while f"layer{i}_0" in params:
         j = 0
         while f"layer{i}_{j}" in params:
             blk, st, key = params[f"layer{i}_{j}"], batch_stats[f"layer{i}_{j}"], f"layer{i}.{j}"
-            n = 1
-            while f"conv{n}" in blk:
-                conv_bn(blk, st, f"conv{n}", f"bn{n}", f"{key}.conv{n}", f"{key}.bn{n}")
-                n += 1
+            for n in (1, 2, 3):
+                if f"conv{n}" in blk:
+                    conv_bn(blk, st, f"conv{n}", f"bn{n}", f"{key}.conv{n}", f"{key}.bn{n}")
+            k = 1
+            while f"conv2_{k}" in blk:
+                conv_bn(blk, st, f"conv2_{k}", f"bn2_{k}", f"{key}.convs.{k - 1}",
+                        f"{key}.bns.{k - 1}")
+                k += 1
+            if "splat" in blk:
+                sp, ss = blk["splat"], st["splat"]
+                conv_bn(sp, ss, "conv", "bn", f"{key}.conv2.conv", f"{key}.conv2.bn0")
+                _linear(sd, f"{key}.conv2.fc1", sp["fc1"])
+                _bn(sd, f"{key}.conv2.bn1", sp["fc1_bn"], ss["fc1_bn"], 0)
+                _linear(sd, f"{key}.conv2.fc2", sp["fc2"])
             if "downsample_conv" in blk:
-                conv_bn(blk, st, "downsample_conv", "downsample_bn", f"{key}.downsample.0",
-                        f"{key}.downsample.1")
+                d = 1 if "splat" in blk else 0
+                conv_bn(blk, st, "downsample_conv", "downsample_bn", f"{key}.downsample.{d}",
+                        f"{key}.downsample.{d + 1}")
             j += 1
         i += 1
     return sd
@@ -303,8 +332,18 @@ def resize_bias_table(table: torch.Tensor, src_ws: int, dst_ws: int) -> torch.Te
 def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
     """The state dict of a checkpoint file: the file's `state_dict` or
     `model` entry, or the file itself, with `module.` stripped.  A file path
-    only (no URL: the port fetches nothing), read on the CPU with
-    `weights_only=True`, which unpickles tensors and plain containers only."""
+    only, read on the CPU with `weights_only=True`, which unpickles tensors
+    and plain containers only.  A URL or a `torchvision://` name raises,
+    naming the file it stands for: the port fetches nothing."""
+    if path.startswith("torchvision://"):
+        name = path[len("torchvision://"):]
+        raise FileNotFoundError(
+            f"{path}: the port downloads nothing; get torchvision's "
+            f"{TORCHVISION_FILES.get(name, name + '-*.pth')} onto this machine and give its "
+            "local path instead")
+    if "://" in path:
+        raise FileNotFoundError(f"{path}: the port downloads nothing; give the path of a local "
+                                f"copy of {os.path.basename(path)} instead")
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(ckpt, dict) and "state_dict" in ckpt:
         ckpt = ckpt["state_dict"]
@@ -339,20 +378,57 @@ def load_reference_weights(model: nn.Module, sd: Dict[str, torch.Tensor],
     model.load_state_dict(sd, strict=strict)
 
 
-def load_backbone_weights(backbone: nn.Module, sd: Dict[str, torch.Tensor]) -> None:
+def regnet_from_pycls(sd: Dict[str, Any]) -> Dict[str, Any]:
+    """A pycls RegNet state dict (its checkpoint's `model_state`) -> the
+    reference's keys, as `tools/model_converters/regnet2mmdet.py` maps them
+    and the JAX `convert_regnet_backbone` reads them: `stem.conv`,
+    `stem.bn` to `conv1`, `bn1`; `s{i}.b{j}.f.{a,b,c}` and their `_bn` to
+    `layer{i}.{j - 1}.conv{1,2,3}`, `bn{1,2,3}`; a block's `proj` and `bn`
+    to `downsample.0` and `.1`.  The classifier (`head.*`) is left out."""
+    out = {}
+    for key, v in strip_module(sd).items():
+        m = re.match(r"s(\d+)\.b(\d+)\.(.+)$", key)
+        if key.startswith("stem."):
+            key = key.replace("stem.conv", "conv1").replace("stem.bn", "bn1")
+        elif m:
+            stage, block, rest = int(m.group(1)), int(m.group(2)) - 1, m.group(3)
+            f = re.match(r"f\.([abc])(_bn)?\.(.+)$", rest)
+            if f:
+                n = "abc".index(f.group(1)) + 1
+                rest = f"{'bn' if f.group(2) else 'conv'}{n}.{f.group(3)}"
+            else:
+                rest = rest.replace("proj.", "downsample.0.").replace("bn.", "downsample.1.")
+            key = f"layer{stage}.{block}.{rest}"
+        else:
+            continue
+        out[key] = v
+    return out
+
+
+def load_backbone_weights(backbone: nn.Module, sd: Dict[str, Any]) -> None:
     """A reference backbone checkpoint (`module.` stripped) into `backbone`:
     a PanoSwin one (`SimplePanoSwinTransformer`'s keys) as the JAX package's
     `convert_panoswin_backbone` reads it, a stock Swin one (an ImageNet
     classifier's, `swin_transformer.py`'s keys) as `convert_swin_backbone`
     reads it: the stem or patch embed, the absolute encoder or position
     table, the stages and the out-norms, bias tables of another window size
-    resized (`load_reference_weights`).  Keys of other modules (a
-    classifier's head and last norm) are left out; the absolute encoder or
-    table, the stem's LayerNorm and the out-norms, which the converters take
-    only when present, keep the backbone's own values when absent; any
-    other missing key raises.  Swin has no BatchNorm to fold.  A CNN
-    backbone raises: its `pretrained` init belongs to its training."""
-    check_train_backbone(backbone)
+    resized (`load_reference_weights`); a torchvision or mmdet ResNet or
+    ResNeXt one (a detector's `backbone.*` keys taken alone) as
+    `convert_resnet_backbone` reads it, a pycls RegNet one (`model_state`,
+    `regnet_from_pycls`) as `convert_regnet_backbone` reads it, a Res2Net
+    or ResNeSt one of the port's own keys.  Keys of other modules (a
+    classifier's head, `fc` and last norm) are left out; the absolute
+    encoder or table, the stem's LayerNorm and the out-norms, which the
+    converters take only when present, keep the backbone's own values when
+    absent, as do the `num_batches_tracked` counters; any other missing
+    key raises.  Swin has no BatchNorm to fold."""
+    if "model_state" in sd:
+        sd = sd["model_state"]
+    sd = strip_module(sd)
+    if any(k.startswith("backbone.") for k in sd):
+        sd = {k[len("backbone."):]: v for k, v in sd.items() if k.startswith("backbone.")}
+    if "stem.conv.weight" in sd:
+        sd = regnet_from_pycls(sd)
     own = backbone.state_dict()
     optional = ("abs_encoder.", "absolute_pos_embed", "patch_embed.norm.", "norm")
     missing = [k for k in own if k not in sd and not k.startswith(optional)
@@ -360,7 +436,8 @@ def load_backbone_weights(backbone: nn.Module, sd: Dict[str, torch.Tensor]) -> N
     if missing:
         raise KeyError(f"the backbone checkpoint has no {missing[:5]} ({len(missing)} keys "
                        "missing)")
-    load_reference_weights(backbone, {k: v for k, v in sd.items() if k in own}, strict=False)
+    load_reference_weights(backbone, {k: torch.as_tensor(v) for k, v in sd.items() if k in own},
+                           strict=False)
 
 
 def save_checkpoint(path: str, model: nn.Module, optimizer: torch.optim.Optimizer,

@@ -552,6 +552,58 @@ def test_roi_align_backward_bf16_many_rois(cuda_device, clustered, o):
                                    atol=_backward_tol(c, torch.bfloat16))
 
 
+def _r50_sampled_rois(seed, B=2, per_image=512, H=800, W=1088):
+    """RoIs as an R-50 Faster R-CNN training step samples them on an 800 x
+    1088 batch: per image, the ground truth (3 boxes) first, then a quarter
+    of the slots jittered around it (IoU above 0.5, the positives) and the
+    rest proposals of every size and level, some across the border."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for b in range(B):
+        gt = np.array([[100, 80, 400, 380], [500, 300, 900, 700], [40, 500, 300, 780]], float)
+        rows = list(gt)
+        for _ in range(per_image // 4 - len(gt)):
+            box = gt[rng.integers(0, len(gt))]
+            wh = box[2:] - box[:2]
+            rows.append(box + rng.uniform(-0.1, 0.1, 4) * np.concatenate([wh, wh]))
+        for _ in range(per_image - len(rows)):
+            s = float(np.exp(rng.uniform(np.log(8), np.log(700))))
+            r = float(np.exp(rng.uniform(np.log(0.3), np.log(3))))
+            w, h = min(s * np.sqrt(r), 0.95 * W), min(s / np.sqrt(r), 0.95 * H)
+            x, y = rng.uniform(-0.1 * w, W - 0.9 * w), rng.uniform(-0.1 * h, H - 0.9 * h)
+            rows.append([x, y, x + w, y + h])
+        out.append(np.concatenate([np.full((per_image, 1), b), np.asarray(rows)], 1))
+    return np.concatenate(out).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_backward_at_7_on_r50_sampled_rois(cuda_device, dtype):
+    """K3's backward at 7 x 7 bins through each entry on 2 x 512 RoIs of an
+    R-50 training step's kind (`_r50_sampled_rois`: a quarter clustered on
+    the ground truth) over an 800 x 1088 batch's four levels of 256
+    channels: against autograd through the twin, the bf16 entry the same
+    bits on two launches, one launch counted at (entry, 7)."""
+    rois = torch.from_numpy(_r50_sampled_rois(13)).to(cuda_device)
+    shapes = [(2, 800 // s, 1088 // s, 256) for s in STRIDES]
+    cot = torch.randn((rois.shape[0], 7, 7, 256), generator=torch.Generator().manual_seed(6))
+    cot = cot.to(dtype).to(cuda_device)
+    key = (ra.BACKWARD_ENTRIES[dtype], 7)
+    before = ra.roi_align_backward.launches_by_entry.get(key, 0)
+    got = ra.roi_align_backward(cot, rois, shapes, dtype, STRIDES)
+    torch.cuda.synchronize()
+    assert ra.roi_align_backward.launches_by_entry[key] == before + 1
+    ref = ra.roi_align_backward_plain(cot, rois, shapes, dtype, STRIDES)
+    levels = ra.roi_levels(rois, len(shapes))
+    assert all(int((levels == level).sum()) > 0 for level in range(len(shapes)))
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape and a.dtype == dtype
+        torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=_backward_tol(b, dtype))
+    if dtype == torch.bfloat16:
+        again = ra.roi_align_backward(cot, rois, shapes, dtype, STRIDES)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 @pytest.mark.cuda
 def test_training_wrappers_refuse_bad_input(cuda_device):
     feat = torch.rand((1, 8, 16, 4), device=cuda_device)

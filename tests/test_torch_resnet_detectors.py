@@ -3,7 +3,7 @@ in the PyTorch port, at test time, against the JAX package: `simple_test`,
 `simple_test_masks`, `single_device_test(with_masks=True)` with
 `evaluate(["bbox", "segm"])` and `tools.test`, `aug_test_detector`; the
 model zoo's configs of `configs/{faster_rcnn,mask_rcnn,cascade_rcnn,regnet}`;
-the census; the refusals (training, a CNN `pretrained`, the DCN, GCB and
+the census; the refusals (the backbones not ported yet, the DCN, GCB and
 GeneralizedAttention options); and the two faults of the JAX package on
 this path that the port repairs.
 
@@ -37,7 +37,6 @@ from panoswintransformerobjectdetection_tpu.apis.tta import aug_test_detector as
 from panoswintransformerobjectdetection_tpu.models import DETECTORS, build
 from panoswintransformerobjectdetection_tpu.models.resnet import ResNet as JaxResNet
 from panoswintransformerobjectdetection_tpu.runtime.checkpoint import convert_resnet_backbone
-from panoswintransformerobjectdetection_torch.apis import train as tapi
 from panoswintransformerobjectdetection_torch.apis.inference import (build_detector_from_cfg,
                                                                      init_detector)
 from panoswintransformerobjectdetection_torch.apis.tta import aug_test_detector
@@ -46,7 +45,7 @@ from panoswintransformerobjectdetection_torch.models.cascade import CASCADE_MASK
 from panoswintransformerobjectdetection_torch.models.detectors import MASK_STAGES
 from panoswintransformerobjectdetection_torch.models.resnet import ResNet, ResNeXt
 from panoswintransformerobjectdetection_torch.runtime.checkpoint import (
-    from_jax_cnn_backbone, from_jax_variables, load_backbone_weights)
+    from_jax_cnn_backbone, from_jax_variables)
 from panoswintransformerobjectdetection_torch.runtime.config import load_config
 from panoswintransformerobjectdetection_torch.tools import config_census
 from test_torch_mask_rcnn import _loop_matches_jax, _match
@@ -352,13 +351,14 @@ def test_cnn_configs_build(name):
 
 def test_census_counts_the_cnn_configs():
     """Built and trainable configs of the four directories: every config
-    that builds there has a CNN backbone, so none trains."""
+    that builds there trains, but the two whose RoI sampler or box loss is
+    not ported (OHEM, bounded IoU; item 17d)."""
     counts = {}
     for d in CNN_DIRS:
         result = config_census.census(os.path.join(ROOT, "configs", d))
         counts[d] = (result["configs"], result["built"], result["trainable"])
-    assert counts == {"faster_rcnn": (25, 21, 0), "mask_rcnn": (20, 19, 0),
-                      "cascade_rcnn": (21, 21, 0), "regnet": (14, 10, 0)}
+    assert counts == {"faster_rcnn": (25, 21, 19), "mask_rcnn": (20, 19, 19),
+                      "cascade_rcnn": (21, 21, 21), "regnet": (14, 10, 10)}
 
 
 @pytest.mark.parametrize("name", [
@@ -373,19 +373,20 @@ def test_plugin_configs_raise_naming_item_17d(name):
         build_detector_from_cfg(cfg)
 
 
-def test_training_refusals_name_item_17c(tmp_path):
-    """`forward_train` of a CNN-backbone detector, its `pretrained` init and
-    a backbone checkpoint raise, naming item 17c's training part."""
-    model = build_detector_from_cfg({"model": dict(TINY_R50, backbone={
-        "type": "ResNet", "depth": 18}, neck=dict(R50_NECK, in_channels=(64, 128, 256, 512)))})
-    model.train()
-    batch = (torch.zeros((1, H, W, 3)), torch.tensor([[H, W]]), torch.zeros((1, 1, 4)),
-             torch.zeros((1, 1), dtype=torch.long), torch.ones((1, 1), dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="ResNet.*item 17c, training"):
-        model.forward_train(*batch)
-    path = str(tmp_path / "r18.pth")
-    torch.save(model.backbone.state_dict(), path)
-    with pytest.raises(NotImplementedError, match="ResNet.*item 17c, training"):
-        tapi.apply_init_weights(model, pretrained=path)
-    with pytest.raises(NotImplementedError, match="item 17c, training"):
-        load_backbone_weights(model.backbone, model.backbone.state_dict())
+@pytest.mark.parametrize("backbone,match", [
+    ({"type": "HRNet", "extra": {}}, "HRNet.*item 17"),
+    ({"type": "TridentResNet", "depth": 50}, "TridentResNet.*item 17"),
+    ({"type": "HourglassNet"}, "HourglassNet.*item 17"),
+    ({"type": "ResNet", "depth": 50, "dcn": {"type": "DCN"},
+      "stage_with_dcn": (False, True, True, True)}, "dcn.*item 17d"),
+    ({"type": "ResNet", "depth": 50, "gcb": {"ratio": 0.0625},
+      "stage_with_gcb": (False, True, True, True)}, "gcb.*item 17d"),
+])
+def test_training_refusals_name_item_17c(backbone, match):
+    """The CNN backbones that the port trains now (ResNet, ResNeXt, RegNet,
+    Res2Net, ResNeSt) no longer raise; the backbones not ported yet (HRNet,
+    TridentResNet, HourglassNet: item 17c's later slices) and the DCN and
+    GCB options (item 17d) still raise when the detector is built, naming
+    their item, so neither serving nor training reaches them."""
+    with pytest.raises(NotImplementedError, match=match):
+        build_detector_from_cfg({"model": dict(TINY_R50, backbone=backbone)})

@@ -425,3 +425,96 @@ def tiny_swin_cascade(head: str):
                 p["bias"] = (0.1 * rng.standard_normal(p["bias"].shape)).astype(np.float32)
     variables = {"params": jax.tree.map(jnp.asarray, params)}
     return {"det": det, "variables": variables, "state_dict": from_jax_variables(params, {})}
+
+
+@functools.lru_cache(maxsize=None)
+def _cnn_variables(jcls, kwargs, size, seed):
+    """numpy variables of the JAX backbone `jcls(**dict(kwargs))` for
+    `cnn_train_pair`, made once for every `norm_eval` and `frozen_stages`."""
+    variables = perturb_batch_norm(to_numpy(random_variables(
+        jcls(**dict(kwargs)), jnp.zeros((1,) + size + (3,)), seed=seed)), seed=seed + 1)
+    return jax.tree.map(lambda a: np.asarray(a, np.float32), variables)
+
+
+def cnn_train_pair(jcls, tcls, kwargs, size, seed: int, **mode):
+    """One train-mode call of the JAX CNN backbone `jcls(**kwargs, **mode)`
+    and of the port's `tcls(**kwargs, **mode, dtype=torch.float64)` on 2
+    seeded frames of `size` (h, w), in float64 on both sides (JAX under
+    `enable_x64`, jitted with XLA's optimisations: in float64 they save more
+    run time than they cost): random variables of the init's spread with
+    every BatchNorm away from the identity (`perturb_batch_norm`), rounded
+    to float32 so that the port's float32 parameters hold them exactly,
+    carried across by `from_jax_cnn_backbone`; a seeded normal cotangent
+    for every stage.  Returns the stage outputs, each parameter's gradient
+    (`jax.vjp`; the port's None where no gradient reached it) and the state
+    dict after the call (flax's `mutable=["batch_stats"]`) of both, as
+    numpy arrays by the port's keys."""
+    from panoswintransformerobjectdetection_torch.runtime.checkpoint import from_jax_cnn_backbone
+    variables = _cnn_variables(jcls, tuple(sorted(kwargs.items())), size, seed)
+    jmodule, tmodule = jcls(**kwargs, **mode), tcls(**kwargs, **mode, dtype=torch.float64)
+    x = np.random.default_rng(seed + 2).standard_normal((2,) + size + (3,))
+
+    def vjp(params, stats, images, key):
+        def run(p):
+            outs, updates = jmodule.apply({"params": p, "batch_stats": stats}, images, train=True,
+                                          mutable=["batch_stats"])
+            return outs, updates["batch_stats"]
+        outs, pull, new_stats = jax.vjp(run, params, has_aux=True)
+        keys = jax.random.split(key, len(outs))
+        cots = tuple(jax.random.normal(k, o.shape, o.dtype) for k, o in zip(keys, outs))
+        return outs, new_stats, pull(cots)[0], cots
+
+    with jax.enable_x64(True):
+        as64 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), variables)
+        outs, stats, grads, cots = to_numpy(jax.jit(vjp)(
+            as64["params"], as64["batch_stats"], jnp.asarray(x), jax.random.PRNGKey(seed)))
+    tmodule.load_state_dict(from_jax_cnn_backbone(variables["params"], variables["batch_stats"]),
+                            strict=True)
+    tmodule.train()
+    got = tmodule(torch.from_numpy(x))
+    if any(g.requires_grad for g in got):
+        sum((g * torch.from_numpy(c)).sum() for g, c in zip(got, cots)).backward()
+    as_sd = lambda p, s: {k: v.double().numpy() for k, v in   # noqa: E731
+                          from_jax_cnn_backbone(p, s).items()}
+    ref_grads = as_sd(grads, stats)
+    return {"outs": [np.asarray(o) for o in outs], "got": [g.detach().numpy() for g in got],
+            "grads": {n: None if p.grad is None else p.grad.double().numpy()
+                      for n, p in tmodule.named_parameters()},
+            "ref_grads": {n: ref_grads[n] for n, _ in tmodule.named_parameters()},
+            "state": {k: v.double().numpy() for k, v in tmodule.state_dict().items()},
+            "ref_state": as_sd(variables["params"], stats),
+            "before": as_sd(variables["params"], variables["batch_stats"])}
+
+
+def check_cnn_train_pair(pair, live: bool):
+    """`cnn_train_pair`'s two sides, float64 against float64: each stage
+    within 1e-9 * max|ref|; each gradient within 1e-9 * G + 1e-6 * max|g|,
+    G the largest gradient entry of the backbone (a bias before a live
+    BatchNorm has a true gradient of zero, which leaves each side its own
+    rounding noise); the running statistics within 1e-6 * max(1, max|ref|)
+    (the port keeps them in float32) and moved exactly when `live`;
+    `num_batches_tracked` 1 when `live`, else 0.  Returns the names of the
+    parameters that got no gradient (all zero in JAX)."""
+    for i, (g, r) in enumerate(zip(pair["got"], pair["outs"])):
+        assert g.shape == r.shape and g.dtype == np.float64, f"stage {i}"
+        np.testing.assert_allclose(g, r, atol=1e-9 * float(np.abs(r).max()), rtol=0,
+                                   err_msg=f"stage {i}")
+    scale = max(float(np.abs(r).max()) for r in pair["ref_grads"].values())
+    frozen = []
+    for name, g in pair["grads"].items():
+        r = pair["ref_grads"][name]
+        if g is None:
+            assert not r.any(), f"{name}: no gradient in the port, max|g| {np.abs(r).max()} in JAX"
+            frozen.append(name)
+            continue
+        np.testing.assert_allclose(g, r, atol=1e-9 * scale + 1e-6 * float(np.abs(r).max()),
+                                   rtol=0, err_msg=name)
+    for name, v in pair["state"].items():
+        if name.endswith("num_batches_tracked"):
+            assert v == int(live), name
+        elif "running" in name:
+            r, before = pair["ref_state"][name], pair["before"][name]
+            np.testing.assert_allclose(v, r, atol=1e-6 * max(1.0, float(np.abs(r).max())),
+                                       rtol=0, err_msg=name)
+            assert (not np.array_equal(v, before)) == live, name
+    return frozen
