@@ -246,15 +246,29 @@ Phases (each raises on failure, so any failure exits non-zero):
      the 2 x 512 RoIs that (a)'s first step sampled: the f32 entry against
      autograd through the twin and timed with its bound, the bf16
      owner-computes entry and its first version on the same RoIs;
- 15. a JSON line for the evaluation, one for the training loop, one for
+ 15. distributed training and evaluation, each part's processes children
+     of this one with torchrun's environment (`--dist-child PART DIR`),
+     each held against the same work here without a process group: (a)
+     the bf16 streetwin config through `train_detector` (2 epochs of 4
+     frames, global batch 2) and `multi_host_test` under `python -m
+     torch.distributed.run --nproc_per_node 1`, NCCL: the same losses,
+     parameters and detections; (b) the f32 flagship, two processes on the
+     card over gloo, one frame each, 2 steps with handed-over noise against
+     the one-process steps on both frames, then `multi_host_test` on 5
+     frames against `single_device_test`; (c) the gcnet R-50 Mask R-CNN
+     with live BatchNorm and masks, two processes, one step against one
+     process: losses, bn1's and layer4.0.bn1's running statistics,
+     parameters; K1's and K3's launches in the children counted;
+ 16. a JSON line for the evaluation, one for the training loop, one for
      Mask R-CNN serving, one for Mask R-CNN training, one for Cascade Mask
      R-CNN serving, one for its training, one for the ResNet-family
-     detectors, one for their training, a JSON line per kernel (each with
-     its launches in phase 11, `launches_cascade`, in phase 12,
-     `launches_cascade_training`, in phase 13, `launches_resnet`, and in
-     phase 14, `launches_resnet_training`; K3's f32 entry timed on 13a's and
-     13b's RoIs and its f32 backward on 14a's have rows of their own), the
-     card's name and power limit, then the result line.
+     detectors, one for their training, one for phase 15, a JSON line per
+     kernel (each with its launches in phase 11, `launches_cascade`, in
+     phase 12, `launches_cascade_training`, in phase 13, `launches_resnet`,
+     in phase 14, `launches_resnet_training`, and in phase 15's children,
+     `launches_distributed`; K3's f32 entry timed on 13a's and 13b's RoIs
+     and its f32 backward on 14a's have rows of their own), the card's
+     name and power limit, then the result line.
 Without a CUDA card it exits with an error and prints no result.
 """
 
@@ -263,6 +277,7 @@ import ctypes
 import json
 import os
 import statistics
+import subprocess
 import sys
 import tempfile
 import time
@@ -3999,14 +4014,632 @@ def resnet_training_path(dev, ident, counters, ra, seed):
     return rec, launches, kernel
 
 
+# Phase 15: distributed training and evaluation.  Each part runs its
+# processes as children of this one, with torchrun's environment (15a through
+# `python -m torch.distributed.run` itself), and holds what they write
+# against the same work done here in one process without a process group.
+DIST_TIMEOUT_S = 420
+DIST_FRAMES, DIST_EPOCHS, DIST_BATCH = 4, 2, 2
+DIST_EVAL_FRAMES = {"15a": 4, "15b": 5}
+DIST_MASK_FRAME = (480, 640)
+# 15b and 15c run f32 with TF32 off: the W = 2 step and the one-process step
+# on the same two frames sum in other orders (each process's convolutions on
+# its own frame, BatchNorm's statistics summed over the processes), so their
+# running statistics and the RPN's losses (anchors assigned to fixed ground
+# truth, sampled with the handed-over noise) agree to rounding
+# (`DIST_STAT_REL`).  The RoI stage's losses, `acc`, the total and the
+# gradient norm are means over discrete choices: a rounding difference can
+# move a proposal across a top-k, NMS or IoU boundary and so change one of
+# the 512 RoIs an image samples, which moves a loss by 1/1024 of a RoI's
+# loss, up to a few percent with a random R-50's logits (measured: 2.7e-4
+# in 15b's second loss_cls, 1.1e-3 in 15c's; `DIST_ROI_REL`).  A
+# normaliser left local would be off by a factor of about W, 2.
+DIST_STAT_REL = 1e-4
+DIST_ROI_REL = 5e-2
+
+
+def dist_tolerance(key):
+    return DIST_STAT_REL if key.startswith("loss_rpn") else DIST_ROI_REL
+
+
+def dist_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_children(commands, what):
+    """Start each (argv, env) child, wait for all (`DIST_TIMEOUT_S`), kill
+    every one if any is late; raise if any exits non-zero.  Returns their
+    outputs."""
+    procs = [subprocess.Popen(argv, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for argv, env in commands]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DIST_TIMEOUT_S)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        for p in procs:
+            p.communicate()
+        raise AssertionError(f"{what}: a child ran past {DIST_TIMEOUT_S} s and was killed")
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{what}: child {i} exited {p.returncode}:\n{out[-6000:]}")
+    return outs
+
+
+def child_env(rank, world, port, local_rank=0):
+    """torchrun's environment by hand: card `local_rank` (every process on
+    card 0 by default)."""
+    return dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(local_rank),
+                MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+
+
+def spawn_part(part, world, directory, seconds, torchrun=False, cards=False):
+    """Phase 15's part `part` in `world` child processes (through `python -m
+    torch.distributed.run` with `torchrun`, else with its environment by
+    hand: all on card 0, or one card each with `cards`); returns what each
+    rank wrote."""
+    script = os.path.abspath(__file__)
+    t0 = time.perf_counter()
+    port = dist_port()
+    if torchrun:
+        cmds = [([sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+                  "--nproc_per_node", str(world), "--master_addr", "127.0.0.1",
+                  "--master_port", str(port), script, "--dist-child", part, directory],
+                 dict(os.environ))]
+    else:
+        cmds = [([sys.executable, script, "--dist-child", part, directory],
+                 child_env(r, world, port, r if cards else 0)) for r in range(world)]
+    run_children(cmds, part)
+    seconds[f"{part}_children"] = time.perf_counter() - t0
+    return [torch.load(os.path.join(directory, f"{part}_rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def k3_entry_launches(ra, fn):
+    """`fn()` with K3's launches by (direction, entry, bins) counted across
+    it (each wrapper's `launches_by_entry`, read just before and after)."""
+    before = {d: dict(w.launches_by_entry) for d, w in (("forward", ra.roi_align),
+                                                     ("backward", ra.roi_align_backward))}
+    out = fn()
+    torch.cuda.synchronize()
+    counts = {}
+    for d, w in (("forward", ra.roi_align), ("backward", ra.roi_align_backward)):
+        for key, n in w.launches_by_entry.items():
+            if n - before[d].get(key, 0):
+                counts[(d, *key)] = n - before[d].get(key, 0)
+    return out, counts
+
+
+def dist_flagship_data(seed, directory, write):
+    """15a's data: the bf16 streetwin config's train split on `DIST_FRAMES`
+    seeded frames with pixel boxes, its val split on the first
+    `DIST_EVAL_FRAMES["15a"]`, each behind `FramesFromMemory`; the
+    annotation files written when `write` (by the parent, before its
+    children read them)."""
+    from panoswintransformerobjectdetection_torch.runtime.config import load_config
+    cfg = load_config(API_CONFIG)
+    classes = cfg["classes"]
+    rng = np.random.default_rng(seed + 150)
+    frames = (rng.random((DIST_FRAMES, H, W, 3)) * 255).astype(np.uint8)
+    anns = pixel_annotations(rng, DIST_FRAMES, H, W, len(classes))
+    n_eval = DIST_EVAL_FRAMES["15a"]
+    val_anns = pixel_annotations(rng, n_eval, H, W, len(classes))
+    paths = [os.path.join(directory, f"15a_{s}.json") for s in ("train", "val")]
+    if write:
+        write_ann(paths[0], frames, classes, anns)
+        write_ann(paths[1], frames[:n_eval], classes, val_anns)
+    return (cfg, in_memory_dataset(dict(cfg["data"]["train"], classes=classes), paths[0], frames),
+            in_memory_dataset(dict(cfg["data"]["val"], classes=classes), paths[1],
+                              frames[:n_eval]))
+
+
+def dist_flagship_run(dev, counters, ra, seed, directory, work_dir):
+    """15a's work, in a child under its process group or here without one:
+    `train_detector` over the bf16 flagship config, `DIST_EPOCHS` epochs of
+    `DIST_FRAMES` frames at the global batch `DIST_BATCH`, no loader
+    threads, Python's, numpy's and torch's generators seeded first; then
+    `multi_host_test` on the val frames.  Returns the steps' metrics and
+    launches, the eval batches' launches, K3's launches by entry, the
+    parameters and the detections."""
+    from panoswintransformerobjectdetection_torch.apis.inference import build_detector_from_cfg
+    from panoswintransformerobjectdetection_torch.apis.test import multi_host_test
+    from panoswintransformerobjectdetection_torch.apis.train import set_random_seed, train_detector
+    cfg, train_ds, val_ds = dist_flagship_data(seed, directory, write=False)
+    record = LoopRecord(counters)
+    opt, sched = cfg["optimizer"], cfg["lr_config"]
+    set_random_seed(seed)
+    model = build_detector_from_cfg(cfg)
+    t0 = time.perf_counter()
+    _, train_k3 = k3_entry_launches(ra, lambda: train_detector(
+        model, train_ds, work_dir=work_dir, total_epochs=DIST_EPOCHS, batch_size=DIST_BATCH,
+        base_lr=opt["lr"], weight_decay=opt["weight_decay"], warmup_iters=sched["warmup_iters"],
+        decay_epochs=sched["step"], log_interval=1, seed=seed, hooks=[record], device=dev,
+        stage=record.stage, num_workers=0))
+    train_s = time.perf_counter() - t0
+    model.eval()
+    dets, eval_k3 = k3_entry_launches(ra, lambda: multi_host_test(
+        model, val_ds, batch_size=DIST_BATCH, device=dev, stage=record.eval_stage))
+    return {"steps": record.steps, "step_launches": record.step_launches,
+            "eval_launches": record.eval_launches, "k3": {"train": train_k3, "eval": eval_k3},
+            "state": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+            "dets": dets, "train_s": train_s}
+
+
+def dist_eval_data(seed, directory, write):
+    """15b's evaluation set: `DIST_EVAL_FRAMES["15b"]` seeded frames through
+    the bf16 flagship config's test pipeline."""
+    from panoswintransformerobjectdetection_torch.runtime.config import load_config
+    cfg = load_config(API_CONFIG)
+    rng = np.random.default_rng(seed + 151)
+    n = DIST_EVAL_FRAMES["15b"]
+    frames = (rng.random((n, H, W, 3)) * 255).astype(np.uint8)
+    anns = pixel_annotations(rng, n, H, W, len(cfg["classes"]))
+    path = os.path.join(directory, "15b_test.json")
+    if write:
+        write_ann(path, frames, cfg["classes"], anns)
+    return in_memory_dataset(dict(cfg["data"]["test"], classes=cfg["classes"]), path, frames)
+
+
+def dist_steps(model, inputs, counters, ra, rows):
+    """The training steps of 15b and 15c on `rows` of each global batch (and
+    of its noise where handed over, else the global batch's draw from a
+    generator of the given seed): metrics, launches and K3's by entry."""
+    from panoswintransformerobjectdetection_torch.runtime.optim import make_optimizer
+    from panoswintransformerobjectdetection_torch.runtime.train import make_train_step
+    optimizer, scheduler = make_optimizer(model, **inputs["optim"])
+    step = make_train_step(model, optimizer, scheduler)
+    dev = model.device
+    out = {"metrics": [], "launches": [], "k3": {}, "ms": [],
+           "ddp": step.ddp is not None}
+    for i, (batch, noise) in enumerate(inputs["steps"]):
+        batch = {k: v[rows].to(dev) for k, v in batch.items()}
+        # DropPath's masks from one CPU generator a step, as the sampler's:
+        # every process draws the global batch's and keeps its rows
+        model.backbone.set_drop_path_generator(torch.Generator().manual_seed(inputs["seed"] + i))
+        kwargs = ({"noise": {k: tuple(t[rows] for t in v) for k, v in noise.items()}}
+                  if isinstance(noise, dict) else {"generator": torch.Generator().manual_seed(noise)})
+        (metrics, sec, counts), k3 = k3_entry_launches(
+            ra, lambda: train_step_counted(step, batch, counters, **kwargs))
+        out["metrics"].append(metrics)
+        out["launches"].append(counts)
+        out["ms"].append(sec * 1e3)
+        for key, n in k3.items():
+            out["k3"][key] = out["k3"].get(key, 0) + n
+    out["state"] = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    out["lrs"] = [g["lr"] for g in optimizer.param_groups]
+    return out
+
+
+def dist_child(part, directory):
+    """One process of phase 15 (`chip_smoke.py --dist-child PART DIR`), under
+    torchrun's environment: join the group, run the part's work on this
+    process's rows, write `DIR/{part}_rank{r}.pt`."""
+    from panoswintransformerobjectdetection_torch.apis.inference import (build_detector_from_cfg,
+                                                                         load_weights)
+    from panoswintransformerobjectdetection_torch.apis.test import multi_host_test
+    from panoswintransformerobjectdetection_torch.flagship import build_flagship
+    from panoswintransformerobjectdetection_torch.ops import roi_align as ra
+    from panoswintransformerobjectdetection_torch.ops import stem_conv as stem
+    from panoswintransformerobjectdetection_torch.parallel import dist as pdist
+    import torch.distributed as dist
+    dev = torch.device("cuda")
+    counters = {"stem_conv (K1)": stem.stem_conv, "roi_align (K3)": ra.roi_align,
+                "roi_align_backward (K3 backward)": ra.roi_align_backward}
+    inputs = torch.load(os.path.join(directory, f"{part}_inputs.pt"), weights_only=False)
+    seed = inputs["seed"]
+    t0 = time.perf_counter()
+    rank, world = pdist.init_distributed("pytorch", backend=inputs.get("backend"))
+    out = {"rank": rank, "world": world, "backend": dist.get_backend(),
+           "join_s": time.perf_counter() - t0}
+    if part == "15a":
+        out.update(dist_flagship_run(dev, counters, ra, seed, directory,
+                                     os.path.join(directory, "15a_work")))
+    else:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        per = inputs["global_batch"] // world
+        rows = slice(rank * per, (rank + 1) * per)
+        if part == "15b":
+            model = build_flagship(device=dev, train=True, seed=0)
+        else:
+            model = build_detector_from_cfg(inputs["cfg"])
+            load_weights(model, inputs["pth"])
+            model.to(dev).train()
+        out.update(dist_steps(model, inputs, counters, ra, rows))
+        del model
+        if part == "15b":
+            model = build_flagship(compute_dtype=torch.bfloat16, device=dev, seed=0)
+            record = LoopRecord(counters)
+            out["dets"], out["eval_k3"] = k3_entry_launches(ra, lambda: multi_host_test(
+                model, dist_eval_data(seed, directory, write=False), device=dev,
+                stage=record.eval_stage))
+            out["eval_launches"] = record.eval_launches
+    torch.save(out, os.path.join(directory, f"{part}_rank{rank}.pt"))
+    pdist.barrier()
+    dist.destroy_process_group()
+    print(f"{part} rank {rank} of {world}: done", flush=True)
+    return 0
+
+
+def summed(*counts):
+    """Launch counts by key, added."""
+    out = {}
+    for c in counts:
+        for key, n in c.items():
+            out[key] = out.get(key, 0) + n
+    return out
+
+
+def keyed(counts):
+    return {" ".join(map(str, key)): n for key, n in sorted(counts.items(), key=str)}
+
+
+def relative(a, b):
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+def compare_steps(got, want, tolerance, what):
+    """Every loss, `acc` and `grad_norm` of each step within `tolerance(key)`
+    relative (acc absolutely); returns the largest difference of each key."""
+    worst = {}
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.keys() != w.keys():
+            raise AssertionError(f"{what} step {i}: outputs {sorted(g)} against {sorted(w)}")
+        for k in w:
+            if k == "step" or k == "lr":
+                continue
+            err = abs(g[k] - w[k]) if k.endswith("acc") else relative(g[k], w[k])
+            if not np.isfinite(g[k]) or err > tolerance(k):
+                raise AssertionError(f"{what} step {i}: {k} {g[k]} against {w[k]} "
+                                     f"(tolerance {tolerance(k)})")
+            worst[k] = max(worst.get(k, 0.0), err)
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} steps against {len(want)}")
+    return worst
+
+
+def compare_states(got, want, lr_sum, rel, what, bn_keys=()):
+    """Parameters within 2 * (summed learning rates) + `rel` * max|p| a
+    tensor (an Adam step moves an entry by at most about its learning
+    rate, whatever the gradient's rounding), running statistics within
+    `rel` relative to max(1, max|ref|), `num_batches_tracked` equal.
+    Returns the largest parameter and statistic differences."""
+    worst = {"param": 0.0, "stat": 0.0}
+    for k, w in want.items():
+        g = got[k]
+        if "num_batches" in k:
+            if not torch.equal(g, w):
+                raise AssertionError(f"{what}: {k} {g} against {w}")
+            continue
+        err = float((g.float() - w.float()).abs().max()) if w.numel() else 0.0
+        scale = float(w.float().abs().max()) if w.numel() else 0.0
+        if "running" in k:
+            tol = rel * max(1.0, scale)
+            worst["stat"] = max(worst["stat"], err / max(1.0, scale))
+        else:
+            tol = 2 * lr_sum + rel * scale
+            worst["param"] = max(worst["param"], err)
+        if err > tol:
+            raise AssertionError(f"{what}: {k} differs by {err} (tolerance {tol})")
+    for k in bn_keys:
+        if k not in want:
+            raise AssertionError(f"{what}: no {k}")
+    return worst
+
+
+def dist_flagship_steps(dev, ident, counters, ra, seed, directory, seconds, world, cards):
+    """15b: the f32 flagship (TF32 off) in `world` processes, one frame each
+    (32 boxes, then 12 fewer a frame down to 8), 2 steps with handed-over
+    noise, against the one-process steps on all the frames; then
+    `multi_host_test` on `DIST_EVAL_FRAMES["15b"]` frames against
+    `single_device_test`.  All processes on the one card over gloo, or with
+    `cards` one card each over NCCL.  Returns its record and the children's
+    launches by (direction, entry, bins), K1's under ("stem", None, None)."""
+    from panoswintransformerobjectdetection_torch.apis.test import single_device_test
+    from panoswintransformerobjectdetection_torch.core.sampler import sampler_noise
+    from panoswintransformerobjectdetection_torch.flagship import (build_flagship,
+                                                                   flagship_train_batch)
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = build_flagship(device=dev, train=True, seed=0)
+    batch = {k: v.cpu() for k, v in flagship_train_batch(world, "cpu", seed=seed).items()}
+    boxes = [max(8, 32 - 12 * i) for i in range(world)]
+    for i, n in enumerate(boxes):
+        batch["gt_valid"][i, n:] = False
+    h, w = batch["images"].shape[1:3]
+    anchors = sum(a.shape[0] for a in model.anchor_gen.grid_anchors(
+        [(-(-h // s), -(-w // s)) for s in (4, 8, 16, 32, 64)]))
+    rcnn = batch["gt_boxes"].shape[1] + model.train_cfg["rpn_proposal"]["max_per_img"]
+    gen = torch.Generator().manual_seed(seed + 15)
+    steps = [(batch, {"rpn": sampler_noise((world, anchors), gen, "cpu"),
+                      "rcnn": sampler_noise((world, rcnn), gen, "cpu")})
+             for _ in range(2)]
+    inputs = {"seed": seed, "optim": {}, "steps": steps, "global_batch": world,
+              "backend": None if cards else "gloo"}
+    torch.save(inputs, os.path.join(directory, "15b_inputs.pt"))
+    test_ds = dist_eval_data(seed, directory, write=True)
+    del model
+    torch.cuda.empty_cache()
+    kids = spawn_part("15b", world, directory, seconds, cards=cards)
+    t0 = time.perf_counter()
+    here = dist_steps(build_flagship(device=dev, train=True, seed=0), inputs, counters, ra,
+                      slice(0, world))
+    eval_model = build_flagship(compute_dtype=torch.bfloat16, device=dev, seed=0)
+    single = single_device_test(eval_model, test_ds, device=dev)
+    seconds["15b_here"] = time.perf_counter() - t0
+    del eval_model
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    lr_sum = 2 * max(here["lrs"])
+    worst_loss = [compare_steps(k["metrics"], here["metrics"], dist_tolerance, "15b")
+                  for k in kids]
+    worst_loss = {key: max(w[key] for w in worst_loss) for key in worst_loss[0]}
+    worst_state = [compare_states(k["state"], here["state"], lr_sum, DIST_STAT_REL, "15b")
+                   for k in kids]
+    for k in kids[1:]:
+        for name, v in kids[0]["state"].items():
+            if not torch.equal(v, k["state"][name]):
+                raise AssertionError(f"15b: rank {k['rank']}'s {name} differs from rank 0's")
+    if not all(k["ddp"] for k in kids) or any(k["dets"] is not None for k in kids[1:]):
+        raise AssertionError("15b: a step ran without DDP, or a rank but 0 got results")
+    match_detections(kids[0]["dets"], single, 1e-3, 1e-5, "15b multi_host_test")
+    launches = summed(*(summed(k["k3"], k["eval_k3"]) for k in kids))
+    k1 = [sum(c["stem_conv (K1)"] for c in k["eval_launches"]) for k in kids]
+    launches[("stem", None, None)] = sum(k1)
+    backend = kids[0]["backend"]
+    rec = {"model": "flagship f32 (TF32 off), train mode", "world": world,
+           "backend": backend, "cards": world if cards else 1, "global_batch": world,
+           "gt_boxes": boxes, "steps": 2,
+           "losses": [{k: m[k] for k in ("loss", "grad_norm")} for m in kids[0]["metrics"]],
+           "max_rel_loss_diff": worst_loss,
+           "max_param_diff": max(s["param"] for s in worst_state),
+           "max_stat_diff": max(s["stat"] for s in worst_state),
+           "step_ms": {"ranks": [k["ms"] for k in kids], "here": here["ms"]},
+           "eval_frames": DIST_EVAL_FRAMES["15b"], "eval_model": "flagship bf16, BN folded",
+           "detections": sum(len(d["boxes"]) for d in single),
+           "k1_launches": {"ranks": k1, "here": DIST_EVAL_FRAMES["15b"]},
+           "k3_launches": {"ranks": [keyed(summed(k["k3"], k["eval_k3"])) for k in kids],
+                           "here": keyed(here["k3"])},
+           "card": ident}
+    where = f"{world} cards over {backend}" if cards else f"the card over {backend}"
+    print(f"    (b) the f32 flagship (TF32 off), {world} processes on {where}, one frame "
+          f"each ({', '.join(map(str, boxes))} boxes), 2 steps with handed-over noise, against "
+          f"the one-process steps on all the frames: the largest difference of each output "
+          f"{ {k: float(f'{v:.3g}') for k, v in worst_loss.items()} } (tolerance "
+          f"{DIST_STAT_REL} relative for the RPN's, {DIST_ROI_REL} for the RoI stage's, acc "
+          f"absolute), parameters within {rec['max_param_diff']:.3g} (tolerance 2 x the "
+          f"summed lr), statistics {rec['max_stat_diff']:.3g}, the ranks' parameters "
+          f"bit-identical; multi_host_test on {DIST_EVAL_FRAMES['15b']} frames equals "
+          f"single_device_test ({rec['detections']} detections), the other ranks None; step "
+          f"ms {rec['step_ms']}; K1 launches {rec['k1_launches']}, K3 {rec['k3_launches']}; "
+          f"card {ident}")
+    return rec, launches
+
+
+def distributed_path(dev, ident, counters, ra, seed):
+    """Phase 15: distributed training and evaluation on the one card; returns
+    its record and the launches of its children's main paths by (direction,
+    entry, bins), with K1's under ("stem", None, None)."""
+    from panoswintransformerobjectdetection_torch.apis.inference import (build_detector_from_cfg,
+                                                                         load_weights)
+    from panoswintransformerobjectdetection_torch.data.datasets import CocoDataset
+    from panoswintransformerobjectdetection_torch.data.loader import DetDataLoader
+    rec, seconds, launches = {}, {}, {}
+
+    def add(counts):
+        for key, n in counts.items():
+            launches[key] = launches.get(key, 0) + n
+
+    with tempfile.TemporaryDirectory() as directory:
+        # 15a: one process under torchrun, NCCL, against no process group
+        torch.save({"seed": seed, "backend": None}, os.path.join(directory, "15a_inputs.pt"))
+        dist_flagship_data(seed, directory, write=True)
+        torch.cuda.empty_cache()
+        (child,) = spawn_part("15a", 1, directory, seconds, torchrun=True)
+        t0 = time.perf_counter()
+        here = dist_flagship_run(dev, counters, ra, seed, directory,
+                                 os.path.join(directory, "15a_here"))
+        seconds["15a_here"] = time.perf_counter() - t0
+        if (child["world"], child["backend"]) != (1, "nccl"):
+            raise AssertionError(f"15a: the child joined {child['world']} over "
+                                 f"{child['backend']}, not 1 over nccl")
+        n_steps = DIST_EPOCHS * DIST_FRAMES // DIST_BATCH
+        per_step = {"stem_conv (K1)": 0, "roi_align (K3)": 1,
+                    "roi_align_backward (K3 backward)": 1}
+        per_batch = {"stem_conv (K1)": 1, "roi_align (K3)": 1,
+                     "roi_align_backward (K3 backward)": 0}
+        for run, who in ((child, "15a child"), (here, "15a here")):
+            if len(run["steps"]) != n_steps:
+                raise AssertionError(f"{who}: {len(run['steps'])} steps, expected {n_steps}")
+            for counts in run["step_launches"]:
+                expect_launches({k: counts[k] for k in per_step}, per_step, f"{who} step")
+            for counts in run["eval_launches"]:
+                expect_launches({k: counts[k] for k in per_batch}, per_batch, f"{who} eval")
+        lr_sum = sum(m["lr"] for m in here["steps"]) if "lr" in here["steps"][0] else 0.0
+        cfg = dist_flagship_data(seed, directory, write=False)[0]
+        lr_cap = cfg["optimizer"]["lr"] * n_steps
+        worst_loss = max(compare_steps(child["steps"], here["steps"], lambda k: BF16_ULPS,
+                                       "15a").values())
+        worst_state = compare_states(child["state"], here["state"], lr_sum or lr_cap,
+                                     BF16_ULPS, "15a")
+        match_detections(child["dets"], here["dets"], 1e-3, 1e-5, "15a multi_host_test")
+        k1 = sum(c["stem_conv (K1)"] for c in child["eval_launches"])
+        add(summed(child["k3"]["train"], child["k3"]["eval"], {("stem", None, None): k1}))
+        rec["15a"] = {"config": os.path.basename(API_CONFIG), "frames": DIST_FRAMES,
+                      "epochs": DIST_EPOCHS, "global_batch": DIST_BATCH, "world": 1,
+                      "backend": "nccl", "launcher": "torch.distributed.run",
+                      "losses": [{k: m[k] for k in ("loss", "grad_norm")} for m in child["steps"]],
+                      "max_rel_loss_diff": worst_loss, "max_param_diff": worst_state["param"],
+                      "max_stat_diff": worst_state["stat"],
+                      "eval_frames": DIST_EVAL_FRAMES["15a"],
+                      "detections": sum(len(d["boxes"]) for d in child["dets"]),
+                      "k1_launches": {"child": k1, "here": sum(c["stem_conv (K1)"]
+                                                               for c in here["eval_launches"])},
+                      "k3_launches": {"child": keyed(summed(child["k3"]["train"],
+                                                            child["k3"]["eval"])),
+                                      "here": keyed(summed(here["k3"]["train"],
+                                                           here["k3"]["eval"]))},
+                      "child_train_s": child["train_s"], "here_train_s": here["train_s"],
+                      "card": ident}
+        print(f"    (a) {rec['15a']['config']} under `torch.distributed.run --nproc_per_node 1` "
+              f"(NCCL, world 1) against the same run without a process group: {n_steps} steps "
+              f"of {DIST_BATCH} frames of {H} x {W}, then multi_host_test on "
+              f"{DIST_EVAL_FRAMES['15a']} frames: losses and grad_norm within {worst_loss:.3g} "
+              f"relative (tolerance {BF16_ULPS:.4g}), parameters within {worst_state['param']:.3g}, "
+              f"statistics {worst_state['stat']:.3g}, {rec['15a']['detections']} detections "
+              f"matched; K1 launches {rec['15a']['k1_launches']}, K3 {rec['15a']['k3_launches']}; "
+              f"training {child['train_s']:.1f} s in the child, {here['train_s']:.1f} s here; "
+              f"card {ident}")
+        del here, child
+
+        rec["15b"], counts = dist_flagship_steps(dev, ident, counters, ra, seed, directory,
+                                                 seconds, 2, cards=False)
+        add(counts)
+
+        # 15c: the gcnet R-50 Mask R-CNN with live BatchNorm, two processes
+        # on the card over gloo, f32 with TF32 off, against one process
+        tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cfg = train_config(RESNET_TRAIN_MASK_CONFIG, masks=True)
+        classes = cfg.get("classes") or CocoDataset.CLASSES
+        rng = np.random.default_rng(seed + 152)
+        fh, fw = DIST_MASK_FRAME
+        arrays = (rng.random((DIST_BATCH, fh, fw, 3)) * 255).astype(np.uint8)
+        ann = write_ann(os.path.join(directory, "15c.json"), arrays, classes,
+                        polygon_annotations(rng, DIST_BATCH, fh, fw, len(classes)))
+        dataset = in_memory_dataset(dict(cfg["data"]["train"], classes=classes), ann, arrays)
+        import random as pyrandom
+        pyrandom.seed(seed)
+        loader = DetDataLoader(dataset, batch_size=DIST_BATCH, shuffle=False, max_gt=100)
+        host = next(iter(loader))
+        batch = {k: torch.from_numpy(host[k]) for k in ("images", "img_shapes", "gt_boxes",
+                                                        "gt_labels", "gt_valid", "gt_masks")}
+        path = write_cnn_reference_pth(cfg, directory, seed, "15c")
+        opt, sched = cfg["optimizer"], cfg["lr_config"]
+        inputs = {"seed": seed, "cfg": cfg, "pth": path, "backend": "gloo",
+                  "global_batch": DIST_BATCH,
+                  "optim": {"base_lr": opt["lr"], "weight_decay": opt["weight_decay"],
+                            "warmup_iters": sched["warmup_iters"]},
+                  "steps": [(batch, seed + 16)]}
+        torch.save(inputs, os.path.join(directory, "15c_inputs.pt"))
+        torch.cuda.empty_cache()
+        kids = spawn_part("15c", 2, directory, seconds)
+        t0 = time.perf_counter()
+        model = build_detector_from_cfg(cfg)
+        load_weights(model, path)
+        start = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        model.to(dev).train()
+        here = dist_steps(model, inputs, counters, ra, slice(0, DIST_BATCH))
+        seconds["15c_here"] = time.perf_counter() - t0
+        del model
+        bn_keys = ("backbone.bn1.running_mean", "backbone.bn1.running_var",
+                   "backbone.layer4.0.bn1.running_mean", "backbone.layer4.0.bn1.running_var")
+        lr_sum = max(here["lrs"])
+        worst_loss = [compare_steps(k["metrics"], here["metrics"], dist_tolerance, "15c")
+                      for k in kids]
+        worst_loss = {key: max(w[key] for w in worst_loss) for key in worst_loss[0]}
+        worst_state = [compare_states(k["state"], here["state"], lr_sum, DIST_STAT_REL, "15c",
+                                      bn_keys) for k in kids]
+        bn = {}
+        for key in bn_keys:
+            moved = here["state"][key] - start[key]
+            if not moved.abs().max() > 0:
+                raise AssertionError(f"15c: {key} did not move")
+            bn[key] = max(float((k["state"][key] - here["state"][key]).abs().max())
+                          / max(1.0, float(here["state"][key].abs().max())) for k in kids)
+        if not all(k["metrics"][0]["loss_mask"] > 0 for k in kids):
+            raise AssertionError("15c: no mask loss")
+        for k in kids:
+            add(k["k3"])
+        rec["15c"] = {"config": RESNET_TRAIN_MASK_CONFIG, "dtype": "float32 (TF32 off)",
+                      "masks_loaded": True, "frame": list(DIST_MASK_FRAME),
+                      "padded": list(batch["images"].shape[1:3]), "world": 2, "backend": "gloo",
+                      "losses": kids[0]["metrics"][0], "here_losses": here["metrics"][0],
+                      "max_rel_loss_diff": worst_loss,
+                      "max_param_diff": max(s["param"] for s in worst_state),
+                      "max_stat_diff": max(s["stat"] for s in worst_state),
+                      "bn_rel_diff": bn, "step_ms": {"ranks": [k["ms"] for k in kids],
+                                                     "here": here["ms"]},
+                      "k3_launches": {"ranks": [keyed(k["k3"]) for k in kids],
+                                      "here": keyed(here["k3"])},
+                      "card": ident}
+        print(f"    (c) {os.path.basename(RESNET_TRAIN_MASK_CONFIG)} (f32, TF32 off, norm_eval "
+              f"False, masks loaded), 2 processes over gloo, one {fh} x {fw} frame each "
+              f"(padded {rec['15c']['padded']}), one step against the one-process step on both: "
+              f"losses (loss_mask {kids[0]['metrics'][0]['loss_mask']:.6f} against "
+              f"{here['metrics'][0]['loss_mask']:.6f}), the largest difference of each output "
+              f"{ {k: float(f'{v:.3g}') for k, v in worst_loss.items()} } (tolerance "
+              f"{DIST_STAT_REL} for the RPN's, {DIST_ROI_REL} for the RoI stage's), bn1's and "
+              f"layer4.0.bn1's running statistics within "
+              f"{max(bn.values()):.3g}, parameters within {rec['15c']['max_param_diff']:.3g}; "
+              f"K3 launches {rec['15c']['k3_launches']}; step ms {rec['15c']['step_ms']}; "
+              f"card {ident}")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    rec["seconds"] = seconds
+    rec["launches_by_entry"] = keyed(launches)
+    print("    phase 15 seconds by part: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+          + f"; card {ident}")
+    return rec, launches
+
+
+def dist_cards(n, seed):
+    """`--dist-cards N`: build the kernels, run 15b across N cards (one
+    process each, NCCL) against one process on card 0, print its record,
+    the card's name and power limit and the result line."""
+    from panoswintransformerobjectdetection_torch.device import gpu_identity
+    from panoswintransformerobjectdetection_torch.ops import cuda_build
+    from panoswintransformerobjectdetection_torch.ops import fused_attention as fa
+    from panoswintransformerobjectdetection_torch.ops import roi_align as ra
+    from panoswintransformerobjectdetection_torch.ops import stem_conv as stem
+    if torch.cuda.device_count() < n:
+        print(f"chip_smoke: --dist-cards {n} needs {n} cards, not {torch.cuda.device_count()}",
+              file=sys.stderr)
+        return 1
+    ident = gpu_identity()
+    print(f"[1] cards: {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}; "
+          f"nvidia-smi: {ident}")
+    print(f"[2] built {', '.join(cuda_build.SOURCES)} in {cuda_build.build_all():.1f} s")
+    counters = {"stem_conv (K1)": stem.stem_conv, "roi_align (K3)": ra.roi_align,
+                "window_attention (K2)": fa.window_attention, "dense_crop (K4)": ra.dense_crop,
+                "roi_align_backward (K3 backward)": ra.roi_align_backward}
+    seconds = {}
+    print(f"[15b] across {n} cards")
+    with tempfile.TemporaryDirectory() as directory:
+        rec, launches = dist_flagship_steps(torch.device("cuda"), ident, counters, ra, seed,
+                                            directory, seconds, n, cards=True)
+    rec["seconds"], rec["launches_by_entry"] = seconds, keyed(launches)
+    print(json.dumps({"distributed_cards": rec}))
+    print(ident)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Drive the PyTorch port on one CUDA card.")
     parser.add_argument("--seed", type=int, default=0,
-                        help="seed of the synthetic frames and boxes of phases 7-14")
+                        help="seed of the synthetic frames and boxes of phases 7-15")
+    parser.add_argument("--dist-child", nargs=2, metavar=("PART", "DIR"), default=None,
+                        help="run one process of phase 15's part PART (15a, 15b or 15c) "
+                             "under torchrun's environment, with its files in DIR")
+    parser.add_argument("--dist-cards", type=int, default=None, metavar="N",
+                        help="run phase 15b alone across N cards, one process each over NCCL, "
+                             "against one process, and stop")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if args.dist_child:
+        return dist_child(*args.dist_child)
+    if args.dist_cards:
+        return dist_cards(args.dist_cards, args.seed)
     from panoswintransformerobjectdetection_torch.device import gpu_identity
     from panoswintransformerobjectdetection_torch.flagship import (build_flagship,
                                                                    flagship_inputs,
@@ -4166,6 +4799,14 @@ def main(argv=None) -> int:
     resnet_training, training_launches, k3_backward_resnet = resnet_training_path(
         dev, ident, counters, ra, args.seed)
 
+    print("[15] distributed training and evaluation on the card: (a) the bf16 flagship "
+          "config through train_detector and multi_host_test under torch.distributed.run, "
+          "NCCL, world 1, against no process group; (b) the f32 flagship, 2 processes over "
+          "gloo, 2 steps against one process on both frames, multi_host_test against "
+          "single_device_test; (c) the gcnet R-50 Mask R-CNN with live BatchNorm, 2 processes, "
+          "one step against one process; TF32 off in (b) and (c)")
+    distributed, dist_launches = distributed_path(dev, ident, counters, ra, args.seed)
+
     for rec in records:
         key = rec.get("shares_kernel_of", rec["name"])
         if key in ("dense_crop (K4)", "roi_align_backward (K3 backward)"):
@@ -4234,7 +4875,16 @@ def main(argv=None) -> int:
         rec["launches_resnet_training"] = (training_launches.get(
             (direction, rec.get("entry"), rec.get("out_size", 7)), 0) if direction else 0)
     k3_backward_resnet["launches"] = k3_backward_resnet["launches_resnet_training"]
-    print("[15] records")
+    # phase 15's main paths, summed over its children: K1 in the evaluations,
+    # every K3 row by its direction, entry and bins
+    for rec in records:
+        key = rec.get("shares_kernel_of", rec["name"])
+        direction = directions.get(key)
+        rec["launches_distributed"] = (
+            dist_launches.get(("stem", None, None), 0) if key == "stem_conv (K1)" else
+            dist_launches.get((direction, rec.get("entry"), rec.get("out_size", 7)), 0)
+            if direction else 0)
+    print("[16] records")
     print(json.dumps({"evaluation": {k: v for k, v in evaluation.items() if k != "k1_f32"}}))
     print(json.dumps({"training_loop": loop}))
     print(json.dumps({"mask_rcnn": masks}))
@@ -4243,6 +4893,7 @@ def main(argv=None) -> int:
     print(json.dumps({"cascade_training": cascade_training}))
     print(json.dumps({"resnet_detectors": resnet}))
     print(json.dumps({"resnet_training": resnet_training}))
+    print(json.dumps({"distributed": distributed}))
     print(json.dumps({"kernels": records}))
     print(ident)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -10,7 +10,8 @@ batch carries.  With masks (a Mask R-CNN), `simple_test_masks` runs instead,
 each image's detections are pasted into bitmaps of its original size on
 the device (`models/mask_head.paste_masks`) and each bitmap is run-length
 encoded on the host (`core/rle.encode`).  Runs on the card unless the
-caller passes `device="cpu"`.
+caller passes `device="cpu"`.  `multi_host_test` spreads the records over
+the processes of a distributed run and gathers the results on rank 0.
 """
 
 from typing import Callable, List, Optional, Union
@@ -22,6 +23,7 @@ from ..data.loader import DetDataLoader
 from ..device import resolve_device
 from ..models.detectors import PanoFasterRCNN, run_stage
 from ..models.mask_head import paste_masks
+from ..parallel.dist import all_gather_object, rank, world
 
 # The loop's steps, each run through `stage(name, fn)`: the next batch from
 # the loader (pipeline and collation on the host), its copy to the device,
@@ -45,13 +47,59 @@ def single_device_test(model: PanoFasterRCNN, dataset, *, batch_size: int = 1,
     fn)`; a caller that times the loop passes one that also times it.  A
     sample that the loader skips raises, rather than shifting every later
     result onto the wrong image."""
+    dev = _model_device(model, device)
+    loader = DetDataLoader(dataset, batch_size=batch_size, shuffle=False, max_gt=max_gt,
+                           drop_last=False)
+    by_index = _evaluate(model, loader, dev, with_masks, progress, stage)
+    missing = [i for i in range(len(dataset)) if i not in by_index]
+    if missing:
+        raise RuntimeError(
+            f"eval loader skipped {len(missing)} sample(s) (first: {missing[:5]}); results "
+            "would misalign with dataset.records")
+    return [by_index[i] for i in range(len(dataset))]
+
+
+def multi_host_test(model: PanoFasterRCNN, dataset, *, batch_size: int = 1, max_gt: int = 100,
+                    device: Optional[Union[str, torch.device]] = None,
+                    stage: Callable = run_stage) -> Optional[List[dict]]:
+    """Distributed evaluation (JAX `apis/test.py:80 multi_host_test`, the
+    reference's `multi_gpu_test` and `collect_results`): under a process
+    group of W processes each evaluates the records g with g % W == its
+    rank (`DetDataLoader(shuffle=False, num_shards=W, shard_id=rank)`), the
+    shards, padded to ceil(n / W), are gathered (`all_gather_object`), and
+    rank 0 returns the per-image dicts (boxes, scores, labels) in the
+    dataset's order, record g from process g % W at position g // W; the
+    other processes get None.  With no process group, or a group of one, it
+    returns what `single_device_test` does.  No masks: the JAX function
+    gathers none (ROADMAP.md, Queue 1, item 17d)."""
+    dev = _model_device(model, device)
+    W, r, n = world(), rank(), len(dataset)
+    loader = DetDataLoader(dataset, batch_size=batch_size, shuffle=False, max_gt=max_gt,
+                           drop_last=False, num_shards=W, shard_id=r)
+    by_index = _evaluate(model, loader, dev, False, False, stage)
+    shard = list(range(n))[r::W]
+    if set(by_index) != set(shard):
+        raise RuntimeError(f"rank {r} evaluated records {sorted(by_index)[:5]}..., not its "
+                           f"shard {shard[:5]}...")
+    local = [by_index[g] for g in shard] + [None] * (-(-n // W) - len(shard))
+    gathered = all_gather_object(local)
+    if r != 0:
+        return None
+    return [gathered[g % W][g // W] for g in range(n)]
+
+
+def _model_device(model, device) -> torch.device:
+    """The model's device, which must be `device` (the card when None)."""
     dev = resolve_device(device)
     if model.device.type != dev.type or dev.index not in (None, model.device.index):
         raise ValueError(f"the model is on {model.device}, the evaluation on {dev}: move "
                          "the model or pass its device")
-    dev = model.device
-    loader = DetDataLoader(dataset, batch_size=batch_size, shuffle=False, max_gt=max_gt,
-                           drop_last=False)
+    return model.device
+
+
+def _evaluate(model, loader, dev, with_masks, progress, stage) -> dict:
+    """Every batch of `loader` through the model: record index -> result."""
+    dataset = loader.dataset
     by_index = {}
     batches = iter(loader)
     bi = 0
@@ -76,12 +124,7 @@ def single_device_test(model: PanoFasterRCNN, dataset, *, batch_size: int = 1,
             if progress and bi % 50 == 0:
                 print(f"eval batch {bi}/{len(loader)}")
             bi += 1
-    missing = [i for i in range(len(dataset)) if i not in by_index]
-    if missing:
-        raise RuntimeError(
-            f"eval loader skipped {len(missing)} sample(s) (first: {missing[:5]}); results "
-            "would misalign with dataset.records")
-    return [by_index[i] for i in range(len(dataset))]
+    return by_index
 
 
 def _trimmed(out, indices) -> dict:
@@ -107,9 +150,3 @@ def _encoded(results: dict, bitmaps: dict) -> None:
     """Each result's `masks`: its bitmaps run-length encoded."""
     for idx, res in results.items():
         res["masks"] = [rle.encode(b) for b in bitmaps[idx]]
-
-
-def multi_host_test(*args, **kwargs):
-    """Distributed evaluation (the JAX package's `multi_host_test`)."""
-    raise NotImplementedError("distributed evaluation is not ported yet (ROADMAP.md, Queue 1, "
-                              "item 16b)")

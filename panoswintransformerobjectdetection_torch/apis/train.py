@@ -8,9 +8,19 @@ the device, a log line every `log_interval` steps (`train.log`, and
 `train.log.json` with the JAX package's keys), an `epoch_{n}` checkpoint
 every `checkpoint_interval` epochs with a `latest` link, an optional
 `eval_fn` after each epoch, and the hooks (`runtime/hooks.py`) in the JAX
-loop's order.  One process on one device, the card unless the caller
-passes `device="cpu"`; distributed training is ROADMAP.md, Queue 1, item
-16b.
+loop's order.  One process a device, the card unless the caller passes
+`device="cpu"`.
+
+Distributed (JAX `apis/train.py:99-145`): under a process group of W
+processes (`parallel/dist.init_distributed`, torchrun), `batch_size` is the
+global batch, which W must divide; each process loads `batch_size // W`
+images of its loader shard (`DetDataLoader(num_shards=W, shard_id=rank)`,
+which needs `buckets` or `pad_to`), and the step is the global batch's
+(`runtime/train.py`).  Rank 0 alone writes `train.log`, `train.log.json`,
+the `epoch_{n}` checkpoints and the `latest` link; every process waits at a
+barrier after each checkpoint, and a checkpoint keeps every process's host
+random states, so that each resumes its own.  `resume_from` loads on every
+process; `eval_fn` runs on every process and rank 0 logs what it returns.
 
 Randomness: the weights start from `flagship.init_weights(model, seed)`
 (the JAX loop initialises from `PRNGKey(seed)`; the same seed does not give
@@ -39,6 +49,7 @@ from ..data.loader import DetDataLoader
 from ..device import resolve_device
 from ..flagship import init_weights
 from ..models.detectors import BACKBONES, run_stage
+from ..parallel.dist import all_gather_object, barrier, is_main, rank, world
 from ..runtime.checkpoint import (load_backbone_weights, load_checkpoint, load_torch_state_dict,
                                   save_checkpoint)
 from ..runtime.hooks import NumClassCheckHook
@@ -129,17 +140,25 @@ def train_detector(model, dataset, *, work_dir: str, total_epochs: int = 12,
     behaviour, kept).  `grad_clip` > 0 clips the accumulated gradient by
     its global norm (`runtime/optim.AccumulatingAdamW`).  `eval_fn(model)`
     runs after each epoch with the model in eval mode; its dict of metrics
-    is logged.  Each of `TRAIN_LOOP_STAGES` runs as `stage(name, fn)`."""
+    is logged.  Each of `TRAIN_LOOP_STAGES` runs as `stage(name, fn)`.
+    Under a process group, every process calls it alike (module docstring)."""
     dev = resolve_device(device)
+    if batch_size % world():
+        raise ValueError(f"the global batch of {batch_size} does not divide among "
+                         f"{world()} processes")
+    main = is_main()
     os.makedirs(work_dir, exist_ok=True)
-    handler = logging.FileHandler(os.path.join(work_dir, "train.log"))
-    handler.setFormatter(logging.Formatter("%(asctime)s %(message)s"))
-    logger.addHandler(handler)
-    logger.setLevel(logging.INFO)
+    handler = logging.FileHandler(os.path.join(work_dir, "train.log")) if main else None
+    if handler is not None:
+        handler.setFormatter(logging.Formatter("%(asctime)s %(message)s"))
+        logger.addHandler(handler)
+        logger.setLevel(logging.INFO)
     try:
-        with open(os.path.join(work_dir, "train.log.json"), "a") as json_log:
-            loader = DetDataLoader(dataset, batch_size=batch_size, max_gt=max_gt, seed=seed,
-                                   num_workers=num_workers, buckets=buckets, pad_to=pad_to)
+        with (open(os.path.join(work_dir, "train.log.json"), "a") if main
+              else open(os.devnull, "w")) as json_log:
+            loader = DetDataLoader(dataset, batch_size=batch_size // world(), max_gt=max_gt,
+                                   seed=seed, num_workers=num_workers, buckets=buckets,
+                                   pad_to=pad_to, num_shards=world(), shard_id=rank())
             steps_per_epoch = max(len(loader), 1)
             decay_steps = tuple(int(e * steps_per_epoch) for e in decay_epochs)
             init_weights(model, seed)
@@ -160,7 +179,7 @@ def train_detector(model, dataset, *, work_dir: str, total_epochs: int = 12,
 
             hooks = [NumClassCheckHook()] + list(hooks or [])
             ctx = {"work_dir": work_dir, "epoch": start_epoch, "step": step, "model": model,
-                   "dataset": dataset}
+                   "dataset": dataset, "is_main": main}
             for h in hooks:
                 h.before_train(ctx)
             for epoch in range(start_epoch, total_epochs):
@@ -193,18 +212,22 @@ def train_detector(model, dataset, *, work_dir: str, total_epochs: int = 12,
                         json_log.flush()
                 if (epoch + 1) % checkpoint_interval == 0:
                     path = os.path.abspath(os.path.join(work_dir, f"epoch_{epoch + 1}"))
-                    save_checkpoint(path, model, optimizer, scheduler, step=step,
-                                    generators=host_generators)
-                    latest = os.path.join(work_dir, "latest")
-                    if os.path.islink(latest):
-                        os.unlink(latest)
-                    if not os.path.exists(latest):
-                        os.symlink(path, latest)
+                    states = all_gather_object(
+                        {k: g.getstate() for k, g in host_generators.items()})
+                    if main:
+                        save_checkpoint(path, model, optimizer, scheduler, step=step,
+                                        generators=host_generators, rank_generators=states)
+                        latest = os.path.join(work_dir, "latest")
+                        if os.path.islink(latest):
+                            os.unlink(latest)
+                        if not os.path.exists(latest):
+                            os.symlink(path, latest)
+                    barrier()
                 if eval_fn is not None:
                     model.eval()
                     results = eval_fn(model)
                     model.train()
-                    if results is not None:
+                    if results is not None and main:
                         logger.info("Eval epoch %d: %s", epoch + 1, results)
                         json_log.write(json.dumps({"epoch": epoch + 1, **results}) + "\n")
                         json_log.flush()
@@ -214,5 +237,6 @@ def train_detector(model, dataset, *, work_dir: str, total_epochs: int = 12,
                 h.after_train(ctx)
             return model
     finally:
-        logger.removeHandler(handler)
-        handler.close()
+        if handler is not None:
+            logger.removeHandler(handler)
+            handler.close()

@@ -3,7 +3,10 @@
 Counterpart of `_reduce`, `cross_entropy`, `binary_cross_entropy`, `l1_loss`,
 `giou_loss`, `iou_loss` and `accuracy` in
 `panoswintransformerobjectdetection_tpu/core/losses.py`.  Each takes
-elementwise weights and an `avg_factor`.
+elementwise weights and an `avg_factor`.  Under a process group the
+training heads pass the global batch's count as `avg_factor`
+(`parallel/dist.all_reduce_sum`), so that each process's loss is its share
+of the global batch's loss.
 """
 
 import torch
@@ -78,8 +81,11 @@ def iou_loss(pred, target, weight=None, avg_factor=None, eps=1e-6):
     return _reduce(-torch.log(_clip(iou, eps, 1.0)), weight, avg_factor)
 
 
-def accuracy(logits, labels, mask=None):
+def accuracy(logits, labels, mask=None, avg_factor=None):
+    """The share of `mask`ed rows classified right: their count over
+    `avg_factor` (the mask's sum when None), at least 1."""
     correct = (logits.argmax(-1) == labels).float()
     if mask is not None:
-        return (correct * mask).sum() / mask.sum().clamp(min=1.0)
+        total = mask.sum() if avg_factor is None else avg_factor
+        return (correct * mask).sum() / total.clamp(min=1.0)
     return correct.mean()

@@ -6,12 +6,13 @@ Counterpart of `panoswintransformerobjectdetection_tpu/data/builder.py`
 Pipeline steps of the JAX package that the port has not ported (the
 photometric distortion, InstaBoost and the basketball expansion) raise
 `NotImplementedError` naming ROADMAP.md, Queue 1, item 17.
-`build_dataloader` shards by the `num_shards` and `shard_id` it is given:
-distributed runs are item 16b.
+`build_dataloader` shards by the `num_shards` and `shard_id` it is given,
+or by the process group's (`parallel/dist`) when it is given none.
 """
 
-from typing import Sequence
+from typing import Optional, Sequence
 
+from ..parallel.dist import rank, world
 from . import datasets as D
 from . import transforms as T
 from .loader import DetDataLoader
@@ -104,10 +105,14 @@ def build_dataset(cfg):
 
 def build_dataloader(dataset, samples_per_gpu: int, workers_per_gpu: int = 0,
                      num_gpus: int = 1, shuffle: bool = True, seed: int = 0,
-                     num_shards: int = 1, shard_id: int = 0, **kw) -> DetDataLoader:
+                     num_shards: Optional[int] = None, shard_id: Optional[int] = None,
+                     **kw) -> DetDataLoader:
     """`mmdet/datasets/builder.py:75 build_dataloader`: a `DetDataLoader`
     of `samples_per_gpu * num_gpus` images a batch over shard `shard_id` of
-    `num_shards`."""
+    `num_shards`; where not given, the process group's world and rank (1
+    and 0 without one), as the reference's distributed sampler takes them."""
+    num_shards = world() if num_shards is None else num_shards
+    shard_id = rank() if shard_id is None else shard_id
     return DetDataLoader(dataset, batch_size=samples_per_gpu * num_gpus, shuffle=shuffle,
                          seed=seed, num_shards=num_shards, shard_id=shard_id,
                          num_workers=workers_per_gpu, **kw)

@@ -26,6 +26,7 @@ from ..core.bbox import bbox_overlaps, clip_boxes, delta_decode
 from ..core.sampler import sampler_noise
 from ..ops.nms import DetResult
 from ..ops.roi_align import multilevel_roi_align_dense, roi_align
+from ..parallel.dist import shard_rows, world
 from .backbones_extra import RegNet, Res2Net, ResNeSt
 from .fpn import FPN
 from .mask_head import FCNMaskHead, mask_head_loss, mask_targets
@@ -196,6 +197,11 @@ class PanoFasterRCNN(nn.Module):
             return multilevel_roi_align_dense(feats[:nlvl], rois, self.featmap_strides, out_size)
         return roi_align(feats[:nlvl], rois, self.featmap_strides, out_size)
 
+    def forward(self, *args, **kwargs) -> Dict[str, torch.Tensor]:
+        """`forward_train`: what `DistributedDataParallel` calls
+        (`runtime/train.ddp_wrap`).  Serving calls `simple_test`."""
+        return self.forward_train(*args, **kwargs)
+
     def forward_train(self, images, img_shapes, gt_boxes, gt_labels, gt_valid, gt_masks=None,
                       noise: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None,
                       generator: Optional[torch.Generator] = None,
@@ -210,7 +216,9 @@ class PanoFasterRCNN(nn.Module):
 
         The two samplers' uniform noise is `noise["rpn"]`, two (B, anchors)
         tensors, and `noise["rcnn"]`, two (B, G + proposals) tensors; what is
-        not handed in is drawn from `generator` (`core/sampler.sampler_noise`).
+        not handed in is drawn from `generator` (`core/sampler.sampler_noise`),
+        under a process group for the global batch, of which this process
+        keeps its rows (`parallel/dist.shard_rows`).
         The proposals are constants of the RoI stage: the RPN gets gradient
         from its own loss alone.  The module must be in train mode: the
         PanoSwin stem then runs with live BatchNorm, whereas the eval stem
@@ -235,7 +243,8 @@ class PanoFasterRCNN(nn.Module):
 
         def draw(name, n):
             if name not in noise:
-                noise[name] = sampler_noise((B, n), generator, dev)
+                noise[name] = tuple(shard_rows(t, B) for t in
+                                    sampler_noise((world() * B, n), generator, dev))
             return tuple(t.to(dev) for t in noise[name])
 
         x = stage("stem", lambda: self.backbone.patch_embed(images))

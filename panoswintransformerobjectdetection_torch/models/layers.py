@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from ..ops.stem_conv import (BN_EPS, StemWeights, fold_bn, patch_projection, stem_conv,
                               stem_weights)
+from ..parallel.dist import all_reduce_sum, shard_rows, world
 
 
 def dense(layer: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -79,10 +80,10 @@ class DropPath(nn.Module):
         None where `forward` is the identity."""
         if self.rate == 0.0 or not self.training:
             return None
-        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+        shape = (world() * x.shape[0],) + (1,) * (x.dim() - 1)
         where = self.generator.device if self.generator is not None else x.device
-        return (torch.rand(shape, generator=self.generator, device=where)
-                < 1.0 - self.rate).to(x.device)
+        keep = torch.rand(shape, generator=self.generator, device=where) < 1.0 - self.rate
+        return shard_rows(keep, x.shape[0]).to(x.device)
 
     def forward(self, x, keep_mask: Optional[torch.Tensor] = None):
         if self.rate == 0.0 or not self.training:
@@ -100,11 +101,28 @@ def batch_norm_train(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> to
     in that type, and the running statistics moved by `bn.momentum` towards
     the batch's mean and its *biased* variance (`torch.nn.BatchNorm2d`
     would store the unbiased one).  The running statistics are updated in
-    place."""
+    place.
+
+    Under a process group of W > 1 processes, each holding its rows of the
+    global batch, the statistics are the global batch's, as flax's mean over
+    a sharded batch is: the per-channel sum(x), sum(x * x) and the count are
+    summed over the processes (`parallel/dist.all_reduce_sum`, in the
+    statistics' type) before the mean and the variance are taken, and every
+    process moves its running statistics alike.  The sum's backward sums
+    the gradients of those sums over the processes, so each input's
+    gradient reaches through every process's loss.  With no process group,
+    or a group of one, the statistics are the local means."""
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
     dims = (0,) + tuple(range(2, x.dim()))
-    mean = xf.mean(dim=dims)
-    var = ((xf * xf).mean(dim=dims) - mean * mean).clamp(min=0.0)
+    if world() > 1:
+        C = xf.shape[1]
+        sums = all_reduce_sum(torch.cat([xf.sum(dim=dims), (xf * xf).sum(dim=dims),
+                                         xf.new_full((1,), xf.numel() // C)]))
+        mean = sums[:C] / sums[2 * C]
+        var = (sums[C:2 * C] / sums[2 * C] - mean * mean).clamp(min=0.0)
+    else:
+        mean = xf.mean(dim=dims)
+        var = ((xf * xf).mean(dim=dims) - mean * mean).clamp(min=0.0)
     with torch.no_grad():
         bn.running_mean.mul_(1.0 - bn.momentum).add_(mean, alpha=bn.momentum)
         bn.running_var.mul_(1.0 - bn.momentum).add_(var, alpha=bn.momentum)

@@ -22,6 +22,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.roi_align import _axis_taps, _div
+from ..parallel.dist import all_reduce_sum
 from .layers import conv
 
 
@@ -92,7 +93,8 @@ def mask_head_loss(mask_logits: torch.Tensor, targets: torch.Tensor, labels: tor
     """Per-pixel binary cross entropy on the channel of each RoI's class
     (labels clipped to the classes), targets thresholded at 0.5, averaged
     over each RoI, then weighted by `weights` (1 for the positives) and
-    divided by their sum (at least 1).  mask_logits (R, classes, m, m);
+    divided by their sum (at least 1), the global batch's under a process
+    group (`parallel/dist.all_reduce_sum`).  mask_logits (R, classes, m, m);
     targets (R, m, m); labels, weights (R,)."""
     R = mask_logits.shape[0]
     lab = labels.long().clamp(0, mask_logits.shape[1] - 1)
@@ -100,7 +102,7 @@ def mask_head_loss(mask_logits: torch.Tensor, targets: torch.Tensor, labels: tor
     t = (targets >= 0.5).to(logits.dtype)
     bce = logits.clamp(min=0) - logits * t + torch.log1p(torch.exp(-logits.abs()))
     w = weights.to(logits.dtype)
-    return (bce.mean(dim=(1, 2)) * w).sum() / w.sum().clamp(min=1.0)
+    return (bce.mean(dim=(1, 2)) * w).sum() / all_reduce_sum(w.sum()).clamp(min=1.0)
 
 
 def paste_masks(mask_probs: torch.Tensor, boxes: torch.Tensor, img_h: int, img_w: int,

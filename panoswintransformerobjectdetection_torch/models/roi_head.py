@@ -20,6 +20,7 @@ from ..core.assigner import max_iou_assign
 from ..core.bbox import bbox_overlaps, clip_boxes, delta_decode, delta_encode
 from ..core.sampler import random_sample
 from ..ops.nms import DetResult, multiclass_nms
+from ..parallel.dist import all_reduce_sum
 from .layers import conv, dense
 
 # flax's `nn.GroupNorm` epsilon (the reference's mmcv GN uses 1e-5)
@@ -182,7 +183,9 @@ def bbox_head_loss(cls_logits, bbox_pred, samples: RoISamples, num_classes: int,
     """Softmax cross entropy over the sampled rois and a box loss on the
     positive rows, both divided by the number of sampled rois; `acc` is the
     share of sampled rois classified right (JAX `bbox_head_loss` without
-    PISA).
+    PISA).  Under a process group the count is the global batch's
+    (`parallel/dist.all_reduce_sum`): each process returns its share, and
+    the shares sum to the global batch's values.
 
     The prediction of a row is its own class's deltas, or with
     `reg_class_agnostic` the row's one (B, S, 4).  `reg_loss` "l1" is L1 on
@@ -198,10 +201,11 @@ def bbox_head_loss(cls_logits, bbox_pred, samples: RoISamples, num_classes: int,
         raise NotImplementedError(f"bbox_head_loss: reg_loss={reg_loss!r} {UNPORTED_LOSS}")
     B, S = samples.labels.shape
     cls_logits = cls_logits.reshape(B, S, -1)
-    num_sampled = samples.label_weights.sum()
+    num_sampled = all_reduce_sum(samples.label_weights.sum())
     loss_cls = losses.cross_entropy(cls_logits, samples.labels, weight=samples.label_weights,
                                     avg_factor=num_sampled)
-    acc = losses.accuracy(cls_logits, samples.labels, samples.label_weights)
+    acc = losses.accuracy(cls_logits, samples.labels, samples.label_weights,
+                          avg_factor=num_sampled)
     if reg_class_agnostic:
         pred = bbox_pred.reshape(B, S, 4)
     else:

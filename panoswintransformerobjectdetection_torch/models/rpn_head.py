@@ -19,6 +19,7 @@ from ..core.assigner import max_iou_assign
 from ..core.bbox import bbox_overlaps, clip_boxes, delta_decode, delta_encode
 from ..core.sampler import random_sample
 from ..ops.nms import NEG_INF, nms, top_k_stable
+from ..parallel.dist import all_reduce_sum
 from .layers import conv
 
 
@@ -61,7 +62,8 @@ def rpn_loss(cls_scores, bbox_preds, anchors: torch.Tensor, gt_boxes: torch.Tens
     """anchors (N, 4) of all levels; gt_boxes (B, G, 4); gt_valid (B, G);
     noise: two (B, N) uniform tensors for the sampler (`core/sampler.py`).
     Targets are built without gradient; both losses are divided by the
-    number of sampled anchors."""
+    number of sampled anchors, of the global batch under a process group
+    (`parallel/dist.all_reduce_sum`)."""
     cls_flat, reg_flat = flatten_levels(cls_scores, bbox_preds)
     with torch.no_grad():
         ious = bbox_overlaps(gt_boxes, anchors)                          # (B, G, N)
@@ -73,7 +75,7 @@ def rpn_loss(cls_scores, bbox_preds, anchors: torch.Tensor, gt_boxes: torch.Tens
         pos_targets = delta_encode(anchors[s.pos_inds], pos_gts, target_means, target_stds)
         pos_w = s.pos_mask.float()
         neg_w = s.neg_mask.float()
-        num_total = pos_w.sum() + neg_w.sum()
+        num_total = all_reduce_sum(pos_w.sum() + neg_w.sum())
     pos_logits = torch.gather(cls_flat, 1, s.pos_inds)
     neg_logits = torch.gather(cls_flat, 1, s.neg_inds)
     loss_cls = (losses.binary_cross_entropy(pos_logits, torch.ones_like(pos_logits),

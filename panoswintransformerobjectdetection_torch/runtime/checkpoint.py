@@ -35,7 +35,7 @@ state, here through `torch.save`).
 import math
 import os
 import re
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -43,6 +43,7 @@ import torch.nn as nn
 
 from ..geometry.resample import _torch_cubic_weights
 from ..ops.stem_conv import BN_EPS, fold_bn
+from ..parallel.dist import rank, world
 
 # The file names behind the `torchvision://` names of the reference's
 # checkpoint loader (`mmcv_custom/checkpoint.py`); the port downloads none.
@@ -442,28 +443,41 @@ def load_backbone_weights(backbone: nn.Module, sd: Dict[str, Any]) -> None:
 
 def save_checkpoint(path: str, model: nn.Module, optimizer: torch.optim.Optimizer,
                     scheduler: Optional[torch.optim.lr_scheduler.LRScheduler] = None,
-                    step: int = 0, generators: Optional[Dict[str, Any]] = None) -> None:
-    """A training checkpoint: the model's state dict (reference keys), the
-    optimizer's and the schedule's state, the step, and the state of each
-    host random generator in `generators` (name -> an object with
-    `getstate`: Python's `random` module, a `random.Random`)."""
+                    step: int = 0, generators: Optional[Dict[str, Any]] = None,
+                    rank_generators: Optional[List[Dict[str, Any]]] = None) -> None:
+    """A training checkpoint: the model's state dict (reference keys; a
+    `DistributedDataParallel`'s module's, without the `module.` prefix),
+    the optimizer's and the schedule's state, the step, and the state of
+    each host random generator in `generators` (name -> an object with
+    `getstate`: Python's `random` module, a `random.Random`).  A
+    distributed run passes every process's states too (`rank_generators`,
+    by rank), and each process resumes its own."""
+    model = getattr(model, "module", model)
     torch.save({"state_dict": model.state_dict(), "optimizer": optimizer.state_dict(),
                 "scheduler": None if scheduler is None else scheduler.state_dict(),
                 "step": int(step),
-                "generators": {k: g.getstate() for k, g in (generators or {}).items()}}, path)
+                "generators": {k: g.getstate() for k, g in (generators or {}).items()},
+                "rank_generators": rank_generators}, path)
 
 
 def load_checkpoint(path: str, model: nn.Module, optimizer: torch.optim.Optimizer,
                     scheduler: Optional[torch.optim.lr_scheduler.LRScheduler] = None,
                     generators: Optional[Dict[str, Any]] = None) -> int:
-    """Restore what `save_checkpoint` wrote into `model`, `optimizer`,
-    `scheduler` (made as for the saved run, on the device to resume on) and
-    each of `generators` (`setstate`); returns the step."""
+    """Restore what `save_checkpoint` wrote into `model` (or a
+    `DistributedDataParallel`'s module), `optimizer`, `scheduler` (made as
+    for the saved run, on the device to resume on) and each of `generators`
+    (`setstate`): this process's states where the checkpoint has one for
+    each process of this run, else the saved process's; returns the step."""
+    model = getattr(model, "module", model)
     ckpt = torch.load(path, map_location=next(model.parameters()).device, weights_only=True)
     model.load_state_dict(ckpt["state_dict"], strict=True)
     optimizer.load_state_dict(ckpt["optimizer"])
     if scheduler is not None:
         scheduler.load_state_dict(ckpt["scheduler"])
+    states = ckpt["generators"]
+    by_rank = ckpt.get("rank_generators")
+    if by_rank is not None and len(by_rank) == world():
+        states = by_rank[rank()]
     for name, g in (generators or {}).items():
-        g.setstate(ckpt["generators"][name])
+        g.setstate(states[name])
     return ckpt["step"]

@@ -5,7 +5,9 @@ Counterpart of `panoswintransformerobjectdetection_tpu/runtime/hooks.py`
 hook's methods with one shared `ctx` dict: `work_dir`, `epoch`, `step` (the
 micro-steps taken), `model`, `dataset`, after a step `metrics` (floats),
 and `logs`, a list of lines that the loop logs and clears after the step's
-hooks.
+hooks, and `is_main`.  In a distributed run every process calls its hooks;
+the loop's log is rank 0's alone, and a hook that writes files writes them
+where `ctx["is_main"]` (rank 0).  None of the hooks here writes a file.
 """
 
 import logging

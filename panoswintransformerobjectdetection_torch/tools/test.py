@@ -12,8 +12,14 @@ masks when `segm` is asked for, which needs a Mask R-CNN config; or, with
 scales and flip), then the COCOeval-exact `dataset.evaluate`.  Prints
 the metrics as JSON (NaN, a class without ground truth, as null), writes
 the per-image results to `--out` as a pickle, and returns the metrics.
-Runs on the card unless `--device cpu` is given; distributed evaluation is
-not ported (ROADMAP.md, Queue 1, item 16b).
+Runs on the card unless `--device cpu` is given.  `--launcher pytorch`
+(under torchrun, `python -m torch.distributed.run --nproc_per_node N -m
+panoswintransformerobjectdetection_torch.tools.test ... --launcher
+pytorch`) joins the process group (NCCL on the cards, gloo with `--device
+cpu`); with more than one process the records are spread over them by
+`multi_host_test`, rank 0 evaluates and prints, and the other ranks
+return None, as the JAX CLI does.  `multi_host_test` gathers no masks (nor
+does the JAX function): `--eval segm` with more than one process raises.
 """
 
 import argparse
@@ -36,12 +42,23 @@ def main(argv=None):
     p.add_argument("--batch-size", type=int, default=1)
     p.add_argument("--device", default=None,
                    help="the detector's device: the CUDA card unless given (e.g. cpu)")
+    p.add_argument("--launcher", choices=["none", "pytorch"], default="none",
+                   help="'pytorch': join torchrun's process group (distributed evaluation)")
     args = p.parse_args(argv)
 
     from ..apis.inference import init_detector
-    from ..apis.test import single_device_test
+    from ..apis.test import multi_host_test, single_device_test
     from ..data.builder import build_dataset
+    from ..device import resolve_device
+    from ..parallel.dist import init_distributed, world
     from ..runtime.config import load_config
+
+    if args.launcher == "pytorch":
+        init_distributed("pytorch", device=resolve_device(args.device))
+        if world() > 1 and "segm" in args.eval:
+            raise NotImplementedError("--eval segm with more than one process: multi_host_test "
+                                      "gathers no masks, as the JAX package's does not "
+                                      "(ROADMAP.md, Queue 1, item 17d)")
 
     cfg = load_config(args.config)
     if "classes" in cfg:
@@ -64,6 +81,11 @@ def main(argv=None):
             results.append(aug_test_detector(
                 model, r["img"], scales=tuple(tta_cfg.get("scales", ((800, 1333),))),
                 flip=tta_cfg.get("flip", True)))
+    elif world() > 1:
+        results = multi_host_test(model, dataset, batch_size=args.batch_size,
+                                  device=model.device)
+        if results is None:         # a rank other than 0
+            return None
     else:
         results = single_device_test(model, dataset, batch_size=args.batch_size,
                                      with_masks=with_masks, progress=True, device=model.device)

@@ -2,6 +2,9 @@
 
     python -m panoswintransformerobjectdetection_torch.tools.train <config> \\
         [--work-dir DIR] [--resume-from CKPT] [--seed N] [--cfg-options k=v ...] [--device cpu]
+    python -m torch.distributed.run --nproc_per_node N \\
+        -m panoswintransformerobjectdetection_torch.tools.train <config> --launcher pytorch \\
+        --pad-to H W [...]
 
 Counterpart of the JAX package's `tools/train.py`, reading the config the
 same way: `classes` handed to every split's dataset, `runner.max_epochs`
@@ -11,8 +14,13 @@ epochs), `checkpoint_config`, `log_config`, `data.samples_per_gpu` and
 `workers_per_gpu`, `load_from` and `model.pretrained`.  Like the JAX CLI it
 sets no gradient clipping or accumulation.  With a `data.val` split, each
 epoch ends with `single_device_test` and `dataset.evaluate` on it.  Runs on
-the card unless `--device cpu` is given; `--launcher` takes `none` only
-(distributed training is ROADMAP.md, Queue 1, item 16b).
+the card unless `--device cpu` is given.  `--launcher pytorch` (under
+torchrun) joins the process group (`parallel/dist.init_distributed`: NCCL
+on the cards, gloo with `--device cpu`) and trains the global batch of
+`samples_per_gpu * W` images, each process loading its shard, as the
+reference's `tools/dist_train.sh` does; every batch is then padded to one
+shape, `--pad-to H W`, which must hold the pipeline's largest image, and
+evaluation after each epoch is `multi_host_test` (rank 0 evaluates).
 """
 
 import argparse
@@ -27,8 +35,11 @@ def parse_args(argv=None):
     p.add_argument("--work-dir", default=None)
     p.add_argument("--resume-from", default=None)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--launcher", default="none",
-                   help="'none' (one process); distributed launchers are not ported")
+    p.add_argument("--launcher", choices=["none", "pytorch"], default="none",
+                   help="'pytorch': join torchrun's process group (distributed training)")
+    p.add_argument("--pad-to", type=int, nargs=2, default=None, metavar=("H", "W"),
+                   help="pad every training batch to H x W (needed with more than one "
+                        "process, so that every process's batch has one shape)")
     p.add_argument("--cfg-options", nargs="*", default=[])
     p.add_argument("--device", default=None,
                    help="the detector's device: the CUDA card unless given (e.g. cpu)")
@@ -37,17 +48,17 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.launcher != "none":
-        raise NotImplementedError(f"--launcher {args.launcher}: distributed training is not "
-                                  "ported yet (ROADMAP.md, Queue 1, item 16b)")
     from ..apis.inference import build_detector_from_cfg
-    from ..apis.test import single_device_test
+    from ..apis.test import multi_host_test
     from ..apis.train import train_detector
     from ..data.builder import build_dataset
     from ..device import resolve_device
+    from ..parallel.dist import init_distributed, world
     from ..runtime.config import load_config, set_by_dotted
 
     device = resolve_device(args.device)
+    if args.launcher == "pytorch":
+        init_distributed("pytorch", device=device)
 
     cfg = load_config(args.config)
     for opt in args.cfg_options:
@@ -73,7 +84,8 @@ def main(argv=None):
         val_ds = build_dataset(cfg["data"]["val"])
 
         def eval_fn(m):
-            return val_ds.evaluate(single_device_test(m, val_ds, device=m.device))
+            results = multi_host_test(m, val_ds, device=m.device)
+            return None if results is None else val_ds.evaluate(results)
 
     sched = cfg.get("lr_config", {})
     opt = cfg.get("optimizer", {})
@@ -94,7 +106,7 @@ def main(argv=None):
         model, dataset,
         work_dir=work_dir,
         total_epochs=total_epochs,
-        batch_size=cfg.get("data", {}).get("samples_per_gpu", 2),
+        batch_size=cfg.get("data", {}).get("samples_per_gpu", 2) * world(),
         num_workers=cfg.get("data", {}).get("workers_per_gpu", 2),
         base_lr=opt.get("lr", 1e-4),
         weight_decay=opt.get("weight_decay", 0.05),
@@ -108,6 +120,7 @@ def main(argv=None):
         load_from=cfg.get("load_from"),
         pretrained=cfg.get("model", {}).get("pretrained"),
         device=device,
+        **({"pad_to": tuple(args.pad_to)} if args.pad_to else {}),
     )
 
 

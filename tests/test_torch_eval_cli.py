@@ -247,8 +247,8 @@ def test_single_device_test_refuses(setup):
         single_device_test(setup["model"], ds, device="meta")
     with pytest.raises(ValueError, match="needs a detector with a mask head"):
         single_device_test(setup["model"], ds, with_masks=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        multi_host_test(setup["model"], ds)
+    with pytest.raises(ValueError, match="the model is on cpu"):
+        multi_host_test(setup["model"], ds, device="meta")
 
     class Skipping:
         """A dataset whose pipeline drops sample 3."""

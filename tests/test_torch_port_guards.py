@@ -126,9 +126,35 @@ def test_modules_list_covers_the_slice():
                 "data.builder", "data.loader", "apis.test", "utils.visualize", "tools.test",
                 "tools.eval_metric", "tools.image_demo", "runtime.hooks", "apis.train",
                 "tools.train", "models.layers", "models.swin", "models.mask_head",
-                "data.fill_poly"):
+                "data.fill_poly", "parallel", "parallel.dist", "parallel.spatial"):
         assert f"{port.__name__}.{sub}" in names
         importlib.import_module(f"{port.__name__}.{sub}")
+
+
+def test_init_distributed_never_picks_gloo_on_its_own(monkeypatch):
+    """`device=None` means the card: NCCL there, and without a card it
+    raises rather than falling back to gloo; gloo only for `device="cpu"` or
+    when named."""
+    from panoswintransformerobjectdetection_torch.parallel import dist as pdist
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": "29999"}
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    calls = []
+    monkeypatch.setattr(pdist.dist, "is_initialized", lambda: False)
+    monkeypatch.setattr(pdist.dist, "init_process_group",
+                        lambda backend, **kw: calls.append(backend))
+    monkeypatch.setattr(torch.cuda, "set_device", lambda i: calls.append(f"card {i}"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pdist.init_distributed("pytorch")
+    assert calls == []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert pdist.init_distributed("pytorch") == (0, 1)
+    assert calls == ["card 0", "nccl"]
+    pdist.init_distributed("pytorch", backend="gloo")
+    pdist.init_distributed("pytorch", device="cpu")
+    assert calls[2:] == ["card 0", "gloo", "gloo"]
 
 
 def test_no_wrapper_gives_way_to_its_twin():

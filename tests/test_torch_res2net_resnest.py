@@ -37,7 +37,8 @@ from panoswintransformerobjectdetection_torch.runtime.checkpoint import from_jax
 from panoswintransformerobjectdetection_torch.runtime.config import load_config
 from panoswintransformerobjectdetection_torch.tools import config_census
 from torch_port_common import (check_cnn_train_pair, cnn_train_pair,  # noqa: F401
-                               perturb_batch_norm, quick_jit, random_variables,
+                               in_background, perturb_batch_norm, prefetch_cnn_references,
+                               quick_jit, random_variables, selected_params,
                                single_torch_thread, to_numpy)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -53,8 +54,30 @@ def _frames():
     return np.random.default_rng(0).standard_normal((1, H, W, 3)).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=None)
+@pytest.fixture(scope="module", autouse=True)
+def cnn_references(request):
+    """The JAX side of every selected serving case, started at once in
+    background threads (`in_background`), and of every training case, in
+    worker processes (`prefetch_cnn_references`)."""
+    for p in selected_params(request, "test_stages_match_jax"):
+        _serving_reference(p["case"])
+    prefetch_cnn_references([
+        (CASES[p["case"]][0], CASES[p["case"]][2], (32, 64), 21, {"norm_eval": p["norm_eval"]})
+        for p in selected_params(request, "test_train_mode_backbone_matches_jax")])
+
+
 def _reference(case):
+    return _serving_reference(case).result()
+
+
+@functools.lru_cache(maxsize=None)
+def _serving_reference(case):
+    """The JAX stage outputs of `case` in eval mode, started in the
+    background (`in_background`) at the first call."""
+    return in_background(_compute_reference, case)
+
+
+def _compute_reference(case):
     jcls, _, kwargs = CASES[case]
     module = jcls(**kwargs)
     variables = perturb_batch_norm(to_numpy(

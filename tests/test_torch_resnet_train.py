@@ -77,8 +77,10 @@ from panoswintransformerobjectdetection_torch.runtime.checkpoint import (from_ja
 from panoswintransformerobjectdetection_torch.tools import detectron2pytorch, regnet2pytorch
 from torch_port_common import (TINY_MASK_RCNN, TINY_TRAIN_CFG, Recorder,  # noqa: F401
                                check_cnn_train_pair, cnn_train_pair, jax_sampler_noise,
-                               jax_step_noise, perturb_batch_norm, quick_jit_train_step,
-                               random_variables, recording, single_torch_thread, to_numpy)
+                               in_background, jax_step_noise, perturb_batch_norm,
+                               prefetch_cnn_references, quick_jit_train_step,
+                               random_variables, recording, selected_params,
+                               single_torch_thread, to_numpy)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZE = (32, 64)
@@ -113,6 +115,25 @@ PIPELINE = [{"type": "LoadImageFromFile"},
 # `test_torch_resnet_detectors.py`: a random ResNet's maps are not
 # unit-scale, and with the init's spread every box would be clipped flat.
 REG_SCALE = 0.05
+
+
+@pytest.fixture(scope="module", autouse=True)
+def cnn_references(request):
+    """The JAX side of every selected backbone case, started at once in
+    worker processes (`prefetch_cnn_references`), and of the Faster R-CNN
+    step and the Mask R-CNN loop, in background threads (`in_background`)."""
+    cases = [(CASES[p["case"]][0], CASES[p["case"]][2], SIZE, 21, {"norm_eval": p["norm_eval"]})
+             for p in selected_params(request, "test_train_mode_backbone_matches_jax")]
+    cases += [(jresnet.ResNet, {"depth": 18}, SIZE, 21,
+               {"norm_eval": False, "frozen_stages": p["frozen_stages"]})
+              for p in selected_params(request, "test_frozen_stages_zero_the_gradients_jax_zeroes")]
+    prefetch_cnn_references(cases)
+    fixtures = {f for item in request.session.items if item.module is request.module
+                for f in item.fixturenames}
+    if "faster_step" in fixtures:
+        _faster_reference()
+    if "mask_loops" in fixtures:
+        request.getfixturevalue("jax_mask_loop")
 
 
 @pytest.mark.parametrize("norm_eval", [True, False], ids=["norm_eval", "live_bn"])
@@ -177,11 +198,14 @@ def _batch(seed):
             "gt_valid": np.array([[True, True, True], [True, True, False]])}
 
 
-@pytest.fixture(scope="module")
-def faster_step():
-    """One step of the R-18 Faster R-CNN on both sides: JAX's
-    `make_train_step` (its optimizer recording the gradients) and the
-    port's, from the same weights, batch and sampler noise."""
+@functools.lru_cache(maxsize=None)
+def _faster_reference():
+    """The JAX side of `faster_step`, started in the background
+    (`in_background`) at the first call."""
+    return in_background(_compute_faster_reference)
+
+
+def _compute_faster_reference():
     det = build(DETECTORS, dict(R18_FASTER))
     variables = _jax_variables(det, 31)
     batch = _batch(32)
@@ -191,13 +215,22 @@ def faster_step():
                               opt_state=tx.init(variables["params"]), tx=tx)
     new_state, ref = quick_jit_train_step(jtrain.make_train_step(det), None)(
         state, jax.tree.map(jnp.asarray, batch), jax.random.PRNGKey(1))
-    model = build_detector_from_cfg({"model": R18_FASTER})
-    model.load_state_dict(from_jax_variables(variables["params"], variables["batch_stats"]))
-    model.train()
     # the sampler's key, as `make_train_step` and `forward_train` derive it
     r1, _ = jax.random.split(jax.random.fold_in(jax.random.fold_in(jax.random.PRNGKey(1), 0), 0))
     k_rpn, k_rcnn = jax.random.split(det.apply(variables, method=lambda m: m.make_rng("sampler"),
                                                rngs={"sampler": r1}))
+    return variables, batch, new_state, ref, k_rpn, k_rcnn
+
+
+@pytest.fixture(scope="module")
+def faster_step():
+    """One step of the R-18 Faster R-CNN on both sides: JAX's
+    `make_train_step` (its optimizer recording the gradients) and the
+    port's, from the same weights, batch and sampler noise."""
+    variables, batch, new_state, ref, k_rpn, k_rcnn = _faster_reference().result()
+    model = build_detector_from_cfg({"model": R18_FASTER})
+    model.load_state_dict(from_jax_variables(variables["params"], variables["batch_stats"]))
+    model.train()
     anchors = sum(a.shape[0] for a in model.anchor_gen.grid_anchors(
         [(-(-H // s), -(-W // s)) for s in (4, 8, 16, 32, 64)]))
     noise = {"rpn": jax_sampler_noise(k_rpn, 2, anchors),
@@ -267,16 +300,12 @@ def mask_frames(tmp_path_factory):
             "pipeline": PIPELINE}
 
 
-@pytest.fixture(scope="module")
-def mask_loops(mask_frames, tmp_path_factory):
-    """Both `train_detector` loops over the R-18 Mask R-CNN with live
-    BatchNorm, from the same weights (JAX's `init` hands back the variables;
-    the port loads them from a reference `.pth`) and sampler noise."""
+def _jax_mask_loop(frames: dict, work_dir: str) -> dict:
+    """JAX's `train_detector` over the R-18 Mask R-CNN with live BatchNorm
+    from `_jax_variables(det, 41)` (JAX's `init` hands them back), its
+    optimizer recording the first step's gradients."""
     det = build(DETECTORS, dict(R18_MASK))
     variables = _jax_variables(det, 41)
-    pth = str(tmp_path_factory.mktemp("r18_pth") / "r18_mask_rcnn.pth")
-    torch.save({"state_dict": from_jax_variables(variables["params"], variables["batch_stats"])},
-               pth)
     first = {}
 
     def jit_train_step(step_fn, mesh):
@@ -290,7 +319,6 @@ def mask_loops(mask_frames, tmp_path_factory):
         return step
 
     make_optimizer, devices = jruntime.make_optimizer, jax.devices
-    out = {}
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jtrain, "jit_train_step", jit_train_step)
         mp.setattr(jruntime, "make_optimizer", lambda *a, **k: recording(make_optimizer(*a, **k)))
@@ -301,12 +329,32 @@ def mask_loops(mask_frames, tmp_path_factory):
         rec = Recorder()
         random.seed(21)
         state = japi.train_detector(
-            det, jb.build_dataset(dict(mask_frames)),
-            work_dir=str(tmp_path_factory.mktemp("r18_jax_loop")),
+            det, jb.build_dataset(dict(frames)), work_dir=work_dir,
             hooks=[jhooks.LrRecordHook(joptim.warmup_step_schedule(
                 LOOP["base_lr"], LOOP["warmup_iters"], decay_steps=(1,))), rec], **LOOP)
-        out["jax"] = {"rec": rec, "state": state, "first": first}
+    return {"det": det, "variables": variables, "rec": rec, "state": state, "first": first}
 
+
+@pytest.fixture(scope="module")
+def jax_mask_loop(mask_frames, tmp_path_factory):
+    """`_jax_mask_loop` started in the background (`in_background`): its
+    future."""
+    return in_background(_jax_mask_loop, mask_frames,
+                         str(tmp_path_factory.mktemp("r18_jax_loop")))
+
+
+@pytest.fixture(scope="module")
+def mask_loops(mask_frames, jax_mask_loop, tmp_path_factory):
+    """Both `train_detector` loops over the R-18 Mask R-CNN with live
+    BatchNorm, from the same weights (JAX's `init` hands back the variables;
+    the port loads them from a reference `.pth`) and sampler noise."""
+    jax_out = jax_mask_loop.result()
+    det, variables = jax_out["det"], jax_out["variables"]
+    pth = str(tmp_path_factory.mktemp("r18_pth") / "r18_mask_rcnn.pth")
+    torch.save({"state_dict": from_jax_variables(variables["params"], variables["batch_stats"])},
+               pth)
+    out = {"jax": {k: jax_out[k] for k in ("rec", "state", "first")}}
+    with pytest.MonkeyPatch.context() as mp:
         port = build_detector_from_cfg({"model": R18_MASK})
         mp.setattr(tapi, "step_randomness", functools.partial(jax_step_noise, det, variables))
         rec, port_first = Recorder(), {}

@@ -372,15 +372,20 @@ def test_train_cli_hands_train_detector_what_jax_does(config, frames, bfov_frame
     assert kw["total_epochs"] in (12, 360)
 
 
-def test_train_cli_refuses_what_jax_refuses(frames, tmp_path, caplog):
+def test_train_cli_refuses_what_jax_refuses(frames, tmp_path, caplog, monkeypatch):
     path = os.path.join(ROOT, "configs", "panoswin",
                         "faster_rcnn_panoswin_tiny_patch4_window7_streetwin.py")
     with pytest.raises(ValueError, match=r"runner.max_epochs \(360\) != total_epochs \(5\)"):
         train_cli.main([path, "--device", "cpu", "--cfg-options", "total_epochs=5",
                         *(f"data.{split}.{k}={v}" for split in ("train", "val")
                           for k, v in (("ann_file", frames[0]), ("img_prefix", frames[1])))])
-    with pytest.raises(NotImplementedError, match="pytorch.*item 16b"):
-        train_cli.main([path, "--launcher", "pytorch"])
+    # JAX's `--launcher jax` is not the port's; `pytorch` needs torchrun's environment
+    with pytest.raises(SystemExit):
+        train_cli.main([path, "--launcher", "jax", "--device", "cpu"])
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun's environment"):
+        train_cli.main([path, "--launcher", "pytorch", "--device", "cpu"])
     model, ds = _port_model(), _dataset(tb, *frames)
     ds.CLASSES = ds.CLASSES + ("extra",)
     for hook, logger in ((thooks.NumClassCheckHook(), "panoswin_torch"),

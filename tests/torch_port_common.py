@@ -10,10 +10,15 @@ its weights once per process, for every module that needs them;
 weights are a reference-format state dict, `tiny_swin_mask_rcnn` for the
 tiny Swin Mask R-CNN (serving and training tests alike) and
 `tiny_swin_cascade` for the tiny Swin Cascade Mask R-CNN of each bbox head.
+`in_background` (threads) and `in_processes` (three spawned processes, for
+`jax_cnn_reference.cnn_reference`) start JAX references ahead of the tests
+that read them, so that their traces and compiles overlap.
 """
 
+import concurrent.futures
 import functools
 import importlib.util
+import multiprocessing
 import os
 
 import numpy as np
@@ -29,6 +34,8 @@ from panoswintransformerobjectdetection_torch.apis.inference import build_detect
 from panoswintransformerobjectdetection_torch.flagship import flagship_config
 from panoswintransformerobjectdetection_torch.runtime import hooks as thooks
 from panoswintransformerobjectdetection_torch.runtime.checkpoint import from_jax_variables
+from jax_cnn_reference import (cnn_reference, perturb_batch_norm,  # noqa: F401
+                               random_variables, to_numpy)
 
 # A training configuration of the tiny flagship's size: few samples, few
 # proposals.  The thresholds are the defaults'.
@@ -55,63 +62,6 @@ def quick_jit(fn, *args):
     compiled = jax.jit(fn).lower(*args).compile(
         compiler_options={"xla_backend_optimization_level": 0})
     return compiled(*args)
-
-
-def to_numpy(tree):
-    return jax.tree.map(np.asarray, tree)
-
-
-def random_variables(module, *samples, seed: int):
-    """Variables of a flax module with the tree of `module.init(key, *samples)` (traced for
-    its shapes only: compiling the init costs more than any test that uses
-    it) and numpy values from `seed` with the spread of the init's: kernels
-    normal, cut at 2 sigma (0.02 for Dense, fan_in**-0.5 for convolutions),
-    as the sphere-bias tables; biases and means 0, scales and variances 1."""
-    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), *samples)
-    rng = np.random.default_rng(seed)
-
-    def fill(path, leaf):
-        name = path[-1].key
-        if name == "kernel":
-            std = 0.02 if len(leaf.shape) == 2 else float(np.prod(leaf.shape[:-1])) ** -0.5
-            a = rng.standard_normal(leaf.shape).clip(-2, 2) * std
-        elif name in ("scale", "var"):
-            a = np.ones(leaf.shape)
-        elif name in ("bias", "mean"):
-            a = np.zeros(leaf.shape)
-        else:                                   # the sphere-bias tables
-            a = rng.standard_normal(leaf.shape).clip(-2, 2) * 0.02
-        return jnp.asarray(a, jnp.float32)
-
-    return jax.tree_util.tree_map_with_path(fill, shapes)
-
-
-def perturb_batch_norm(variables, seed: int):
-    """numpy `variables` (params, batch_stats) with every BatchNorm drawn
-    away from the identity, from `seed`: scales uniform in [0.5, 1.5],
-    biases and means N(0, 0.1), variances uniform in [0.5, 2].  A BatchNorm
-    is a params dict with a `scale` (flax's LayerNorm and GroupNorm too, so
-    this is for trees that hold none) and a batch_stats dict."""
-    rng = np.random.default_rng(seed)
-
-    def walk(tree, stats):
-        out = {}
-        for k in sorted(tree):
-            v = tree[k]
-            if isinstance(v, dict):
-                out[k] = walk(v, stats)
-            elif stats:
-                out[k] = (rng.standard_normal(v.shape) * 0.1 if k == "mean"
-                          else rng.uniform(0.5, 2.0, v.shape)).astype(np.float32)
-            elif "scale" in tree and k in ("scale", "bias"):
-                out[k] = (rng.uniform(0.5, 1.5, v.shape) if k == "scale"
-                          else rng.standard_normal(v.shape) * 0.1).astype(np.float32)
-            else:
-                out[k] = v
-        return out
-
-    return dict(variables, params=walk(variables["params"], False),
-                batch_stats=walk(variables["batch_stats"], True))
 
 
 @functools.lru_cache(maxsize=None)
@@ -427,13 +377,58 @@ def tiny_swin_cascade(head: str):
     return {"det": det, "variables": variables, "state_dict": from_jax_variables(params, {})}
 
 
-@functools.lru_cache(maxsize=None)
-def _cnn_variables(jcls, kwargs, size, seed):
-    """numpy variables of the JAX backbone `jcls(**dict(kwargs))` for
-    `cnn_train_pair`, made once for every `norm_eval` and `frozen_stages`."""
-    variables = perturb_batch_norm(to_numpy(random_variables(
-        jcls(**dict(kwargs)), jnp.zeros((1,) + size + (3,)), seed=seed)), seed=seed + 1)
-    return jax.tree.map(lambda a: np.asarray(a, np.float32), variables)
+# (jcls, kwargs, size, seed, mode) -> the future of its `cnn_reference`
+_CNN_REFERENCES = {}
+# "threads": this process's background threads; "processes": three spawned
+# worker processes
+_POOLS = {}
+
+
+def _cnn_key(jcls, kwargs, size, seed, mode):
+    return (jcls, tuple(sorted(kwargs.items())), tuple(size), seed, tuple(sorted(mode.items())))
+
+
+def in_background(fn, *args) -> concurrent.futures.Future:
+    """`fn(*args)` started in the shared background threads (four, first
+    come first served); its future.  For JAX references whose results stay
+    in this process: tracing holds the interpreter, XLA's compile and run
+    do not."""
+    if "threads" not in _POOLS:
+        _POOLS["threads"] = concurrent.futures.ThreadPoolExecutor(4)
+    return _POOLS["threads"].submit(fn, *args)
+
+
+def in_processes(fn, *args) -> concurrent.futures.Future:
+    """`fn(*args)` started in one of three spawned worker processes (first
+    come first served), `fn` a module-level function whose arguments and
+    result pickle; its future.  Each process traces on its own interpreter,
+    so three references trace side by side.  The processes serve every
+    later module of the session and end with it."""
+    if "processes" not in _POOLS:
+        _POOLS["processes"] = concurrent.futures.ProcessPoolExecutor(
+            3, mp_context=multiprocessing.get_context("spawn"))
+    return _POOLS["processes"].submit(fn, *args)
+
+
+def prefetch_cnn_references(cases):
+    """Start the JAX side of each `cnn_train_pair(jcls, tcls, kwargs, size,
+    seed, **mode)` case, given as (jcls, kwargs, size, seed, mode), in the
+    worker processes (`in_processes`), in order: three references trace and
+    compile side by side while this process compares the ones done.
+    `cnn_train_pair` takes a case's reference from here, or computes it
+    where none was started."""
+    for jcls, kwargs, size, seed, mode in cases:
+        key = _cnn_key(jcls, kwargs, size, seed, mode)
+        if key not in _CNN_REFERENCES:
+            _CNN_REFERENCES[key] = in_processes(cnn_reference, *key)
+
+
+def selected_params(request, function: str):
+    """The `callspec.params` of the collected tests of `request`'s module
+    named `function` (parametrised), in run order: what a module's fixture
+    prefetches for, so that `-k` computes only the selected cases."""
+    return [item.callspec.params for item in request.session.items
+            if item.module is request.module and item.originalname == function]
 
 
 def cnn_train_pair(jcls, tcls, kwargs, size, seed: int, **mode):
@@ -448,26 +443,15 @@ def cnn_train_pair(jcls, tcls, kwargs, size, seed: int, **mode):
     for every stage.  Returns the stage outputs, each parameter's gradient
     (`jax.vjp`; the port's None where no gradient reached it) and the state
     dict after the call (flax's `mutable=["batch_stats"]`) of both, as
-    numpy arrays by the port's keys."""
+    numpy arrays by the port's keys.  The JAX side comes from
+    `prefetch_cnn_references` where the case was started there."""
     from panoswintransformerobjectdetection_torch.runtime.checkpoint import from_jax_cnn_backbone
-    variables = _cnn_variables(jcls, tuple(sorted(kwargs.items())), size, seed)
-    jmodule, tmodule = jcls(**kwargs, **mode), tcls(**kwargs, **mode, dtype=torch.float64)
-    x = np.random.default_rng(seed + 2).standard_normal((2,) + size + (3,))
-
-    def vjp(params, stats, images, key):
-        def run(p):
-            outs, updates = jmodule.apply({"params": p, "batch_stats": stats}, images, train=True,
-                                          mutable=["batch_stats"])
-            return outs, updates["batch_stats"]
-        outs, pull, new_stats = jax.vjp(run, params, has_aux=True)
-        keys = jax.random.split(key, len(outs))
-        cots = tuple(jax.random.normal(k, o.shape, o.dtype) for k, o in zip(keys, outs))
-        return outs, new_stats, pull(cots)[0], cots
-
-    with jax.enable_x64(True):
-        as64 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), variables)
-        outs, stats, grads, cots = to_numpy(jax.jit(vjp)(
-            as64["params"], as64["batch_stats"], jnp.asarray(x), jax.random.PRNGKey(seed)))
+    key = _cnn_key(jcls, kwargs, size, seed, mode)
+    ref = (_CNN_REFERENCES.pop(key).result() if key in _CNN_REFERENCES
+           else cnn_reference(*key))
+    variables, x, outs, stats, grads, cots = (ref[k] for k in ("variables", "x", "outs", "stats",
+                                                               "grads", "cots"))
+    tmodule = tcls(**kwargs, **mode, dtype=torch.float64)
     tmodule.load_state_dict(from_jax_cnn_backbone(variables["params"], variables["batch_stats"]),
                             strict=True)
     tmodule.train()
@@ -486,6 +470,16 @@ def cnn_train_pair(jcls, tcls, kwargs, size, seed: int, **mode):
             "before": as_sd(variables["params"], variables["batch_stats"])}
 
 
+def _assert_within(got, ref, atol: float, name: str):
+    """`np.testing.assert_allclose(got, ref, atol=atol, rtol=0)`, which
+    reports a failure; one vectorised pass first decides the common case
+    where every entry is within `atol` (NaN or another shape goes to the
+    full check)."""
+    if got.shape == ref.shape and float(np.max(np.abs(got - ref), initial=0.0)) <= atol:
+        return
+    np.testing.assert_allclose(got, ref, atol=atol, rtol=0, err_msg=name)
+
+
 def check_cnn_train_pair(pair, live: bool):
     """`cnn_train_pair`'s two sides, float64 against float64: each stage
     within 1e-9 * max|ref|; each gradient within 1e-9 * G + 1e-6 * max|g|,
@@ -497,8 +491,7 @@ def check_cnn_train_pair(pair, live: bool):
     parameters that got no gradient (all zero in JAX)."""
     for i, (g, r) in enumerate(zip(pair["got"], pair["outs"])):
         assert g.shape == r.shape and g.dtype == np.float64, f"stage {i}"
-        np.testing.assert_allclose(g, r, atol=1e-9 * float(np.abs(r).max()), rtol=0,
-                                   err_msg=f"stage {i}")
+        _assert_within(g, r, 1e-9 * float(np.abs(r).max()), f"stage {i}")
     scale = max(float(np.abs(r).max()) for r in pair["ref_grads"].values())
     frozen = []
     for name, g in pair["grads"].items():
@@ -507,14 +500,12 @@ def check_cnn_train_pair(pair, live: bool):
             assert not r.any(), f"{name}: no gradient in the port, max|g| {np.abs(r).max()} in JAX"
             frozen.append(name)
             continue
-        np.testing.assert_allclose(g, r, atol=1e-9 * scale + 1e-6 * float(np.abs(r).max()),
-                                   rtol=0, err_msg=name)
+        _assert_within(g, r, 1e-9 * scale + 1e-6 * float(np.abs(r).max()), name)
     for name, v in pair["state"].items():
         if name.endswith("num_batches_tracked"):
             assert v == int(live), name
         elif "running" in name:
             r, before = pair["ref_state"][name], pair["before"][name]
-            np.testing.assert_allclose(v, r, atol=1e-6 * max(1.0, float(np.abs(r).max())),
-                                       rtol=0, err_msg=name)
+            _assert_within(v, r, 1e-6 * max(1.0, float(np.abs(r).max())), name)
             assert (not np.array_equal(v, before)) == live, name
     return frozen
