@@ -259,16 +259,37 @@ Phases (each raises on failure, so any failure exits non-zero):
      with live BatchNorm and masks, two processes, one step against one
      process: losses, bn1's and layer4.0.bn1's running statistics,
      parameters; K1's and K3's launches in the children counted;
- 16. a JSON line for the evaluation, one for the training loop, one for
+ 16. the reference's own PanoSwin, the v-variant (`models/panoswin_v2.py`):
+     (a) serving the PanoSwin-v2-T Faster R-CNN config in f32 from a
+     seed-0 reference `.pth` under the reference's v2 keys: 2 frames of
+     512 x 1024 through its test pipeline (672 x 1344 after Resize and
+     Pad), 2 warm-up and 5 timed `simple_test` requests, K1's and K3's f32
+     entries once a request each and no other kernel, then one request
+     with its stages synchronised and timed; K1 on the model's
+     folded stem at that shape and K3 on a request's RoIs against their
+     twins, timed; (b) the same config through `train_detector` and its
+     own train pipeline after `FramesFromMemory`, 4 steps of 2 frames,
+     odd frames with the partial ratio (0.1, 0.9), the first step untimed:
+     every loss finite, K3's f32 entry forward and backward once a step at
+     7, no other kernel, the stem's BatchNorm statistics moved, every
+     parameter that a loss reaches moved; K3 forward and backward at 7 on
+     the first step's sampled RoIs against their twins, timed; (c) card
+     against CPU in f32, TF32 off: a nano v2 detector's detections with
+     per-image ratios (equal counts, 1e-3 px, 1e-5), a nano v1 backbone and
+     a nano v2 backbone with the `'tf'` embed and the basketball warp
+     (stage outputs within 1e-4 * max(1, max|ref|));
+ 17. a JSON line for the evaluation, one for the training loop, one for
      Mask R-CNN serving, one for Mask R-CNN training, one for Cascade Mask
      R-CNN serving, one for its training, one for the ResNet-family
-     detectors, one for their training, one for phase 15, a JSON line per
-     kernel (each with its launches in phase 11, `launches_cascade`, in
-     phase 12, `launches_cascade_training`, in phase 13, `launches_resnet`,
-     in phase 14, `launches_resnet_training`, and in phase 15's children,
-     `launches_distributed`; K3's f32 entry timed on 13a's and 13b's RoIs
-     and its f32 backward on 14a's have rows of their own), the card's
-     name and power limit, then the result line.
+     detectors, one for their training, one for phase 15, one for phase
+     16, a JSON line per kernel (each with its launches in phase 11,
+     `launches_cascade`, in phase 12, `launches_cascade_training`, in phase
+     13, `launches_resnet`, in phase 14, `launches_resnet_training`, in
+     phase 15's children, `launches_distributed`, and in phase 16,
+     `launches_panoswin_v2`; K3's f32 entry timed on 13a's and 13b's RoIs
+     and its f32 backward on 14a's, and K1's f32 entry and K3's f32 entry
+     forward and backward on phase 16's inputs have rows of their own), the
+     card's name and power limit, then the result line.
 Without a CUDA card it exits with an error and prints no result.
 """
 
@@ -3927,15 +3948,37 @@ def kernel_k3_backward_resnet(dev, ra, sampled):
     cot = torch.from_numpy(rng.standard_normal((rois.shape[0], o, o, C)).astype(np.float32))
     cot = cot.to(dev)
     b = k3_backward_times(ra, rois, cot.bfloat16(), shapes, strides)
+    rec = k3_backward_f32_record(ra, cot, rois, shapes, strides,
+                                 "roi_align_backward o=7 f32 (K3 backward), ResNet-50 sampled RoIs",
+                                 "K3 backward o=7 f32, 14a's sampled RoIs")
+    print(f"  K3 backward o=7 f32, the {b['rois']} RoIs 14a's first step sampled (by level "
+          f"{b['rois_by_level']}, maps {shapes[0][1]} x {shapes[0][2]} and coarser): f32 entry "
+          f"{rec['ms']:.4f} ms ({rec['bound_ms'] / rec['ms']:.3f} of its {rec['bound_ms']:.4f} "
+          f"ms bound, {rec['bound_by']}), autograd through the twin {rec['plain_ms']:.4f} ms; "
+          f"the bf16 owner-computes entry {b['ms']:.4f} ms, bit-equal on two launches, its first "
+          f"version at bf16 with zeroing and cast {b['previous_ms']:.4f} ms; no single PyTorch "
+          "call computes it")
+    return dict(rec, rois_by_level=b["rois_by_level"], previous_ms=b["previous_ms"],
+                bf16={k: b[k] for k in ("entry", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                        "bound_by", "bitwise_repeatable")})
+
+
+def k3_backward_f32_record(ra, cot, rois, shapes, strides, name, what):
+    """K3's f32 backward at cot's o x o bins on `rois` over maps of `shapes`:
+    the entry against autograd through the twin within 1e-5 * max(1,
+    max|ref|), timed beside it, with its bound (f32 bytes over the memory
+    rate, or its operations over the f32 rate).  Returns a kernel row named
+    `name` that shares K3's backward's."""
+    C, o = cot.shape[-1], cot.shape[1]
     got = ra.roi_align_backward(cot, rois, shapes, torch.float32, strides)
     entry = ra.roi_align_backward.last_entry
     if entry != ra.BACKWARD_ENTRIES[torch.float32]:
-        raise AssertionError(f"14f: K3's backward launched {entry} at f32")
+        raise AssertionError(f"{what}: K3's backward launched {entry} at f32")
     ref = ra.roi_align_backward_plain(cot, rois, shapes, torch.float32, strides)
     err = 0.0
     for level, (a, r) in enumerate(zip(got, ref)):
-        err = max(err, check(f"K3 backward o=7 f32 level {level}, 14a's sampled RoIs, entry "
-                             f"{entry}", a, r, 1e-5 * max(1.0, float(r.abs().max()))))
+        err = max(err, check(f"{what}, level {level}, entry {entry}", a, r,
+                             1e-5 * max(1.0, float(r.abs().max()))))
     del got, ref
     ms = time_ms(lambda: ra.roi_align_backward(cot, rois, shapes, torch.float32, strides), 20)
     plain_ms = time_ms(lambda: ra.roi_align_backward_plain(cot, rois, shapes, torch.float32,
@@ -3943,23 +3986,14 @@ def kernel_k3_backward_resnet(dev, ra, sampled):
     nbytes = 4 * (cot.numel() + sum(int(np.prod(s)) for s in shapes)) + rois.numel() * 4
     ops = rois.shape[0] * o * o * C * (16 + 4) * 2
     bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
-    print(f"  K3 backward o=7 f32, the {b['rois']} RoIs 14a's first step sampled (by level "
-          f"{b['rois_by_level']}, maps {shapes[0][1]} x {shapes[0][2]} and coarser): f32 entry "
-          f"{ms:.4f} ms ({bound / ms:.3f} of its {bound:.4f} ms bound, "
-          f"{'bytes' if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S else 'operations'}), "
-          f"autograd through the twin {plain_ms:.4f} ms; the bf16 owner-computes entry "
-          f"{b['ms']:.4f} ms, bit-equal on two launches, its first version at bf16 with "
-          f"zeroing and cast {b['previous_ms']:.4f} ms; no single PyTorch call computes it")
-    return {"name": "roi_align_backward o=7 f32 (K3 backward), ResNet-50 sampled RoIs",
-            "route": "cuda", "source": "panoswintransformerobjectdetection_torch/csrc/roi_align.cu",
+    return {"name": name, "route": "cuda",
+            "source": "panoswintransformerobjectdetection_torch/csrc/roi_align.cu",
             "replaces": "panoswintransformerobjectdetection_tpu/ops/roi_align.py:356",
             "shares_kernel_of": "roi_align_backward (K3 backward)", "out_size": o,
-            "entry": entry, "rois": b["rois"], "rois_by_level": b["rois_by_level"],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "entry": entry, "rois": rois.shape[0], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
-            else "operations", "library_ms": None, "previous_ms": b["previous_ms"],
-            "bf16": {k: b[k] for k in ("entry", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                       "bound_by", "bitwise_repeatable")}}
+            else "operations", "library_ms": None}
 
 
 def resnet_training_path(dev, ident, counters, ra, seed):
@@ -4622,6 +4656,318 @@ def dist_cards(n, seed):
     return 0
 
 
+V2_CONFIG = "configs/panoswin/faster_rcnn_panoswin_v2_tiny_streetwin.py"
+V2_REQUEST_FRAMES = 2               # 16a: a request is one batch of 2 frames
+V2_INPUT = (672, 1344)              # 512 x 1024 after the test pipeline's Resize and Pad
+V2_TRAIN_FRAMES = 8                 # 16b: 4 steps of 2 frames
+V2_PARTIAL = (0.1, 0.9)             # the odd frames' pano_ratio_v in 16b
+V2_NANO = {"model": {
+    "type": "PanoFasterRCNN",
+    "backbone": {"type": "PanoSwinTransformerV2", "embed_dim": 12, "depths": (2, 2, 2, 2),
+                 "num_heads": (1, 1, 2, 2), "window_size": 4, "ape": True,
+                 "drop_path_rate": 0.0},
+    "neck": {"type": "FPN", "in_channels": (12, 24, 48, 96), "out_channels": 16,
+             "num_outs": 5},
+    "num_classes": 5,
+    "test_cfg": {"rpn": {"nms_pre": 256, "max_per_img": 64, "iou_threshold": 0.7,
+                         "min_bbox_size": 0},
+                 "rcnn": {"score_thr": 0.05, "iou_threshold": 0.5, "max_per_img": 32}}}}
+
+
+class PartialRatio:
+    """A step after a training pipeline's own: the odd frames carry the
+    partial ratio `V2_PARTIAL` of a cropped panorama, the even ones keep
+    the full one (`PanoCheck`'s)."""
+
+    def __call__(self, results):
+        if results["img_info"]["id"] % 2:
+            results["pano_ratio_v"] = np.array(V2_PARTIAL, np.float32)
+        return results
+
+
+class RatioLoopRecord(MaskLoopRecord):
+    """`MaskLoopRecord`, and each step's batch of ratios as copied to the
+    card."""
+
+    def __init__(self, counters, ra):
+        super().__init__(counters, ra)
+        self.ratios = []
+
+    def stage(self, name, fn):
+        if name != "copy":
+            return super().stage(name, fn)
+
+        def keep():
+            out = fn()
+            self.ratios.append(out["pano_ratio_v"].cpu().numpy().tolist())
+            return out
+        return super().stage(name, keep)
+
+
+def v2_record(rec, name, share):
+    """A phase-16 kernel row: `rec` with the row's name and the source of
+    the kernel it runs."""
+    k1 = share == "stem_conv (K1)"
+    return dict(rec, name=name, shares_kernel_of=share, route="cuda",
+                source="panoswintransformerobjectdetection_torch/csrc/"
+                       + ("stem_conv.cu" if k1 else "roi_align.cu"),
+                replaces="panoswintransformerobjectdetection_tpu/ops/"
+                         + ("stem_conv.py:61" if k1 else "roi_align_pallas.py:205"),
+                library_ms=rec.get("library_ms"))
+
+
+def v2_serving(dev, ident, counters, stem, ra, seed, directory):
+    """16a: the PanoSwin-v2-T config served on the card.  Returns the
+    record and the K1 and K3 rows."""
+    from panoswintransformerobjectdetection_torch.apis.inference import init_detector
+    from panoswintransformerobjectdetection_torch.runtime.config import load_config
+    cfg = load_config(V2_CONFIG)
+    classes = cfg["classes"]
+    path = write_reference_pth(V2_CONFIG, directory, 0)
+    model = init_detector(V2_CONFIG, path, device=dev)
+    if type(model.backbone).__name__ != "PanoSwinTransformerV2":
+        raise AssertionError(f"16a: the config built a {type(model.backbone).__name__}")
+    rng = np.random.default_rng(seed + 160)
+    frames = (rng.random((V2_REQUEST_FRAMES, H, W, 3)) * 255).astype(np.uint8)
+    ann_file = write_ann(os.path.join(directory, "v2_test.json"), frames, classes,
+                         pixel_annotations(rng, V2_REQUEST_FRAMES, H, W, len(classes)))
+    dataset = in_memory_dataset(dict(cfg["data"]["test"], classes=classes), ann_file, frames)
+    inputs = first_batch(dataset, dev, V2_REQUEST_FRAMES)
+    if tuple(inputs[0].shape[1:3]) != V2_INPUT:
+        raise AssertionError(f"16a: the test pipeline made {tuple(inputs[0].shape)}")
+    for _ in range(2):
+        model.simple_test(*inputs)                                 # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    expected = {name: 0 for name in counters}
+    expected.update({"stem_conv (K1)": 1, "roi_align (K3)": 1})
+    latencies, launches = [], {name: 0 for name in counters}
+    for _ in range(REQUESTS):
+        stem.stem_conv.last_entry = ra.roi_align.last_entry = None
+        det, sec, counts = timed_request(model, inputs, counters)
+        expect_launches(counts, expected, "16a PanoSwin-v2-T request")
+        if (stem.stem_conv.last_entry, ra.roi_align.last_entry) != (
+                stem.ENTRIES[torch.float32], ra.ENTRIES[torch.float32]):
+            raise AssertionError(f"16a: K1 ran {stem.stem_conv.last_entry}, K3 "
+                                 f"{ra.roi_align.last_entry}; the f32 entries expected")
+        latencies.append(sec)
+        for name, n in counts.items():
+            launches[name] += n
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    found = check_detections(det, "16a PanoSwin-v2-T")
+    times = {}
+    model.simple_test(*inputs, stage=stage_timer(times))           # one request by stage
+    stage_ms = {name: t[0] * 1e3 for name, t in times.items()}
+    k1 = k1_f32_at_eval_shape(stem, model, inputs[0])
+    k1 = v2_record(k1, "stem_conv f32 (K1), PanoSwin-v2-T request", "stem_conv (K1)")
+    k1["launches"] = launches["stem_conv (K1)"]
+    [(feats, rois, o)] = captured_roi_inputs(model, inputs, masks=False)
+    k3 = k3_record(ra, feats, rois, model.featmap_strides, o,
+                   "roi_align o=7 float32 (K3), PanoSwin-v2-T request RoIs",
+                   f"16a: K3 o=7 f32 on a request's {rois.shape[0]} RoIs")
+    k3["launches"] = launches["roi_align (K3)"]
+    med = statistics.median(latencies)
+    rec = {"config": V2_CONFIG, "dtype": "float32", "frames": V2_REQUEST_FRAMES,
+           "input": list(inputs[0].shape), "requests": REQUESTS, "warmup_requests": 2,
+           "latency_ms": [t * 1e3 for t in latencies], "median_ms": med * 1e3,
+           "images_per_s": V2_REQUEST_FRAMES / med, "peak_memory_gib": peak,
+           "stage_ms": stage_ms, "launches": launches, "detections": found, "k1_ms": k1["ms"],
+           "k3_ms": k3["ms"], "card": ident}
+    print(f"    (a) {os.path.basename(V2_CONFIG)} (PanoSwinTransformerV2 embed 96, depths "
+          f"2-2-6-2, window 7, ape, win_trans_type 1, f32, seed-0 weights from a reference "
+          f".pth): {REQUESTS} requests of {V2_REQUEST_FRAMES} frames of {H} x {W} "
+          f"({V2_INPUT[0]} x {V2_INPUT[1]} after the pipeline) after 2 warm-ups: latency ms "
+          f"{[round(t * 1e3, 3) for t in latencies]}, median {med * 1e3:.3f} ms, "
+          f"{rec['images_per_s']:.3f} images/s, peak memory {peak:.2f} GiB, {found} detections "
+          f"in the last request; launches {launches}; a request by stage (synchronised) ms "
+          f"{{{', '.join(f'{k}: {v:.3f}' for k, v in stage_ms.items())}}}; K1 {k1['ms']:.4f} ms, "
+          f"K3 {k3['ms']:.4f} ms on this path; card {ident}")
+    print(json.dumps({"panoswin_v2_serving": rec}))
+    del model
+    return rec, [k1, k3]
+
+
+def v2_training(dev, ident, counters, ra, seed, directory):
+    """16b: the PanoSwin-v2-T config through `train_detector`.  Returns the
+    record, the K3 rows on the first step's RoIs and the launches by
+    (direction, entry, bins)."""
+    from panoswintransformerobjectdetection_torch.apis.inference import build_detector_from_cfg
+    from panoswintransformerobjectdetection_torch.apis.train import train_detector
+    from panoswintransformerobjectdetection_torch.runtime.config import load_config
+    cfg = load_config(V2_CONFIG)
+    classes = cfg["classes"]
+    rng = np.random.default_rng(seed + 161)
+    frames = (rng.random((V2_TRAIN_FRAMES, H, W, 3)) * 255).astype(np.uint8)
+    ann_file = write_ann(os.path.join(directory, "v2_train.json"), frames, classes,
+                         pixel_annotations(rng, V2_TRAIN_FRAMES, H, W, len(classes)))
+    dataset = in_memory_dataset(dict(cfg["data"]["train"], classes=classes), ann_file, frames)
+    dataset.pipeline.transforms.append(PartialRatio())
+    model = build_detector_from_cfg(cfg)
+    path = write_trained_like_pth(model, directory, seed + 16)
+    start = {k: v.clone() for k, v in torch.load(path, weights_only=True)["state_dict"].items()}
+    captured, roi_features = [], model.roi_features
+
+    def pool(feats, rois, out_size=7):
+        if not captured:
+            captured.append(([f.detach() for f in feats[:4]], rois.detach().clone()))
+        return roi_features(feats, rois, out_size)
+
+    model.roi_features = pool
+    record = RatioLoopRecord(counters, ra)
+    opt, sched = cfg["optimizer"], cfg["lr_config"]
+    torch.cuda.reset_peak_memory_stats()
+    train_detector(model, dataset, work_dir=os.path.join(directory, "v2_train"), total_epochs=1,
+                   batch_size=2, base_lr=opt["lr"], weight_decay=opt["weight_decay"],
+                   warmup_iters=sched["warmup_iters"], decay_epochs=sched["step"],
+                   log_interval=1, seed=seed, hooks=[record], device=dev, stage=record.stage,
+                   num_workers=2, load_from=path)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del model.roi_features
+    n_steps = V2_TRAIN_FRAMES // 2
+    if len(record.steps) != n_steps or len(record.step_launches) != n_steps:
+        raise AssertionError(f"16b: {len(record.steps)} steps, expected {n_steps}")
+    by_entry = {"forward": {(ra.ENTRIES[torch.float32], 7): 1},
+                "backward": {(ra.BACKWARD_ENTRIES[torch.float32], 7): 1}}
+    per_step = {name: 0 for name in counters}
+    per_step.update({"roi_align (K3)": 1, "roi_align_backward (K3 backward)": 1})
+    for counts, entries in zip(record.step_launches, record.by_entry):
+        expect_launches(counts, per_step, "16b PanoSwin-v2-T training step")
+        if entries != by_entry:
+            raise AssertionError(f"16b: K3's launches by entry {entries}, expected {by_entry}")
+    v0 = {r[0] for batch in record.ratios for r in batch}
+    if not ({round(x, 6) for x in v0} >= {0.0, V2_PARTIAL[0]}) or any(
+            len(batch) != 2 for batch in record.ratios):
+        raise AssertionError(f"16b: the steps' ratios {record.ratios} hold no partial and full "
+                             "panorama")
+    keys = [k for k in record.steps[0] if "loss" in k or k == "grad_norm"]
+    if not all(np.isfinite(m[k]) for m in record.steps for k in keys):
+        raise AssertionError(f"16b: a loss is not finite: {record.steps}")
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    still = [k for k, _ in model.named_parameters() if torch.equal(state[k], start[k])
+             and not k.endswith("relative_position_bias_table")]
+    bn = [k for k in state if k.startswith("backbone.patch_embed.proj.") and "running" in k]
+    moved_bn = [k for k in bn if not torch.equal(state[k], start[k])]
+    nbt = int(state["backbone.patch_embed.proj.1.num_batches_tracked"]) - int(
+        start["backbone.patch_embed.proj.1.num_batches_tracked"])
+    if still or len(bn) != 4 or moved_bn != bn or nbt != n_steps:
+        raise AssertionError(f"16b: parameters that did not move {still[:5]}; stem statistics "
+                             f"moved {moved_bn} of {bn}, num_batches_tracked + {nbt}")
+    timed = range(1, n_steps)
+    step_ms = [record.times["step"][i] * 1e3 for i in timed]
+    host = {k: sum(v[i] for i in timed) * 1e3 for k, v in record.times.items()}
+    launches = {}
+    for entries in record.by_entry:
+        for direction, counts in entries.items():
+            for (entry, o), n in counts.items():
+                launches[(direction, entry, o)] = launches.get((direction, entry, o), 0) + n
+    feats, rois = captured[0]
+    rois = rois.float().contiguous()
+    cot = torch.from_numpy(np.random.default_rng(35).standard_normal(
+        (rois.shape[0], 7, 7, feats[0].shape[-1])).astype(np.float32)).to(rois.device)
+    rows = [k3_record(ra, feats, rois, (4, 8, 16, 32), 7,
+                      "roi_align o=7 float32 (K3), PanoSwin-v2-T sampled RoIs",
+                      f"16b: K3 o=7 f32 on the {rois.shape[0]} RoIs the first step sampled"),
+            k3_backward_f32_record(ra, cot, rois, [tuple(f.shape) for f in feats],
+                                   (4, 8, 16, 32),
+                                   "roi_align_backward o=7 f32 (K3 backward), PanoSwin-v2-T "
+                                   "sampled RoIs",
+                                   f"16b: K3's backward o=7 f32 on the first step's "
+                                   f"{rois.shape[0]} RoIs")]
+    back = rows[1]
+    print(f"  {back['name']}: kernel {back['ms']:.4f} ms ({back['bound_ms'] / back['ms']:.3f} of "
+          f"its {back['bound_ms']:.4f} ms bound, {back['bound_by']}), autograd through the twin "
+          f"{back['plain_ms']:.4f} ms, no single PyTorch call computes it")
+    rows[0]["launches"] = launches[("forward", ra.ENTRIES[torch.float32], 7)]
+    rows[1]["launches"] = launches[("backward", ra.BACKWARD_ENTRIES[torch.float32], 7)]
+    rec = {"config": V2_CONFIG, "dtype": "float32",
+           "pipeline": [p["type"] for p in cfg["data"]["train"]["pipeline"]] + ["PartialRatio"],
+           "frames": V2_TRAIN_FRAMES, "batch": 2, "steps": n_steps, "warmup_steps": 1,
+           "ratios": record.ratios, "step_ms": step_ms,
+           "median_step_ms": statistics.median(step_ms), "stage_ms": host,
+           "images_per_s": len(timed) * 2 / (sum(step_ms) / 1e3), "peak_memory_gib": peak,
+           "losses": [{k: m[k] for k in keys} for m in record.steps], "launches_step": per_step,
+           "stem_statistics": "moved", "card": ident}
+    for i, m in enumerate(record.steps):
+        print(f"    (b) step {i + 1}{' (warm-up)' if i < 1 else ''}: "
+              + ", ".join(f"{k} {m[k]:.6f}" for k in keys)
+              + f", {record.times['step'][i] * 1e3:.3f} ms, ratios {record.ratios[i]}")
+    print(f"    (b) {os.path.basename(V2_CONFIG)} (f32, trained-like random weights from a "
+          f"reference .pth): {n_steps} steps of 2 frames of {H} x {W} through "
+          f"{'/'.join(rec['pipeline'][1:])}, {len(timed)} timed: median step "
+          f"{rec['median_step_ms']:.3f} ms, {rec['images_per_s']:.3f} images/s over the steps, "
+          f"host ms {{{', '.join(f'{k}: {v:.3f}' for k, v in host.items())}}}, peak memory "
+          f"{peak:.2f} GiB; every step's K3 launches: forward {by_entry_text(by_entry['forward'])}"
+          f"; backward {by_entry_text(by_entry['backward'])}; no other kernel; every parameter "
+          f"that a loss reaches moved; the stem's BatchNorm statistics moved; card {ident}")
+    print(json.dumps({"panoswin_v2_training": rec}))
+    del model
+    return rec, rows, launches
+
+
+def v2_nano_card_vs_cpu(dev, directory):
+    """16c: the card against the CPU in f32, TF32 off: the nano v2
+    detector's detections with per-image ratios, a nano v1 backbone and a
+    nano v2 backbone with the `'tf'` embed and the basketball warp."""
+    from panoswintransformerobjectdetection_torch.apis.inference import init_detector
+    from panoswintransformerobjectdetection_torch.flagship import init_weights
+    from panoswintransformerobjectdetection_torch.models.panoswin_v1 import (
+        PanoSwinTransformerV1)
+    from panoswintransformerobjectdetection_torch.models.panoswin_v2 import (
+        PanoSwinTransformerV2)
+    defaults = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    path = write_reference_pth(V2_NANO, directory, 3)
+    g = torch.Generator().manual_seed(16)
+    images = torch.randn((2, 64, 128, 3), generator=g)
+    shapes = torch.tensor([[64.0, 128.0]] * 2)
+    ratios = torch.tensor([[0.0, 1.0, 64.0], [V2_PARTIAL[0], V2_PARTIAL[1], 80.0]])
+    got, want = (init_detector(V2_NANO, path, device=d).simple_test(
+        images.to(d), shapes.to(d), pano_ratio_v=ratios.to(d)) for d in (dev, "cpu"))
+    as_dicts = [[{"boxes": t.boxes[i][t.mask[i]].cpu().numpy(),
+                  "scores": t.scores[i][t.mask[i]].cpu().numpy(),
+                  "labels": t.labels[i][t.mask[i]].cpu().numpy()} for i in range(2)]
+                for t in (got, want)]
+    if not sum(len(d["boxes"]) for d in as_dicts[1]):
+        raise AssertionError("16c: the nano v2 detector found nothing on the CPU")
+    box_err, score_err = match_detections(*as_dicts, 1e-3, 1e-5, "16c nano v2 detector")
+    errs = {"detector": {"box": box_err, "score": score_err,
+                         "detections": [len(d["boxes"]) for d in as_dicts[1]]}}
+    # the 'tf' embed's 8 heads need an embed width that 8 divides
+    kw = {"embed_dim": 16, "depths": (2, 2, 2, 2), "num_heads": (1, 1, 2, 2), "window_size": 4,
+          "ape": True, "drop_path_rate": 0.0}
+    for name, cls, extra in (("v1", PanoSwinTransformerV1, {}),
+                             ("v2 tf basketball", PanoSwinTransformerV2,
+                              {"emb_conv_type": "tf", "basketball_trans": True})):
+        cpu = cls(**kw, **extra)
+        init_weights(cpu, 17)
+        card = cls(**kw, **extra)
+        card.load_state_dict(cpu.state_dict())
+        with torch.no_grad():
+            ref = cpu.eval()(images, ratios)
+            out = card.to(dev).eval()(images.to(dev), ratios.to(dev))
+        errs[name] = max(check(f"16c nano {name} backbone stage {i}, card vs CPU", o.cpu(), r,
+                               1e-4 * max(1.0, float(r.abs().max())))
+                         for i, (o, r) in enumerate(zip(out, ref)))
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = defaults
+    print(f"    (c) card vs CPU, f32, TF32 off: the nano v2 detector (embed 12, per-image ratios "
+          f"{ratios.tolist()}) {errs['detector']['detections']} detections, boxes within "
+          f"{box_err:.3g} px, scores within {score_err:.3g}; nano backbones' largest stage "
+          f"error: v1 {errs['v1']:.3g}, v2 'tf' + basketball {errs['v2 tf basketball']:.3g}")
+    return errs
+
+
+def panoswin_v2_path(dev, ident, counters, stem, ra, seed):
+    """Phase 16 (module docstring).  Returns the record, the kernel rows and
+    the launches by (direction, entry, bins), K1's as ("stem", None, None)."""
+    with tempfile.TemporaryDirectory() as directory:
+        serving, rows = v2_serving(dev, ident, counters, stem, ra, seed, directory)
+        training, train_rows, launches = v2_training(dev, ident, counters, ra, seed, directory)
+        nano = v2_nano_card_vs_cpu(dev, directory)
+    launches[("stem", None, None)] = serving["launches"]["stem_conv (K1)"]
+    forward = ("forward", ra.ENTRIES[torch.float32], 7)
+    launches[forward] = launches.get(forward, 0) + serving["launches"]["roi_align (K3)"]
+    return ({"16a": serving, "16b": training, "16c": nano}, rows + train_rows, launches)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Drive the PyTorch port on one CUDA card.")
     parser.add_argument("--seed", type=int, default=0,
@@ -4807,6 +5153,14 @@ def main(argv=None) -> int:
           "one step against one process; TF32 off in (b) and (c)")
     distributed, dist_launches = distributed_path(dev, ident, counters, ra, args.seed)
 
+    print("[16] the reference's own PanoSwin, the v-variant, on the card: (a) the PanoSwin-v2-T "
+          "Faster R-CNN config served in f32 from a reference .pth, K1 and K3 once a request; "
+          "(b) the same config through train_detector, a partial and a full panorama a batch, "
+          "K3 forward and backward once a step; (c) nano models card vs CPU in f32 with TF32 "
+          "off; PyTorch's TF32 defaults elsewhere")
+    panoswin_v2, v2_rows, v2_launches = panoswin_v2_path(dev, ident, counters, stem, ra,
+                                                         args.seed)
+
     for rec in records:
         key = rec.get("shares_kernel_of", rec["name"])
         if key in ("dense_crop (K4)", "roi_align_backward (K3 backward)"):
@@ -4884,7 +5238,23 @@ def main(argv=None) -> int:
             dist_launches.get(("stem", None, None), 0) if key == "stem_conv (K1)" else
             dist_launches.get((direction, rec.get("entry"), rec.get("out_size", 7)), 0)
             if direction else 0)
-    print("[16] records")
+    # phase 16's main paths: K1's f32 entry in 16a's requests, every K3 row
+    # by its direction, entry and bins over 16a's requests and 16b's steps
+    for rec in v2_rows:
+        for key in records[0]:
+            if key.startswith("launches_"):
+                rec[key] = 0
+    records += v2_rows
+    f32_stem = stem.ENTRIES[torch.float32]
+    for rec in records:
+        key = rec.get("shares_kernel_of", rec["name"])
+        direction = directions.get(key)
+        if key == "stem_conv (K1)":
+            n = v2_launches[("stem", None, None)] if rec.get("entry") == f32_stem else 0
+        else:
+            n = v2_launches.get((direction, rec.get("entry"), rec.get("out_size", 7)), 0)
+        rec["launches_panoswin_v2"] = n
+    print("[17] records")
     print(json.dumps({"evaluation": {k: v for k, v in evaluation.items() if k != "k1_f32"}}))
     print(json.dumps({"training_loop": loop}))
     print(json.dumps({"mask_rcnn": masks}))
@@ -4894,6 +5264,7 @@ def main(argv=None) -> int:
     print(json.dumps({"resnet_detectors": resnet}))
     print(json.dumps({"resnet_training": resnet_training}))
     print(json.dumps({"distributed": distributed}))
+    print(json.dumps({"panoswin_v2": panoswin_v2}))
     print(json.dumps({"kernels": records}))
     print(ident)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

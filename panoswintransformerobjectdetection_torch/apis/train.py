@@ -64,8 +64,10 @@ logger = logging.getLogger("panoswin_torch")
 # it already), its copy to the device, and the training step.
 TRAIN_LOOP_STAGES = ("load", "copy", "step")
 # What the step reads of a batch; `gt_masks` only where the pipeline loads
-# masks.
-BATCH_KEYS = ("images", "img_shapes", "gt_boxes", "gt_labels", "gt_valid", "gt_masks")
+# masks; `pano_ratio_v` (the loader's (v0, v1, ori_h) of each image, this
+# process's rows of them under a process group) for a v-variant backbone.
+BATCH_KEYS = ("images", "img_shapes", "gt_boxes", "gt_labels", "gt_valid", "gt_masks",
+              "pano_ratio_v")
 
 
 def set_random_seed(seed: int, deterministic: bool = False) -> torch.Generator:

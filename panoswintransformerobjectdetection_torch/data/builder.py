@@ -4,7 +4,7 @@ Counterpart of `panoswintransformerobjectdetection_tpu/data/builder.py`
 (`PIPELINES`, `DATASETS`, `build_pipeline`, `build_dataset`,
 `build_dataloader`, `replace_ImageToTensor`, `get_loading_pipeline`).
 Pipeline steps of the JAX package that the port has not ported (the
-photometric distortion, InstaBoost and the basketball expansion) raise
+photometric distortion and InstaBoost) raise
 `NotImplementedError` naming ROADMAP.md, Queue 1, item 17.
 `build_dataloader` shards by the `num_shards` and `shard_id` it is given,
 or by the process group's (`parallel/dist`) when it is given none.
@@ -30,12 +30,13 @@ PIPELINES = {
     "PanoStretch": T.PanoStretch,
     "RollAug": T.RollAug,
     "PanoCheck": T.PanoCheck,
+    "BasketBallExpand": T.BasketBallExpand,
     "RandomCrop": T.RandomCrop,
     "AutoAugment": T.AutoAugment,
 }
 # The JAX package's other pipeline steps: OpenCV's HSV (absent on the card's
-# machine), masks, and a test-time channel expansion of other families.
-UNPORTED_PIPELINES = ("BasketBallExpand", "PhotoMetricDistortion", "InstaBoost")
+# machine) and InstaBoost.
+UNPORTED_PIPELINES = ("PhotoMetricDistortion", "InstaBoost")
 # Steps whose work the loader's collation does.
 COLLATION_STEPS = ("DefaultFormatBundle", "Collect", "ImageToTensor", "MultiScaleFlipAug")
 

@@ -1,7 +1,7 @@
 """The pipeline transforms: `Compose`, `LoadImageFromFile`,
 `LoadAnnotations`, `Resize`, `PanoResize`, `Normalize`, `Pad`, `PanoCheck`,
-and the training augmentations `RandomFlip`, `PanoStretch`, `RollAug`,
-`RandomCrop` and `AutoAugment`.
+`BasketBallExpand`, and the training augmentations `RandomFlip`,
+`PanoStretch`, `RollAug`, `RandomCrop` and `AutoAugment`.
 
 Counterpart of those in `panoswintransformerobjectdetection_tpu/data/
 transforms.py`.  Each transform takes and returns a `results` dict: `img`
@@ -32,6 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..geometry.basketball import correct_center
 from .fill_poly import fill_poly
 
 
@@ -228,6 +229,25 @@ class Pad:
             results["gt_masks"] = np.pad(results["gt_masks"], ((0, 0), (0, ph), (0, pw)))
         results["img"] = img
         results["pad_shape"] = img.shape
+        return results
+
+
+class BasketBallExpand:
+    """The basketball-corrected image appended as three more channels
+    (`transforms.py:661`; the reference's own step names an undefined
+    `transd`, and the JAX package implements what it meant): the image and
+    `geometry/basketball.correct_center` of it at its `pano_ratio_v`
+    ((0, 1) by default), (H, W, 6)."""
+
+    def __init__(self, patch_size: int = 20):
+        self.patch_size = patch_size
+
+    def __call__(self, results):
+        img = results["img"]
+        ratio = tuple(results.get("pano_ratio_v", (0.0, 1.0))[:2])
+        corrected = correct_center(torch.from_numpy(np.ascontiguousarray(img)),
+                                   self.patch_size, ratio_v=ratio).numpy()
+        results["img"] = np.concatenate([img, corrected], axis=-1)
         return results
 
 

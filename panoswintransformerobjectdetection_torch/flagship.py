@@ -50,14 +50,16 @@ def flagship_config(tiny: bool = False, fused_attention: bool = False,
 
 
 def init_weights(model: nn.Module, seed: int = 0) -> None:
-    """Random weights from `seed`: Linear weights, bias tables and Swin's
-    absolute position table N(0, 0.02) clipped at 2 sigma, conv and
+    """Random weights from `seed`: Linear weights, bias tables, Swin's
+    absolute position table and the `'tf'` embed's position table and
+    input projection N(0, 0.02) clipped at 2 sigma, conv and
     transposed-conv weights N(0, 1/fan_in), biases 0; BatchNorm and
     LayerNorm keep their identity defaults."""
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if name.endswith(("_Te", "relative_position_bias_table", "absolute_pos_embed")):
+            if name.endswith(("_Te", "_table", "absolute_pos_embed", "pos_embedding",
+                              "in_proj_weight")):
                 p.copy_(torch.randn(p.shape, generator=g).clamp(-2, 2) * 0.02)
         for m in model.modules():
             if isinstance(m, nn.Linear):

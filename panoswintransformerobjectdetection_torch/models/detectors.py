@@ -9,7 +9,9 @@ sampler and the L1, GIoU or IoU box loss; `check_train_cfg` refuses the
 other training options); and `MaskRCNN`'s mask branch, at test time
 (`simple_test_masks`) and in training (the mask loss of `forward_train`).
 The backbone is a PanoSwin
-(`models/panoswin.py`), a stock Swin (`models/swin.py`), a ResNet, ResNeXt
+(`models/panoswin.py`; the v-variant `models/panoswin_v2.py`, which takes
+each image's `pano_ratio_v`, and its v1 revision), a stock Swin
+(`models/swin.py`), a ResNet, ResNeXt
 (`models/resnet.py`), RegNet, Res2Net or ResNeSt
 (`models/backbones_extra.py`), at test time and in training.  Submodule names
 follow the reference's state-dict keys (`backbone.`, `neck.`, `rpn_head.`,
@@ -31,13 +33,17 @@ from .backbones_extra import RegNet, Res2Net, ResNeSt
 from .fpn import FPN
 from .mask_head import FCNMaskHead, mask_head_loss, mask_targets
 from .panoswin import PanoSwinTransformer
+from .panoswin_v1 import PanoSwinTransformerV1
+from .panoswin_v2 import PanoSwinTransformerV2
 from .resnet import ResNet, ResNeXt
 from .roi_head import (REG_LOSSES, UNPORTED_LOSS, bbox_head_detections, bbox_head_loss,
                        build_bbox_head, sample_rois_for_training)
 from .rpn_head import RPNHead, rpn_loss, rpn_proposals
 from .swin import SwinTransformer
 
-BACKBONES = {"PanoSwinTransformer": PanoSwinTransformer, "SwinTransformer": SwinTransformer,
+BACKBONES = {"PanoSwinTransformer": PanoSwinTransformer,
+             "PanoSwinTransformerV2": PanoSwinTransformerV2,
+             "PanoSwinTransformerV1": PanoSwinTransformerV1, "SwinTransformer": SwinTransformer,
              "ResNet": ResNet, "ResNeXt": ResNeXt, "RegNet": RegNet, "Res2Net": Res2Net,
              "ResNeSt": ResNeSt}
 
@@ -170,8 +176,24 @@ class PanoFasterRCNN(nn.Module):
     def device(self) -> torch.device:
         return next(self.parameters()).device
 
-    def extract_feat(self, images):
-        return self.neck(self.backbone(images))
+    def extract_feat(self, images, pano_ratio_v=None):
+        """The FPN maps of `images` (the JAX `extract_feat`): a
+        `PanoSwinTransformerV2` backbone gets `pano_ratio_v`, any other none."""
+        return self.neck(self._backbone(images, pano_ratio_v))
+
+    def _backbone(self, images, pano_ratio_v=None, stage: Callable = run_stage):
+        """The backbone's maps: its stem and the rest as two stages.  The
+        v-variant and v1 take the batch's (B, 3) ratios and the input's
+        width; only the v-variant (`takes_ratio`) gets `pano_ratio_v`, as
+        the JAX `extract_feat` hands it to that type alone; v1 and a
+        v-variant given none run at (0, 1, H0), H0 the input's height."""
+        bb = self.backbone
+        if not isinstance(bb, PanoSwinTransformerV2):
+            x = stage("stem", lambda: bb.patch_embed(images))
+            return stage("backbone", lambda: bb.forward_from_embed(x))
+        ratio = bb.pano_ratio(images, pano_ratio_v if bb.takes_ratio else None)
+        x = stage("stem", lambda: bb.patch_embed(images, ratio))
+        return stage("backbone", lambda: bb.forward_from_embed(x, ratio, images.shape[2]))
 
     def _anchors(self, cls_scores):
         return self.anchor_gen.grid_anchors([tuple(c.shape[1:3]) for c in cls_scores],
@@ -203,14 +225,16 @@ class PanoFasterRCNN(nn.Module):
         return self.forward_train(*args, **kwargs)
 
     def forward_train(self, images, img_shapes, gt_boxes, gt_labels, gt_valid, gt_masks=None,
+                      pano_ratio_v=None,
                       noise: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None,
                       generator: Optional[torch.Generator] = None,
                       stage: Callable = run_stage) -> Dict[str, torch.Tensor]:
         """images (B, H, W, 3); img_shapes (B, 2) unpadded (h, w); gt_boxes
         (B, G, 4) xyxy; gt_labels (B, G); gt_valid (B, G) bool; gt_masks
         (B, G, H', W') {0, 1} bitmaps, read only by a detector with a mask
-        head.  Inputs are moved to the model's device.  Returns
-        `loss_rpn_cls`, `loss_rpn_bbox`, `loss_cls`, `loss_bbox` and `acc`,
+        head; pano_ratio_v (B, 3), read only by a `PanoSwinTransformerV2`
+        backbone (`_backbone`).  Inputs are moved to the model's device.
+        Returns `loss_rpn_cls`, `loss_rpn_bbox`, `loss_cls`, `loss_bbox` and `acc`,
         and `loss_mask` where there is a mask head and `gt_masks`
         (`_mask_loss`).
 
@@ -247,8 +271,7 @@ class PanoFasterRCNN(nn.Module):
                                     sampler_noise((world() * B, n), generator, dev))
             return tuple(t.to(dev) for t in noise[name])
 
-        x = stage("stem", lambda: self.backbone.patch_embed(images))
-        feats = stage("backbone", lambda: self.backbone.forward_from_embed(x))
+        feats = self._backbone(images, pano_ratio_v, stage)
         feats = stage("fpn", lambda: self.neck(feats))
         cls_scores, bbox_preds = stage("rpn_head", lambda: self.rpn_head(feats))
         level_anchors = self._anchors(cls_scores)
@@ -314,19 +337,21 @@ class PanoFasterRCNN(nn.Module):
             samples.bbox_weights[:, :pos_cap].reshape(-1)))
 
     @torch.no_grad()
-    def simple_test(self, images, img_shapes, scale_factors=None,
+    def simple_test(self, images, img_shapes, scale_factors=None, pano_ratio_v=None,
                     stage: Callable = run_stage) -> DetResult:
         """images (B, H, W, 3) float; img_shapes (B, 2) (h, w); scale_factors
-        (B, 4) or None.  Inputs are moved to the model's device.  Returns a
-        DetResult of (B, K) slots; only `mask`ed slots hold detections.
+        (B, 4) or None; pano_ratio_v (B, 3) or None, for a
+        `PanoSwinTransformerV2` backbone (`_backbone`).  Inputs are moved to
+        the model's device.  Returns a DetResult of (B, K) slots; only
+        `mask`ed slots hold detections.
 
         Each of the request's stages (`STAGES`, in order) runs as
         `stage(name, fn)`, which calls `fn()` and returns its result; a
         profiler passes one that also times it.
         """
-        return self._detect(images, img_shapes, scale_factors, stage)[0]
+        return self._detect(images, img_shapes, scale_factors, stage, pano_ratio_v)[0]
 
-    def _detect(self, images, img_shapes, scale_factors, stage):
+    def _detect(self, images, img_shapes, scale_factors, stage, pano_ratio_v=None):
         """`simple_test`'s DetResult, with the FPN maps and the scale
         factors on the device (None where not given)."""
         dev = self.device
@@ -334,8 +359,7 @@ class PanoFasterRCNN(nn.Module):
         img_shapes = torch.as_tensor(img_shapes, dtype=torch.float32, device=dev)
         if scale_factors is not None:
             scale_factors = torch.as_tensor(scale_factors, dtype=torch.float32, device=dev)
-        x = stage("stem", lambda: self.backbone.patch_embed(images))
-        feats = stage("backbone", lambda: self.backbone.forward_from_embed(x))
+        feats = self._backbone(images, pano_ratio_v, stage)
         feats = stage("fpn", lambda: self.neck(feats))
         props = stage("proposals", lambda: self.proposals(feats, img_shapes))
         return self._roi_detections(feats, props, img_shapes, scale_factors, stage), feats, \
@@ -354,7 +378,7 @@ class PanoFasterRCNN(nn.Module):
             scale_factors=scale_factors, **self.test_cfg["rcnn"]))
 
     @torch.no_grad()
-    def simple_test_masks(self, images, img_shapes, scale_factors=None,
+    def simple_test_masks(self, images, img_shapes, scale_factors=None, pano_ratio_v=None,
                           stage: Callable = run_stage):
         """`simple_test`'s DetResult and each detection slot's mask
         probabilities (B, K, 2s, 2s) of its own class, s = `mask_roi_size`
@@ -366,7 +390,8 @@ class PanoFasterRCNN(nn.Module):
         if not self.with_mask:
             raise ValueError("simple_test_masks needs a detector with a mask head "
                              "(with_mask=True)")
-        det, feats, scale_factors = self._detect(images, img_shapes, scale_factors, stage)
+        det, feats, scale_factors = self._detect(images, img_shapes, scale_factors, stage,
+                                                 pano_ratio_v)
         B, K, _ = det.boxes.shape
         boxes = det.boxes if scale_factors is None else det.boxes * scale_factors[:, None, :]
         bidx = torch.arange(B, dtype=boxes.dtype, device=boxes.device)

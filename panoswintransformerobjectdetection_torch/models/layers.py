@@ -11,7 +11,7 @@ convs with live BatchNorm and DropPath drops residual branches; in eval
 mode a 3-channel stem goes through kernel K1 and DropPath is the identity.
 """
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -135,7 +135,9 @@ def batch_norm_train(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> to
 class ConvStemPatchEmbed(nn.Module):
     """3-conv patch stem: (3x3 conv, BN, ReLU) x 2, then the patch-stride conv,
     then LayerNorm (`use_norm`).  `proj` is the reference's Sequential, so its
-    state-dict keys are `proj.{0,1,3,4,6}`.
+    state-dict keys are `proj.{0,1,3,4,6}`.  The two 3x3 convs have
+    `stem_channels` outputs: (embed_dim // 3, 2 * (embed_dim // 3)) by
+    default (the simple PanoSwin's), (32, 64) in the v-variant's stem.
 
     Eval path with 3 input channels: BatchNorm's running statistics are
     folded into the two 3x3 convs, once (`kernel_weights`), and both run
@@ -151,15 +153,15 @@ class ConvStemPatchEmbed(nn.Module):
     """
 
     def __init__(self, patch_size: int = 4, embed_dim: int = 96, dtype=None,
-                 use_norm: bool = True, in_chans: int = 3, fuse_bn: bool = False):
+                 use_norm: bool = True, in_chans: int = 3, fuse_bn: bool = False,
+                 stem_channels: Optional[Tuple[int, int]] = None):
         super().__init__()
-        d3 = embed_dim // 3
+        c0, c1 = stem_channels or (embed_dim // 3, 2 * (embed_dim // 3))
         self.patch_size = patch_size
         self.proj = nn.Sequential(
-            nn.Conv2d(in_chans, d3, 3, padding=1), nn.BatchNorm2d(d3, eps=BN_EPS), nn.ReLU(),
-            nn.Conv2d(d3, 2 * d3, 3, padding=1), nn.BatchNorm2d(2 * d3, eps=BN_EPS),
-            nn.ReLU(),
-            nn.Conv2d(2 * d3, embed_dim, patch_size, stride=patch_size))
+            nn.Conv2d(in_chans, c0, 3, padding=1), nn.BatchNorm2d(c0, eps=BN_EPS), nn.ReLU(),
+            nn.Conv2d(c0, c1, 3, padding=1), nn.BatchNorm2d(c1, eps=BN_EPS), nn.ReLU(),
+            nn.Conv2d(c1, embed_dim, patch_size, stride=patch_size))
         self.norm = LayerNorm(embed_dim) if use_norm else None
         self.dtype = dtype
         self.fuse_bn = fuse_bn

@@ -5,8 +5,10 @@ BatchNorm folding for inference.
 `from_jax_variables` is the inverse of `convert_detector` in
 `panoswintransformerobjectdetection_tpu/runtime/checkpoint.py`: it takes the
 (params, batch_stats) trees of a JAX `PanoFasterRCNN` or `MaskRCNN`, with a
-PanoSwin, a stock Swin, or a ResNet, ResNeXt, RegNet, Res2Net or ResNeSt
-backbone (`from_jax_cnn_backbone`), as numpy arrays and returns a state dict
+PanoSwin (the simple variant, or the v-variant and its v1 revision,
+`from_jax_panoswin_v2_backbone`), a stock Swin, or a ResNet, ResNeXt,
+RegNet, Res2Net or ResNeSt backbone (`from_jax_cnn_backbone`), as numpy
+arrays and returns a state dict
 in the reference's key layout, which the port's detector loads with
 `load_state_dict`.  Layouts: conv HWIO -> OIHW, Dense (in, out) -> Linear
 (out, in), LayerNorm scale -> weight, `shared_fc0`'s input reordered from
@@ -167,6 +169,87 @@ def from_jax_swin_backbone(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def panoswin_v2_patch_embed(sd, key: str, pe: Dict[str, Any],
+                            stats: Dict[str, Any]) -> None:
+    """A JAX `PatchEmbedV2`'s variables into `sd` under `key` (e.g.
+    "patch_embed."): the `'cnn'` stem's `conv0`, `bn0`, `conv1`, `bn1`,
+    `proj` to `proj.{0,1,3,4,6}` (the BatchNorm statistics from `stats`), or
+    the `'tf'` embed's `PixelTransformerV2` to `proj.preprocess_nouv.0`,
+    `proj.pos_embedding` and `proj.encoder.layers.0.{self_attn.in_proj_weight,
+    self_attn.in_proj_bias, self_attn.out_proj, linear1, linear2, norm1,
+    norm2}` (`in_proj_weight` (3d, d), as flax holds it); `norm`."""
+    if "pos_embedding" in pe["proj"]:
+        tf, layer = pe["proj"], key + "proj.encoder.layers.0."
+        _linear(sd, key + "proj.preprocess_nouv.0", tf["preprocess_nouv"])
+        sd[key + "proj.pos_embedding"] = _t(tf["pos_embedding"])
+        sd[layer + "self_attn.in_proj_weight"] = _t(tf["in_proj_weight"])
+        sd[layer + "self_attn.in_proj_bias"] = _t(tf["in_proj_bias"])
+        _linear(sd, layer + "self_attn.out_proj", tf["out_proj"])
+        for name in ("linear1", "linear2"):
+            _linear(sd, layer + name, tf[name])
+        for name in ("norm1", "norm2"):
+            _ln(sd, layer + name, tf[name])
+    else:
+        for conv, bn, conv_key, bn_key in (("conv0", "bn0", "proj.0", "proj.1"),
+                                           ("conv1", "bn1", "proj.3", "proj.4")):
+            _conv(sd, key + conv_key, pe[conv])
+            _bn(sd, key + bn_key, pe[bn], stats[bn], np.shape(pe[conv]["kernel"])[-1])
+        _conv(sd, key + "proj.6", pe["proj"])
+    if "norm" in pe:
+        _ln(sd, key + "norm", pe["norm"])
+
+
+def panoswin_v2_attention(sd, key: str, attn: Dict[str, Any]) -> None:
+    """A JAX `WindowAttentionV2`'s (or `V1`'s) variables into `sd` under
+    `key`: `qkv`, `proj` and the three tables, `alpha_table` and
+    `beta_table` as `sphere_position_alpha_table` and
+    `sphere_position_beta_table`."""
+    _linear(sd, key + "qkv", attn["qkv"])
+    _linear(sd, key + "proj", attn["proj"])
+    sd[key + "relative_position_bias_table"] = _t(attn["relative_position_bias_table"])
+    sd[key + "sphere_position_alpha_table"] = _t(attn["alpha_table"])
+    sd[key + "sphere_position_beta_table"] = _t(attn["beta_table"])
+
+
+def panoswin_v2_block(sd, key: str, blk: Dict[str, Any]) -> None:
+    """A JAX `PanoSwinBlockV2`'s (or `V1`'s) variables into `sd` under
+    `key`: `norm1`, `attn`, `norm2`, `mlp.fc1`, `mlp.fc2`."""
+    _ln(sd, key + "norm1", blk["norm1"])
+    _ln(sd, key + "norm2", blk["norm2"])
+    panoswin_v2_attention(sd, key + "attn.", blk["attn"])
+    _linear(sd, key + "mlp.fc1", blk["mlp"]["fc1"])
+    _linear(sd, key + "mlp.fc2", blk["mlp"]["fc2"])
+
+
+def from_jax_panoswin_v2_backbone(params: Dict[str, Any],
+                                  batch_stats: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX `PanoSwinTransformerV2` or `PanoSwinTransformerV1` variables ->
+    the port backbone's state dict, the reference's keys as
+    `convert_panoswin_v2_backbone` reads them: `patch_embed.`
+    (`panoswin_v2_patch_embed`), `coord_encoder`, `layers_{i}_blocks_{j}` to
+    `layers.{i}.blocks.{j}.` (`panoswin_v2_block`), `layers_{i}_downsample`
+    to `layers.{i}.downsample`, `norm{i}`."""
+    sd: Dict[str, torch.Tensor] = {}
+    panoswin_v2_patch_embed(sd, "patch_embed.", params["patch_embed"],
+                            batch_stats.get("patch_embed", {}))
+    if "coord_encoder" in params:
+        _linear(sd, "coord_encoder", params["coord_encoder"])
+    i = 0
+    while f"layers_{i}_blocks_0" in params:
+        j = 0
+        while f"layers_{i}_blocks_{j}" in params:
+            panoswin_v2_block(sd, f"layers.{i}.blocks.{j}.", params[f"layers_{i}_blocks_{j}"])
+            j += 1
+        if f"layers_{i}_downsample" in params:
+            down = params[f"layers_{i}_downsample"]
+            _ln(sd, f"layers.{i}.downsample.norm", down["norm"])
+            _linear(sd, f"layers.{i}.downsample.reduction", down["reduction"])
+        if f"norm{i}" in params:
+            _ln(sd, f"norm{i}", params[f"norm{i}"])
+        i += 1
+    return sd
+
+
 def from_jax_cnn_backbone(params: Dict[str, Any],
                           batch_stats: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX `ResNet`, `ResNeXt`, `RegNet`, `Res2Net` or `ResNeSt` variables ->
@@ -257,7 +340,9 @@ def from_jax_variables(params: Dict[str, Any], batch_stats: Dict[str, Any],
                        roi_size: int = 7) -> Dict[str, torch.Tensor]:
     """JAX detector variables -> the port's state dict (reference keys)."""
     bb = params["backbone_m"]
-    if "layers_0_blocks_0" in bb:
+    if "alpha_table" in bb.get("layers_0_blocks_0", {}).get("attn", {}):
+        bb_sd = from_jax_panoswin_v2_backbone(bb, batch_stats.get("backbone_m", {}))
+    elif "layers_0_blocks_0" in bb:
         bb_sd = from_jax_swin_backbone(bb)
     elif "layer1_0" in bb:
         bb_sd = from_jax_cnn_backbone(bb, batch_stats["backbone_m"])
@@ -357,8 +442,9 @@ def load_reference_weights(model: nn.Module, sd: Dict[str, torch.Tensor],
                            strict: bool = True) -> None:
     """Load a reference-format state dict into `model` with
     `load_state_dict(strict=strict)`.  A bias table made for another window
-    size (its length tells which: PanoSwin's sphere tables, Swin's relative
-    position table) is resized first with `resize_bias_table`.  A cascade
+    size (its length tells which: PanoSwin's sphere tables, those of the
+    v-variant and Swin's relative position table) is resized first with
+    `resize_bias_table`, as the JAX converters' `src_window_size` does.  A cascade
     checkpoint with a mask head a stage (`roi_head.mask_head.{t}.`, the
     reference's `CascadeRoIHead`) raises: the port, as the JAX package,
     keeps one mask head."""
@@ -371,7 +457,7 @@ def load_reference_weights(model: nn.Module, sd: Dict[str, torch.Tensor],
     own = model.state_dict()
     sd = dict(sd)
     for key, table in sd.items():
-        if (key.endswith(("_table_Te", "relative_position_bias_table")) and key in own
+        if (key.endswith(("_table_Te", "_table")) and key in own
                 and table.shape != own[key].shape):
             side = math.isqrt(table.shape[0])
             dst = math.isqrt(own[key].shape[0])
@@ -409,7 +495,8 @@ def regnet_from_pycls(sd: Dict[str, Any]) -> Dict[str, Any]:
 def load_backbone_weights(backbone: nn.Module, sd: Dict[str, Any]) -> None:
     """A reference backbone checkpoint (`module.` stripped) into `backbone`:
     a PanoSwin one (`SimplePanoSwinTransformer`'s keys) as the JAX package's
-    `convert_panoswin_backbone` reads it, a stock Swin one (an ImageNet
+    `convert_panoswin_backbone` reads it, a v-variant or v1 one as
+    `convert_panoswin_v2_backbone` reads it, a stock Swin one (an ImageNet
     classifier's, `swin_transformer.py`'s keys) as `convert_swin_backbone`
     reads it: the stem or patch embed, the absolute encoder or position
     table, the stages and the out-norms, bias tables of another window size
@@ -431,7 +518,8 @@ def load_backbone_weights(backbone: nn.Module, sd: Dict[str, Any]) -> None:
     if "stem.conv.weight" in sd:
         sd = regnet_from_pycls(sd)
     own = backbone.state_dict()
-    optional = ("abs_encoder.", "absolute_pos_embed", "patch_embed.norm.", "norm")
+    optional = ("abs_encoder.", "coord_encoder.", "absolute_pos_embed", "patch_embed.norm.",
+                "norm")
     missing = [k for k in own if k not in sd and not k.startswith(optional)
                and not k.endswith("num_batches_tracked")]
     if missing:

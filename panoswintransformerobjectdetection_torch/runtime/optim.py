@@ -25,11 +25,12 @@ _NORMS = (nn.LayerNorm, nn.GroupNorm, nn.modules.batchnorm._BatchNorm)
 def no_decay_mask(model: nn.Module) -> Dict[str, bool]:
     """Parameter name -> True where weight decay applies: everywhere but on
     biases, the parameters of norm layers, and the tables named in
-    `NO_DECAY_NAMES`."""
+    `NO_DECAY_NAMES`.  A bias is a parameter named `bias`: the `'tf'`
+    embed's `in_proj_bias` decays, as the JAX mask decays it."""
     norm_params = {f"{name}.{p}" if name else p
                    for name, m in model.named_modules() if isinstance(m, _NORMS)
                    for p, _ in m.named_parameters(recurse=False)}
-    return {name: not (name.endswith("bias") or name in norm_params
+    return {name: not (name.rsplit(".", 1)[-1] == "bias" or name in norm_params
                        or any(k in name.rsplit(".", 1)[-1] for k in NO_DECAY_NAMES))
             for name, _ in model.named_parameters()}
 

@@ -66,7 +66,9 @@ def make_train_step(detector, optimizer: torch.optim.Optimizer, scheduler=None) 
 
     batch: dict of `images` (B, H, W, 3), `img_shapes` (B, 2), `gt_boxes`
     (B, G, 4), `gt_labels` (B, G), `gt_valid` (B, G), and `gt_masks` (B, G,
-    H', W') where the loader made them (the mask loss).  `noise` and
+    H', W') where the loader made them (the mask loss) and `pano_ratio_v`
+    (B, 3), which a `PanoSwinTransformerV2` backbone reads (JAX
+    `runtime/train.py:44-52`).  `noise` and
     `generator` go to `forward_train`'s samplers.  The step updates the
     detector's parameters and the stem's running statistics in place.
     Under a process group the batch is this process's rows of the global
@@ -84,7 +86,8 @@ def make_train_step(detector, optimizer: torch.optim.Optimizer, scheduler=None) 
         optimizer.zero_grad(set_to_none=True)
         out = forward_train(batch["images"], batch["img_shapes"], batch["gt_boxes"],
                             batch["gt_labels"], batch["gt_valid"], batch.get("gt_masks"),
-                            noise=noise, generator=generator, stage=stage)
+                            pano_ratio_v=batch.get("pano_ratio_v"), noise=noise,
+                            generator=generator, stage=stage)
         total = sum(v for k, v in out.items() if "loss" in k)
         stage("backward", total.backward)
 

@@ -37,6 +37,7 @@ from panoswintransformerobjectdetection_torch.apis.tta import aug_test_detector
 from panoswintransformerobjectdetection_torch.data import transforms as ttr
 from panoswintransformerobjectdetection_torch.flagship import build_flagship, flagship_train_batch
 from panoswintransformerobjectdetection_torch.models.panoswin import PitchAttention
+from panoswintransformerobjectdetection_torch.models.panoswin_v2 import PanoSwinTransformerV2
 from panoswintransformerobjectdetection_torch.runtime import checkpoint as tck
 from panoswintransformerobjectdetection_torch.runtime.config import (Config, load_config,
                                                                      set_by_dotted)
@@ -46,8 +47,6 @@ from torch_port_common import single_torch_thread, tiny_odd_detector  # noqa: F4
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(ROOT, "configs", "panoswin", "*.py")))
-# Configs whose model the port does not build yet: another backbone, masks.
-UNPORTED = {"faster_rcnn_panoswin_v2_tiny_streetwin.py": "backbone type"}
 NORM = ([123.675, 116.28, 103.53], [58.395, 57.12, 57.375])
 
 
@@ -71,21 +70,24 @@ def test_load_config_matches_jax(path):
 
 @pytest.mark.parametrize("path", CONFIGS, ids=_name)
 def test_build_detector_from_config(path):
-    """Every PanoSwin config builds in the port, or raises naming the ROADMAP
-    item that ports it.  Built on the meta device: no weights are made."""
+    """Every PanoSwin config builds in the port, the v-variant's (the
+    reference's own detection composition) included.  Built on the meta
+    device: no weights are made."""
     cfg = load_config(path)
-    if _name(path) in UNPORTED:
-        with pytest.raises(NotImplementedError, match=f"{UNPORTED[_name(path)]}.*item 17"):
-            tinf.build_detector_from_cfg(cfg)
-        return
     with torch.device("meta"):
         model = tinf.build_detector_from_cfg(cfg)
     bb = cfg["model"]["backbone"]
     assert model.num_classes == cfg["model"]["num_classes"]
     assert [len(layer.blocks) for layer in model.backbone.layers] == list(bb["depths"])
-    assert [isinstance(layer.blocks[-1], PitchAttention) for layer in model.backbone.layers] \
-        == [d % 2 == 1 for d in bb["depths"]]
-    assert model.backbone.pano_mode == bb.get("pano_mode", True)
+    if bb.get("type") == "PanoSwinTransformerV2":
+        assert type(model.backbone) is PanoSwinTransformerV2
+        assert model.backbone.win_trans_type == bb["win_trans_type"]
+        assert model.backbone.coord_encoder is not None
+        assert model.backbone.patch_embed.proj[0].out_channels == 32
+    else:
+        assert [isinstance(layer.blocks[-1], PitchAttention) for layer in model.backbone.layers] \
+            == [d % 2 == 1 for d in bb["depths"]]
+        assert model.backbone.pano_mode == bb.get("pano_mode", True)
     want = torch.bfloat16 if cfg["model"].get("compute_dtype") == "bfloat16" else None
     assert model.backbone.patch_embed.dtype == want
     assert model.test_cfg == cfg["model"]["test_cfg"]

@@ -431,7 +431,7 @@ def loops(request, mask_frames, tmp_path_factory):
 
 def test_first_batches_are_equal(loops):
     got, ref = loops["port"]["first"]["batch"], loops["jax"]["first"]["batch"]
-    assert set(got) == set(ref) - {"pano_ratio_v"} and got["gt_masks"].any()
+    assert set(got) == set(ref) and got["gt_masks"].any()
     for key, value in got.items():
         assert np.array_equal(value.numpy(), ref[key]), key
 

@@ -92,7 +92,8 @@ PIPELINE = [{"type": "LoadImageFromFile"},
              "std": [58.395, 57.12, 57.375], "to_rgb": True},
             {"type": "Pad", "size_divisor": 32}]
 LOSSES = ("loss_rpn_cls", "loss_rpn_bbox", "loss_cls", "loss_bbox", "loss_mask", "acc")
-BATCH = ("images", "img_shapes", "gt_boxes", "gt_labels", "gt_valid", "gt_masks")
+BATCH = ("images", "img_shapes", "gt_boxes", "gt_labels", "gt_valid", "gt_masks",
+         "pano_ratio_v")
 MSTRAIN = [os.path.join(ROOT, "configs", "swin", f"mask_rcnn_swin_tiny_patch4_window7_mstrain_"
                         f"480-800_adamw_{s}_coco.py") for s in ("1x", "3x")]
 

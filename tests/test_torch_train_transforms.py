@@ -174,8 +174,7 @@ def test_config_train_pipelines_match_jax(tmp_path, config):
 
 
 def test_unported_training_steps_name_item_17():
-    """What stays unported: OpenCV's HSV jitter, InstaBoost and masks."""
-    assert set(tb.UNPORTED_PIPELINES) == {"PhotoMetricDistortion", "InstaBoost",
-                                         "BasketBallExpand"}
+    """What stays unported: OpenCV's HSV jitter and InstaBoost."""
+    assert set(tb.UNPORTED_PIPELINES) == {"PhotoMetricDistortion", "InstaBoost"}
     for step in ("RandomFlip", "PanoStretch", "RollAug", "RandomCrop", "AutoAugment"):
         assert tb.PIPELINES[step] is getattr(ttr, step)
