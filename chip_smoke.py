@@ -278,18 +278,50 @@ Phases (each raises on failure, so any failure exits non-zero):
      per-image ratios (equal counts, 1e-3 px, 1e-5), a nano v1 backbone and
      a nano v2 backbone with the `'tf'` embed and the basketball warp
      (stage outputs within 1e-4 * max(1, max|ref|));
- 17. a JSON line for the evaluation, one for the training loop, one for
+ 17. the rest of the CNN-backbone two-stage zoo, from reference `.pth`
+     files of random weights (`write_cnn_reference_pth`) on synthetic 480 x
+     640 frames with polygon instances (from `--seed`) after
+     `FramesFromMemory`: (a) `configs/hrnet/mask_rcnn_hrnetv2p_w32_1x_coco.py`
+     (HRNet-W32, HRFPN, f32) through the eval loop on 8 frames at batch 2
+     (K3's f32 entry 4 times at 7 and 4 at 14, no other kernel), its K3 at
+     7 and 14 against the twin and timed on the first batch's RoIs; the
+     bf16 `cascade_mask_rcnn_hrnetv2p_w32_20e_coco.py` (the JAX package
+     cannot build it): 1 warm-up and 3 timed `simple_test_masks` requests of
+     2 x 800 x 1344 (K3's bf16 entry 3 times at 7 and once at 14 each), its
+     bf16 backbone within 0.05 * max|ref| a branch of f32 (TF32 off), K3
+     timed on each stage's RoIs and the detections'; (b) 4 steps of
+     `train_detector` at batch 2, the first untimed, of the HRNet-W32 Mask
+     R-CNN and `configs/ms_rcnn/ms_rcnn_r50_fpn_1x_coco.py` with masks
+     loaded (K3's f32 entry once at 7 and once at 14 forward and backward
+     a step: the mask and mask-IoU heads read one crop at 14, whose summed
+     cotangent reaches one backward launch) and
+     `configs/tridentnet/tridentnet_r50_caffe_1x_coco.py` (once at 7 each
+     way); every loss finite (`loss_mask_iou` included), every parameter
+     whose gradient was nonzero moved, the trident's outer-branch
+     BatchNorms reached by no loss and unmoved; K3 forward and backward at
+     14 against their twins and timed on the Mask Scoring R-CNN's first
+     step's sampled positives; (c) the Mask Scoring R-CNN and TridentNet
+     configs through the eval loop on 8 frames (K3 at 7, and at 14 once a
+     batch with masks), the rescored detections against `simple_test`'s,
+     K3 timed on a TridentNet batch's RoIs; (d) card against CPU in f32,
+     TF32 off: an HRNet-W18 with HRFPN on 72 x 104 frames, a
+     `MaskIoUHead`, a TridentResNet-50 (each within 1e-4 * max(1,
+     max|ref|)) and a nano Mask Scoring R-CNN's detections (equal counts,
+     1e-3 px, 1e-5);
+ 18. a JSON line for the evaluation, one for the training loop, one for
      Mask R-CNN serving, one for Mask R-CNN training, one for Cascade Mask
      R-CNN serving, one for its training, one for the ResNet-family
      detectors, one for their training, one for phase 15, one for phase
-     16, a JSON line per kernel (each with its launches in phase 11,
-     `launches_cascade`, in phase 12, `launches_cascade_training`, in phase
-     13, `launches_resnet`, in phase 14, `launches_resnet_training`, in
-     phase 15's children, `launches_distributed`, and in phase 16,
-     `launches_panoswin_v2`; K3's f32 entry timed on 13a's and 13b's RoIs
-     and its f32 backward on 14a's, and K1's f32 entry and K3's f32 entry
-     forward and backward on phase 16's inputs have rows of their own), the
-     card's name and power limit, then the result line.
+     16, one for phase 17, a JSON line per kernel (each with its launches
+     in phase 11, `launches_cascade`, in phase 12,
+     `launches_cascade_training`, in phase 13, `launches_resnet`, in phase
+     14, `launches_resnet_training`, in phase 15's children,
+     `launches_distributed`, in phase 16, `launches_panoswin_v2`, and in
+     phase 17, `launches_cnn_zoo`; K3's f32 entry timed on 13a's and 13b's
+     RoIs and its f32 backward on 14a's, K1's f32 entry and K3's f32 entry
+     forward and backward on phase 16's inputs, and K3 on phase 17's RoIs
+     have rows of their own), the card's name and power limit, then the
+     result line.
 Without a CUDA card it exits with an error and prints no result.
 """
 
@@ -3053,6 +3085,20 @@ RESNET_CASCADE_FRAME = (800, 1344)
 REG_SCALE = 0.05
 
 
+def perturb_batch_norms(model, seed):
+    """Every BatchNorm of `model` drawn away from the identity from `seed`:
+    scales in [0.5, 1.5], biases and means N(0, 0.1), variances in [0.5,
+    2]."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.copy_(torch.rand(m.weight.shape, generator=g) + 0.5)
+                m.bias.copy_(torch.randn(m.bias.shape, generator=g) * 0.1)
+                m.running_mean.copy_(torch.randn(m.running_mean.shape, generator=g) * 0.1)
+                m.running_var.copy_(torch.rand(m.running_var.shape, generator=g) * 1.5 + 0.5)
+
+
 def write_cnn_reference_pth(config, directory, seed, name, residual_scale=1.0):
     """Random weights from `seed` for the CNN-backbone detector of `config`
     (a dict), written as a reference checkpoint with the backbone's
@@ -3067,17 +3113,12 @@ def write_cnn_reference_pth(config, directory, seed, name, residual_scale=1.0):
     from panoswintransformerobjectdetection_torch.flagship import init_weights
     model = build_detector_from_cfg(config)
     init_weights(model, seed)
-    g = torch.Generator().manual_seed(seed + 1)
+    perturb_batch_norms(model, seed + 1)
     with torch.no_grad():
         for key, m in model.named_modules():
-            if isinstance(m, torch.nn.BatchNorm2d):
-                m.weight.copy_(torch.rand(m.weight.shape, generator=g) + 0.5)
-                m.bias.copy_(torch.randn(m.bias.shape, generator=g) * 0.1)
-                m.running_mean.copy_(torch.randn(m.running_mean.shape, generator=g) * 0.1)
-                m.running_var.copy_(torch.rand(m.running_var.shape, generator=g) * 1.5 + 0.5)
-            elif key.endswith(("rpn_reg", "fc_reg")):
+            if key.endswith(("rpn_reg", "fc_reg")):
                 m.weight.mul_(REG_SCALE)
-        for stage in model.backbone.stages:
+        for stage in model.backbone.stages if residual_scale != 1.0 else ():
             for block in stage:
                 last = block.bn3 if hasattr(block, "bn3") else block.bn2
                 last.weight.mul_(residual_scale)
@@ -3090,16 +3131,19 @@ def write_cnn_reference_pth(config, directory, seed, name, residual_scale=1.0):
     return path
 
 
-def resnet_eval(dev, ident, counters, ra, seed, directory, config, label, with_masks, timed):
-    """13a (Faster R-CNN) and 13b (Mask R-CNN): a ResNet-50 config in f32 as
-    it is, from a seed-0 reference `.pth`, through `build_dataset` ->
-    `DetDataLoader` -> `single_device_test` -> `evaluate` on
-    `RESNET_FRAMES` synthetic 480 x 640 frames with polygon instances, at the
+def resnet_eval(dev, ident, counters, ra, seed, directory, config, label, with_masks, timed, *,
+                frames=RESNET_FRAMES, name="ResNet-50", extra=None):
+    """13a (Faster R-CNN), 13b (Mask R-CNN), and phase 17's serving: a CNN
+    config in f32 as it is, from a seed-0 reference `.pth`, through
+    `build_dataset` -> `DetDataLoader` -> `single_device_test` -> `evaluate`
+    on `frames` synthetic 480 x 640 frames with polygon instances, at the
     config's batch: a warm-up pass, a timed pass with the launch counts set
     to 0 just before it and read just after (K3's f32 entry once a batch at
     7, and at 14 with masks; no other kernel), every metric finite; then K3's
     f32 entry against its twin on the first batch's RoIs at each size, timed
-    at the sizes in `timed`.  Returns the record and the K3 records."""
+    at the sizes in `timed` (rows named after `name`); `extra(model,
+    dataset)`, when given, adds its dict to the record.  Returns the record
+    and the K3 records."""
     from panoswintransformerobjectdetection_torch.apis.inference import init_detector
     from panoswintransformerobjectdetection_torch.apis.test import (EVAL_STAGES,
                                                                     MASK_EVAL_STAGES,
@@ -3108,8 +3152,7 @@ def resnet_eval(dev, ident, counters, ra, seed, directory, config, label, with_m
     batch = cfg["data"]["samples_per_gpu"]
     path = write_cnn_reference_pth(cfg, directory, 0, label)
     model = init_detector(cfg, path, device=dev)
-    dataset = polygon_dataset(cfg, directory, seed + 13, f"resnet_{label}.json", label,
-                              RESNET_FRAMES)
+    dataset = polygon_dataset(cfg, directory, seed + 13, f"resnet_{label}.json", label, frames)
     single_device_test(model, dataset, batch_size=batch, with_masks=with_masks,
                        device=dev)                                      # warm-up
     times = {}
@@ -3125,7 +3168,7 @@ def resnet_eval(dev, ident, counters, ra, seed, directory, config, label, with_m
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     launches = {name: fn.launches for name, fn in counters.items()}
     by_entry = dict(ra.roi_align.launches_by_entry)
-    n_batches = RESNET_FRAMES // batch
+    n_batches = frames // batch
     f32 = ra.ENTRIES[torch.float32]
     want = {(f32, 7): n_batches, **({(f32, 14): n_batches} if with_masks else {})}
     expect = {name: 0 for name in counters}
@@ -3134,8 +3177,8 @@ def resnet_eval(dev, ident, counters, ra, seed, directory, config, label, with_m
         raise AssertionError(f"{label}: launches {launches}, K3 by entry {by_entry}; expected "
                              f"{expect}, {want}")
     if with_masks:
-        check_mask_results(results, RESNET_FRAMES, label)
-    elif len(results) != RESNET_FRAMES or not sum(len(r["boxes"]) for r in results) or not all(
+        check_mask_results(results, frames, label)
+    elif len(results) != frames or not sum(len(r["boxes"]) for r in results) or not all(
             np.isfinite(r["boxes"]).all() and np.isfinite(r["scores"]).all() for r in results):
         raise AssertionError(f"{label}: results missing, empty or not finite")
     stages = MASK_EVAL_STAGES if with_masks else EVAL_STAGES
@@ -3148,16 +3191,17 @@ def resnet_eval(dev, ident, counters, ra, seed, directory, config, label, with_m
     bad = {k: v for k, v in metrics.items() if not np.isfinite(v)}
     if bad:
         raise AssertionError(f"{label}: metrics not finite: {bad}")
-    rec = {"config": config, "dtype": "float32", "frames": RESNET_FRAMES, "batch": batch,
-           "score_thr": MASK_SCORE_THR, "images_per_s": RESNET_FRAMES / loop_s,
+    rec = {"config": config, "dtype": "float32", "frames": frames, "batch": batch,
+           "score_thr": MASK_SCORE_THR, "images_per_s": frames / loop_s,
            "loop_ms": loop_s * 1e3, "median_batch_ms": statistics.median(per_batch) * 1e3,
            "stage_ms": host, "evaluate_ms": evaluate_ms, "peak_gib": peak,
            "launches": launches, "k3_launches_by_size": {o: n for (_, o), n in want.items()},
            "detections": sum(len(r["boxes"]) for r in results),
            **{k: metrics[k] for k in ("bbox_mAP", "segm_mAP") if k in metrics}}
-    print(f"    ({label[-1]}) {os.path.basename(config)} (ResNet-50, FPN 256, 80 classes, f32, "
-          f"seed-0 weights from a reference .pth, BatchNorm away from the identity, score_thr "
-          f"{MASK_SCORE_THR}): {RESNET_FRAMES} frames of 480 x 640 (800 x 1067, padded to "
+    print(f"    ({label}) {os.path.basename(config)} ({name}, {type(model.neck).__name__} 256, "
+          f"80 classes, f32, seed-0 weights from a reference .pth, BatchNorm away from the "
+          f"identity, score_thr {MASK_SCORE_THR}): {frames} frames of 480 x 640 (800 x 1067, "
+          f"padded to "
           f"800 x 1088), batch {batch}, after a warm-up pass: {rec['images_per_s']:.3f} eval "
           f"images/s ({loop_s * 1e3:.3f} ms for the loop), median batch "
           f"{rec['median_batch_ms']:.3f} ms; host ms over the loop: "
@@ -3174,29 +3218,34 @@ def resnet_eval(dev, ident, counters, ra, seed, directory, config, label, with_m
         what = f"{label}: K3 o={o} f32 on the first batch's {rois.shape[0]} RoIs"
         if o in timed:
             kernels.append(k3_record(ra, feats, rois, model.featmap_strides, o,
-                                     f"roi_align o={o} float32 (K3), ResNet-50 {label} RoIs",
+                                     f"roi_align o={o} float32 (K3), {name} {label} RoIs",
                                      what))
         else:
             check(f"{what}, against the twin", ra.roi_align(feats, rois, model.featmap_strides, o),
                   ra.roi_align_plain(feats, rois, model.featmap_strides, o), 0.0)
+    if extra is not None:
+        rec.update(extra(model, dataset))
     del model
     return rec, kernels
 
 
-def resnet_cascade_requests(dev, ident, counters, ra, directory):
-    """13c: the R-50 Cascade Mask R-CNN config in bf16 as it is (the JAX
-    package cannot build it), from a seed-0 reference `.pth`: 1 warm-up and
-    `REQUESTS` timed `simple_test_masks` requests on 2 seeded frames of 800 x
-    1344, each with the launch counts set to 0 just before it and read just
-    after (K3's bf16 entry 3 times at 7 and once at 14, no other kernel);
-    then the bf16 backbone's stage outputs against the same weights in f32
-    on the card (TF32 off), within the CPU test's bfloat16 tolerance,
-    0.05 * max|ref| a stage."""
+def resnet_cascade_requests(dev, ident, counters, ra, directory, config=RESNET_CASCADE_CONFIG,
+                            label="13c", requests=REQUESTS, name="ResNet-50", stage_rows=False):
+    """13c (and 17a's cascade): a CNN Cascade Mask R-CNN config in bf16 as
+    it is (the JAX package cannot build it), from a seed-0 reference `.pth`:
+    1 warm-up and `requests` timed `simple_test_masks` requests on 2 seeded
+    frames of 800 x 1344, each with the launch counts set to 0 just before
+    it and read just after (K3's bf16 entry 3 times at 7 and once at 14, no
+    other kernel); then the bf16 backbone's stage outputs against the same
+    weights in f32 on the card (TF32 off), within the CPU test's bfloat16
+    tolerance, 0.05 * max|ref| a stage.  With `stage_rows`, K3 against its
+    twin and timed on each stage's RoIs at 7 and the detections' at 14 (rows
+    named after `name`).  Returns the record and those rows."""
     from panoswintransformerobjectdetection_torch.apis.inference import init_detector
-    cfg = mask_config(path=RESNET_CASCADE_CONFIG)
+    cfg = mask_config(path=config)
     if cfg["model"].get("compute_dtype") != "bfloat16":
-        raise AssertionError("13c: the cascade config is no longer bf16")
-    path = write_cnn_reference_pth(cfg, directory, 0, "13c")
+        raise AssertionError(f"{label}: the cascade config is no longer bf16")
+    path = write_cnn_reference_pth(cfg, directory, 0, label)
     model = init_detector(cfg, path, device=dev)
     h, w = RESNET_CASCADE_FRAME
     g = torch.Generator(device=dev).manual_seed(13)
@@ -3206,7 +3255,7 @@ def resnet_cascade_requests(dev, ident, counters, ra, directory):
     torch.cuda.reset_peak_memory_stats()
     latencies, total = [], {}
     bf16 = ra.ENTRIES[torch.bfloat16]
-    for _ in range(REQUESTS):
+    for _ in range(requests):
         for fn in counters.values():
             fn.launches = 0
         ra.roi_align.launches_by_entry = {}
@@ -3220,12 +3269,12 @@ def resnet_cascade_requests(dev, ident, counters, ra, directory):
         expect = {name: 0 for name in counters}
         expect["roi_align (K3)"] = 4
         if launches != expect or by_entry != {(bf16, 7): 3, (bf16, 14): 1}:
-            raise AssertionError(f"13c: launches {launches}, K3 by entry {by_entry}")
+            raise AssertionError(f"{label}: launches {launches}, K3 by entry {by_entry}")
         for (_, o), n in by_entry.items():
             total[o] = total.get(o, 0) + n
     if not (det.mask.any() and torch.isfinite(det.boxes).all()
             and torch.isfinite(probs.float()).all() and probs.shape[-2:] == (28, 28)):
-        raise AssertionError("13c: detections empty or not finite")
+        raise AssertionError(f"{label}: detections empty or not finite")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     reference = init_detector(dict(cfg, model={k: v for k, v in cfg["model"].items()
                                                if k != "compute_dtype"}), path, device=dev)
@@ -3240,26 +3289,37 @@ def resnet_cascade_requests(dev, ident, counters, ra, directory):
     stage_err = []
     for i, (a, b) in enumerate(zip(got, ref)):
         if a.dtype != torch.bfloat16 or b.dtype != torch.float32:
-            raise AssertionError(f"13c: backbone stage {i} is {a.dtype} against {b.dtype}")
+            raise AssertionError(f"{label}: backbone stage {i} is {a.dtype} against {b.dtype}")
         scale = float(b.abs().max())
-        stage_err.append(check(f"13c: bf16 backbone stage {i} against f32 (max|ref| "
+        stage_err.append(check(f"{label}: bf16 backbone stage {i} against f32 (max|ref| "
                                f"{scale:.3f})", a, b, 0.05 * scale) / scale)
-    rec = {"config": RESNET_CASCADE_CONFIG, "dtype": "bfloat16", "batch": 2,
+    rec = {"config": config, "dtype": "bfloat16", "batch": 2,
            "frame": list(RESNET_CASCADE_FRAME), "latency_ms": [t * 1e3 for t in latencies],
            "median_ms": statistics.median(latencies) * 1e3, "peak_gib": peak,
            "k3_launches_by_size": total, "detections": int(det.mask.sum()),
            "backbone_rel_err": stage_err}
-    print(f"    (c) {os.path.basename(RESNET_CASCADE_CONFIG)} (ResNet-50, three Shared2FC "
+    print(f"    ({label}) {os.path.basename(config)} ({name}, three Shared2FC "
           f"stages, one mask head, bf16 as the config asks, seed-0 weights from a reference "
-          f".pth): {REQUESTS} simple_test_masks requests of 2 frames of {h} x {w} after a "
+          f".pth): {requests} simple_test_masks requests of 2 frames of {h} x {w} after a "
           f"warm-up: latency ms {[round(t * 1e3, 3) for t in latencies]}, median "
           f"{rec['median_ms']:.3f} ms, {2e3 / rec['median_ms']:.3f} images/s; K3 by size over "
           f"the requests {total}, bf16 entry, no other kernel; peak memory {peak:.2f} GiB; "
           f"{rec['detections']} detections in the last; bf16 backbone against f32 (TF32 "
           f"off) max|diff| / max|ref| by stage {[f'{e:.3g}' for e in stage_err]} (tolerance "
           f"0.05); card {ident}")
+    rows = []
+    if stage_rows:
+        captured = captured_roi_inputs(model, inputs)
+        if [o for _, _, o in captured] != [7, 7, 7, 14]:
+            raise AssertionError(f"{label}: K3 pooled at {[o for _, _, o in captured]}")
+        for t, (feats, rois, o) in enumerate(captured):
+            what = "detections" if o == 14 else f"stage {t}"
+            rows.append(k3_record(ra, feats, rois, model.featmap_strides, o,
+                                  f"roi_align o={o} bfloat16 (K3), {name} cascade {what} RoIs",
+                                  f"{label}: K3 o={o} bf16 on the {rois.shape[0]} RoIs of the "
+                                  f"{what}"))
     del model, reference
-    return rec
+    return rec, rows
 
 
 def resnet_card_vs_cpu(dev, seed, directory):
@@ -3332,7 +3392,7 @@ def resnet_path(dev, ident, counters, ra, seed):
         mask, k3_mask = resnet_eval(dev, ident, counters, ra, seed, directory,
                                     RESNET_MASK_CONFIG, "13b", True, (14,))
         rec = {"13a": faster, "13b": mask,
-               "13c": resnet_cascade_requests(dev, ident, counters, ra, directory),
+               "13c": resnet_cascade_requests(dev, ident, counters, ra, directory)[0],
                "13d": resnet_card_vs_cpu(dev, seed, directory)}
     return rec, k3_faster + k3_mask
 
@@ -3387,11 +3447,14 @@ class ResNetLoopRecord(MaskLoopRecord):
     BatchNorm's running statistics: one momentum step towards the batch
     statistics of the step's input to it (`layers.batch_norm_train` on a
     copy, recomputed from the batch and the step's own conv1 weights), and
-    `num_batches_tracked` one more."""
+    `num_batches_tracked` one more; with `model`, the names of its
+    parameters whose gradient was nonzero in some step (`reached`: those
+    that a loss reaches in this run)."""
 
-    def __init__(self, counters, ra, bn_model=None):
+    def __init__(self, counters, ra, bn_model=None, model=None):
         super().__init__(counters, ra)
         self.bn_model, self.batch, self.bn_err = bn_model, None, []
+        self.model, self.reached = model, set()
 
     def stage(self, name, fn):
         if name == "copy":
@@ -3399,8 +3462,15 @@ class ResNetLoopRecord(MaskLoopRecord):
                 self.batch = fn()
                 return self.batch
             return super().stage(name, keep)
-        if name != "step" or self.bn_model is None:
+        if name != "step":
             return super().stage(name, fn)
+        out = self.bn_checked(name, fn) if self.bn_model is not None else super().stage(name, fn)
+        if self.model is not None:
+            self.reached |= {k for k, p in self.model.named_parameters()
+                             if p.grad is not None and bool(p.grad.ne(0).any())}
+        return out
+
+    def bn_checked(self, name, fn):
         import copy
         from panoswintransformerobjectdetection_torch.models.layers import batch_norm_train, conv
         bb = self.bn_model.backbone
@@ -3424,20 +3494,25 @@ class ResNetLoopRecord(MaskLoopRecord):
 
 def resnet_train_loop(dev, ident, counters, ra, seed, directory, config, label, by_entry, *,
                       dtype=None, masks=False, frames=RESNET_TRAIN_FRAMES, warmup=1,
-                      bn_check=False, capture=False):
+                      bn_check=False, capture=False, unreached=lambda key: False):
     """A ResNet-family config through `train_detector` and its own train
     pipeline after `FramesFromMemory`, from a reference `.pth` of random
     weights (`write_cnn_reference_pth`, `load_from`): `frames` synthetic 480
     x 640 frames with polygon instances from `seed`, batch 2, one epoch,
     the first `warmup` steps untimed.  Each step's K3 launches by entry, the
     counts set to empty just before it and read just after, must be
-    `by_entry`, and no other kernel may launch; every loss finite; every
-    parameter outside a mask head that no loss reaches moved; with
+    `by_entry`, and no other kernel may launch; every loss finite; with
     `norm_eval` every running statistic and `num_batches_tracked` as loaded,
     else `num_batches_tracked` one more a step (`bn_check`: bn1's statistics
-    one momentum step a step, `ResNetLoopRecord`).  Returns the record, the
-    launches by (direction, entry, size) and, with `capture`, the RoIs (and
-    map shapes) that the first step pooled at 7."""
+    one momentum step a step, `ResNetLoopRecord`); every parameter whose
+    gradient was nonzero in some step moved, and those for which
+    `unreached(key)` holds (which no loss may reach) kept a zero gradient
+    and did not move; a parameter that no loss reached is one of those, of
+    a mask head, or of HRFPN's stride-64 level (which serves only the
+    anchors that a step's 256 RPN samples may all miss).  Returns the
+    record, the launches by (direction, entry, size) and, with `capture`
+    (True for 7, or the bins), the RoIs, map shapes and maps that the first
+    step pooled at that size."""
     from panoswintransformerobjectdetection_torch.apis.inference import build_detector_from_cfg
     from panoswintransformerobjectdetection_torch.apis.train import train_detector
     from panoswintransformerobjectdetection_torch.data.datasets import CocoDataset
@@ -3455,11 +3530,12 @@ def resnet_train_loop(dev, ident, counters, ra, seed, directory, config, label, 
     captured, roi_features = [], model.roi_features
     if capture:
         def pool(feats, rois, out_size=7):
-            if out_size == 7 and not captured:
-                captured.append((rois.detach().clone(), [tuple(f.shape) for f in feats[:4]]))
+            if out_size == (7 if capture is True else capture) and not captured:
+                captured.append((rois.detach().clone(), [tuple(f.shape) for f in feats[:4]],
+                                 [f.detach() for f in feats[:4]]))
             return roi_features(feats, rois, out_size)
         model.roi_features = pool
-    record = ResNetLoopRecord(counters, ra, model if bn_check else None)
+    record = ResNetLoopRecord(counters, ra, model if bn_check else None, model)
     opt, sched = cfg["optimizer"], cfg["lr_config"]
     torch.cuda.reset_peak_memory_stats()
     train_detector(model, dataset, work_dir=os.path.join(directory, label), total_epochs=1,
@@ -3486,13 +3562,18 @@ def resnet_train_loop(dev, ident, counters, ra, seed, directory, config, label, 
         raise AssertionError(f"{label}: a loss is not finite, or no mask loss: {record.steps}")
     state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     still = [k for k, _ in model.named_parameters()
-             if torch.equal(state[k], start[k]) and not k.startswith("roi_head.mask_head.")]
+             if (torch.equal(state[k], start[k]) and k in record.reached)
+             or (unreached(k) and (k in record.reached or not torch.equal(state[k], start[k])))]
+    missed = sorted(k for k, _ in model.named_parameters() if k not in record.reached)
+    still += [k for k in missed if not (unreached(k) or k.startswith(
+        ("roi_head.mask_head.", "neck.fpn_convs.4.")))]
     stats = [k for k in state if "running" in k or "num_batches" in k]
     live = not cfg["model"]["backbone"].get("norm_eval", True)
     moved_stats = [k for k in stats if not torch.equal(state[k], start[k])]
     nbt = {int(state[k]) - int(start[k]) for k in stats if "num_batches" in k}
     if still or (moved_stats if not live else len(moved_stats) != len(stats) or nbt != {n_steps}):
-        raise AssertionError(f"{label}: parameters that did not move {still[:5]}; running "
+        raise AssertionError(f"{label}: parameters that did not move, moved unreached, or no "
+                             f"loss reached {still[:5]}; running "
                              f"statistics moved {len(moved_stats)} of {len(stats)} "
                              f"(norm_eval {not live}), num_batches_tracked + {nbt}")
     timed = range(warmup, n_steps)
@@ -3517,11 +3598,12 @@ def resnet_train_loop(dev, ident, counters, ra, seed, directory, config, label, 
            "k3_launches_step_by_entry": {d: {f"{e} o={o}": n for (e, o), n in c.items()}
                                          for d, c in by_entry.items()},
            "running_statistics": "moved" if live else "unchanged",
+           "parameters_no_loss_reached": missed,
            **({"bn1_momentum_step_rel_err": record.bn_err} if bn_check else {})}
     for i, m in enumerate(record.steps):
-        print(f"    ({label[-1]}) step {i + 1}{' (warm-up)' if i < warmup else ''}: "
+        print(f"    ({label}) step {i + 1}{' (warm-up)' if i < warmup else ''}: "
               + ", ".join(f"{k} {m[k]:.6f}" for k in keys) + f", {record.times['step'][i] * 1e3:.3f} ms")
-    print(f"    ({label[-1]}) {os.path.basename(config)} ({type(model.backbone).__name__}, "
+    print(f"    ({label}) {os.path.basename(config)} ({type(model.backbone).__name__}, "
           f"{rec['dtype']}, random weights from a reference .pth, BatchNorm away from the "
           f"identity, norm_eval {not live}): {n_steps} steps of {RESNET_TRAIN_BATCH} frames of "
           f"480 x 640 through {'/'.join(rec['pipeline'][1:])}, {len(timed)} timed: "
@@ -3530,11 +3612,14 @@ def resnet_train_loop(dev, ident, counters, ra, seed, directory, config, label, 
           f"{{{', '.join(f'{k}: {v:.3f}' for k, v in host.items())}}}, peak memory "
           f"{peak:.2f} GiB; every step's K3 launches: forward "
           f"{by_entry_text(by_entry['forward'])}; backward {by_entry_text(by_entry['backward'])};"
-          f" no other kernel; every parameter moved; running statistics {rec['running_statistics']}"
+          f" no other kernel; every parameter that a loss reached moved; no loss reached "
+          f"{len(missed)} ({', '.join(missed[:4])}{' ...' if len(missed) > 4 else ''}); running "
+          f"statistics {rec['running_statistics']}"
           + (f", bn1 one momentum step a step within {max(record.bn_err):.3g} (tolerance 1e-5)"
              if bn_check else "") + f"; card {ident}")
     del model
-    return rec, launches, (captured[0] if capture else None)
+    return rec, launches, (captured[0][:2] if capture is True else captured[0] if capture
+                           else None)
 
 
 def cascade_bf16_against_f32(dev, seed, directory, path):
@@ -4967,11 +5052,198 @@ def panoswin_v2_path(dev, ident, counters, stem, ra, seed):
     launches[forward] = launches.get(forward, 0) + serving["launches"]["roi_align (K3)"]
     return ({"16a": serving, "16b": training, "16c": nano}, rows + train_rows, launches)
 
+# Phase 17: the rest of the CNN-backbone two-stage zoo: HRNet with HRFPN,
+# Mask Scoring R-CNN and TridentNet, serving and training.
+ZOO_HRNET_MASK = "configs/hrnet/mask_rcnn_hrnetv2p_w32_1x_coco.py"
+ZOO_HRNET_CASCADE = "configs/hrnet/cascade_mask_rcnn_hrnetv2p_w32_20e_coco.py"
+ZOO_MS = "configs/ms_rcnn/ms_rcnn_r50_fpn_1x_coco.py"
+ZOO_TRIDENT = "configs/tridentnet/tridentnet_r50_caffe_1x_coco.py"
+ZOO_FRAMES, ZOO_REQUESTS = 8, 3
+# 17d: a nano Mask Scoring R-CNN (ResNet-18, FPN 16, 5 classes).
+ZOO_NANO_MS = {"model": {
+    "type": "MaskScoringRCNN", "backbone": {"type": "ResNet", "depth": 18},
+    "neck": {"type": "FPN", "in_channels": (64, 128, 256, 512), "out_channels": 16,
+             "num_outs": 5},
+    "num_classes": 5,
+    "test_cfg": {"rpn": {"nms_pre": 256, "max_per_img": 64, "iou_threshold": 0.7,
+                         "min_bbox_size": 0},
+                 "rcnn": {"score_thr": 0.05, "iou_threshold": 0.5, "max_per_img": 8}}}}
+
+
+def ms_rescoring(model, dataset):
+    """17c's check of Mask Scoring R-CNN's rescoring on the first batch:
+    `simple_test_masks`' valid slots are `simple_test`'s, their scores
+    scaled by the predicted IoU clipped to [0, 1] (so at most the plain
+    ones, and not all equal), the padded slots' scores untouched."""
+    inputs = first_batch(dataset, model.device)
+    plain = model.simple_test(*inputs)
+    det, _ = model.simple_test_masks(*inputs)
+    m = det.mask
+    ratio = det.scores[m] / plain.scores[m]
+    if (not torch.equal(m, plain.mask) or not m.any() or not (ratio <= 1 + 1e-6).all()
+            or torch.equal(det.scores, plain.scores)
+            or not torch.equal(det.scores[~m], plain.scores[~m])):
+        raise AssertionError("17c: Mask Scoring R-CNN's scores are not the plain detections' "
+                             "times the clipped predicted IoU")
+    rec = {"rescored_slots": int(m.sum()), "score_ratio_mean": float(ratio.mean()),
+           "score_ratio_min": float(ratio.min()), "score_ratio_max": float(ratio.max())}
+    print(f"    (17c) Mask Scoring R-CNN rescoring on the first batch: {rec['rescored_slots']} "
+          f"detections, score / plain score mean {rec['score_ratio_mean']:.4f} (min "
+          f"{rec['score_ratio_min']:.4f}, max {rec['score_ratio_max']:.4f}); the bbox and segm "
+          f"results carry the rescored scores")
+    return {"rescoring": rec}
+
+
+def trident_unreached(key):
+    """The parameters of a TridentResNet that no loss reaches: the outer
+    branches' BatchNorms in res4's trident blocks."""
+    from panoswintransformerobjectdetection_torch.models.backbones_extra import OUTER_BRANCHES
+    parts = key.split(".")
+    return (key.startswith("backbone.layer3.") and len(parts) == 6 and parts[3] in
+            ("bn1", "bn2", "bn3") and int(parts[4]) in OUTER_BRANCHES)
+
+
+def zoo_card_vs_cpu(dev, directory):
+    """17d: the card against the CPU in f32, TF32 off: an HRNet-W18 with
+    HRFPN on 2 frames of 72 x 104 (non-integer upsampling, pooled levels
+    down to 1 x 1), a `MaskIoUHead` on 16 RoIs, a TridentResNet-50 on 2
+    frames of 64 x 96 (eval), each output within 1e-4 * max(1, max|ref|);
+    the nano Mask Scoring R-CNN's rescored detections (equal counts, 1e-3
+    px, 1e-5)."""
+    from panoswintransformerobjectdetection_torch.apis.inference import init_detector
+    from panoswintransformerobjectdetection_torch.flagship import init_weights
+    from panoswintransformerobjectdetection_torch.models.backbones_extra import TridentResNet
+    from panoswintransformerobjectdetection_torch.models.hrnet import HRFPN, HRNet
+    from panoswintransformerobjectdetection_torch.models.mask_head import MaskIoUHead
+    defaults = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(17)
+    errs = {}
+    try:
+        hrnet = torch.nn.Sequential(HRNet(width=18), HRFPN((18, 36, 72, 144), 256))
+        trident = TridentResNet(depth=50)
+        head = MaskIoUHead(80, 256)
+        cases = (("HRNet-W18 + HRFPN", hrnet, (torch.randn((2, 72, 104, 3), generator=g),)),
+                 ("TridentResNet-50", trident, (torch.randn((2, 64, 96, 3), generator=g),)),
+                 ("MaskIoUHead", head, (torch.randn((16, 14, 14, 256), generator=g),
+                                        torch.rand((16, 28, 28), generator=g))))
+        for seed, (name, module, args) in enumerate(cases):
+            init_weights(module, 170 + seed)
+            perturb_batch_norms(module, 180 + seed)
+            with torch.no_grad():
+                ref = module.eval()(*args)
+                out = module.to(dev)(*(a.to(dev) for a in args))
+            ref, out = (x if isinstance(x, tuple) else (x,) for x in (ref, out))
+            errs[name] = max(check(f"17d {name} output {i}, card vs CPU", o.cpu(), r,
+                                   1e-4 * max(1.0, float(r.abs().max())))
+                             / max(1.0, float(r.abs().max())) for i, (o, r) in
+                             enumerate(zip(out, ref)))
+            module.cpu()
+        path = write_cnn_reference_pth(ZOO_NANO_MS, directory, 3, "17d_ms")
+        images = torch.randn((2, 64, 128, 3), generator=g)
+        shapes = torch.tensor([[64.0, 128.0], [60.0, 120.0]])
+        sf = torch.tensor([[1.0] * 4, [1.25] * 4])
+        dets = [init_detector(ZOO_NANO_MS, path, device=d).simple_test_masks(
+            images.to(d), shapes.to(d), sf.to(d))[0] for d in (dev, "cpu")]
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = defaults
+    as_dicts = [[{"boxes": t.boxes[i][t.mask[i]].cpu().numpy(),
+                  "scores": t.scores[i][t.mask[i]].cpu().numpy(),
+                  "labels": t.labels[i][t.mask[i]].cpu().numpy()} for i in range(2)]
+                for t in dets]
+    n = [len(d["boxes"]) for d in as_dicts[1]]
+    if not sum(n):
+        raise AssertionError("17d: the nano Mask Scoring R-CNN found nothing on the CPU")
+    box_err, score_err = match_detections(*as_dicts, 1e-3, 1e-5,
+                                          "17d nano Mask Scoring R-CNN")
+    errs["nano Mask Scoring R-CNN"] = {"detections": n, "box": box_err, "score": score_err}
+    print(f"    (17d) card vs CPU, f32, TF32 off: largest output error / max(1, max|ref|): "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items() if not isinstance(v, dict))
+          + f" (tolerance 1e-4); the nano Mask Scoring R-CNN's {n} rescored detections, boxes "
+          f"within {box_err:.3g} px (1e-3), scores within {score_err:.3g} (1e-5)")
+    return errs
+
+
+def zoo_path(dev, ident, counters, ra, seed):
+    """Phase 17 (module docstring).  Returns the record, the kernel rows and
+    the launches of its main paths by (direction, entry, bins)."""
+    f32, bf16 = ra.ENTRIES[torch.float32], ra.ENTRIES[torch.bfloat16]
+    f32_b = ra.BACKWARD_ENTRIES[torch.float32]
+    at7 = {"forward": {(f32, 7): 1}, "backward": {(f32_b, 7): 1}}
+    at7_14 = {"forward": {(f32, 7): 1, (f32, 14): 1}, "backward": {(f32_b, 7): 1, (f32_b, 14): 1}}
+    launches, rec, seconds, rows = {}, {}, {}, []
+
+    def count(direction, entry, by_size):
+        for o, n in by_size.items():
+            launches[(direction, entry, o)] = launches.get((direction, entry, o), 0) + n
+
+    def timed(label, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        seconds[label] = time.perf_counter() - t0
+        return out
+
+    with tempfile.TemporaryDirectory() as directory:
+        rec["17a"], k3 = timed("17a", lambda: resnet_eval(
+            dev, ident, counters, ra, seed, directory, ZOO_HRNET_MASK, "17a", True, (7, 14),
+            frames=ZOO_FRAMES, name="HRNet-W32"))
+        count("forward", f32, rec["17a"]["k3_launches_by_size"])
+        rows += k3
+        rec["17a_cascade"], k3 = timed("17a_cascade", lambda: resnet_cascade_requests(
+            dev, ident, counters, ra, directory, ZOO_HRNET_CASCADE, "17a_cascade", ZOO_REQUESTS,
+            "HRNet-W32", stage_rows=True))
+        count("forward", bf16, rec["17a_cascade"]["k3_launches_by_size"])
+        rows += k3
+        for config, label, by_entry, kw in (
+                (ZOO_HRNET_MASK, "17b_hrnet", at7_14, {"masks": True}),
+                (ZOO_MS, "17b_ms", at7_14, {"masks": True, "capture": 14}),
+                (ZOO_TRIDENT, "17b_trident", at7, {"unreached": trident_unreached})):
+            rec[label], n, sampled = timed(label, lambda: resnet_train_loop(
+                dev, ident, counters, ra, seed, directory, config, label, by_entry,
+                frames=ZOO_FRAMES, **kw))
+            for key, v in n.items():
+                launches[key] = launches.get(key, 0) + v
+            if label == "17b_ms":
+                rois, shapes, feats = sampled
+                rois = rois.float().contiguous()
+                what = (f"17b: K3 o=14 f32 on the {rois.shape[0]} positive RoIs the first step "
+                        "sampled")
+                rows.append(k3_record(ra, feats, rois, (4, 8, 16, 32), 14,
+                                      "roi_align o=14 float32 (K3), Mask Scoring R-CNN sampled "
+                                      "positives", what))
+                cot = torch.from_numpy(np.random.default_rng(37).standard_normal(
+                    (rois.shape[0], 14, 14, shapes[0][-1])).astype(np.float32)).to(dev)
+                rows.append(k3_backward_f32_record(
+                    ra, cot, rois, shapes, (4, 8, 16, 32),
+                    "roi_align_backward o=14 f32 (K3 backward), Mask Scoring R-CNN sampled "
+                    "positives", what.replace("K3", "K3's backward")))
+                back = rows[-1]
+                print(f"  {back['name']}: kernel {back['ms']:.4f} ms "
+                      f"({back['bound_ms'] / back['ms']:.3f} of its {back['bound_ms']:.4f} ms "
+                      f"bound, {back['bound_by']}), autograd through the twin "
+                      f"{back['plain_ms']:.4f} ms, no single PyTorch call computes it")
+                del feats, sampled
+        rec["17c_ms"], _ = timed("17c_ms", lambda: resnet_eval(
+            dev, ident, counters, ra, seed, directory, ZOO_MS, "17c_ms", True, (),
+            frames=ZOO_FRAMES, name="ResNet-50 Mask Scoring R-CNN", extra=ms_rescoring))
+        count("forward", f32, rec["17c_ms"]["k3_launches_by_size"])
+        rec["17c_trident"], k3 = timed("17c_trident", lambda: resnet_eval(
+            dev, ident, counters, ra, seed, directory, ZOO_TRIDENT, "17c_trident", False, (7,),
+            frames=ZOO_FRAMES, name="TridentResNet-50"))
+        count("forward", f32, rec["17c_trident"]["k3_launches_by_size"])
+        rows += k3
+        rec["17d"] = timed("17d", lambda: zoo_card_vs_cpu(dev, directory))
+    rec["seconds"] = seconds
+    print("    phase 17 seconds by part: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    rec["launches_by_entry"] = {f"{d} {e} o={o}": n for (d, e, o), n in sorted(launches.items())}
+    rec["card"] = ident
+    return rec, rows, launches
+
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Drive the PyTorch port on one CUDA card.")
     parser.add_argument("--seed", type=int, default=0,
-                        help="seed of the synthetic frames and boxes of phases 7-15")
+                        help="seed of the synthetic frames and boxes of phases 7-17")
     parser.add_argument("--dist-child", nargs=2, metavar=("PART", "DIR"), default=None,
                         help="run one process of phase 15's part PART (15a, 15b or 15c) "
                              "under torchrun's environment, with its files in DIR")
@@ -5254,7 +5526,25 @@ def main(argv=None) -> int:
         else:
             n = v2_launches.get((direction, rec.get("entry"), rec.get("out_size", 7)), 0)
         rec["launches_panoswin_v2"] = n
-    print("[17] records")
+    print("[17] the rest of the CNN-backbone two-stage zoo on the card: (a) the HRNet-W32 Mask "
+          "R-CNN (f32) through the eval loop and the bf16 HRNet-W32 Cascade Mask R-CNN; (b) the "
+          "HRNet-W32 Mask R-CNN, the R-50 Mask Scoring R-CNN and TridentNet through "
+          "train_detector; (c) Mask Scoring R-CNN and TridentNet through the eval loop; (d) card "
+          "vs CPU in f32 with TF32 off; PyTorch's TF32 defaults elsewhere")
+    zoo, zoo_rows, zoo_launches = zoo_path(dev, ident, counters, ra, args.seed)
+    for rec in zoo_rows:
+        for key in records[0]:
+            if key.startswith("launches_"):
+                rec[key] = 0
+    records += zoo_rows
+    # phase 17's main paths: every K3 row by its direction, entry and bins
+    for rec in records:
+        direction = directions.get(rec.get("shares_kernel_of", rec["name"]))
+        rec["launches_cnn_zoo"] = (zoo_launches.get(
+            (direction, rec.get("entry"), rec.get("out_size", 7)), 0) if direction else 0)
+    for rec in zoo_rows:
+        rec["launches"] = rec["launches_cnn_zoo"]
+    print("[18] records")
     print(json.dumps({"evaluation": {k: v for k, v in evaluation.items() if k != "k1_f32"}}))
     print(json.dumps({"training_loop": loop}))
     print(json.dumps({"mask_rcnn": masks}))
@@ -5265,6 +5555,7 @@ def main(argv=None) -> int:
     print(json.dumps({"resnet_training": resnet_training}))
     print(json.dumps({"distributed": distributed}))
     print(json.dumps({"panoswin_v2": panoswin_v2}))
+    print(json.dumps({"cnn_zoo": zoo}))
     print(json.dumps({"kernels": records}))
     print(ident)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

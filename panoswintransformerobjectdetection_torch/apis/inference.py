@@ -21,14 +21,17 @@ from ..data.transforms import Compose, Normalize, Pad, Resize
 from ..device import resolve_device
 from ..flagship import init_weights
 from ..models.cascade import CascadeMaskRCNN, CascadeRCNN
-from ..models.detectors import BACKBONES, MaskRCNN, PanoFasterRCNN
+from ..models.detectors import (BACKBONES, NECKS, MaskRCNN, MaskScoringRCNN,
+                                PanoFasterRCNN)
 from ..models.roi_head import BBOX_HEADS
 from ..runtime.checkpoint import load_reference_weights, load_torch_state_dict
 from ..runtime.config import load_config
 
 DETECTOR_TYPES = {"PanoFasterRCNN": PanoFasterRCNN, "FasterRCNN": PanoFasterRCNN,
                   "MaskRCNN": MaskRCNN, "CascadeRCNN": CascadeRCNN,
-                  "CascadeMaskRCNN": CascadeMaskRCNN}
+                  "CascadeMaskRCNN": CascadeMaskRCNN, "MaskScoringRCNN": MaskScoringRCNN,
+                  # JAX registers it as a plain `TwoStageDetector` (`detectors.py:654`)
+                  "TridentFasterRCNN": PanoFasterRCNN}
 COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # `TwoStageDetector` fields (JAX `models/detectors.py:73-105`) that the port
 # takes only at these values: other values select PISA, RoI extractors or
@@ -43,11 +46,12 @@ _ZOO = "is not ported yet (ROADMAP.md, Queue 1, item 17)"
 
 
 def build_detector_from_cfg(cfg: dict) -> PanoFasterRCNN:
-    """A config's `model` dict -> `PanoFasterRCNN`, `MaskRCNN`, `CascadeRCNN`
-    or `CascadeMaskRCNN` (random weights as constructed), with a PanoSwin, a
-    stock Swin, a ResNet, a ResNeXt or a RegNet backbone, each computing in
-    `compute_dtype` (the JAX package's CNN backbones take none), and a
-    Shared2FC or a Shared4Conv1FC bbox head.
+    """A config's `model` dict -> `PanoFasterRCNN` (also for
+    `TridentFasterRCNN`), `MaskRCNN`, `MaskScoringRCNN`, `CascadeRCNN` or
+    `CascadeMaskRCNN` (random weights as constructed), with a backbone of
+    `models/detectors.BACKBONES` and an FPN or HRFPN neck, each computing in
+    `compute_dtype` (the JAX package's CNN backbones and HRFPN take none),
+    and a Shared2FC or a Shared4Conv1FC bbox head.
     Types and options that the port does not implement raise
     `NotImplementedError`; `pretrained` (a weight-init directive of the
     training API) is dropped."""
@@ -68,11 +72,11 @@ def build_detector_from_cfg(cfg: dict) -> PanoFasterRCNN:
         raise NotImplementedError(f"backbone type {cfg['model']['backbone']['type']!r} {_ZOO}")
     neck = model.pop("neck", None)
     if neck is not None:
-        if not isinstance(neck, dict) or neck.get("type", "FPN") != "FPN":
+        if not isinstance(neck, dict) or neck.get("type", "FPN") not in NECKS:
             raise NotImplementedError(f"neck {neck!r} {_ZOO}")
         neck = dict(neck)
-        neck.pop("type", None)
-        for key, default in _FPN_DEFAULT_ONLY.items():
+        defaults = _FPN_DEFAULT_ONLY if neck.get("type", "FPN") == "FPN" else {}
+        for key, default in defaults.items():
             if neck.pop(key, default) != default:
                 raise NotImplementedError(f"FPN option {key}={cfg['model']['neck'][key]!r} {_ZOO}")
     dtype = model.pop("compute_dtype", None)

@@ -42,8 +42,25 @@ first, not the last; no radix groups in ResNeSt's conv, its `fc1` and
 computes: a reference Res2Net or ResNeSt `.pth` loads into neither (a
 known divergence, ROADMAP.md).  Compute types, BatchNorm (live in train
 mode unless `norm_eval`) and layout as `models/resnet.py`; none of these
-backbones takes `frozen_stages`, as in JAX.  TridentResNet is not ported
-(ROADMAP.md, Queue 1, item 17c).
+backbones takes `frozen_stages`, as in JAX.
+
+- `TridentBlock`, `TridentResNet` (depth 50 or 101): a ResNet whose res4
+  is tridented, as the JAX package's is: its first block is a plain
+  stride-2 `Bottleneck` with a downsample, whose output feeds three
+  branches; every later res4 block shares `conv1`, `conv3` and one 3 x 3
+  kernel (`conv2.weight`) across the branches, which run it at dilations
+  1, 2 and 3 (padding = dilation), each with BatchNorms of its own
+  (`bn{1,2,3}.{b}`), no downsample.  Only the middle branch goes on to
+  res5, in training too.  The other two change nothing but their
+  BatchNorms' running statistics, and only where BatchNorm is live: there
+  they are computed, without gradient (JAX's gradient of them is zero);
+  otherwise the middle branch runs alone.  `num_trident_blocks` is taken
+  and not read, as in JAX: every res4 block after the first is a trident
+  block.  The reference's `TridentResNet` makes res4's first block a
+  trident block too and shares one norm a layer across the branches, so
+  its res4 norms' keys lack the branch index (a known divergence,
+  ROADMAP.md); the first block's keys, and every other stage's, are the
+  reference's.
 """
 
 from typing import Dict, Optional, Sequence
@@ -53,8 +70,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .layers import conv, dense
-from .resnet import (CNNBackbone, ResidualBlock, batch_norm, check_plugins, downsample,
-                     max_pool_stem)
+from .resnet import (Bottleneck, CNNBackbone, ResidualBlock, batch_norm, check_plugins,
+                     downsample, max_pool_stem)
 
 REGNET_ARCH: Dict[str, dict] = {
     # widths / depths per stage and the group width of the RegNetX presets
@@ -293,5 +310,87 @@ class ResNeSt(CNNBackbone):
     pool = staticmethod(max_pool_stem)
 
 
+TRIDENT_DILATIONS = (1, 2, 3)
+# the branch that goes on to res5, and the others
+TRIDENT_TEST_BRANCH = 1
+OUTER_BRANCHES = tuple(b for b in range(len(TRIDENT_DILATIONS)) if b != TRIDENT_TEST_BRANCH)
+
+
+class TridentBlock(nn.Module):
+    """A trident bottleneck of `planes` (4 * planes channels in and out):
+    `branch(x, b, live)` runs branch b, of dilation `TRIDENT_DILATIONS[b]`."""
+
+    expansion = 4
+
+    def __init__(self, planes: int, dtype=None):
+        super().__init__()
+        inplanes = planes * self.expansion
+        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
+        self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
+        self.conv3 = nn.Conv2d(planes, inplanes, 1, bias=False)
+        for n, c in ((1, planes), (2, planes), (3, inplanes)):
+            self.add_module(f"bn{n}", nn.ModuleList(nn.BatchNorm2d(c) for _ in TRIDENT_DILATIONS))
+        self.dtype = dtype
+
+    def branch(self, x, b: int, live: bool = False):
+        dt, d = self.dtype, TRIDENT_DILATIONS[b]
+        y = torch.relu(batch_norm(self.bn1[b], conv(self.conv1, x, dt), dt, live))
+        ct = dt or torch.promote_types(y.dtype, self.conv2.weight.dtype)
+        y = F.conv2d(y.to(ct), self.conv2.weight.to(ct), padding=d, dilation=d)
+        y = torch.relu(batch_norm(self.bn2[b], y, dt, live))
+        y = batch_norm(self.bn3[b], conv(self.conv3, y, dt), dt, live)
+        return torch.relu(y + x.to(dt or torch.float32))
+
+
+class TridentResNet(CNNBackbone):
+    """ResNet-50/101 with a tridented res4: stage i gives `256 * 2**i`
+    channels at stride `4 * 2**i`."""
+
+    def __init__(self, depth: int = 50, num_trident_blocks: int = 3,
+                 out_indices: Sequence[int] = (0, 1, 2, 3), norm_eval: bool = True, dtype=None):
+        super().__init__()
+        if depth not in RES2NET_DEPTHS:
+            raise ValueError(f"TridentResNet depth must be one of {sorted(RES2NET_DEPTHS)}, "
+                             f"got {depth}")
+        self.conv1 = nn.Conv2d(3, 64, 7, 2, padding=3, bias=False)
+        self.bn1 = nn.BatchNorm2d(64)
+        inplanes, layers = 64, []
+        for i, d in enumerate(RES2NET_DEPTHS[depth]):
+            planes = 64 * 2 ** i
+            blocks = [Bottleneck(inplanes, planes, 2 if i > 0 else 1, with_downsample=True,
+                                 dtype=dtype)]
+            blocks += [TridentBlock(planes, dtype=dtype) if i == 2 else
+                       Bottleneck(planes * 4, planes, dtype=dtype) for _ in range(d - 1)]
+            inplanes = planes * 4
+            layers.append(nn.Sequential(*blocks))
+            self.add_module(f"layer{i + 1}", layers[-1])
+        self.stages = layers
+        self.out_indices = tuple(out_indices)
+        self.norm_eval = norm_eval
+        self.dtype = dtype
+
+    pool = staticmethod(max_pool_stem)
+
+    def forward_from_embed(self, x):
+        live = self.live_bn()
+        x = x.permute(0, 3, 1, 2)
+        outs = []
+        for i, stage in enumerate(self.stages):
+            x = stage[0](x, live)
+            if i == 2:
+                side = [x, x] if live else []
+                for block in stage[1:]:
+                    with torch.no_grad():
+                        side = [block.branch(y, b, live) for y, b in zip(side, OUTER_BRANCHES)]
+                    x = block.branch(x, TRIDENT_TEST_BRANCH, live)
+            else:
+                for block in stage[1:]:
+                    x = block(x, live)
+            if i in self.out_indices:
+                outs.append(x.permute(0, 2, 3, 1))
+        return tuple(outs)
+
+
 __all__ = ["REGNET_ARCH", "conv_groups", "RegBlock", "RegNet", "RES2NET_DEPTHS", "Res2Block",
-           "Res2Net", "SplitAttentionConv", "ResNeStBlock", "ResNeSt"]
+           "Res2Net", "SplitAttentionConv", "ResNeStBlock", "ResNeSt", "TRIDENT_DILATIONS",
+           "TRIDENT_TEST_BRANCH", "OUTER_BRANCHES", "TridentBlock", "TridentResNet"]

@@ -7,15 +7,17 @@ test configuration, the two steps of test-time augmentation
 (`extract_proposals`, `bbox_for_rois`) and `forward_train` (the random
 sampler and the L1, GIoU or IoU box loss; `check_train_cfg` refuses the
 other training options); and `MaskRCNN`'s mask branch, at test time
-(`simple_test_masks`) and in training (the mask loss of `forward_train`).
+(`simple_test_masks`) and in training (the mask loss of `forward_train`);
+and `MaskScoringRCNN`, which adds the mask-IoU head to both.
 The backbone is a PanoSwin
 (`models/panoswin.py`; the v-variant `models/panoswin_v2.py`, which takes
 each image's `pano_ratio_v`, and its v1 revision), a stock Swin
 (`models/swin.py`), a ResNet, ResNeXt
-(`models/resnet.py`), RegNet, Res2Net or ResNeSt
-(`models/backbones_extra.py`), at test time and in training.  Submodule names
+(`models/resnet.py`), RegNet, Res2Net, ResNeSt or TridentResNet
+(`models/backbones_extra.py`) or HRNet (`models/hrnet.py`), at test time
+and in training; the neck an FPN or, for HRNet, an HRFPN.  Submodule names
 follow the reference's state-dict keys (`backbone.`, `neck.`, `rpn_head.`,
-`roi_head.bbox_head.`, `roi_head.mask_head.`).
+`roi_head.bbox_head.`, `roi_head.mask_head.`, `roi_head.mask_iou_head.`).
 """
 
 from typing import Callable, Dict, Optional, Sequence, Tuple
@@ -29,9 +31,11 @@ from ..core.sampler import sampler_noise
 from ..ops.nms import DetResult
 from ..ops.roi_align import multilevel_roi_align_dense, roi_align
 from ..parallel.dist import shard_rows, world
-from .backbones_extra import RegNet, Res2Net, ResNeSt
+from .backbones_extra import RegNet, Res2Net, ResNeSt, TridentResNet
 from .fpn import FPN
-from .mask_head import FCNMaskHead, mask_head_loss, mask_targets
+from .hrnet import HRFPN, HRNet
+from .mask_head import (FCNMaskHead, MaskIoUHead, mask_head_loss, mask_iou_loss,
+                        mask_iou_targets, mask_targets)
 from .panoswin import PanoSwinTransformer
 from .panoswin_v1 import PanoSwinTransformerV1
 from .panoswin_v2 import PanoSwinTransformerV2
@@ -45,7 +49,8 @@ BACKBONES = {"PanoSwinTransformer": PanoSwinTransformer,
              "PanoSwinTransformerV2": PanoSwinTransformerV2,
              "PanoSwinTransformerV1": PanoSwinTransformerV1, "SwinTransformer": SwinTransformer,
              "ResNet": ResNet, "ResNeXt": ResNeXt, "RegNet": RegNet, "Res2Net": Res2Net,
-             "ResNeSt": ResNeSt}
+             "ResNeSt": ResNeSt, "TridentResNet": TridentResNet, "HRNet": HRNet}
+NECKS = {"FPN": FPN, "HRFPN": HRFPN}
 
 
 def default_train_cfg() -> dict:
@@ -80,6 +85,11 @@ TRAIN_STAGES = ("stem", "backbone", "fpn", "rpn_head", "rpn_loss", "proposals", 
 # The stages of one `forward_train` of a detector with a mask head, given
 # `gt_masks`: those of `TRAIN_STAGES`, then the mask branch.
 MASK_TRAIN_STAGES = TRAIN_STAGES + ("mask_roi_align", "mask_head", "mask_targets", "mask_loss")
+# Mask Scoring R-CNN's: those of `MASK_STAGES` and `MASK_TRAIN_STAGES`, then
+# the mask-IoU head (with its rescoring at test time, its target and loss in
+# training).
+MASK_SCORING_STAGES = MASK_STAGES + ("mask_iou",)
+MASK_SCORING_TRAIN_STAGES = MASK_TRAIN_STAGES + ("mask_iou",)
 
 
 def check_train_cfg(train_cfg: Optional[dict]) -> None:
@@ -140,7 +150,8 @@ class PanoFasterRCNN(nn.Module):
         adds the FCN mask head (`roi_head.mask_head`), which
         `simple_test_masks` runs on `mask_roi_size` bins a side.
         `bbox_head`: the bbox head's config (`roi_head.build_bbox_head`;
-        Shared2FC when None)."""
+        Shared2FC when None).  `neck`: the neck's arguments, with its `type`
+        (one of `NECKS`; FPN when absent)."""
         super().__init__()
         if roi_align not in ("direct", "dense"):
             raise ValueError(f"roi_align must be 'direct' or 'dense', got {roi_align!r}")
@@ -149,7 +160,7 @@ class PanoFasterRCNN(nn.Module):
             **backbone, dtype=compute_dtype)
         neck = dict(neck or {"in_channels": (96, 192, 384, 768), "out_channels": 256,
                              "num_outs": 5})
-        self.neck = FPN(**neck, dtype=compute_dtype)
+        self.neck = NECKS[neck.pop("type", "FPN")](**neck, dtype=compute_dtype)
         out_ch = neck["out_channels"]
         self.rpn_head = RPNHead(out_ch, 256, len(anchor_scales) * len(anchor_ratios),
                                 compute_dtype)
@@ -236,7 +247,7 @@ class PanoFasterRCNN(nn.Module):
         backbone (`_backbone`).  Inputs are moved to the model's device.
         Returns `loss_rpn_cls`, `loss_rpn_bbox`, `loss_cls`, `loss_bbox` and `acc`,
         and `loss_mask` where there is a mask head and `gt_masks`
-        (`_mask_loss`).
+        (`_mask_train_outputs`), and `loss_mask_iou` for a `MaskScoringRCNN`.
 
         The two samplers' uniform noise is `noise["rpn"]`, two (B, anchors)
         tensors, and `noise["rcnn"]`, two (B, G + proposals) tensors; what is
@@ -307,16 +318,21 @@ class PanoFasterRCNN(nn.Module):
             cls, reg, samples, self.num_classes, target_stds=self.rcnn_target_stds,
             **reg_loss))
         if self.with_mask and gt_masks is not None:
-            out["loss_mask"] = self._mask_loss(feats, samples, torch.as_tensor(
+            mask_out = self._mask_train_outputs(feats, samples, torch.as_tensor(
                 gt_masks, device=self.device), gt_boxes, gt_valid, stage)
+            out["loss_mask"] = mask_out["loss_mask"]
+            self._extra_mask_losses(out, mask_out, stage)
         return out
 
-    def _mask_loss(self, feats, samples, gt_masks, gt_boxes, gt_valid, stage):
-        """The mask branch's loss (JAX `_mask_train_outputs`): the positives
-        are the first `num_samples * pos_fraction` slots of each image; their
-        features are pooled with kernel K3 at `mask_roi_size` bins, whose
-        backward is K3's backward; each slot's target is its ground truth of
-        largest IoU among the valid ones, cropped from `gt_masks`."""
+    def _mask_train_outputs(self, feats, samples, gt_masks, gt_boxes, gt_valid, stage):
+        """The mask branch's loss and what a subclass needs besides (JAX
+        `_mask_train_outputs`): the positives are the first `num_samples *
+        pos_fraction` slots of each image; their features (`mfeats`) are
+        pooled with kernel K3 at `mask_roi_size` bins, whose backward is K3's
+        backward; each slot's target (`targets`) is its ground truth of
+        largest IoU among the valid ones, cropped from `gt_masks`.  Returns
+        `loss_mask`, `mfeats`, `mlogits`, `targets`, `labels` and
+        `weights` (the slots' bbox weights)."""
         rc = self.train_cfg["rcnn"]
         pos_cap = int(rc["num_samples"] * rc["pos_fraction"])
         pos_rois = samples.rois[:, :pos_cap]                          # (B, Pc, 5)
@@ -332,9 +348,15 @@ class PanoFasterRCNN(nn.Module):
                                 2 * self.mask_roi_size)
 
         tgts = stage("mask_targets", targets)
-        return stage("mask_loss", lambda: mask_head_loss(
-            logits, tgts, samples.labels[:, :pos_cap].reshape(-1),
-            samples.bbox_weights[:, :pos_cap].reshape(-1)))
+        labels = samples.labels[:, :pos_cap].reshape(-1)
+        weights = samples.bbox_weights[:, :pos_cap].reshape(-1)
+        loss = stage("mask_loss", lambda: mask_head_loss(logits, tgts, labels, weights))
+        return {"loss_mask": loss, "mfeats": mfeats, "mlogits": logits, "targets": tgts,
+                "labels": labels, "weights": weights}
+
+    def _extra_mask_losses(self, out, mask_out, stage) -> None:
+        """A subclass's losses from the mask branch's outputs (JAX
+        `_extra_mask_losses`), added to `out`."""
 
     @torch.no_grad()
     def simple_test(self, images, img_shapes, scale_factors=None, pano_ratio_v=None,
@@ -405,7 +427,12 @@ class PanoFasterRCNN(nn.Module):
             sel = logits[torch.arange(B * K, device=logits.device), lab]
             return torch.sigmoid(sel).reshape(B, K, *sel.shape[1:])
 
-        return det, stage("mask_head", mask_head)
+        return self._score_masks(det, mfeats, stage("mask_head", mask_head), stage)
+
+    def _score_masks(self, det, mfeats, probs, stage):
+        """`simple_test_masks`'s result from the detections, the mask RoIs'
+        features and the probabilities (a subclass's hook)."""
+        return det, probs
 
     @torch.no_grad()
     def extract_proposals(self, images, img_shapes):
@@ -443,3 +470,56 @@ class MaskRCNN(PanoFasterRCNN):
 
     def __init__(self, *args, with_mask: bool = True, **kwargs):
         super().__init__(*args, with_mask=with_mask, **kwargs)
+
+
+class MaskScoringRCNN(MaskRCNN):
+    """Mask R-CNN with the mask-IoU head (the reference's and the JAX
+    package's `MaskScoringRCNN`, JAX `detectors.py:599-647`) under
+    `roi_head.mask_iou_head`.
+
+    Training (`_extra_mask_losses`): the head reads the mask branch's RoI
+    features and the sigmoid of each slot's own class's mask logits, neither
+    detached, so `loss_mask_iou`'s gradient reaches the mask head and,
+    through K3's backward at the mask size, the backbone: the crop's
+    cotangent is the sum of the two heads', one launch of K3's backward.
+    Its target, the IoU of the binarised prediction and target
+    (`mask_iou_targets`), is a constant; the loss is `mask_iou_loss`, the
+    slots weighted by their bbox weights.  The stages are
+    `MASK_SCORING_TRAIN_STAGES`.
+
+    Serving (`_score_masks`): the head reads the features and probabilities
+    of `simple_test_masks`'s own crop (the JAX function crops the same RoIs
+    again: the same values, and K3 at 14 runs once a batch here); each
+    valid slot's score becomes score * clip(IoU of its class, 0, 1), the
+    padded slots keep theirs.  The stages are `MASK_SCORING_STAGES`.  The
+    reference's `MaskScoringRoIHead` rescores only the segm results, and
+    measures the target's area in the whole gt mask (known divergences of
+    the JAX package, ROADMAP.md)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.roi_head.mask_iou_head = MaskIoUHead(
+            self.num_classes, self.roi_head.mask_head.convs[0].conv.in_channels,
+            roi_feat_size=self.mask_roi_size)
+
+    def _extra_mask_losses(self, out, mask_out, stage) -> None:
+        def loss():
+            R = mask_out["mlogits"].shape[0]
+            lab = mask_out["labels"].long().clamp(0, self.num_classes - 1)
+            probs = torch.sigmoid(mask_out["mlogits"][torch.arange(R, device=lab.device), lab])
+            pred = self.roi_head.mask_iou_head(mask_out["mfeats"], probs)
+            return mask_iou_loss(pred, mask_iou_targets(probs, mask_out["targets"]), lab,
+                                 mask_out["weights"])
+
+        out["loss_mask_iou"] = stage("mask_iou", loss)
+
+    def _score_masks(self, det, mfeats, probs, stage):
+        def rescore():
+            B, K = det.scores.shape
+            pred = self.roi_head.mask_iou_head(mfeats, probs.reshape(B * K, *probs.shape[2:]))
+            lab = det.labels.reshape(-1).long().clamp(0, self.num_classes - 1)
+            miou = pred[torch.arange(B * K, device=pred.device), lab].reshape(B, K)
+            scores = torch.where(det.mask, det.scores * miou.clamp(0.0, 1.0), det.scores)
+            return DetResult(det.boxes, scores, det.labels, det.mask), probs
+
+        return stage("mask_iou", rescore)

@@ -15,6 +15,18 @@ names are the reference checkpoint's (`roi_head.mask_head.convs.{i}.conv`,
 `.upsample`, `.conv_logits`).  The head has no compute type, as the JAX
 head has none: with float32 parameters it computes in float32 whatever the
 features' type.
+
+Mask Scoring R-CNN's head, its targets and its loss (`MaskIoUHead`,
+`mask_iou_targets`, `mask_iou_loss`, the JAX module's and the reference's
+`maskiou_head.py`): the selected class's 2s x 2s mask probabilities
+max-pooled 2 x 2 to s x s and concatenated after the s x s RoI features,
+4 x (3 x 3 conv + ReLU) of 256 channels, the last of stride 2, then `fcs.0`
+and `fcs.1` (1024, ReLU) and `fc_mask_iou` (a predicted mask IoU a class,
+no activation), under `roi_head.mask_iou_head.convs.{i}.conv`, `.fcs.{0,1}`
+and `.fc_mask_iou`, the reference's keys.  `fcs.0` reads the convs' output
+flattened as (C, h, w), the reference's order (the JAX head flattens (h, w,
+C); `runtime/checkpoint.from_jax_variables` reorders its kernel).  No
+compute type either: float32.
 """
 
 import torch
@@ -23,15 +35,15 @@ import torch.nn.functional as F
 
 from ..ops.roi_align import _axis_taps, _div
 from ..parallel.dist import all_reduce_sum
-from .layers import conv
+from .layers import conv, dense
 
 
 class _ConvModule(nn.Module):
     """Holds a conv under `.conv`, as the reference's `ConvModule` does."""
 
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int, stride: int = 1):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        self.conv = nn.Conv2d(in_channels, out_channels, 3, stride, padding=1)
 
 
 class FCNMaskHead(nn.Module):
@@ -147,5 +159,59 @@ def paste_mask_values(mask_probs: torch.Tensor, boxes: torch.Tensor, img_h: int,
     return torch.where(inside, val, torch.zeros((), device=dev))
 
 
+class MaskIoUHead(nn.Module):
+    NUM_CONVS, CONV_OUT, FC_OUT = 4, 256, 1024     # the JAX head's fixed widths
+
+    def __init__(self, num_classes: int = 80, in_channels: int = 256, roi_feat_size: int = 14):
+        super().__init__()
+        n, c = self.NUM_CONVS, self.CONV_OUT
+        self.convs = nn.ModuleList(_ConvModule(in_channels + 1 if i == 0 else c, c,
+                                               2 if i == n - 1 else 1) for i in range(n))
+        pooled = ((roi_feat_size + 1) // 2) ** 2
+        self.fcs = nn.ModuleList([nn.Linear(c * pooled, self.FC_OUT),
+                                  nn.Linear(self.FC_OUT, self.FC_OUT)])
+        self.fc_mask_iou = nn.Linear(self.FC_OUT, num_classes)
+
+    def forward(self, roi_feats: torch.Tensor, mask_probs: torch.Tensor) -> torch.Tensor:
+        """roi_feats (R, s, s, C); mask_probs (R, 2s, 2s), the selected
+        class's probabilities -> (R, num_classes) predicted mask IoU, f32."""
+        dt = torch.promote_types(roi_feats.dtype, mask_probs.dtype)
+        pooled = F.max_pool2d(mask_probs[:, None].to(dt), 2, 2)
+        x = torch.cat([roi_feats.permute(0, 3, 1, 2).to(dt), pooled], dim=1)
+        for m in self.convs:
+            x = torch.relu(conv(m.conv, x, None))
+        x = x.flatten(1)
+        for fc in self.fcs:
+            x = torch.relu(dense(fc, x, None))
+        return dense(self.fc_mask_iou, x, None)
+
+
+@torch.no_grad()
+def mask_iou_targets(mask_probs: torch.Tensor, mask_targets: torch.Tensor) -> torch.Tensor:
+    """The IoU, inside each RoI, of the predicted mask (probabilities > 0.5)
+    and the RoI-cropped ground truth (> 0.5), the union at least 1e-6: (R,
+    m, m) each -> (R,) float32.  A constant of the step (no gradient)."""
+    p = (mask_probs > 0.5).float()
+    t = (mask_targets > 0.5).float()
+    inter = (p * t).sum((-2, -1))
+    union = (p.sum((-2, -1)) + t.sum((-2, -1)) - inter).clamp(min=1e-6)
+    return inter / union
+
+
+def mask_iou_loss(iou_pred: torch.Tensor, iou_target: torch.Tensor, labels: torch.Tensor,
+                  weights: torch.Tensor) -> torch.Tensor:
+    """0.5 * (the predicted IoU of each RoI's class - its target)^2 (labels
+    clipped to the classes: a padded slot carries the background label),
+    weighted by `weights` and divided by their sum (at least 1), the global
+    batch's under a process group, as `mask_head_loss` divides.  iou_pred
+    (R, classes); iou_target, labels, weights (R,)."""
+    R = iou_pred.shape[0]
+    lab = labels.long().clamp(0, iou_pred.shape[1] - 1)
+    sel = iou_pred[torch.arange(R, device=iou_pred.device), lab]
+    w = weights.to(sel.dtype)
+    per = 0.5 * (sel - iou_target.to(sel.dtype)) ** 2
+    return (per * w).sum() / all_reduce_sum(w.sum()).clamp(min=1.0)
+
+
 __all__ = ["FCNMaskHead", "mask_targets", "mask_head_loss", "paste_masks",
-           "paste_mask_values"]
+           "paste_mask_values", "MaskIoUHead", "mask_iou_targets", "mask_iou_loss"]

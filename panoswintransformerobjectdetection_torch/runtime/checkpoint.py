@@ -7,8 +7,9 @@ BatchNorm folding for inference.
 (params, batch_stats) trees of a JAX `PanoFasterRCNN` or `MaskRCNN`, with a
 PanoSwin (the simple variant, or the v-variant and its v1 revision,
 `from_jax_panoswin_v2_backbone`), a stock Swin, or a ResNet, ResNeXt,
-RegNet, Res2Net or ResNeSt backbone (`from_jax_cnn_backbone`), as numpy
-arrays and returns a state dict
+RegNet, Res2Net, ResNeSt, TridentResNet or HRNet backbone
+(`from_jax_cnn_backbone`), an FPN or HRFPN neck, and the mask-IoU head of
+a `MaskScoringRCNN`, as numpy arrays and returns a state dict
 in the reference's key layout, which the port's detector loads with
 `load_state_dict`.  Layouts: conv HWIO -> OIHW, Dense (in, out) -> Linear
 (out, in), LayerNorm scale -> weight, `shared_fc0`'s input reordered from
@@ -20,8 +21,9 @@ its kernel; torch's does).  A cascade's `cascade_head_{t}` goes to
 left out.  The JAX `convert_detector` converts no mask
 head key, so the JAX package cannot load a reference Mask R-CNN `.pth`
 whole, and its `load_weights` reads every backbone but PanoSwin's with the
-Swin keys, so it cannot load a reference ResNet detector `.pth` either; the
-port loads both with `load_state_dict`.
+Swin keys, so it cannot load a reference ResNet (or HRNet) detector `.pth`
+either, and it has no HRNet or trident converter; the port loads each with
+`load_state_dict`.
 
 A reference checkpoint loads without a converter, since the port's keys
 are the reference's (`load_torch_state_dict`, `load_reference_weights`,
@@ -262,12 +264,20 @@ def from_jax_cnn_backbone(params: Dict[str, Any],
     `downsample_conv`, `downsample_bn` to `downsample.0`, `.1` (ResNeSt's
     `.1`, `.2`, after its average pool); flax BatchNorm's `scale`, `bias`
     and statistics `mean`, `var` to `weight`, `bias`, `running_mean`,
-    `running_var` (the JAX `convert_resnet_backbone` reversed)."""
+    `running_var` (the JAX `convert_resnet_backbone` reversed).  A
+    TridentResNet's res4 entry `layer3_entry` goes to `layer3.0`, and a
+    trident block's `conv2_kernel` to `conv2.weight`, its `bn{n}_{b}` to
+    `bn{n}.{b}`; an HRNet (`stage2_m0` present) adds `conv2`, `bn2` and its
+    stages (`from_jax_hrnet`)."""
     sd: Dict[str, torch.Tensor] = {}
 
     def conv_bn(src, stats, conv, bn, key, bn_key):
         _conv(sd, key, src[conv])
         _bn(sd, bn_key, src[bn], stats[bn], np.shape(src[conv]["kernel"])[-1])
+
+    def block_name(i, j):
+        name = f"layer{i}_{j}"
+        return f"layer{i}_entry" if j == 0 and f"layer{i}_entry" in params else name
 
     if "stem0" in params:
         for i in range(3):
@@ -276,10 +286,22 @@ def from_jax_cnn_backbone(params: Dict[str, Any],
     else:
         conv_bn(params, batch_stats, "conv1", "bn1", "conv1", "bn1")
     i = 1
-    while f"layer{i}_0" in params:
+    while block_name(i, 0) in params:
         j = 0
-        while f"layer{i}_{j}" in params:
-            blk, st, key = params[f"layer{i}_{j}"], batch_stats[f"layer{i}_{j}"], f"layer{i}.{j}"
+        while block_name(i, j) in params:
+            name = block_name(i, j)
+            blk, st, key = params[name], batch_stats[name], f"layer{i}.{j}"
+            if "conv2_kernel" in blk:                       # a trident block
+                _conv(sd, f"{key}.conv1", blk["conv1"])
+                _conv(sd, f"{key}.conv2", {"kernel": blk["conv2_kernel"]})
+                _conv(sd, f"{key}.conv3", blk["conv3"])
+                for n in (1, 2, 3):
+                    b = 0
+                    while f"bn{n}_{b}" in blk:
+                        _bn(sd, f"{key}.bn{n}.{b}", blk[f"bn{n}_{b}"], st[f"bn{n}_{b}"], 0)
+                        b += 1
+                j += 1
+                continue
             for n in (1, 2, 3):
                 if f"conv{n}" in blk:
                     conv_bn(blk, st, f"conv{n}", f"bn{n}", f"{key}.conv{n}", f"{key}.bn{n}")
@@ -300,7 +322,68 @@ def from_jax_cnn_backbone(params: Dict[str, Any],
                         f"{key}.downsample.{d + 1}")
             j += 1
         i += 1
+    if "stage2_m0" in params:
+        conv_bn(params, batch_stats, "conv2", "bn2", "conv2", "bn2")
+        from_jax_hrnet(sd, params, batch_stats)
     return sd
+
+
+def from_jax_hrnet(sd, params: Dict[str, Any], batch_stats: Dict[str, Any]) -> None:
+    """A JAX `HRNet`'s transitions and stages into `sd`, the reference's
+    keys: `t{s}_{b}_conv`, `_bn` to `transition{s + 1}.{b}.0`, `.1` where
+    branch b existed before stage s + 2, else to `.{b}.0.0`, `.0.1`;
+    `stage{n}_m{m}`'s blocks `b{bi}_{k}` to `stage{n}.{m}.branches.{bi}.{k}`
+    and its `fuse`'s `f{i}_{j}_conv`, `_bn` to `fuse_layers.{i}.{j}.0`,
+    `.1` and `f{i}_{j}_d{s}_conv`, `_bn` to `fuse_layers.{i}.{j}.{s}.0`,
+    `.1`."""
+    def conv_bn(src, stats, name, key):
+        _conv(sd, key + ".0", src[name + "_conv"])
+        _bn(sd, key + ".1", src[name + "_bn"], stats[name + "_bn"], 0)
+
+    s = 0
+    while f"stage{s + 2}_m0" in params:
+        for b in range(s + 2):
+            if f"t{s}_{b}_conv" in params:
+                conv_bn(params, batch_stats, f"t{s}_{b}",
+                        f"transition{s + 1}.{b}" + (".0" if b == s + 1 else ""))
+        n, m = s + 2, 0
+        while f"stage{n}_m{m}" in params:
+            mod, st, key = params[f"stage{n}_m{m}"], batch_stats[f"stage{n}_m{m}"], f"stage{n}.{m}"
+            for name in mod:
+                if name.startswith("b"):
+                    bi, k = name[1:].split("_")
+                    blk, bst = mod[name], st[name]
+                    for c in (1, 2):
+                        _conv(sd, f"{key}.branches.{bi}.{k}.conv{c}", blk[f"conv{c}"])
+                        _bn(sd, f"{key}.branches.{bi}.{k}.bn{c}", blk[f"bn{c}"], bst[f"bn{c}"], 0)
+            fuse, fst = mod["fuse"], st["fuse"]
+            for name in fuse:
+                if name.endswith("_conv"):
+                    parts = name[1:-len("_conv")].split("_")    # i, j[, d{s}]
+                    path = f"{key}.fuse_layers.{parts[0]}.{parts[1]}"
+                    if len(parts) == 3:
+                        path += "." + parts[2][1:]
+                    conv_bn(fuse, fst, name[:-len("_conv")], path)
+            m += 1
+        s += 1
+
+
+def _mask_iou_head(sd, key, p):
+    """A JAX `MaskIoUHead`: `conv{i}` to `convs.{i}.conv`, `fc0` (its input
+    the last (stride-2) conv's (h, w, C) flatten, reordered to (C, h, w))
+    and `fc1` to `fcs.{0,1}`, `fc_mask_iou`."""
+    i = 0
+    while f"conv{i}" in p:
+        _conv(sd, f"{key}.convs.{i}.conv", p[f"conv{i}"])
+        i += 1
+    c = np.shape(p[f"conv{i - 1}"]["kernel"])[-1]
+    k = np.asarray(p["fc0"]["kernel"])                         # (h*w*C, out)
+    out_dim, side = k.shape[1], math.isqrt(k.shape[0] // c)
+    w = k.T.reshape(out_dim, side, side, c).transpose(0, 3, 1, 2)
+    sd[key + ".fcs.0.weight"] = _t(w.reshape(out_dim, -1))
+    sd[key + ".fcs.0.bias"] = _t(p["fc0"]["bias"])
+    _linear(sd, key + ".fcs.1", p["fc1"])
+    _linear(sd, key + ".fc_mask_iou", p["fc_mask_iou"])
 
 
 def _mask_head(sd, key, p):
@@ -350,9 +433,12 @@ def from_jax_variables(params: Dict[str, Any], batch_stats: Dict[str, Any],
         bb_sd = from_jax_backbone(bb, batch_stats.get("backbone_m", {}))
     sd = {"backbone." + k: v for k, v in bb_sd.items()}
     neck = params["neck_m"]
+    if "reduction" in neck:                                 # HRFPN
+        _conv(sd, "neck.reduction_conv.conv", neck["reduction"])
     i = 0
-    while f"lateral_{i}" in neck:
-        _conv(sd, f"neck.lateral_convs.{i}.conv", neck[f"lateral_{i}"])
+    while f"fpn_{i}" in neck:
+        if f"lateral_{i}" in neck:
+            _conv(sd, f"neck.lateral_convs.{i}.conv", neck[f"lateral_{i}"])
         _conv(sd, f"neck.fpn_convs.{i}.conv", neck[f"fpn_{i}"])
         i += 1
     for name in ("rpn_conv", "rpn_cls", "rpn_reg"):
@@ -366,6 +452,8 @@ def from_jax_variables(params: Dict[str, Any], batch_stats: Dict[str, Any],
         _bbox_head(sd, "roi_head.bbox_head", params["bbox_head_m"], roi_size)
     if "mask_head_m" in params:
         _mask_head(sd, "roi_head.mask_head", params["mask_head_m"])
+    if "mask_iou_head_m" in params:
+        _mask_iou_head(sd, "roi_head.mask_iou_head", params["mask_iou_head_m"])
     return sd
 
 

@@ -4,7 +4,9 @@ its own that imports neither PyTorch nor the port: the worker processes of
 they start with JAX, flax and the JAX package's models only.
 `torch_port_common` re-exports what the tests import."""
 
+import contextlib
 import functools
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -68,8 +70,24 @@ def perturb_batch_norm(variables, seed: int):
                 batch_stats=walk(variables["batch_stats"], True))
 
 
+@contextlib.contextmanager
+def patched(patches):
+    """Each (module, attribute, value) of `patches` set for the block (a
+    narrower JAX module patched in at run time), restored after it."""
+    saved = []
+    try:
+        for module, name, value in patches:
+            m = importlib.import_module(module)
+            saved.append((m, name, getattr(m, name)))
+            setattr(m, name, value)
+        yield
+    finally:
+        for m, name, value in reversed(saved):
+            setattr(m, name, value)
+
+
 @functools.lru_cache(maxsize=None)
-def _cnn_variables(jcls, kwargs, size, seed):
+def _cnn_variables(jcls, kwargs, size, seed, patches=()):
     """numpy variables of the JAX backbone `jcls(**dict(kwargs))` for
     `cnn_reference`, made once a process for every `norm_eval` and
     `frozen_stages`."""
@@ -78,11 +96,16 @@ def _cnn_variables(jcls, kwargs, size, seed):
     return jax.tree.map(lambda a: np.asarray(a, np.float32), variables)
 
 
-def cnn_reference(jcls, kwargs, size, seed, mode):
+def cnn_reference(jcls, kwargs, size, seed, mode, patches=()):
     """The JAX side of `cnn_train_pair`: the variables, the frames, and the
     stage outputs, running statistics, `jax.vjp` gradients and cotangents
-    of one train-mode call, as numpy arrays."""
-    variables = _cnn_variables(jcls, kwargs, size, seed)
+    of one train-mode call, as numpy arrays; under `patches` (`patched`)."""
+    with patched(patches):
+        return _cnn_reference(jcls, kwargs, size, seed, mode, patches)
+
+
+def _cnn_reference(jcls, kwargs, size, seed, mode, patches):
+    variables = _cnn_variables(jcls, kwargs, size, seed, patches)
     jmodule = jcls(**dict(kwargs), **dict(mode))
     x = np.random.default_rng(seed + 2).standard_normal((2,) + size + (3,))
 

@@ -374,8 +374,6 @@ def test_plugin_configs_raise_naming_item_17d(name):
 
 
 @pytest.mark.parametrize("backbone,match", [
-    ({"type": "HRNet", "extra": {}}, "HRNet.*item 17"),
-    ({"type": "TridentResNet", "depth": 50}, "TridentResNet.*item 17"),
     ({"type": "HourglassNet"}, "HourglassNet.*item 17"),
     ({"type": "ResNet", "depth": 50, "dcn": {"type": "DCN"},
       "stage_with_dcn": (False, True, True, True)}, "dcn.*item 17d"),
@@ -384,9 +382,10 @@ def test_plugin_configs_raise_naming_item_17d(name):
 ])
 def test_training_refusals_name_item_17c(backbone, match):
     """The CNN backbones that the port trains now (ResNet, ResNeXt, RegNet,
-    Res2Net, ResNeSt) no longer raise; the backbones not ported yet (HRNet,
-    TridentResNet, HourglassNet: item 17c's later slices) and the DCN and
-    GCB options (item 17d) still raise when the detector is built, naming
-    their item, so neither serving nor training reaches them."""
+    Res2Net, ResNeSt, HRNet, TridentResNet) no longer raise; the backbone
+    not ported yet (HourglassNet, which only CornerNet uses: item 17d) and
+    the DCN and GCB options (item 17d) still raise when the detector is
+    built, naming their item, so neither serving nor training reaches
+    them."""
     with pytest.raises(NotImplementedError, match=match):
         build_detector_from_cfg({"model": dict(TINY_R50, backbone=backbone)})

@@ -384,8 +384,9 @@ _CNN_REFERENCES = {}
 _POOLS = {}
 
 
-def _cnn_key(jcls, kwargs, size, seed, mode):
-    return (jcls, tuple(sorted(kwargs.items())), tuple(size), seed, tuple(sorted(mode.items())))
+def _cnn_key(jcls, kwargs, size, seed, mode, patches=()):
+    return (jcls, tuple(sorted(kwargs.items())), tuple(size), seed, tuple(sorted(mode.items())),
+            tuple(patches))
 
 
 def in_background(fn, *args) -> concurrent.futures.Future:
@@ -412,13 +413,13 @@ def in_processes(fn, *args) -> concurrent.futures.Future:
 
 def prefetch_cnn_references(cases):
     """Start the JAX side of each `cnn_train_pair(jcls, tcls, kwargs, size,
-    seed, **mode)` case, given as (jcls, kwargs, size, seed, mode), in the
-    worker processes (`in_processes`), in order: three references trace and
-    compile side by side while this process compares the ones done.
-    `cnn_train_pair` takes a case's reference from here, or computes it
-    where none was started."""
-    for jcls, kwargs, size, seed, mode in cases:
-        key = _cnn_key(jcls, kwargs, size, seed, mode)
+    seed, [patches,] **mode)` case, given as (jcls, kwargs, size, seed, mode[,
+    patches]), in the worker processes (`in_processes`), in order: three
+    references trace and compile side by side while this process compares
+    the ones done.  `cnn_train_pair` takes a case's reference from here, or
+    computes it where none was started."""
+    for case in cases:
+        key = _cnn_key(*case)
         if key not in _CNN_REFERENCES:
             _CNN_REFERENCES[key] = in_processes(cnn_reference, *key)
 
@@ -431,7 +432,7 @@ def selected_params(request, function: str):
             if item.module is request.module and item.originalname == function]
 
 
-def cnn_train_pair(jcls, tcls, kwargs, size, seed: int, **mode):
+def cnn_train_pair(jcls, tcls, kwargs, size, seed: int, patches=(), **mode):
     """One train-mode call of the JAX CNN backbone `jcls(**kwargs, **mode)`
     and of the port's `tcls(**kwargs, **mode, dtype=torch.float64)` on 2
     seeded frames of `size` (h, w), in float64 on both sides (JAX under
@@ -444,9 +445,11 @@ def cnn_train_pair(jcls, tcls, kwargs, size, seed: int, **mode):
     (`jax.vjp`; the port's None where no gradient reached it) and the state
     dict after the call (flax's `mutable=["batch_stats"]`) of both, as
     numpy arrays by the port's keys.  The JAX side comes from
-    `prefetch_cnn_references` where the case was started there."""
+    `prefetch_cnn_references` where the case was started there.  `patches`:
+    (module, attribute, value) triples that the JAX side runs under
+    (`jax_cnn_reference.patched`); the caller patches the port alike."""
     from panoswintransformerobjectdetection_torch.runtime.checkpoint import from_jax_cnn_backbone
-    key = _cnn_key(jcls, kwargs, size, seed, mode)
+    key = _cnn_key(jcls, kwargs, size, seed, mode, patches)
     ref = (_CNN_REFERENCES.pop(key).result() if key in _CNN_REFERENCES
            else cnn_reference(*key))
     variables, x, outs, stats, grads, cots = (ref[k] for k in ("variables", "x", "outs", "stats",
