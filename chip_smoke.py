@@ -10,14 +10,16 @@ Phases (each raises on failure, so any failure exits non-zero):
   3. each kernel against its twin at the flagship's shapes, f32 and bf16,
      with its device time (`time_ms`), the twin's and a library call's (K2 at
      all four stage shapes, each in the record's `stages`; K5's entry point
-     checked at a small shape).  K1, K2 and K4 run bf16 on the tensor cores
-     and f32 on the CUDA cores, K3 bf16 through vectorised gathers and f32
-     one thread a channel, K3's backward bf16 owner computes (each pixel
-     written once, deterministic) and f32 with atomics; their first
-     versions are timed at bf16 beside them (`previous_ms`), with each
-     one's share of the bound, K4 also on the dense route's own level-0
-     weights, K3's backward on random RoIs here and, in phase 5, on the
-     RoIs that a training step samples;
+     checked at a small shape).  K1 runs bf16 on the tensor cores and f32
+     on them in 3xTF32, K2 and K4 bf16 on the tensor cores and f32 on the
+     CUDA cores, K3 both types through vectorised gathers, K3's backward
+     bf16 owner computes (each pixel written once, deterministic) and f32
+     with atomics; their first versions are timed at bf16 beside them
+     (`previous_ms`), K1's and K3's at f32 too, with each one's share of the
+     bound (K1's f32 against two bounds: FFMA and 3xTF32), K2's and K4's
+     f32 entries beside SDPA and cuBLAS in f32, K4 also on the dense route's
+     own level-0 weights, K3's backward on random RoIs here and, in phase
+     5, on the RoIs that a training step samples;
   4. small-input f32 checks of the card's path against the CPU path, plain
      and fused attention; then the flagship (PanoSwin-T Faster R-CNN, random
      weights from seed 0, BN folded, bf16) `simple_test` on 2 x 512 x 1024
@@ -357,6 +359,7 @@ TRAIN_ROIS = 128 + 512              # sampled RoIs an image: positives' cap + sa
 # transposed, since the maps are wider than tall, so stage one contracts W.
 CROP_LEVELS = ((W // 4, H // 4), (W // 8, H // 8), (W // 16, H // 16), (W // 32, H // 32))
 F32_OPS_PER_S = 67e12               # f32 outside the tensor cores, same source
+TF32_OPS_PER_S = 495e12             # dense TF32 tensor-core rate, same source
 # Fused against plain backbone, bf16: the routes round differently (q scaled
 # in bf16 or the f32 product scaled; softmax or e / sum), and each of the 12
 # blocks carries the difference on: 16 bf16 units of max|ref|.
@@ -430,22 +433,84 @@ def rpn_like_rois(rng, n_per_image, height=H, width=W):
     return torch.tensor(np.asarray(rois, np.float32))
 
 
-def previous_kernel(module, entry, argtypes):
+def previous_kernel(module, entry, argtypes, code=1):
     """The first version's CUDA-core entry, called directly at bf16 (dtype
-    code 1) so that the redesign is timed against it in the same run; no
-    wrapper calls it at bf16."""
+    code 1) or f32 (0), so that a redesign is timed against it in the same
+    run; no wrapper calls it at a type whose redesign exists."""
     from panoswintransformerobjectdetection_torch.ops import cuda_build
     fn = cuda_build.function(module, entry, argtypes)
 
     def launch(*args):
-        cuda_build.check(fn(*args, 1, torch.cuda.current_stream().cuda_stream),
-                         f"{entry} (first version, bf16)")
+        cuda_build.check(fn(*args, code, torch.cuda.current_stream().cuda_stream),
+                         f"{entry} (first version, {('f32', 'bf16')[code]})")
     return launch
 
 
 def rates(ops, ms, bound):
     """'x TFLOP/s, y of the bound' for a kernel time."""
     return f"{ops / ms / 1e9:.1f} TFLOP/s, {bound / ms:.3f} of the bound"
+
+
+def k1_f32_times(stem, x, w, what):
+    """K1's f32 entry on x (B, H, W, 3) with `w` (`stem_weights` at f32)
+    against its twin, timed beside its first version (`stem.FIRST_VERSION`
+    at f32, the CUDA cores, also held against the twin), the twin and
+    cuDNN's two-conv chain; the caller turns TF32 off (an f32 comparison).
+    Two bounds, each the larger of its operations' time and the bytes' (x
+    in, h1 out, at 3.35 TB/s): the f32 operations at the CUDA cores' 67
+    TFLOP/s, and three TF32 products of each at the tensor cores' 495 (what
+    the 3xTF32 entry runs on); `bound_ms` is the lower and the share is
+    given against it."""
+    ref = stem.stem_conv_plain(x, w.w0, w.b0, w.w1, w.b1)
+    got = stem.stem_conv(x, w)
+    entry = stem.stem_conv.last_entry
+    if entry != stem.ENTRIES[torch.float32]:
+        raise AssertionError(f"K1 at f32 launched {entry}")
+    tol = 1e-4 * max(1.0, float(ref.abs().max()))
+    err = check(f"K1 f32 {what} {tuple(x.shape)}, entry {entry}, against the twin", got, ref, tol)
+    b, h, wd, _ = x.shape
+    c0, c1 = w.w0.shape[0], w.w1.shape[0]
+    first = previous_kernel("stem_conv", stem.FIRST_VERSION, stem.LAUNCH_ARGTYPES, code=0)
+    w0k, w1k = stem.cuda_core_layout(w.w0, w.w1, torch.float32)
+    prev_out = torch.empty_like(got)
+
+    def first_version():
+        first(x.data_ptr(), w0k.data_ptr(), w.b0.data_ptr(), w1k.data_ptr(), w.b1.data_ptr(),
+              prev_out.data_ptr(), b, h, wd, c0, c1, w1k.shape[2])
+
+    xn = x.permute(0, 3, 1, 2).contiguous()
+    conv = torch.nn.functional.conv2d
+
+    def library():
+        return torch.relu(conv(torch.relu(conv(xn, w.w0, w.b0, padding=1)), w.w1, w.b1,
+                               padding=1))
+
+    ms = time_ms(lambda: stem.stem_conv(x, w), 10)
+    previous_ms = time_ms(first_version, 10)
+    previous_err = check(f"K1 first version (CUDA cores) f32 {what}, against the twin", prev_out,
+                         ref, tol)
+    plain_ms = time_ms(lambda: stem.stem_conv_plain(x, w.w0, w.b0, w.w1, w.b1), 3)
+    library_ms = time_ms(library, 10)
+    nbytes = (x.numel() + b * c1 * h * wd) * 4
+    ops = 2 * b * h * wd * (27 * c0 + 9 * c0 * c1)
+    ffma_ms = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+    tf32x3_ms = max(nbytes / HBM_BYTES_PER_S, 3 * ops / TF32_OPS_PER_S) * 1e3
+    bound = min(ffma_ms, tf32x3_ms)
+    rec = {"shape": list(x.shape), "c0": c0, "c1": c1, "entry": entry, "max_abs_err": err,
+           "tolerance": tol, "ms": ms, "previous_entry": stem.FIRST_VERSION,
+           "previous_ms": previous_ms, "previous_max_abs_err": previous_err,
+           "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound,
+           "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= min(
+               ops / F32_OPS_PER_S, 3 * ops / TF32_OPS_PER_S) else "operations",
+           "bound_ffma_ms": ffma_ms, "bound_3xtf32_ms": tf32x3_ms,
+           "share_of_bound": bound / ms, "faster_than_library": ms < library_ms}
+    print(f"    K1 f32 entry {what} {tuple(x.shape)}, c0 {c0} c1 {c1}: 3xTF32 kernel {ms:.4f} ms "
+          f"(max|diff| {err:.3g}, {rates(ops, ms, bound)}), first version {previous_ms:.4f} ms "
+          f"(max|diff| {previous_err:.3g}, {rates(ops, previous_ms, bound)}), twin "
+          f"{plain_ms:.4f} ms, cuDNN f32 two-conv chain (TF32 off) {library_ms:.4f} ms "
+          f"(kernel {'faster' if ms < library_ms else 'SLOWER'}), bound {bound:.4f} ms (3xTF32 "
+          f"at 495 TFLOP/s; {ffma_ms:.4f} ms by FFMA at 67 TFLOP/s, {ffma_ms / ms:.3f} of it)")
+    return rec
 
 
 def kernel_k1(dev, stem):
@@ -456,55 +521,55 @@ def kernel_k1(dev, stem):
     w1 = torch.randn((c1, c0, 3, 3), generator=g) / (9 * c0) ** 0.5
     b0 = torch.randn(c0, generator=g) * 0.1
     b1 = torch.randn(c1, generator=g) * 0.1
-    rec = {}
-    for dt in (torch.float32, torch.bfloat16):
-        args = [x.to(dt).to(dev)] + [t.to(dev) for t in (w0, b0, w1, b1)]
-        packed = stem.stem_weights(*args[1:], dt)
-        got = stem.stem_conv(args[0], packed)
-        ref = stem.stem_conv_plain(*args)
-        torch.cuda.synchronize()
-        scale = float(ref.float().abs().max())
-        tol = 1e-4 * max(1.0, scale) if dt == torch.float32 else BF16_ULPS * scale
-        err = check(f"K1 stem_conv {str(dt)[6:]} (2,512,1024,3) c0 32 c1 64, entry "
-                    f"{stem.stem_conv.last_entry}", got, ref, tol)
-        if dt == torch.bfloat16:
-            xn = args[0].permute(0, 3, 1, 2).contiguous()
-            w0b, w1b = w0.to(dt).to(dev), w1.to(dt).to(dev)
-            b0b, b1b = b0.to(dt).to(dev), b1.to(dt).to(dev)
-            conv = torch.nn.functional.conv2d
+    weights = [t.to(dev) for t in (w0, b0, w1, b1)]
+    f32 = k1_f32_times(stem, x.to(dev), stem.stem_weights(*weights, torch.float32),
+                       "at the flagship's shape")
+    dt = torch.bfloat16
+    args = [x.to(dt).to(dev)] + weights
+    packed = stem.stem_weights(*weights, dt)
+    got = stem.stem_conv(args[0], packed)
+    ref = stem.stem_conv_plain(*args)
+    torch.cuda.synchronize()
+    tol = BF16_ULPS * float(ref.float().abs().max())
+    err = check(f"K1 stem_conv bfloat16 (2,512,1024,3) c0 32 c1 64, entry "
+                f"{stem.stem_conv.last_entry}", got, ref, tol)
+    xn = args[0].permute(0, 3, 1, 2).contiguous()
+    w0b, w1b = w0.to(dt).to(dev), w1.to(dt).to(dev)
+    b0b, b1b = b0.to(dt).to(dev), b1.to(dt).to(dev)
+    conv = torch.nn.functional.conv2d
 
-            def library():
-                h0 = torch.relu(conv(xn, w0b, b0b, padding=1))
-                return torch.relu(conv(h0, w1b, b1b, padding=1))
+    def library():
+        h0 = torch.relu(conv(xn, w0b, b0b, padding=1))
+        return torch.relu(conv(h0, w1b, b1b, padding=1))
 
-            w0k, w1k = stem.cuda_core_layout(args[1], args[3], dt)
-            previous = previous_kernel("stem_conv", stem.ENTRIES[torch.float32],
-                                       stem.LAUNCH_ARGTYPES)
-            prev_out = torch.empty_like(got)
+    w0k, w1k = stem.cuda_core_layout(args[1], args[3], dt)
+    previous = previous_kernel("stem_conv", stem.FIRST_VERSION, stem.LAUNCH_ARGTYPES)
+    prev_out = torch.empty_like(got)
 
-            def first_version():
-                previous(args[0].data_ptr(), w0k.data_ptr(), packed.b0.data_ptr(),
-                         w1k.data_ptr(), packed.b1.data_ptr(), prev_out.data_ptr(), B, H, W,
-                         c0, c1, w1k.shape[2])
+    def first_version():
+        previous(args[0].data_ptr(), w0k.data_ptr(), packed.b0.data_ptr(),
+                 w1k.data_ptr(), packed.b1.data_ptr(), prev_out.data_ptr(), B, H, W,
+                 c0, c1, w1k.shape[2])
 
-            ms = time_ms(lambda: stem.stem_conv(args[0], packed), 20)
-            previous_ms = time_ms(first_version, 20)
-            check("K1 first version (CUDA cores) bf16, against the twin", prev_out, ref, tol)
-            plain_ms = time_ms(lambda: stem.stem_conv_plain(*args), 5)
-            library_ms = time_ms(library, 20)
-            nbytes = (x.numel() + B * c1 * H * W) * 2
-            ops = 2 * B * H * W * (27 * c0 + 9 * c0 * c1)
-            bound = max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3
-            rec = {"name": "stem_conv (K1)", "route": "cuda",
-                   "source": "panoswintransformerobjectdetection_torch/csrc/stem_conv.cu",
-                   "replaces": "panoswintransformerobjectdetection_tpu/ops/stem_conv.py:61",
-                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                   "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / BF16_OPS_PER_S
-                   else "operations", "library_ms": library_ms, "previous_ms": previous_ms}
-            print(f"  K1 bf16: tensor-core kernel {ms:.4f} ms ({rates(ops, ms, bound)}), first "
-                  f"version {previous_ms:.4f} ms ({rates(ops, previous_ms, bound)}), twin "
-                  f"{plain_ms:.4f} ms, two-conv2d chain {library_ms:.4f} ms, bound "
-                  f"{bound:.4f} ms ({rec['bound_by']})")
+    ms = time_ms(lambda: stem.stem_conv(args[0], packed), 20)
+    previous_ms = time_ms(first_version, 20)
+    check("K1 first version (CUDA cores) bf16, against the twin", prev_out, ref, tol)
+    plain_ms = time_ms(lambda: stem.stem_conv_plain(*args), 5)
+    library_ms = time_ms(library, 20)
+    nbytes = (x.numel() + B * c1 * H * W) * 2
+    ops = 2 * B * H * W * (27 * c0 + 9 * c0 * c1)
+    bound = max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3
+    rec = {"name": "stem_conv (K1)", "route": "cuda",
+           "source": "panoswintransformerobjectdetection_torch/csrc/stem_conv.cu",
+           "replaces": "panoswintransformerobjectdetection_tpu/ops/stem_conv.py:61",
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+           "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / BF16_OPS_PER_S
+           else "operations", "library_ms": library_ms, "previous_ms": previous_ms,
+           "f32": f32}
+    print(f"  K1 bf16: tensor-core kernel {ms:.4f} ms ({rates(ops, ms, bound)}), first "
+          f"version {previous_ms:.4f} ms ({rates(ops, previous_ms, bound)}), twin "
+          f"{plain_ms:.4f} ms, two-conv2d chain {library_ms:.4f} ms, bound "
+          f"{bound:.4f} ms ({rec['bound_by']})")
     return rec
 
 
@@ -516,51 +581,48 @@ def kernel_k3(dev, ra):
     base = [torch.from_numpy(rng.standard_normal((B, H // s, W // s, C)).astype(np.float32))
             for s in (4, 8, 16, 32)]
     strides = (4, 8, 16, 32)
-    previous = cuda_build.function("roi_align", ra.ENTRIES[torch.float32], ra.LAUNCH_ARGTYPES)
-    rec = {}
-    for dt in (torch.float32, torch.bfloat16):
-        feats = [f.to(dt).to(dev) for f in base]
-        got = ra.roi_align(feats, rois, strides)
-        ref = ra.roi_align_plain(feats, rois, strides)
-        torch.cuda.synchronize()
-        # same operations in the same order as the twin: exact
-        err = check(f"K3 roi_align {str(dt)[6:]} 4 levels C 256, 2 x 1000 RoIs, entry "
-                    f"{ra.roi_align.last_entry}", got, ref, 0.0)
-        if dt == torch.bfloat16:
-            levels = ra.level_struct(feats, strides)
-            prev_out = torch.empty_like(got)
+    f32 = k3_record(ra, [f.to(dev) for f in base], rois, strides, 7,
+                    "roi_align o=7 float32 (K3)", "K3 roi_align float32 4 levels C 256, "
+                    "2 x 1000 RoIs")
+    feats = [f.bfloat16().to(dev) for f in base]
+    got = ra.roi_align(feats, rois, strides)
+    ref = ra.roi_align_plain(feats, rois, strides)
+    torch.cuda.synchronize()
+    # same operations in the same order as the twin: exact
+    err = check(f"K3 roi_align bfloat16 4 levels C 256, 2 x 1000 RoIs, entry "
+                f"{ra.roi_align.last_entry}", got, ref, 0.0)
+    previous = cuda_build.function("roi_align", ra.FIRST_VERSION, ra.LAUNCH_ARGTYPES)
+    levels = ra.level_struct(feats, strides)
+    prev_out = torch.empty_like(got)
 
-            def first_version():
-                # the first version's entry at dtype code 1 (bfloat16); no wrapper calls it so
-                cuda_build.check(previous(ctypes.byref(levels), rois.data_ptr(),
-                                          prev_out.data_ptr(), rois.shape[0], B, C, 1, 1,
-                                          float(ra.FINEST_SCALE), 7,
-                                          torch.cuda.current_stream().cuda_stream),
-                                 "roi_align_launch (first version, bf16)")
+    def first_version():
+        # the first version's entry at dtype code 1 (bfloat16); no wrapper calls it so
+        cuda_build.check(previous(ctypes.byref(levels), rois.data_ptr(), prev_out.data_ptr(),
+                                  rois.shape[0], B, C, 1, 1, float(ra.FINEST_SCALE), 7,
+                                  torch.cuda.current_stream().cuda_stream),
+                         "roi_align_launch (first version, bf16)")
 
-            ms = time_ms(lambda: ra.roi_align(feats, rois, strides), 20)
-            previous_ms = time_ms(first_version, 20)
-            check("K3 first version bf16, against the twin", prev_out, ref, 0.0)
-            plain_ms = time_ms(lambda: ra.roi_align_plain(feats, rois, strides), 3)
-            # the bytes this run's RoIs need: each feature row that some tap
-            # with a nonzero weight reads, once; the rois; the output
-            rows, w1, w2 = ra.tap_rows(feats, rois, strides)
-            need = (w1[:, :, :, None, None] != 0) & (w2[:, None, None] != 0)
-            nbytes = (torch.unique(rows[need]).numel() * C * 2 + rois.numel() * 4
-                      + got.numel() * 2)
-            ops = rois.shape[0] * 49 * C * (16 + 4) * 2
-            bound = max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3
-            rec = {"name": "roi_align (K3)", "route": "cuda",
-                   "source": "panoswintransformerobjectdetection_torch/csrc/roi_align.cu",
-                   "replaces": "panoswintransformerobjectdetection_tpu/ops/roi_align_pallas.py:205",
-                   "entry": ra.roi_align.last_entry, "max_abs_err": err, "ms": ms,
-                   "plain_ms": plain_ms, "bound_ms": bound,
-                   "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / BF16_OPS_PER_S
-                   else "operations", "library_ms": None, "previous_ms": previous_ms}
-    print(f"  K3 bf16: vectorised kernel {rec['ms']:.4f} ms ({rec['bound_ms'] / rec['ms']:.3f} "
-          f"of the bound), first version {rec['previous_ms']:.4f} ms "
-          f"({rec['bound_ms'] / rec['previous_ms']:.3f}), twin {rec['plain_ms']:.3f} ms, no "
-          f"single PyTorch call computes it, bound {rec['bound_ms']:.4f} ms")
+    ms = time_ms(lambda: ra.roi_align(feats, rois, strides), 20)
+    previous_ms = time_ms(first_version, 20)
+    check("K3 first version bf16, against the twin", prev_out, ref, 0.0)
+    plain_ms = time_ms(lambda: ra.roi_align_plain(feats, rois, strides), 3)
+    # the bytes this run's RoIs need: each feature row that some tap with a
+    # nonzero weight reads, once; the rois; the output
+    rows, w1, w2 = ra.tap_rows(feats, rois, strides)
+    need = (w1[:, :, :, None, None] != 0) & (w2[:, None, None] != 0)
+    nbytes = torch.unique(rows[need]).numel() * C * 2 + rois.numel() * 4 + got.numel() * 2
+    ops = rois.shape[0] * 49 * C * (16 + 4) * 2
+    bound = max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3
+    rec = {"name": "roi_align (K3)", "route": "cuda",
+           "source": "panoswintransformerobjectdetection_torch/csrc/roi_align.cu",
+           "replaces": "panoswintransformerobjectdetection_tpu/ops/roi_align_pallas.py:205",
+           "entry": ra.roi_align.last_entry, "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound,
+           "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / BF16_OPS_PER_S
+           else "operations", "library_ms": None, "previous_ms": previous_ms, "f32": f32}
+    print(f"  K3 bf16: vectorised kernel {ms:.4f} ms ({bound / ms:.3f} of the bound), first "
+          f"version {previous_ms:.4f} ms ({bound / previous_ms:.3f}), twin {plain_ms:.3f} ms, "
+          f"no single PyTorch call computes it, bound {bound:.4f} ms")
     return rec
 
 
@@ -569,14 +631,34 @@ def k3_record(ra, feats, rois, strides, o, name, what):
     same operations in the same order), with its device time, the twin's
     and the bound: the bytes this run's RoIs need (each feature row that a
     tap of nonzero weight reads, once; the RoIs; the output) over the
-    memory rate, or its operations over the peak rate of its type.  Returns
-    a kernel record named `name` that shares K3's row."""
+    memory rate, or its operations over the peak rate of its type.  In f32
+    its first version (`ra.FIRST_VERSION`, one thread a channel) is held
+    against the twin and timed beside it on the same RoIs.  Returns a
+    kernel record named `name` that shares K3's row."""
+    from panoswintransformerobjectdetection_torch.ops import cuda_build
     got = ra.roi_align(feats, rois, strides, o)
     ref = ra.roi_align_plain(feats, rois, strides, o)
     torch.cuda.synchronize()
     entry = ra.roi_align.last_entry
     err = check(f"{what}, entry {entry}", got, ref, 0.0)
     ms = time_ms(lambda: ra.roi_align(feats, rois, strides, o), 20)
+    previous_ms = None
+    if got.dtype == torch.float32:
+        first = cuda_build.function("roi_align", ra.FIRST_VERSION, ra.LAUNCH_ARGTYPES)
+        maps = [f.contiguous() for f in feats]
+        levels = ra.level_struct(maps, strides)
+        prev_out = torch.empty_like(got)
+
+        def first_version():
+            # the first version at dtype code 0 (float32); no wrapper calls it
+            cuda_build.check(first(ctypes.byref(levels), rois.data_ptr(), prev_out.data_ptr(),
+                                   rois.shape[0], feats[0].shape[0], feats[0].shape[-1], 0,
+                                   int(ra._w_first(feats)), float(ra.FINEST_SCALE), o,
+                                   torch.cuda.current_stream().cuda_stream),
+                             f"{ra.FIRST_VERSION} (first version, f32)")
+
+        previous_ms = time_ms(first_version, 20)
+        check(f"{what}, first version {ra.FIRST_VERSION}", prev_out, ref, 0.0)
     plain_ms = time_ms(lambda: ra.roi_align_plain(feats, rois, strides, o), 3)
     rows, w1, w2 = ra.tap_rows(feats, rois, strides, o)
     need = (w1[:, :, :, None, None] != 0) & (w2[:, None, None] != 0)
@@ -594,7 +676,13 @@ def k3_record(ra, feats, rois, strides, o, name, what):
            "bound_ms": bound,
            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / peak else "operations",
            "library_ms": None}
-    print(f"  {name}: kernel {ms:.4f} ms ({bound / ms:.3f} of the bound), twin "
+    first = ""
+    if previous_ms is not None:
+        rec.update(previous_entry=ra.FIRST_VERSION, previous_ms=previous_ms,
+                   faster_than_previous=ms < previous_ms)
+        first = (f", first version {previous_ms:.4f} ms ({bound / previous_ms:.3f}; kernel "
+                 f"{'faster' if ms < previous_ms else 'SLOWER'})")
+    print(f"  {name}: kernel {ms:.4f} ms ({bound / ms:.3f} of the bound){first}, twin "
           f"{plain_ms:.3f} ms, no single PyTorch call computes it, bound {bound:.4f} ms "
           f"({rec['bound_by']}, {nbytes / 1e6:.1f} MB)")
     return rec
@@ -668,6 +756,27 @@ def attention_times(fa, entry, q, k, v, bias):
     return ms, previous_ms, plain_ms, library_ms, bound, "bytes" if by_bytes else "operations"
 
 
+def attention_f32_times(fa, q, k, v, bias):
+    """K2's f32 entry (`fa.ENTRIES[torch.float32]`, through
+    `packed_window_attention`) timed beside SDPA in f32 (its bias repeated
+    over the batch outside the timing; TF32 off), with the bound: the bytes
+    of q, k, v, the output and the bias over the memory rate, or the
+    operations at the CUDA cores' f32 rate."""
+    n, h, O, d = q.shape
+    scale = d ** -0.5
+    mask = bias.expand(n // bias.shape[0], *bias.shape).reshape(n, h, O, O)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ms = time_ms(lambda: fa.packed_window_attention(q, k, v, bias, scale), 20)
+    entry = fa.window_attention.last_entry
+    library_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=mask, scale=scale), 20)
+    nbytes = 4 * q.numel() * 4 + bias.numel() * 4
+    ops = 4 * n * h * O * O * d
+    by_bytes = nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
+    return {"entry": entry, "ms": ms, "library_ms": library_ms,
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3,
+            "bound_by": "bytes" if by_bytes else "operations"}
+
+
 def kernel_k2(dev, fa):
     """K2 at the flagship's four stage shapes; the record's top-level times
     are stage 0's, every stage's are in `stages`."""
@@ -682,6 +791,11 @@ def kernel_k2(dev, fa):
                         f"O {TOKENS}, d {HEAD_DIM}, nW {nW}), entry "
                         f"{fa.window_attention.last_entry}", got, ref, attention_tol(ref, dt))
             if dt != torch.bfloat16:
+                f32 = attention_f32_times(fa, q, k, v, bias)
+                print(f"  K2 f32 stage {stage}: f32 entry {f32['ms']:.4f} ms "
+                      f"({f32['bound_ms'] / f32['ms']:.3f} of the bound), SDPA f32 "
+                      f"{f32['library_ms']:.4f} ms, bound {f32['bound_ms']:.4f} ms "
+                      f"({f32['bound_by']})")
                 continue
             ms, previous_ms, plain_ms, library_ms, bound, by = attention_times(
                 fa, fa.packed_window_attention, q, k, v, bias)
@@ -693,7 +807,8 @@ def kernel_k2(dev, fa):
                            "ms": ms, "previous_ms": previous_ms, "plain_ms": plain_ms,
                            "library_ms": library_ms, "bound_ms": bound, "bound_by": by,
                            "share_of_bound": bound / ms,
-                           "launches_per_fused_request": K2_LAUNCHES_BY_STAGE[stage]})
+                           "launches_per_fused_request": K2_LAUNCHES_BY_STAGE[stage],
+                           "f32": f32})
     top = {key: stages[0][key] for key in ("entry", "ms", "previous_ms", "plain_ms",
                                            "library_ms", "bound_ms", "bound_by")}
     return {"name": "window_attention (K2)", "route": "cuda",
@@ -748,6 +863,34 @@ def crop_times(ra, args, previous):
             time_ms(library, 10))
 
 
+def crop_f32_times(ra, args):
+    """K4's f32 entry (`ra.CROP_ENTRIES[torch.float32]`) on f32 (feat, Wy,
+    Wx) timed beside cuBLAS's einsum pair in f32 (TF32 off), with the bound:
+    the operands and the output over the memory rate, or the operations at
+    the CUDA cores' f32 rate."""
+    feat, Wy, Wx = args
+    Bc, Hl, Wl, C = feat.shape
+    P = Wy.shape[1]
+
+    def library():
+        t = torch.einsum("bpoh,bhwc->bpowc", Wy, feat)
+        return torch.einsum("bpxw,bpowc->bpoxc", Wx, t)
+
+    ms = time_ms(lambda: ra.dense_crop(*args), 10)
+    entry = ra.dense_crop.last_entry
+    library_ms = time_ms(library, 10)
+    nbytes = 4 * (sum(a.numel() for a in args) + Bc * P * 49 * C)
+    ops = 2 * Bc * P * 7 * Hl * Wl * C + 2 * Bc * P * 49 * Wl * C
+    by_bytes = nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
+    rec = {"entry": entry, "ms": ms, "library_ms": library_ms,
+           "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3,
+           "bound_by": "bytes" if by_bytes else "operations"}
+    print(f"  K4 f32 level 0: f32 entry {ms:.4f} ms ({rec['bound_ms'] / ms:.3f} of the bound), "
+          f"cuBLAS f32 einsum pair (TF32 off) {library_ms:.4f} ms, bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+    return rec
+
+
 def kernel_k4(dev, ra):
     """K4 against its twin at the four levels of the flagship's training
     step (B 2, P 640, o 7, C 256), random weights.  Tolerance: f32 1e-5 *
@@ -775,6 +918,8 @@ def kernel_k4(dev, ra):
                         f"Wl {Wl}, C {C}), entry {ra.dense_crop.last_entry}", got, ref, tol)
             del got, ref
             if dt != torch.bfloat16:
+                if level == 0:
+                    f32 = crop_f32_times(ra, args)
                 continue
             ms, previous_ms, library_ms = crop_times(ra, args, previous)
             plain_ms = time_ms(lambda: ra.dense_crop_plain(*args), 3)
@@ -793,7 +938,7 @@ def kernel_k4(dev, ra):
                        "replaces": "panoswintransformerobjectdetection_tpu/ops/roi_align_pallas.py:52",
                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                        "bound_by": "bytes" if by_bytes else "operations",
-                       "library_ms": library_ms, "previous_ms": previous_ms}
+                       "library_ms": library_ms, "previous_ms": previous_ms, "f32": f32}
         del args
 
     # level 0 as the dense route calls it: every RoI, Wy zero for the RoIs of
@@ -1426,43 +1571,17 @@ def stage_timer(times):
 
 def k1_f32_at_eval_shape(stem, model, images):
     """K1's f32 entry on the model's own folded stem weights at the eval
-    batch's shape, against its twin, with its device time beside the twin's
-    and cuDNN's two-conv chain (TF32 off: an f32 comparison)."""
+    batch's shape, against its twin, with its device time beside its first
+    version's, the twin's and cuDNN's two-conv chain (TF32 off: an f32
+    comparison); see `k1_f32_times`."""
     defaults = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    w = model.backbone.patch_embed.kernel_weights(torch.float32)
-    x = images.float()
-    ref = stem.stem_conv_plain(x, w.w0, w.b0, w.w1, w.b1)
-    got = stem.stem_conv(x, w)
-    entry = stem.stem_conv.last_entry
-    if entry != stem.ENTRIES[torch.float32]:
-        raise AssertionError(f"K1 at f32 launched {entry}")
-    err = check(f"K1 f32 at the eval batch's shape {tuple(x.shape)}, entry {entry}, against "
-                "the twin", got, ref, 1e-4 * max(1.0, float(ref.abs().max())))
-    xn = x.permute(0, 3, 1, 2).contiguous()
-    conv = torch.nn.functional.conv2d
-
-    def library():
-        return torch.relu(conv(torch.relu(conv(xn, w.w0, w.b0, padding=1)), w.w1, w.b1,
-                               padding=1))
-
-    ms = time_ms(lambda: stem.stem_conv(x, w), 10)
-    plain_ms = time_ms(lambda: stem.stem_conv_plain(x, w.w0, w.b0, w.w1, w.b1), 3)
-    library_ms = time_ms(library, 10)
-    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = defaults
-    b, h, wd, _ = x.shape
-    c0, c1 = w.w0.shape[0], w.w1.shape[0]
-    nbytes = (x.numel() + b * c1 * h * wd) * 4
-    ops = 2 * b * h * wd * (27 * c0 + 9 * c0 * c1)
-    bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
-    rec = {"shape": list(x.shape), "c0": c0, "c1": c1, "entry": entry, "max_abs_err": err,
-           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound,
-           "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
-           else "operations"}
-    print(f"    K1 f32 entry at {tuple(x.shape)}, c0 {c0} c1 {c1}: kernel {ms:.4f} ms "
-          f"({rates(ops, ms, bound)}), twin {plain_ms:.4f} ms, cuDNN two-conv chain "
-          f"{library_ms:.4f} ms, bound {bound:.4f} ms ({rec['bound_by']})")
-    return rec
+    try:
+        return k1_f32_times(stem, images.float(),
+                            model.backbone.patch_embed.kernel_weights(torch.float32),
+                            "at the batch's shape")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = defaults
 
 
 def eval_indoor360(dev, ident, counters, stem, ra, seed, directory):
@@ -5284,7 +5403,8 @@ def main(argv=None) -> int:
                 print(f"    {name}: {line.strip()}")
 
     print("[3] kernels against their twins at the flagship's shapes.  K1 tolerance: f32 "
-          "1e-4 * max(1, max|ref|) (sums in another order); bf16 4 units of 2**-8 * "
+          "1e-4 * max(1, max|ref|) (3xTF32 sums in another order, the lo.lo term dropped); "
+          "bf16 4 units of 2**-8 * "
           "max|ref| (another f32 sum order can flip the bf16 rounding of an h0 value, "
           "and h1's own rounding adds one).  K3 tolerance 0: kernel and twin do the "
           "same operations in the same order.  K2 and K5: f32 1e-5 * max(1, max|ref|); "

@@ -57,12 +57,25 @@
 // to the scalar f32 arithmetic of the separable sums; a copy without the
 // loads took 58% of the time.
 //
-// float32 entry (`roi_align_launch`), the first version, f32 and bf16: the
-// wrapper calls it for float32; its bf16 instantiation is there so that
-// `chip_smoke.py` times the redesign against it.  One block per (RoI,
-// slice of 128 channels), one thread per channel, so every feature read is
-// coalesced along C in the NHWC maps; after the taps each thread walks the
-// O * O output bins with 16 scalar loads each.
+// float32 entry (`roi_align_f32_launch`): the bfloat16 entry's kernel, one
+// template over the element type, in f32.  A lane takes VEC = 4 channels,
+// one 16-byte load a tap (8 or 4 bytes where C or an address demands it),
+// so a warp covers 128 channels and C = 256 takes two slices in the grid's
+// y dimension; the stage-one reuse, the loads sent together and the order
+// of the additions are the bfloat16 entry's, with round_t the identity, so
+// the result is the twin's bit for bit.  What bounds it: bytes, as in bf16,
+// at twice the bytes: at 2 x 1000 RoIs on 800 x 1088 maps, C = 256, the
+// footprints a run's taps read and the 100 MB written take about 0.06 ms
+// at 3.35 TB/s.  As in bf16, the gathers' rate, not device memory, sets the
+// pace: a large RoI's 784 distinct taps are 800 KB of L1/L2 reads at C =
+// 256 in f32.
+//
+// The first version (`roi_align_launch`), f32 and bf16: no wrapper calls
+// it; it is there so that `chip_smoke.py` times both redesigns against it.
+// One block per (RoI, slice of 128 channels), one thread per channel, so
+// every feature read is coalesced along C in the NHWC maps; after the taps
+// each thread walks the O * O output bins with 16 scalar 4-byte loads each,
+// and no stage-one sum is shared between bins.
 //
 // At O = 14 (the mask head's 2 x 100 RoIs an 800 x 1088 batch, C = 256)
 // the function reads at most the RoIs' footprints and writes 200 * 196 *
@@ -355,55 +368,67 @@ namespace vec {
 __host__ __device__ constexpr int threads(int O) { return 32 * O; }
 __host__ __device__ constexpr int min_blocks(int O) { return threads(O) > 256 ? 1 : 2; }
 
-template <int VEC> struct Chunk;
-template <> struct Chunk<8> { using type = uint4; };
-template <> struct Chunk<4> { using type = uint2; };
-template <> struct Chunk<2> { using type = uint32_t; };
-template <> struct Chunk<1> { using type = uint16_t; };
+// An unsigned integer of BYTES bytes, the unit of one load or store.
+template <int BYTES> struct Bits;
+template <> struct Bits<16> { using type = uint4; };
+template <> struct Bits<8> { using type = uint2; };
+template <> struct Bits<4> { using type = uint32_t; };
+template <> struct Bits<2> { using type = uint16_t; };
 
-// Element e of VEC bf16 values held as one chunk, as a float.
-template <int VEC>
-__device__ __forceinline__ float element(const typename Chunk<VEC>::type& raw, int e) {
-  union { typename Chunk<VEC>::type raw; uint16_t h[VEC]; } u;
+// VEC neighbouring values of type T (bf16 or f32) as one chunk, and one of them.
+template <typename T, int VEC> using Chunk = typename Bits<int(sizeof(T)) * VEC>::type;
+template <typename T> using Word = typename Bits<int(sizeof(T))>::type;
+
+__device__ __forceinline__ float from_bits(uint16_t h) {
+  return __bfloat162float(__ushort_as_bfloat16(h));
+}
+__device__ __forceinline__ float from_bits(uint32_t w) { return __uint_as_float(w); }
+__device__ __forceinline__ void to_bits(float f, uint16_t& h) {
+  h = __bfloat16_as_ushort(__float2bfloat16_rn(f));
+}
+__device__ __forceinline__ void to_bits(float f, uint32_t& w) { w = __float_as_uint(f); }
+
+// Element e of VEC values of type T held as one chunk, as a float.
+template <typename T, int VEC>
+__device__ __forceinline__ float element(const Chunk<T, VEC>& raw, int e) {
+  union { Chunk<T, VEC> raw; Word<T> w[VEC]; } u;
   u.raw = raw;
-  return __bfloat162float(__ushort_as_bfloat16(u.h[e]));
+  return from_bits(u.w[e]);
 }
 
-template <int VEC>
-__device__ __forceinline__ void store(__nv_bfloat16* p, const float (&f)[VEC]) {
-  union { typename Chunk<VEC>::type raw; uint16_t e[VEC]; } u;
+template <typename T, int VEC>
+__device__ __forceinline__ void store(T* p, const float (&f)[VEC]) {
+  union { Chunk<T, VEC> raw; Word<T> w[VEC]; } u;
 #pragma unroll
-  for (int e = 0; e < VEC; ++e) u.e[e] = __bfloat16_as_ushort(__float2bfloat16_rn(f[e]));
-  *reinterpret_cast<typename Chunk<VEC>::type*>(p) = u.raw;
+  for (int e = 0; e < VEC; ++e) to_bits(f[e], u.w[e]);
+  *reinterpret_cast<Chunk<T, VEC>*>(p) = u.raw;
 }
 
-template <int VEC, int O>
+template <typename T, int VEC, int O>
 __global__ void __launch_bounds__(threads(O), min_blocks(O))
-roi_align_vec_kernel(RoiLevels levels, const float* __restrict__ rois,
-                     __nv_bfloat16* __restrict__ out, int batch, int C, int w_first,
-                     float finest_scale) {
+roi_align_vec_kernel(RoiLevels levels, const float* __restrict__ rois, T* __restrict__ out,
+                     int batch, int C, int w_first, float finest_scale) {
   __shared__ RoiTaps<O> taps;
   const int r = blockIdx.x;
-  roi_taps<__nv_bfloat16, O>(levels, rois + size_t(r) * 5, batch, finest_scale, taps);
+  roi_taps<T, O>(levels, rois + size_t(r) * 5, batch, finest_scale, taps);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int c = (blockIdx.y * 32 + lane) * VEC;
   if (c >= C) return;
-  __nv_bfloat16* ob = out + size_t(r) * O * O * C + c;
+  T* ob = out + size_t(r) * O * O * C + c;
   // output bin (oy, ox) of stage-one bin i and stage-two bin j
   auto bin = [&](int i, int j) { return size_t(w_first ? j * O + i : i * O + j) * C; };
   if (taps.batch < 0) {
     float zero[VEC];
 #pragma unroll
     for (int e = 0; e < VEC; ++e) zero[e] = 0.f;
-    for (int j = 0; j < O; ++j) store<VEC>(ob + bin(warp, j), zero);
+    for (int j = 0; j < O; ++j) store<T, VEC>(ob + bin(warp, j), zero);
     return;
   }
   const int a1 = w_first ? 1 : 0, a2 = 1 - a1;
   const int lvl = taps.level;
   const int Hl = levels.height[lvl], Wl = levels.width[lvl];
-  const __nv_bfloat16* f =
-      static_cast<const __nv_bfloat16*>(levels.feat[lvl]) + size_t(taps.batch) * Hl * Wl * C + c;
-  using V = typename Chunk<VEC>::type;
+  const T* f = static_cast<const T*>(levels.feat[lvl]) + size_t(taps.batch) * Hl * Wl * C + c;
+  using V = Chunk<T, VEC>;
   const int i = warp;                                         // bin of axis a1
   int i1[K];
   float w1[K];
@@ -445,10 +470,10 @@ roi_align_vec_kernel(RoiLevels levels, const float* __restrict__ rois,
           float acc1 = 0.f;
 #pragma unroll
           for (int k1 = 0; k1 < K; ++k1) {
-            const float p = __fmul_rn(w1[k1], element<VEC>(raw[k2][k1], e));
+            const float p = __fmul_rn(w1[k1], element<T, VEC>(raw[k2][k1], e));
             acc1 = k1 == 0 ? p : __fadd_rn(acc1, p);
           }
-          t[e] = round_t<__nv_bfloat16>(acc1);
+          t[e] = round_t<T>(acc1);
         }
       }
       const float w2 = taps.w[a2][j][k2];
@@ -459,43 +484,47 @@ roi_align_vec_kernel(RoiLevels levels, const float* __restrict__ rois,
       }
     }
     last = cols[K - 1];
-    store<VEC>(ob + bin(i, j), acc);
+    store<T, VEC>(ob + bin(i, j), acc);
   }
 }
 
-// The widest chunk, in bf16 elements, that divides C and to whose bytes
-// every level and the output are aligned.
+// The widest chunk, in elements of T, of 16 bytes at most, that divides C
+// and to whose bytes every level and the output are aligned.
+template <typename T>
 inline int chunk_width(const RoiLevels& levels, const void* out, int C) {
-  for (int v = 8; v > 1; v /= 2) {
-    bool ok = C % v == 0 && reinterpret_cast<uintptr_t>(out) % (2 * v) == 0;
+  for (int v = 16 / int(sizeof(T)); v > 1; v /= 2) {
+    const uintptr_t bytes = uintptr_t(v) * sizeof(T);
+    bool ok = C % v == 0 && reinterpret_cast<uintptr_t>(out) % bytes == 0;
     for (int l = 0; l < levels.num_levels; ++l)
-      ok = ok && reinterpret_cast<uintptr_t>(levels.feat[l]) % (2 * v) == 0;
+      ok = ok && reinterpret_cast<uintptr_t>(levels.feat[l]) % bytes == 0;
     if (ok) return v;
   }
   return 1;
 }
 
-template <int VEC, int O>
+template <typename T, int VEC, int O>
 int launch_width(const RoiLevels& levels, const float* rois, void* out, int R, int batch, int C,
                  int w_first, float finest_scale, cudaStream_t stream) {
   dim3 grid(R, (C + 32 * VEC - 1) / (32 * VEC));
-  roi_align_vec_kernel<VEC, O><<<grid, threads(O), 0, stream>>>(
-      levels, rois, static_cast<__nv_bfloat16*>(out), batch, C, w_first, finest_scale);
+  roi_align_vec_kernel<T, VEC, O><<<grid, threads(O), 0, stream>>>(
+      levels, rois, static_cast<T*>(out), batch, C, w_first, finest_scale);
   return int(cudaGetLastError());
 }
 
-template <int O>
+// The kernel at the widest chunk: 16, 8, 4 or 2 bytes a lane (8, 4, 2 or 1
+// bf16 values; 4, 2 or 1 f32 values).
+template <typename T, int O>
 int launch(const RoiLevels& levels, const float* rois, void* out, int R, int batch, int C,
            int w_first, float finest_scale, cudaStream_t stream) {
-  const auto go = [&](auto width) {
-    return launch_width<decltype(width)::value, O>(levels, rois, out, R, batch, C, w_first,
-                                                   finest_scale, stream);
+  const auto go = [&](auto bytes) {
+    return launch_width<T, decltype(bytes)::value / int(sizeof(T)), O>(
+        levels, rois, out, R, batch, C, w_first, finest_scale, stream);
   };
-  switch (chunk_width(levels, out, C)) {
+  switch (chunk_width<T>(levels, out, C) * int(sizeof(T))) {
+    case 16: return go(std::integral_constant<int, 16>{});
     case 8: return go(std::integral_constant<int, 8>{});
     case 4: return go(std::integral_constant<int, 4>{});
-    case 2: return go(std::integral_constant<int, 2>{});
-    default: return go(std::integral_constant<int, 1>{});
+    default: return go(std::integral_constant<int, int(sizeof(T))>{});
   }
 }
 
@@ -612,12 +641,13 @@ __global__ void roi_meta_kernel(RoiLevels levels, const float* __restrict__ rois
 // a[e] += round(w * d[e]) for the VEC bf16 values d of a chunk; w is a bf16
 // value, so the f32 product is exact and its rounding is the bf16 product.
 template <int VEC>
-__device__ __forceinline__ void add_products(float w, const typename vec::Chunk<VEC>::type& raw,
+__device__ __forceinline__ void add_products(float w, const vec::Chunk<__nv_bfloat16, VEC>& raw,
                                              float (&a)[VEC]) {
   if constexpr (VEC == 1) {
-    a[0] = __fadd_rn(a[0], round_t<__nv_bfloat16>(__fmul_rn(w, vec::element<1>(raw, 0))));
+    a[0] = __fadd_rn(a[0], round_t<__nv_bfloat16>(
+                               __fmul_rn(w, vec::element<__nv_bfloat16, 1>(raw, 0))));
   } else {
-    union { typename vec::Chunk<VEC>::type raw; __nv_bfloat162 h[VEC / 2]; } u;
+    union { vec::Chunk<__nv_bfloat16, VEC> raw; __nv_bfloat162 h[VEC / 2]; } u;
     u.raw = raw;
     const __nv_bfloat162 w2 = __float2bfloat162_rn(w);
 #pragma unroll
@@ -660,7 +690,7 @@ roi_align_backward_owner_kernel(RoiLevels maps, Plan plan, const Header* __restr
   const int c = (blockIdx.y * 32 + lane) * VEC;
   const bool active = c < C;            // idle lanes still take part in the shuffles
   const int a1 = w_first ? 1 : 0, a2 = 1 - a1;
-  using V = typename vec::Chunk<VEC>::type;
+  using V = vec::Chunk<__nv_bfloat16, VEC>;
 
   float acc[TILE][VEC];
 #pragma unroll
@@ -812,9 +842,10 @@ roi_align_backward_owner_kernel(RoiLevels maps, Plan plan, const Header* __restr
     for (int t = 0; t < TILE; ++t)
       if (o1 + t < N1) {
         const int y = w_first ? p2 : o1 + t, x = w_first ? o1 + t : p2;
-        vec::store<VEC>(static_cast<__nv_bfloat16*>(const_cast<void*>(maps.feat[lvl])) +
-                            ((size_t(b) * Hl + y) * Wl + x) * C + c,
-                        acc[t]);
+        vec::store<__nv_bfloat16, VEC>(
+            static_cast<__nv_bfloat16*>(const_cast<void*>(maps.feat[lvl])) +
+                ((size_t(b) * Hl + y) * Wl + x) * C + c,
+            acc[t]);
       }
 }
 
@@ -867,7 +898,7 @@ int launch(const RoiLevels& levels, const float* rois, const void* grad_out, int
     const int status = int(cudaGetLastError());
     if (status) return status;
   }
-  switch (vec::chunk_width(levels, grad_out, C)) {
+  switch (vec::chunk_width<__nv_bfloat16>(levels, grad_out, C)) {
     case 8: return launch_width<O, 8>(levels, plan, headers, taps, grad_out, R, C, w_first, s);
     case 4: return launch_width<O, 4>(levels, plan, headers, taps, grad_out, R, C, w_first, s);
     case 2: return launch_width<O, 2>(levels, plan, headers, taps, grad_out, R, C, w_first, s);
@@ -898,9 +929,9 @@ bool valid_levels(const RoiLevels* levels) {
 // levels: the level maps (B, Hl, Wl, C) contiguous, all of one dtype;
 // rois (R, 5) float32 (batch index, x1, y1, x2, y2) in image pixels, where
 // a RoI whose index lies outside [0, batch) pools zeros; out (R, O, O, C)
-// with O = out_size, 7 or 14.  dtype 0 = float32, 1 = bfloat16 (O = 7 only:
-// the vectorised entry serves bfloat16).  w_first = 1 contracts the W axis
-// first (wide maps).
+// with O = out_size, 7 or 14.  dtype 0 = float32, 1 = bfloat16 (O = 7
+// only).  w_first = 1 contracts the W axis first (wide maps).  The first
+// version: the vectorised entries below serve both types.
 extern "C" int roi_align_launch(const RoiLevels* levels, const void* rois, void* out, int R,
                                 int batch, int C, int dtype, int w_first, float finest_scale,
                                 int out_size, void* stream) {
@@ -955,8 +986,22 @@ extern "C" int roi_align_bf16_launch(const RoiLevels* levels, const void* rois, 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* r = static_cast<const float*>(rois);
   if (out_size == 7)
-    return vec::launch<7>(*levels, r, out, R, batch, C, w_first, finest_scale, s);
-  return vec::launch<14>(*levels, r, out, R, batch, C, w_first, finest_scale, s);
+    return vec::launch<__nv_bfloat16, 7>(*levels, r, out, R, batch, C, w_first, finest_scale, s);
+  return vec::launch<__nv_bfloat16, 14>(*levels, r, out, R, batch, C, w_first, finest_scale, s);
+}
+
+// The vectorised version at float32: the same arguments, dtype 0 only.
+extern "C" int roi_align_f32_launch(const RoiLevels* levels, const void* rois, void* out, int R,
+                                    int batch, int C, int dtype, int w_first, float finest_scale,
+                                    int out_size, void* stream) {
+  if (!valid_levels(levels) || dtype != 0 || C < 1 || (out_size != 7 && out_size != 14))
+    return int(cudaErrorInvalidValue);
+  if (R == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* r = static_cast<const float*>(rois);
+  if (out_size == 7)
+    return vec::launch<float, 7>(*levels, r, out, R, batch, C, w_first, finest_scale, s);
+  return vec::launch<float, 14>(*levels, r, out, R, batch, C, w_first, finest_scale, s);
 }
 
 // The bf16 entry's workspace at O = out_size (7 or 14), in bytes: a header

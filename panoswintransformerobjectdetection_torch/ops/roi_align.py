@@ -62,11 +62,13 @@ class _RoiLevels(ctypes.Structure):
 LAUNCH_ARGTYPES = [ctypes.POINTER(_RoiLevels), ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-# K3's forward entries in `csrc/roi_align.cu`: one thread a channel for
-# float32 (the first version, whose bfloat16 instantiation, at 7 x 7 bins
-# only, `chip_smoke.py` calls to time the redesign against it), vectorised
-# gathers with stage-one reuse for bfloat16.  Both count as launches of K3.
-ENTRIES = {torch.float32: "roi_align_launch", torch.bfloat16: "roi_align_bf16_launch"}
+# K3's forward entries in `csrc/roi_align.cu`: one kernel of vectorised
+# gathers with stage-one reuse, at each type.  Both count as launches of K3.
+# The first version, one thread a channel (float32 at 7 and 14 bins,
+# bfloat16 at 7), stays built so that `chip_smoke.py` times both against
+# it; no wrapper calls it.  All three take `LAUNCH_ARGTYPES`.
+ENTRIES = {torch.float32: "roi_align_f32_launch", torch.bfloat16: "roi_align_bf16_launch"}
+FIRST_VERSION = "roi_align_launch"
 
 
 def _div(a: torch.Tensor, d: float) -> torch.Tensor:

@@ -5,11 +5,16 @@ The file imports no JAX, so it runs on a machine that has none:
 
     python -m pytest tests/test_torch_kernels_cuda.py -q
 
-Tolerances: K1 float32 1e-4 * max(1, max|ref|) (sums in another order);
-bfloat16 4 * 2**-8 * max|ref|, since a different f32 summation order can
-flip the rounding of an h0 value and h1's own rounding adds one unit.  K3
-must be exact: kernel and twin do the same operations in the same order.
-K3 at 14 x 14 bins (the mask head) is held to the same.
+Tolerances: K1 float32 1e-4 * max(1, max|ref|): the entry runs conv1 on
+the tensor cores in 3xTF32, which adds in another order and with another
+rounding than the twin and drops each product's lo.lo term (about 2**-22
+of it), far inside the tolerance (`tests/test_torch_stem_f32.py`); its
+first version, on the CUDA cores, is held to the same (sums in another
+order).  bfloat16 4 * 2**-8 * max|ref|, since a different f32 summation
+order can flip the rounding of an h0 value and h1's own rounding adds one
+unit.  K3 must be exact at both types, in both its entries and its first
+version: kernel and twin do the same operations in the same order.  K3 at
+14 x 14 bins (the mask head) is held to the same.
 K2 float32 1e-5 * max(1, max|ref|) (sums in another order); bfloat16
 4 * 2**-8 * max|ref|, since another f32 summation order (the tensor cores'
 for bf16) can flip the bf16 rounding of p, which moves an output by about
@@ -53,12 +58,13 @@ def cuda_device():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 64, 256, 8, 16), (1, 37, 70, 32, 64), (1, 5, 3, 2, 4),
                                    (1, 13, 131, 32, 64), (2, 6, 72, 24, 40),
-                                   (1, 8, 64, 16, 80)])
+                                   (1, 8, 64, 16, 80), (2, 45, 77, 32, 64)])
 def test_stem_kernel_matches_twin(cuda_device, dtype, shape):
     """Ragged H and W against both kernels' tiles (4 x 64 on the tensor
-    cores; W = 131 also takes the scalar stores), c0 and c1 that are not
-    multiples of 16 (2/4, 8/16, 24/40), the flagship's 32/64, and c1 = 80,
-    two groups of output channels.  bf16 goes through the tensor-core entry."""
+    cores; W = 131 also takes the scalar stores; 45 x 77 odd both ways at
+    the flagship's widths), c0 and c1 that are not multiples of 16 (2/4,
+    8/16, 24/40), the flagship's 32/64, and c1 = 80, two groups of output
+    channels.  Both types go through their tensor-core entries."""
     B, H, W, c0, c1 = shape
     g = torch.Generator().manual_seed(0)
     x = torch.rand((B, H, W, 3), generator=g).to(dtype)
@@ -203,9 +209,15 @@ def test_wrappers_refuse_bad_input(cuda_device):
         levels.num_levels = count
         assert fn(ctypes.byref(levels), rois.data_ptr(), out.data_ptr(), 1, 1, C, dtype_code, 1,
                   56.0, o, stream) != 0
-    # the first-version entry takes bfloat16 at 7 only (the vectorised
-    # entry serves it at 14), and float32 at 7 and 14
-    first = cuda_build.function("roi_align", ra.ENTRIES[torch.float32], ra.LAUNCH_ARGTYPES)
+    # ... and so does the float32 one, any type but float32
+    fn32 = cuda_build.function("roi_align", ra.ENTRIES[torch.float32], ra.LAUNCH_ARGTYPES)
+    levels = ra.level_struct(feats, STRIDES)
+    for dtype_code, C, count, o in ((1, 4, 1, 7), (0, 0, 1, 7), (0, 4, 5, 7), (0, 4, 1, 10)):
+        levels.num_levels = count
+        assert fn32(ctypes.byref(levels), rois.data_ptr(), out.data_ptr(), 1, 1, C, dtype_code, 1,
+                    56.0, o, stream) != 0
+    # the first version takes bfloat16 at 7 only, and float32 at 7 and 14
+    first = cuda_build.function("roi_align", ra.FIRST_VERSION, ra.LAUNCH_ARGTYPES)
     levels.num_levels = 1
     assert first(ctypes.byref(levels), rois.data_ptr(), out.data_ptr(), 1, 1, 4, 1, 1, 56.0, 14,
                  stream) != 0
@@ -213,6 +225,82 @@ def test_wrappers_refuse_bad_input(cuda_device):
     with pytest.raises(ValueError, match="Queue 2"):
         ra.roi_align_backward(torch.zeros((1, 10, 10, 4), device=cuda_device), rois,
                               [(1, 8, 16, 4)], torch.float32, STRIDES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_size", [7, 14], ids=["o7", "o14"])
+@pytest.mark.parametrize("wide", [True, False])
+@pytest.mark.parametrize("C, offset", [(320, 0), (18, 0), (21, 0), (64, 1), (64, 2)],
+                         ids=["C320", "C18-vec2", "C21-vec1", "off4", "off8"])
+def test_roi_align_f32_entry(cuda_device, out_size, wide, C, offset):
+    """K3's float32 entry, bit for bit the twin's, at 7 and 14 bins, wide and
+    tall maps: C = 320 (16-byte chunks, a partial second slice of 128
+    channels), C = 18 (8-byte chunks), C = 21 (4-byte chunks), and levels
+    that start 4 or 8 bytes into their storage (C = 64 would allow 16); a
+    RoI with a bad batch index pools zeros, and R = 0 gives an empty result."""
+    feats, rois = _roi_case(11, P=12, H=128, W=256, C=C)
+    rois[[1, 6], 0] = [5.0, np.nan]
+    if not wide:
+        feats = [f.transpose(0, 2, 1, 3).copy() for f in feats]
+        rois = rois[:, [0, 2, 1, 4, 3]].copy()
+    tf = []
+    for f in feats:
+        store = torch.zeros(f.size + offset, device=cuda_device)
+        store[offset:] = torch.from_numpy(f).reshape(-1).to(cuda_device)
+        tf.append(store[offset:].view(f.shape))
+    assert tf[0].data_ptr() % 16 == 4 * offset
+    tr = torch.from_numpy(rois).to(cuda_device)
+    before = ra.roi_align.launches_by_entry.get((ra.ENTRIES[torch.float32], out_size), 0)
+    got = ra.roi_align(tf, tr, STRIDES, out_size)
+    torch.cuda.synchronize()
+    assert ra.roi_align.last_entry == ra.ENTRIES[torch.float32] == "roi_align_f32_launch"
+    assert ra.roi_align.launches_by_entry[(ra.ENTRIES[torch.float32], out_size)] == before + 1
+    assert torch.equal(got, ra.roi_align_plain(tf, tr, STRIDES, out_size))
+    assert not got[[1, 6]].any() and got[[0, 2]].any()
+    none = ra.roi_align(tf, tr[:0], STRIDES, out_size)
+    torch.cuda.synchronize()
+    assert none.shape == (0, out_size, out_size, C)
+
+
+@pytest.mark.cuda
+def test_first_versions_still_callable(cuda_device):
+    """K1's and K3's first versions (`FIRST_VERSION`), which no wrapper calls
+    but `chip_smoke.py` times the redesigns against: K1 at f32 (dtype code
+    0) and bf16 (1) within its tolerances, K3 at f32 (7 and 14 bins) and
+    bf16 (7) exact."""
+    stream = torch.cuda.current_stream().cuda_stream
+    g = torch.Generator().manual_seed(3)
+    c0, c1, B, H, W = 32, 64, 2, 37, 70
+    x = torch.rand((B, H, W, 3), generator=g)
+    w0 = torch.randn((c0, 3, 3, 3), generator=g) * 0.3
+    w1 = torch.randn((c1, c0, 3, 3), generator=g) * 0.1
+    b0, b1 = torch.randn(c0, generator=g), torch.randn(c1, generator=g)
+    fn = cuda_build.function("stem_conv", stem.FIRST_VERSION, stem.LAUNCH_ARGTYPES)
+    for code, dt in ((0, torch.float32), (1, torch.bfloat16)):
+        args = [t.to(cuda_device) for t in (x.to(dt), w0, b0, w1, b1)]
+        w0k, w1k = stem.cuda_core_layout(args[1], args[3], dt)
+        out = torch.empty((B, c1, H, W), dtype=dt, device=cuda_device)
+        before = stem.stem_conv.launches
+        cuda_build.check(fn(args[0].data_ptr(), w0k.data_ptr(), args[2].data_ptr(),
+                            w1k.data_ptr(), args[4].data_ptr(), out.data_ptr(), B, H, W, c0, c1,
+                            w1k.shape[2], code, stream), stem.FIRST_VERSION)
+        torch.cuda.synchronize()
+        assert stem.stem_conv.launches == before          # not counted: no wrapper launched it
+        ref = stem.stem_conv_plain(*args).float()
+        scale = float(ref.abs().max())
+        tol = 1e-4 * max(1.0, scale) if dt == torch.float32 else 4 * 2.0 ** -8 * scale
+        assert float((out.float() - ref).abs().max()) <= tol
+    feats, rois = _roi_case(5, P=10, C=256)
+    tr = torch.from_numpy(rois).to(cuda_device)
+    first = cuda_build.function("roi_align", ra.FIRST_VERSION, ra.LAUNCH_ARGTYPES)
+    for code, dt, o in ((0, torch.float32, 7), (0, torch.float32, 14), (1, torch.bfloat16, 7)):
+        tf = [torch.from_numpy(f).to(dt).to(cuda_device) for f in feats]
+        out = torch.empty((tr.shape[0], o, o, 256), dtype=dt, device=cuda_device)
+        cuda_build.check(first(ctypes.byref(ra.level_struct(tf, STRIDES)), tr.data_ptr(),
+                               out.data_ptr(), tr.shape[0], 2, 256, code, 1,
+                               float(ra.FINEST_SCALE), o, stream), ra.FIRST_VERSION)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ra.roi_align_plain(tf, tr, STRIDES, o))
 
 
 def _attention_case(seed, B, nW, h, O, d, dtype, device):
