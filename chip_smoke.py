@@ -10,18 +10,21 @@ Phases (each raises on failure, so any failure exits non-zero):
   3. each kernel against its twin at the flagship's shapes, f32 and bf16,
      with its device time (`time_ms`), the twin's and a library call's (K2 at
      all four stage shapes, each in the record's `stages`; K5's entry point
-     checked at a small shape).  K1 runs bf16 on the tensor cores and f32
-     on them in 3xTF32, K2 and K4 bf16 on the tensor cores and f32 on the
-     CUDA cores, K3 both types through vectorised gathers, K3's backward
-     bf16 owner computes (each pixel written once, deterministic) and f32
-     with atomics; their first versions are timed at bf16 beside them
-     (`previous_ms`), K1's and K3's at f32 too, with each one's share of the
-     bound (K1's f32 against two bounds: FFMA and 3xTF32), K2's and K4's
-     f32 entries beside SDPA and cuBLAS in f32, K4 also on the dense route's
-     own level-0 weights, K3's backward on random RoIs here and, in phase
-     5, on the RoIs that a training step samples;
+     checked at a small shape).  K1, K2 and K4 run bf16 on the tensor
+     cores and f32 on them in 3xTF32 (`csrc/tf32.cuh`), K3 both types
+     through vectorised gathers, K3's backward bf16 owner computes (each
+     pixel written once, deterministic) and f32 with atomics; their first
+     versions are timed at bf16 beside them (`previous_ms`), K1's, K2's,
+     K3's and K4's at f32 too, with each one's share of the bound (the
+     3xTF32 entries against two bounds: FFMA and 3xTF32), K2's f32 entry
+     beside SDPA in f32 at all four stages and K4's beside cuBLAS's f32
+     einsum pair at all four levels, each in its own `kernels` row, K4
+     also on the dense route's own level-0 weights, K3's backward on
+     random RoIs here and, in phase 5, on the RoIs that a training step
+     samples;
   4. small-input f32 checks of the card's path against the CPU path, plain
-     and fused attention; then the flagship (PanoSwin-T Faster R-CNN, random
+     and fused attention (the fused one through K2's f32 entry, its
+     launches the f32 row's count); then the flagship (PanoSwin-T Faster R-CNN, random
      weights from seed 0, BN folded, bf16) `simple_test` on 2 x 512 x 1024
      frames with PyTorch's TF32 defaults back: the plain and the fused-
      attention flagship alternate request by request, each request with the
@@ -30,7 +33,8 @@ Phases (each raises on failure, so any failure exits non-zero):
      configuration (`pano_mode=False`, fused attention); every fused
      request must launch K2's bf16 entry;
   5. training: the dense RoI route (K4 on every level) against the direct one
-     (K3) on the card, values and map gradients; one `forward_train` +
+     (K3) on the card, values and map gradients (run at the end of phase 3;
+     in f32 through K4's f32 entry, its launches the f32 row's count); one `forward_train` +
      backward at 64 x 128 in f32 on the card against the CPU, same sampler
      noise, no DropPath: the five outputs and every parameter's gradient;
      then the flagship's training step at full width (bf16, AdamW, lr 1e-4,
@@ -451,6 +455,19 @@ def rates(ops, ms, bound):
     return f"{ops / ms / 1e9:.1f} TFLOP/s, {bound / ms:.3f} of the bound"
 
 
+def two_bounds(nbytes, ops):
+    """The f32 entries' bounds, each the larger of the bytes' time at 3.35
+    TB/s and the operations': (bound_ms, bound_by, FFMA bound ms, 3xTF32
+    bound ms).  FFMA: the f32 operations at the CUDA cores' 67 TFLOP/s;
+    3xTF32: three TF32 products of each at the tensor cores' 495, what the
+    redesigned entries run on.  `bound_ms` is the lower of the two."""
+    ffma_ms = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+    tf32x3_ms = max(nbytes / HBM_BYTES_PER_S, 3 * ops / TF32_OPS_PER_S) * 1e3
+    by_bytes = nbytes / HBM_BYTES_PER_S >= min(ops / F32_OPS_PER_S, 3 * ops / TF32_OPS_PER_S)
+    return (min(ffma_ms, tf32x3_ms), "bytes" if by_bytes else "operations", ffma_ms,
+            tf32x3_ms)
+
+
 def k1_f32_times(stem, x, w, what):
     """K1's f32 entry on x (B, H, W, 3) with `w` (`stem_weights` at f32)
     against its twin, timed beside its first version (`stem.FIRST_VERSION`
@@ -493,15 +510,11 @@ def k1_f32_times(stem, x, w, what):
     library_ms = time_ms(library, 10)
     nbytes = (x.numel() + b * c1 * h * wd) * 4
     ops = 2 * b * h * wd * (27 * c0 + 9 * c0 * c1)
-    ffma_ms = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
-    tf32x3_ms = max(nbytes / HBM_BYTES_PER_S, 3 * ops / TF32_OPS_PER_S) * 1e3
-    bound = min(ffma_ms, tf32x3_ms)
+    bound, by, ffma_ms, tf32x3_ms = two_bounds(nbytes, ops)
     rec = {"shape": list(x.shape), "c0": c0, "c1": c1, "entry": entry, "max_abs_err": err,
            "tolerance": tol, "ms": ms, "previous_entry": stem.FIRST_VERSION,
            "previous_ms": previous_ms, "previous_max_abs_err": previous_err,
-           "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound,
-           "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= min(
-               ops / F32_OPS_PER_S, 3 * ops / TF32_OPS_PER_S) else "operations",
+           "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound, "bound_by": by,
            "bound_ffma_ms": ffma_ms, "bound_3xtf32_ms": tf32x3_ms,
            "share_of_bound": bound / ms, "faster_than_library": ms < library_ms}
     print(f"    K1 f32 entry {what} {tuple(x.shape)}, c0 {c0} c1 {c1}: 3xTF32 kernel {ms:.4f} ms "
@@ -733,8 +746,7 @@ def attention_times(fa, entry, q, k, v, bias):
     scale = d ** -0.5
     mask = bias.to(q.dtype).expand(n // nW, nW, h, O, O).reshape(n, h, O, O)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    previous = previous_kernel("window_attention", fa.ENTRIES[torch.float32],
-                               fa.LAUNCH_ARGTYPES)
+    previous = previous_kernel("window_attention", fa.FIRST_VERSION, fa.LAUNCH_ARGTYPES)
     out = torch.empty((n, O, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     strides = fa.launch_strides(q, k, v, bias, out)
 
@@ -756,25 +768,40 @@ def attention_times(fa, entry, q, k, v, bias):
     return ms, previous_ms, plain_ms, library_ms, bound, "bytes" if by_bytes else "operations"
 
 
-def attention_f32_times(fa, q, k, v, bias):
-    """K2's f32 entry (`fa.ENTRIES[torch.float32]`, through
-    `packed_window_attention`) timed beside SDPA in f32 (its bias repeated
-    over the batch outside the timing; TF32 off), with the bound: the bytes
-    of q, k, v, the output and the bias over the memory rate, or the
-    operations at the CUDA cores' f32 rate."""
+def attention_f32_times(fa, q, k, v, bias, ref, tol):
+    """K2's f32 entry (`fa.ENTRIES[torch.float32]`, 3xTF32, through
+    `packed_window_attention`) timed beside its first version
+    (`fa.FIRST_VERSION` at f32, the CUDA cores, held against the twin too),
+    the twin and SDPA in f32 (its bias repeated over the batch outside the
+    timing; TF32 off), with both bounds (`two_bounds`; bytes: q, k, v, the
+    output and the bias)."""
     n, h, O, d = q.shape
+    nW = bias.shape[0]
     scale = d ** -0.5
-    mask = bias.expand(n // bias.shape[0], *bias.shape).reshape(n, h, O, O)
+    mask = bias.expand(n // nW, *bias.shape).reshape(n, h, O, O)
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    first = previous_kernel("window_attention", fa.FIRST_VERSION, fa.LAUNCH_ARGTYPES, code=0)
+    out = torch.empty((n, O, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    strides = fa.launch_strides(q, k, v, bias, out)
+
+    def first_version():
+        first(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
+              strides, n, h, O, d, nW, float(scale))
+
     ms = time_ms(lambda: fa.packed_window_attention(q, k, v, bias, scale), 20)
     entry = fa.window_attention.last_entry
+    previous_ms = time_ms(first_version, 20)
+    previous_err = check(f"K2 first version (CUDA cores) f32 n {n} h {h}, against the twin", out,
+                         ref, tol)
+    plain_ms = time_ms(lambda: fa.window_attention_plain(q, k, v, bias, scale), 10)
     library_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=mask, scale=scale), 20)
     nbytes = 4 * q.numel() * 4 + bias.numel() * 4
-    ops = 4 * n * h * O * O * d
-    by_bytes = nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
-    return {"entry": entry, "ms": ms, "library_ms": library_ms,
-            "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3,
-            "bound_by": "bytes" if by_bytes else "operations"}
+    bound, by, ffma_ms, tf32x3_ms = two_bounds(nbytes, 4 * n * h * O * O * d)
+    return {"entry": entry, "ms": ms, "previous_entry": fa.FIRST_VERSION,
+            "previous_ms": previous_ms, "previous_max_abs_err": previous_err,
+            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound, "bound_by": by,
+            "bound_ffma_ms": ffma_ms, "bound_3xtf32_ms": tf32x3_ms,
+            "share_of_bound": bound / ms, "faster_than_library": ms < library_ms}
 
 
 def kernel_k2(dev, fa):
@@ -791,11 +818,16 @@ def kernel_k2(dev, fa):
                         f"O {TOKENS}, d {HEAD_DIM}, nW {nW}), entry "
                         f"{fa.window_attention.last_entry}", got, ref, attention_tol(ref, dt))
             if dt != torch.bfloat16:
-                f32 = attention_f32_times(fa, q, k, v, bias)
-                print(f"  K2 f32 stage {stage}: f32 entry {f32['ms']:.4f} ms "
-                      f"({f32['bound_ms'] / f32['ms']:.3f} of the bound), SDPA f32 "
-                      f"{f32['library_ms']:.4f} ms, bound {f32['bound_ms']:.4f} ms "
-                      f"({f32['bound_by']})")
+                f32 = attention_f32_times(fa, q, k, v, bias, ref, attention_tol(ref, dt))
+                f32["max_abs_err"] = err
+                print(f"  K2 f32 stage {stage}: 3xTF32 entry {f32['ms']:.4f} ms "
+                      f"({f32['share_of_bound']:.3f} of the bound), first version "
+                      f"{f32['previous_ms']:.4f} ms, twin {f32['plain_ms']:.4f} ms, SDPA f32 (TF32 "
+                      f"off) {f32['library_ms']:.4f} ms (entry "
+                      f"{'faster' if f32['faster_than_library'] else 'SLOWER'}), bound "
+                      f"{f32['bound_ms']:.4f} ms ({f32['bound_by']}; 3xTF32 at 495 TFLOP/s "
+                      f"{f32['bound_3xtf32_ms']:.4f} ms, FFMA at 67 TFLOP/s "
+                      f"{f32['bound_ffma_ms']:.4f} ms)")
                 continue
             ms, previous_ms, plain_ms, library_ms, bound, by = attention_times(
                 fa, fa.packed_window_attention, q, k, v, bias)
@@ -815,6 +847,21 @@ def kernel_k2(dev, fa):
             "source": "panoswintransformerobjectdetection_torch/csrc/window_attention.cu",
             "replaces": "panoswintransformerobjectdetection_tpu/ops/fused_attention.py:88",
             "max_abs_err": max(st["max_abs_err"] for st in stages), **top, "stages": stages}
+
+
+def f32_entry_row(rec, name, by, parts, launches, where):
+    """A `kernels` row of an f32 entry timed inside `rec` (K2 by stage, K4
+    by level): the first part's numbers at the top, every part's under
+    `by`."""
+    top = parts[0]
+    return {"name": name, "route": rec["route"], "source": rec["source"],
+            "replaces": rec["replaces"], "entry": top["entry"],
+            "max_abs_err": max(p["max_abs_err"] for p in parts), "launches": launches,
+            "launches_where": where,
+            **{key: top[key] for key in ("ms", "previous_entry", "previous_ms", "plain_ms",
+                                         "library_ms", "bound_ms", "bound_by", "bound_ffma_ms",
+                                         "bound_3xtf32_ms")},
+            by: parts}
 
 
 def kernel_k5(dev, fa):
@@ -863,14 +910,20 @@ def crop_times(ra, args, previous):
             time_ms(library, 10))
 
 
-def crop_f32_times(ra, args):
-    """K4's f32 entry (`ra.CROP_ENTRIES[torch.float32]`) on f32 (feat, Wy,
-    Wx) timed beside cuBLAS's einsum pair in f32 (TF32 off), with the bound:
-    the operands and the output over the memory rate, or the operations at
-    the CUDA cores' f32 rate."""
+def crop_f32_times(ra, args, ref, tol, level):
+    """K4's f32 entry (`ra.CROP_ENTRIES[torch.float32]`, 3xTF32) on f32
+    (feat, Wy, Wx), timed beside its first version (`ra.CROP_FIRST_VERSION`
+    at f32, the CUDA cores, held against the twin too), the twin and
+    cuBLAS's einsum pair in f32 (TF32 off), with both bounds (`two_bounds`;
+    bytes: the operands and the output)."""
     feat, Wy, Wx = args
     Bc, Hl, Wl, C = feat.shape
     P = Wy.shape[1]
+    first = previous_kernel("dense_crop", ra.CROP_FIRST_VERSION, ra.CROP_ARGTYPES, code=0)
+    out = torch.empty((Bc, P, 7, 7, C), dtype=feat.dtype, device=feat.device)
+
+    def first_version():
+        first(feat.data_ptr(), Wy.data_ptr(), Wx.data_ptr(), out.data_ptr(), Bc, P, Hl, Wl, C, 7)
 
     def library():
         t = torch.einsum("bpoh,bhwc->bpowc", Wy, feat)
@@ -878,16 +931,25 @@ def crop_f32_times(ra, args):
 
     ms = time_ms(lambda: ra.dense_crop(*args), 10)
     entry = ra.dense_crop.last_entry
+    previous_ms = time_ms(first_version, 10)
+    previous_err = check(f"K4 first version (CUDA cores) f32 level {level}, against the twin",
+                         out, ref, tol)
+    plain_ms = time_ms(lambda: ra.dense_crop_plain(*args), 3)
     library_ms = time_ms(library, 10)
     nbytes = 4 * (sum(a.numel() for a in args) + Bc * P * 49 * C)
     ops = 2 * Bc * P * 7 * Hl * Wl * C + 2 * Bc * P * 49 * Wl * C
-    by_bytes = nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
-    rec = {"entry": entry, "ms": ms, "library_ms": library_ms,
-           "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3,
-           "bound_by": "bytes" if by_bytes else "operations"}
-    print(f"  K4 f32 level 0: f32 entry {ms:.4f} ms ({rec['bound_ms'] / ms:.3f} of the bound), "
-          f"cuBLAS f32 einsum pair (TF32 off) {library_ms:.4f} ms, bound "
-          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+    bound, by, ffma_ms, tf32x3_ms = two_bounds(nbytes, ops)
+    rec = {"level": level, "Hl": Hl, "Wl": Wl, "entry": entry, "ms": ms,
+           "previous_entry": ra.CROP_FIRST_VERSION, "previous_ms": previous_ms,
+           "previous_max_abs_err": previous_err, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": bound, "bound_by": by,
+           "bound_ffma_ms": ffma_ms, "bound_3xtf32_ms": tf32x3_ms, "share_of_bound": bound / ms,
+           "faster_than_library": ms < library_ms}
+    print(f"  K4 f32 level {level}: 3xTF32 entry {ms:.4f} ms ({rates(ops, ms, bound)}), first "
+          f"version {previous_ms:.4f} ms ({rates(ops, previous_ms, bound)}), twin "
+          f"{plain_ms:.4f} ms, cuBLAS f32 einsum pair (TF32 off) {library_ms:.4f} ms (entry "
+          f"{'faster' if ms < library_ms else 'SLOWER'}), bound {bound:.4f} ms ({by}; 3xTF32 at "
+          f"495 TFLOP/s {tf32x3_ms:.4f} ms, FFMA at 67 TFLOP/s {ffma_ms:.4f} ms)")
     return rec
 
 
@@ -899,8 +961,8 @@ def kernel_k4(dev, ra):
     stage-one rounding, one in the result).  Then level 0 on the dense
     route's own weights for 2 x 640 RoIs like the RPN's."""
     C, P = 256, TRAIN_ROIS
-    previous = previous_kernel("dense_crop", ra.CROP_ENTRIES[torch.float32], ra.CROP_ARGTYPES)
-    rec = {}
+    previous = previous_kernel("dense_crop", ra.CROP_FIRST_VERSION, ra.CROP_ARGTYPES)
+    rec, f32_levels = {}, []
     for level, (Hl, Wl) in enumerate(CROP_LEVELS):
         g = torch.Generator().manual_seed(20 + level)
         feat = torch.randn((B, Hl, Wl, C), generator=g)
@@ -916,11 +978,12 @@ def kernel_k4(dev, ra):
                 2 * 2.0 ** -8 * scale
             err = check(f"K4 dense_crop {str(dt)[6:]} level {level} (B {B}, P {P}, Hl {Hl}, "
                         f"Wl {Wl}, C {C}), entry {ra.dense_crop.last_entry}", got, ref, tol)
-            del got, ref
             if dt != torch.bfloat16:
-                if level == 0:
-                    f32 = crop_f32_times(ra, args)
+                f32_levels.append(dict(crop_f32_times(ra, args, ref, tol, level),
+                                       max_abs_err=err))
+                del got, ref
                 continue
+            del got, ref
             ms, previous_ms, library_ms = crop_times(ra, args, previous)
             plain_ms = time_ms(lambda: ra.dense_crop_plain(*args), 3)
             nbytes = 2 * (sum(a.numel() for a in args) + B * P * 49 * C)
@@ -938,7 +1001,8 @@ def kernel_k4(dev, ra):
                        "replaces": "panoswintransformerobjectdetection_tpu/ops/roi_align_pallas.py:52",
                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                        "bound_by": "bytes" if by_bytes else "operations",
-                       "library_ms": library_ms, "previous_ms": previous_ms, "f32": f32}
+                       "library_ms": library_ms, "previous_ms": previous_ms,
+                       "f32": f32_levels}
         del args
 
     # level 0 as the dense route calls it: every RoI, Wy zero for the RoIs of
@@ -1091,9 +1155,12 @@ def dense_against_direct(dev, ra):
     values and map gradients.  Tolerance: f32 1e-4 * max(1, max|ref|) (the
     dense route sums with fused multiply-adds and adds its zeros); bf16 2
     units of 2**-8 * max|ref| for values and 4 for gradients (flips of the
-    stage-one rounding, forward and backward)."""
+    stage-one rounding, forward and backward).  Returns K4's launches in the
+    f32 check, which must all have gone through its f32 entry."""
     strides = (4, 8, 16, 32)
+    f32_launches = 0
     for dt in (torch.float32, torch.bfloat16):
+        ra.dense_crop.launches = 0
         rng = np.random.default_rng(40)
         rois = rpn_like_rois(rng, TRAIN_ROIS).to(dev)
         base = level_maps(rng, dev, dt)
@@ -1114,6 +1181,11 @@ def dense_against_direct(dev, ra):
             scale = float(b.float().abs().max())
             check(f"dense vs direct RoIAlign {str(dt)[6:]}, gradient of level {level}", a, b,
                   unit * max(1.0, scale) if dt == torch.float32 else 4 * unit * scale)
+        if ra.dense_crop.last_entry != ra.CROP_ENTRIES[dt]:
+            raise AssertionError(f"dense route {dt}: K4 launched {ra.dense_crop.last_entry}")
+        if dt == torch.float32:
+            f32_launches = ra.dense_crop.launches
+    return f32_launches
 
 
 def train_reference_check(dev, build_flagship, flagship_train_batch):
@@ -5399,7 +5471,7 @@ def main(argv=None) -> int:
     print(f"[2] built {', '.join(cuda_build.SOURCES)} for sm_90a in {seconds:.1f} s")
     for name in cuda_build.SOURCES:
         for line in cuda_build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry function" in line:
                 print(f"    {name}: {line.strip()}")
 
     print("[3] kernels against their twins at the flagship's shapes.  K1 tolerance: f32 "
@@ -5413,12 +5485,16 @@ def main(argv=None) -> int:
     records = [kernel_k1(dev, stem), kernel_k2(dev, fa), kernel_k3(dev, ra),
                kernel_k5(dev, fa), kernel_k4(dev, ra), kernel_k3_backward(dev, ra)]
     mask_records = kernel_k3_mask(dev, ra)
-    dense_against_direct(dev, ra)
+    k4_f32_launches = dense_against_direct(dev, ra)
 
     print("[4] flagship simple_test, bf16, BN folded, random weights (seed 0); before it "
           "the f32 checks of the card's path against the CPU's, training included")
     reference_check(dev, build_flagship)
+    fa.window_attention.launches = 0
     reference_check(dev, build_flagship, fused_attention=True)
+    k2_f32_launches = fa.window_attention.launches
+    if fa.window_attention.last_entry != fa.ENTRIES[torch.float32]:
+        raise AssertionError(f"fused f32 flagship: K2 launched {fa.window_attention.last_entry}")
     train_reference_check(dev, build_flagship, flagship_train_batch)
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32_defaults
     print(f"    timed requests with PyTorch's TF32 defaults: cuDNN {tf32_defaults[0]}, "
@@ -5664,6 +5740,20 @@ def main(argv=None) -> int:
             (direction, rec.get("entry"), rec.get("out_size", 7)), 0) if direction else 0)
     for rec in zoo_rows:
         rec["launches"] = rec["launches_cnn_zoo"]
+    # K2's and K4's f32 entries run on no timed path: their launches are
+    # those of the f32 checks of phase 4 (the fused flagship, card vs CPU)
+    # and phase 3 (the dense route against the direct one)
+    f32_rows = [f32_entry_row(records[1], "window_attention float32 (K2)", "stages",
+                              [st["f32"] for st in records[1]["stages"]], k2_f32_launches,
+                              "phase 4: the fused f32 flagship card vs CPU"),
+                f32_entry_row(records[4], "dense_crop float32 (K4)", "levels",
+                              records[4]["f32"], k4_f32_launches,
+                              "phase 3: the f32 dense route against the direct one")]
+    for rec in f32_rows:
+        for key in records[0]:
+            if key.startswith("launches_"):
+                rec[key] = 0
+    records += f32_rows
     print("[18] records")
     print(json.dumps({"evaluation": {k: v for k, v in evaluation.items() if k != "k1_f32"}}))
     print(json.dumps({"training_loop": loop}))

@@ -59,19 +59,39 @@
 // beside stage one's), so nothing but the ring hides a k-tile's trip from
 // L2.
 //
+// float32 entry (`dense_crop_f32_launch`), on the tensor cores in 3xTF32
+// (`tf32.cuh`: each operand split into a TF32 hi and lo, lo.hi + hi.lo +
+// hi.hi with f32 sums), since one TF32 product keeps 10 bits of mantissa
+// and breaks the f32 tolerance.  The bfloat16 entry's structure on
+// `mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32`: 18 RoIs and 16
+// channels a block, the channel-tile-major F, passes of 8 columns w, 8
+// warps each with a 64 x 32 tile of t, stage two on the tensor cores.
+// What f32 changes: F's k-tiles and Wy's take twice the bytes, and Wy its
+// hi and lo besides, so Wy cannot stay resident: k-tiles of 32 rows h
+// stream through a `cp.async` ring of 3 slots, each Wy's hi and lo (split
+// on the host, `roi_align.crop_f32_operands`; A fragments by `ldmatrix`,
+// which reads 32-bit elements as pairs) and F (B fragments by scalar loads
+// from rows padded to 136 floats, split in registers as they load).  t is
+// parked unrounded (the f32 twin does not round it) and split as stage
+// two reads it; Wx's hi and lo come from global memory (L2), since three
+// slots and t fill 226 KB of shared memory.  Stage one's accumulators live
+// for one pass, so that stage two's fragments find registers.  A block
+// takes one k-tile at the coarsest level, where the ring's latency shows:
+// there the first version is faster.
+//
 // CUDA-core entry (`dense_crop_launch`), the first version, float32 and
-// bfloat16: the wrapper calls it for float32, because the tensor cores
-// would take f32 only as TF32, which keeps 10 bits of mantissa and breaks
-// the f32 tolerance.  Its bfloat16 instantiation is there so that
-// `chip_smoke.py` times the redesign against it; no wrapper calls it.  One
-// block per (image, 8 RoIs, 32 channels) walks over the level in strips of
-// 8 columns; a thread holds a 7 x 8 register tile of t, then its (RoI,
-// channel)'s 7 x 7 outputs, and fetches its share of the next tile into
-// registers before it works on the current one.
+// bfloat16: no wrapper calls it; `chip_smoke.py` times the redesigns
+// against it (`roi_align.CROP_FIRST_VERSION`).  One block per (image, 8
+// RoIs, 32 channels) walks over the level in strips of 8 columns; a
+// thread holds a 7 x 8 register tile of t, then its (RoI, channel)'s 7 x 7
+// outputs, and fetches its share of the next tile into registers before
+// it works on the current one.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tf32.cuh"   // rna_tf32, split, mma_tf32, mma_3xtf32 (namespace tf32)
 
 namespace {
 
@@ -537,6 +557,228 @@ int launch(const __nv_bfloat16* feat, const __nv_bfloat16* Wy, const __nv_bfloat
 
 }  // namespace tc
 
+// ------------------------------------------------------------------ float32
+
+namespace tf32 {
+
+constexpr int RB = 18;                  // RoIs per block: 126 rows of t
+constexpr int MT = 128;                 // rows of the stage-one M tile
+constexpr int CT = 16;                  // channels per block
+constexpr int WP = 8;                   // columns w per pass: stage two's k8
+constexpr int NP = WP * CT;             // 128 (w, c) columns of a pass
+constexpr int KT = 32;                  // rows h per k-tile
+constexpr int STAGES = 3;               // cp.async ring
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int WARPS_N = 4;              // warps across the pass's 128 columns: 32 each
+constexpr int MI = MT / (WARPS / WARPS_N) / 16;   // m16 tiles of a warp's rows
+constexpr int A_LD = KT + 4;            // Wy tile row stride, floats: ldmatrix rows on 9 banks' offsets
+constexpr int B_LD = NP + 8;            // F tile row stride: lanes (g, q) read 32 distinct banks
+constexpr int T_LD = NP + 8;            // t row stride
+constexpr int TROWS = RB * O;           // rows of t
+constexpr int TILES2 = (TROWS + WARPS - 1) / WARPS;   // stage-two (RoI, bin) tiles a warp
+constexpr int SLOT = 2 * MT * A_LD + KT * B_LD;       // floats of a ring slot: Wy hi, Wy lo, F
+constexpr size_t SMEM = (size_t(STAGES) * SLOT + size_t(TROWS) * T_LD) * 4;
+static_assert(TROWS <= MT && NP == WARPS_N * 32 && MI >= 1, "warp grid of (MI x 16) x 32");
+static_assert(TROWS * O * CT <= TROWS * T_LD, "the output tile fits in s.t");
+static_assert(SMEM <= 227 * 1024, "one block an SM");
+
+// feat (B, C / 16, Hl, Wl, 16) with C % 16 == 0, channel-tile-major; Wy
+// (2, B, P, 7, Hp), TF32 hi then lo, Hp % 4 == 0, zero past Hl; Wx (2, B, P,
+// 7, Wl), TF32 hi then lo; out (B, P, 7, 7, C).
+__global__ void __launch_bounds__(THREADS, 1)
+dense_crop_tf32_kernel(const float* __restrict__ feat, const float* __restrict__ Wy,
+                       const float* __restrict__ Wx, float* __restrict__ out, int B, int P,
+                       int Hl, int Hp, int Wl, int C) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem);  // slot: [Wy hi][MT][A_LD], [Wy lo], [F][KT][B_LD]
+  float* t_s = ring + STAGES * SLOT;             // t of a pass, [(p, i)][(w, c)]
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, q = lane % 4;          // mma fragment row group and column
+  const int p0 = blockIdx.x * RB, c0 = blockIdx.y * CT, b = blockIdx.z;
+  const int rows = min(RB, P - p0) * O;          // valid rows of t
+  const float* fb = feat + (size_t(b) * C + c0) * Hl * Wl;   // this block's channel tile
+  const size_t wy_lo = size_t(B) * P * O * Hp, wx_lo = size_t(B) * P * O * Wl;
+  const float* wyb = Wy + (size_t(b) * P + p0) * O * Hp;
+  const float* wxb = Wx + (size_t(b) * P + p0) * O * Wl;
+
+  const int nk = (Hl + KT - 1) / KT;             // k-tiles a pass
+  const int npass = (Wl + WP - 1) / WP;
+  const int total = npass * nk;                  // k-tiles over all passes
+
+  // k-tile `it` of the flat sequence (pass, k-tile) into ring slot it %
+  // STAGES: F KT rows h x 32 chunks of (w, 4 c); Wy hi and lo, MT rows x
+  // KT / 4 chunks of 4 h each; zeros past Hl, Wl, Hp and the valid rows
+  auto load = [&](int it) {
+    if (it < total) {
+      const int h0 = (it % nk) * KT, w0 = (it / nk) * WP;
+      float* a_hi = ring + (it % STAGES) * SLOT;
+      float* a_lo = a_hi + MT * A_LD;
+      float* f_s = a_lo + MT * A_LD;
+#pragma unroll
+      for (int j = 0; j < KT * WP * 4 / THREADS; ++j) {
+        const int e = tid + j * THREADS;
+        const int k = e / (WP * 4), wl = (e / 4) % WP, ch = e % 4;
+        const int h = h0 + k, w = w0 + wl;
+        const bool ok = h < Hl && w < Wl;
+        tc::cp_async16(f_s + k * B_LD + wl * CT + ch * 4,
+                       ok ? fb + (size_t(h) * Wl + w) * CT + ch * 4 : feat, ok);
+      }
+#pragma unroll
+      for (int j = 0; j < MT * (KT / 4) / THREADS; ++j) {
+        const int e = tid + j * THREADS;
+        const int r = e / (KT / 4), hc = (e % (KT / 4)) * 4;
+        const bool ok = r < rows && h0 + hc < Hp;
+        const float* src = wyb + size_t(r) * Hp + h0 + hc;
+        tc::cp_async16(a_hi + r * A_LD + hc, ok ? src : Wy, ok);
+        tc::cp_async16(a_lo + r * A_LD + hc, ok ? src + wy_lo : Wy, ok);
+      }
+    }
+    tc::cp_async_commit();
+  };
+
+  // stage one: warp (wm, wn) owns rows wm * MI * 16 .. and pass columns wn * 32 .. + 32
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  // stage two: warp owns (RoI, bin) tiles j = warp + WARPS * k
+  float acc2[TILES2][4];
+#pragma unroll
+  for (int k = 0; k < TILES2; ++k)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc2[k][e] = 0.f;
+
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) load(st);
+
+  for (int pass = 0; pass < npass; ++pass) {
+    // stage one's accumulators live within a pass only, so that their
+    // registers are free for stage two's fragments
+    float acc[MI][4][4];
+#pragma unroll
+    for (int m = 0; m < MI; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+    for (int kt = 0; kt < nk; ++kt) {
+      const int it = pass * nk + kt;
+      tc::cp_async_wait<STAGES - 2>();
+      __syncthreads();             // tile `it` has landed; slot (it - 1) % STAGES is free
+      load(it + STAGES - 1);
+      const float* a_hi = ring + (it % STAGES) * SLOT;
+      const float* a_lo = a_hi + MT * A_LD;
+      const float* f_s = a_lo + MT * A_LD;
+#pragma unroll
+      for (int kk = 0; kk < KT; kk += 8) {
+        // F's B fragments, (k = q, n = g) and (q + 4, g), by scalar loads, split
+        uint32_t b_hi[4][2], b_lo[4][2];
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const float* col = f_s + (kk + q) * B_LD + wn * 32 + n * 8 + g;
+          split(col[0], b_hi[n][0], b_lo[n][0]);
+          split(col[4 * B_LD], b_hi[n][1], b_lo[n][1]);
+        }
+#pragma unroll
+        for (int m = 0; m < MI; ++m) {
+          // Wy's A fragments, split on the host: matrices rows +0 .. 7 and
+          // +8 .. 15 at h kk .. kk + 3, then at kk + 4 .. kk + 7
+          uint32_t ah[4], al[4];
+          const int off = ((wm * MI + m) * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * A_LD + kk +
+                          (lane >> 4) * 4;
+          tc::ldmatrix_x4(ah, a_hi + off);
+          tc::ldmatrix_x4(al, a_lo + off);
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+            mma_3xtf32(acc[m][n], ah, al, b_hi[n][0], b_hi[n][1], b_lo[n][0], b_lo[n][1]);
+        }
+      }
+    }
+
+    // The pass's K sum is complete: park t (f32, not rounded) in s.t.
+    // Every reader of s.t from the last pass's stage two has passed the
+    // barrier at the top of the pass's last k-tile.
+#pragma unroll
+    for (int m = 0; m < MI; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int r = (wm * MI + m) * 16 + g, col = wn * 32 + n * 8 + 2 * q;
+        if (r < TROWS)
+          *reinterpret_cast<float2*>(t_s + r * T_LD + col) = make_float2(acc[m][n][0], acc[m][n][1]);
+        if (r + 8 < TROWS)
+          *reinterpret_cast<float2*>(t_s + (r + 8) * T_LD + col) =
+              make_float2(acc[m][n][2], acc[m][n][3]);
+      }
+    __syncthreads();
+
+    // stage two for the pass: out[(p, i)][c][x] += t[(p, i)][c][w] . Wx[p][w][x],
+    // M = 16 channels, K = the pass's 8 columns w, N = 7 bins x padded to 8.
+    // Wx's B fragments (k = w q, n = x g), split on the host, come from
+    // global memory (L2): all of the warp's first, then the products.
+    const int w = pass * WP + q;
+    uint32_t wx[TILES2][4];
+#pragma unroll
+    for (int k = 0; k < TILES2; ++k) {
+      const int j = warp + WARPS * k;            // row (p, i) of t
+      const float* src = wxb + (size_t(j / O) * O + g) * Wl + w;
+      const bool in = j < rows && g < O;
+      wx[k][0] = in && w < Wl ? __float_as_uint(src[0]) : 0u;
+      wx[k][1] = in && w + 4 < Wl ? __float_as_uint(src[4]) : 0u;
+      wx[k][2] = in && w < Wl ? __float_as_uint(src[wx_lo]) : 0u;
+      wx[k][3] = in && w + 4 < Wl ? __float_as_uint(src[wx_lo + 4]) : 0u;
+    }
+#pragma unroll
+    for (int k = 0; k < TILES2; ++k) {
+      const int j = warp + WARPS * k;
+      if (j >= rows) break;
+      // A[m = c][k = w] from t[j][w * 16 + c]: (g, q), (g + 8, q), (g, q + 4), (g + 8, q + 4)
+      const float* tj = t_s + j * T_LD + q * CT + g;
+      uint32_t ah[4], al[4];
+      split(tj[0], ah[0], al[0]);
+      split(tj[8], ah[1], al[1]);
+      split(tj[4 * CT], ah[2], al[2]);
+      split(tj[4 * CT + 8], ah[3], al[3]);
+      mma_3xtf32(acc2[k], ah, al, wx[k][0], wx[k][1], wx[k][2], wx[k][3]);
+    }
+  }
+  tc::cp_async_wait<0>();
+  __syncthreads();              // every reader of s.t is done: it becomes the output tile
+
+  // acc2[k] of tile j = (p, i) holds out[p][i][x = 2q, 2q + 1][c = g, g + 8]
+  float* o_s = t_s;                              // [p][i][x][c], 16 channels a row
+#pragma unroll
+  for (int k = 0; k < TILES2; ++k) {
+    const int j = warp + WARPS * k;
+    if (j >= rows) break;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int x = 2 * q + (e & 1), c = g + (e >> 1) * 8;
+      if (x < O) o_s[(j * O + x) * CT + c] = acc2[k][e];
+    }
+  }
+  __syncthreads();
+  // 16-byte stores: 4 a (p, i, x) row of 16 channels
+  float* ob = out + (size_t(b) * P + p0) * O * O * C;
+  for (int e = tid; e < rows * O * 4; e += THREADS) {
+    const int r = e / 4, ch = e % 4;             // r = (p, i, x)
+    *reinterpret_cast<float4*>(ob + size_t(r) * C + c0 + ch * 4) =
+        *reinterpret_cast<const float4*>(o_s + r * CT + ch * 4);
+  }
+}
+
+int launch(const float* feat, const float* Wy, const float* Wx, float* out, int B, int P, int Hl,
+           int Hp, int Wl, int C, cudaStream_t stream) {
+  if (C % CT != 0 || Hp % 4 != 0 || Hp < Hl || C / CT > 65535)
+    return int(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(dense_crop_tf32_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM));
+  if (err != cudaSuccess) return int(err);
+  dim3 grid((P + RB - 1) / RB, C / CT, B);
+  dense_crop_tf32_kernel<<<grid, THREADS, SMEM, stream>>>(feat, Wy, Wx, out, B, P, Hl, Hp, Wl, C);
+  return int(cudaGetLastError());
+}
+
+}  // namespace tf32
+
 }  // namespace
 
 // feat (B, Hl, Wl, C), Wy (B, P, 7, Hl), Wx (B, P, 7, Wl), out (B, P, 7, 7, C),
@@ -564,4 +806,18 @@ extern "C" int dense_crop_bf16_launch(const void* feat, const void* Wy, const vo
                     static_cast<const __nv_bfloat16*>(Wy), static_cast<const __nv_bfloat16*>(Wx),
                     static_cast<__nv_bfloat16*>(out), B, P, Hl, Hp, Wl, C,
                     static_cast<cudaStream_t>(stream));
+}
+
+// feat (B, C / 16, Hl, Wl, 16) with C a multiple of 16, Wy (2, B, P, 7, Hp)
+// with Hp a multiple of 4 and zeros past Hl, Wx (2, B, P, 7, Wl), each
+// weight tensor its TF32 hi then its lo (`roi_align.crop_f32_operands`),
+// out (B, P, 7, 7, C), all contiguous float32.
+extern "C" int dense_crop_f32_launch(const void* feat, const void* Wy, const void* Wx,
+                                     void* out, int B, int P, int Hl, int Hp, int Wl, int C,
+                                     int o, void* stream) {
+  if (o != O || B < 1 || P < 1 || C < 1 || Hl < 1 || Wl < 1 || B > 65535)
+    return int(cudaErrorInvalidValue);
+  return tf32::launch(static_cast<const float*>(feat), static_cast<const float*>(Wy),
+                      static_cast<const float*>(Wx), static_cast<float*>(out), B, P, Hl, Hp, Wl,
+                      C, static_cast<cudaStream_t>(stream));
 }

@@ -93,6 +93,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32.cuh"   // rna_tf32, split, mma_tf32 (namespace tf32)
+
 namespace {
 
 constexpr int TH = 8;    // output rows per block
@@ -558,33 +560,11 @@ __host__ __device__ inline Smem smem_layout(int c0p, int c1p) {
   return s;
 }
 
-// d += a (16 x 8, row) . b (8 x 8, col), TF32 in, f32 accumulators
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // A 4-byte asynchronous copy to shared memory, zero-filled where !in.
 __device__ __forceinline__ void copy4(float* dst, const float* src, bool in) {
   const unsigned d = unsigned(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
                "r"(in ? 4 : 0));
-}
-
-// The bits of a float rounded to TF32, to nearest with ties away from zero,
-// as `cvt.rna.tf32.f32` rounds (low 13 bits zero), in two integer
-// instructions at the full ALU rate.
-__device__ __forceinline__ uint32_t rna_tf32(uint32_t bits) {
-  return (bits + 0x1000u) & 0xffffe000u;
-}
-
-// f = hi + lo to about 2**-22 |f|: hi its TF32 rounding, lo that of the rest
-__device__ __forceinline__ void split(float f, uint32_t& hi, uint32_t& lo) {
-  hi = rna_tf32(__float_as_uint(f));
-  lo = rna_tf32(__float_as_uint(__fsub_rn(f, __uint_as_float(hi))));
 }
 
 // A descriptor of a B tile in shared memory: K-major, no swizzle, 8-row x

@@ -49,12 +49,30 @@
 // blocks that take two (window, head) items and copy the next while they
 // compute the current ran slower at three of the four stage shapes.
 //
-// float32 entry (`window_attention_launch`), the first version, f32 and
-// bf16: the wrapper calls it for float32 (the tensor cores would take f32
-// only as TF32); its bf16 instantiation is there so that `chip_smoke.py`
-// times the redesign against it.  It computes both products on the CUDA
-// cores in f32, reading both operands of every multiply-add from shared
-// memory, so it is bound by shared-memory issue, well above the bytes.
+// float32 entry (`window_attention_f32_launch`), on the tensor cores in
+// 3xTF32 (`tf32.cuh`: each operand split into a TF32 hi and lo, lo.hi +
+// hi.lo + hi.hi with f32 sums), since one TF32 product keeps 10 bits of
+// mantissa and breaks the f32 tolerance.  The bfloat16 entry's pattern on
+// `mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32`: one block of 4
+// warps per (window, head), warp w owning query rows 16w .. 16w + 15, q, k
+// and v in shared memory as f32 (rows of padded d + 4 floats, so that
+// `ldmatrix`, which reads 32-bit elements as pairs, and the scalar reads
+// of V hit no bank twice), padding zero-filled, the bias by `cp.async`,
+// the output through the warp's own Q rows.  Q's and K's fragments are
+// split as they come out of shared memory.  P V numbers the k8 step's keys
+// so that index q stands for key 2q and q + 4 for key 2q + 1: a lane's A
+// fragment is then its own accumulators of S (rows g, g + 8; keys 2q, 2q
+// + 1) with no shuffle, and V's B fragments are scalar loads of the same
+// keys; p (not rounded: the input type is f32) and v are split before the
+// product.  The first version's rounding places are kept: scale after
+// q.k, then the f32 bias, max, `expf` and IEEE e / sum.
+//
+// CUDA-core entry (`window_attention_launch`), the first version, f32 and
+// bf16: no wrapper calls it; `chip_smoke.py` times the redesigns against
+// it (`fused_attention.FIRST_VERSION`).  It computes both products on the
+// CUDA cores in f32, reading both operands of every multiply-add from
+// shared memory, so it is bound by shared-memory issue, well above the
+// bytes.
 // One block of 4 warps per (window, head).  The block loads q, k and v
 // (O x d each) into shared memory as f32; k's rows are padded to d + 1 so
 // that the 32 lanes of a warp, each on its own key, read distinct banks.
@@ -63,7 +81,7 @@
 // probabilities to shared memory, and lane c then sums p[j] * v[j, c] for
 // channels c and c + 32.
 //
-// Both entries take O <= 64 and d <= 64.  q, k, v and out are read through
+// Every entry takes O <= 64 and d <= 64.  q, k, v and out are read through
 // (window, head, token) strides with the channel contiguous, so the model
 // passes views of its (n, O, 3, h, d) projection and gets its output in the
 // (n, O, h, d) layout that the next projection reads, with no copy.  The
@@ -74,6 +92,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "tf32.cuh"   // rna_tf32, split, mma_tf32, mma_3xtf32 (namespace tf32)
 
 namespace {
 
@@ -531,6 +551,302 @@ int launch(const void* q, const void* k, const void* v, const void* bias, void* 
 
 }  // namespace tc
 
+// ------------------------------------------------------------------ float32
+
+namespace tf32 {
+
+constexpr int THREADS = WARPS * 32;
+constexpr int MAX_KT = 64 / 8;            // n8 tiles of keys
+constexpr int MAX_DT = MAX_HEAD_DIM / 8;  // n8 tiles of d
+constexpr int MIN_BLOCKS = 4;             // blocks an SM: at most 128 registers a thread
+
+__host__ __device__ inline int padded_d(int d) { return (d + 7) / 8 * 8; }
+// Row stride of q, k and v in shared memory, in floats: 4 past a multiple
+// of 8, so that `ldmatrix`'s 8 rows of 16 bytes and the scalar reads of V
+// (rows 2q, 2q + 1 of lane (g, q)) hit no bank twice.
+__host__ __device__ inline int row_ld(int d) { return padded_d(d) + 4; }
+// Rows of q, k and v kept: O padded to the warps' m16 tiles.
+__host__ __device__ inline int padded_rows(int O) { return (O + 15) / 16 * 16; }
+// Shared memory of a block, in bytes: q, k and v ([token][d], f32), then
+// the f32 bias (O x O, after up to 3 floats of offset that align its
+// 16-byte copies).
+__host__ __device__ inline int qkv_bytes(int O, int d) {
+  return 3 * padded_rows(O) * row_ld(d) * 4;
+}
+inline size_t smem_bytes(int O, int d) {
+  return size_t(qkv_bytes(O, d)) + (3 + O * O + 3) / 4 * 16;
+}
+
+// VEC f32 elements as one access
+template <int VEC> struct Chunk;
+template <> struct Chunk<4> { using type = float4; };
+template <> struct Chunk<2> { using type = float2; };
+template <> struct Chunk<1> { using type = float; };
+
+// Rows 0 .. padded_rows(O) - 1 of one (window, head)'s q, k or v into
+// shared memory ([token][d], row stride ld), in chunks of VEC floats up to
+// the padded d; rows >= O and columns >= d are zeros.  d % VEC == 0.
+template <int VEC>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, long long token_stride,
+                                          int O, int d, int ld) {
+  const int chunks = padded_d(d) / VEC, rows = padded_rows(O);
+  for (int e = threadIdx.x; e < rows * chunks; e += THREADS) {
+    const int t = e / chunks, c = (e % chunks) * VEC;
+    const bool ok = t < O && c < d;
+    const float* from = src + t * token_stride + c;
+    if constexpr (VEC == 4) {
+      tc::cp_async16(dst + t * ld + c, ok ? from : src, ok);
+    } else {
+      using V = typename Chunk<VEC>::type;
+      *reinterpret_cast<V*>(dst + t * ld + c) = ok ? *reinterpret_cast<const V*>(from) : V{};
+    }
+  }
+}
+
+// The warp's output rows r0 .. r0 + 15 (< O) from shared memory to global
+// memory in chunks of VEC floats.
+template <int VEC>
+__device__ __forceinline__ void store_rows(float* dst, const float* src, long long token_stride,
+                                           int r0, int O, int d, int ld, int lane) {
+  using V = typename Chunk<VEC>::type;
+  const int chunks = d / VEC;
+  for (int e = lane; e < 16 * chunks; e += 32) {
+    const int t = r0 + e / chunks, c = (e % chunks) * VEC;
+    if (t < O)
+      *reinterpret_cast<V*>(dst + t * token_stride + c) =
+          *reinterpret_cast<const V*>(src + t * ld + c);
+  }
+}
+
+// Issue the copies of an item's q, k and v into `buf` ([q | k | v] rows)
+// and of its bias behind them (as `tc::fetch` does); returns the bias'
+// offset in floats there.
+template <int VIN>
+__device__ __forceinline__ int fetch(unsigned char* buf, const tc::Item& it, const float* q,
+                                     const float* k, const float* v, const float* bias,
+                                     const Strides& st, int O, int d) {
+  float* qkv = reinterpret_cast<float*>(buf);
+  const int ld = row_ld(d), rows = padded_rows(O);
+  load_rows<VIN>(qkv, q + it.n * st.q[0] + it.head * st.q[1], st.q[2], O, d, ld);
+  load_rows<VIN>(qkv + rows * ld, k + it.n * st.k[0] + it.head * st.k[1], st.k[2], O, d, ld);
+  load_rows<VIN>(qkv + 2 * rows * ld, v + it.n * st.v[0] + it.head * st.v[1], st.v[2], O, d,
+                 ld);
+  float* bs = reinterpret_cast<float*>(buf + qkv_bytes(O, d));
+  const float* bb = bias + it.w * st.bias[0] + it.head * st.bias[1];
+  const int count = O * O;
+  if (st.bias[2] != O) {
+    for (int j = threadIdx.x; j < count; j += THREADS)
+      tc::cp_async4(bs + j, bb + (j / O) * st.bias[2] + j % O);
+    return 0;
+  }
+  const int lead = int(reinterpret_cast<uintptr_t>(bb) / 4 % 4);   // floats past 16 bytes
+  for (int c = threadIdx.x; c < (lead + count + 3) / 4; c += THREADS) {
+    const int j0 = 4 * c - lead;              // the source float of shared float 4c
+    if (j0 >= 0 && j0 + 4 <= count) {
+      tc::cp_async16(bs + 4 * c, bb + j0, true);
+    } else {
+      for (int e = 0; e < 4; ++e)
+        if (j0 + e >= 0 && j0 + e < count) tc::cp_async4(bs + 4 * c + e, bb + j0 + e);
+    }
+  }
+  return lead;
+}
+
+// The warp's 16 query rows r0 .. of one item, from q, k, v and the bias
+// (`bs`, O x O) in shared memory, both products in 3xTF32.  The output
+// leaves through the warp's own Q rows of `buf`, which no other warp reads.
+__device__ __forceinline__ void attend(float* buf, const float* bs, float* ob,
+                                       long long out_token_stride, int O, int d, float scale,
+                                       int vout) {
+  const int ld = row_ld(d), rows = padded_rows(O);
+  float* qs = buf;
+  const float* ks = buf + rows * ld;
+  const float* vs = buf + 2 * rows * ld;
+  const int lane = threadIdx.x % 32, r0 = threadIdx.x / 32 * 16;
+  const int g = lane / 4, qd = lane % 4;          // fragment row group, column
+  const int nkt = rows / 8;                       // n8 tiles of keys, even
+  const int ndt = padded_d(d) / 8;                // n8 tiles of d
+
+  // S = Q K^T over the padded d, k8 a step: Q's A fragments and K's B
+  // fragments (K's rows are K^T's columns) by `ldmatrix`, which reads
+  // 32-bit elements as pairs of 16-bit ones, split into hi and lo as they
+  // come out of shared memory
+  float s[MAX_KT][4];
+#pragma unroll
+  for (int kt = 0; kt < MAX_KT; ++kt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[kt][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < MAX_HEAD_DIM; kk += 8) {
+    if (kk >= ndt * 8) break;
+    uint32_t a[4], a_hi[4], a_lo[4];
+    // matrices: rows r0 .. +7 at d kk .. kk + 3, rows +8 .. +15, then d kk + 4 ..
+    tc::ldmatrix_x4(a, qs + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + kk +
+                           (lane >> 4) * 4);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) split(__uint_as_float(a[r]), a_hi[r], a_lo[r]);
+#pragma unroll
+    for (int kt = 0; kt < MAX_KT; kt += 2) {
+      if (kt >= nkt) break;
+      // matrices: keys kt*8 .. +7 at d kk and kk + 4, then keys (kt+1)*8 .. +7
+      uint32_t b[4], hi[4], lo[4];
+      tc::ldmatrix_x4(b, ks + (kt * 8 + (lane & 7) + (lane >> 4) * 8) * ld + kk +
+                             ((lane >> 3) & 1) * 4);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) split(__uint_as_float(b[r]), hi[r], lo[r]);
+      mma_3xtf32(s[kt], a_hi, a_lo, hi[0], hi[1], lo[0], lo[1]);
+      mma_3xtf32(s[kt + 1], a_hi, a_lo, hi[2], hi[3], lo[2], lo[3]);
+    }
+  }
+
+  // softmax of rows g (e = 0, 1) and g + 8 (e = 2, 3), the first version's
+  // rounding places: scale, then bias, each rounded; expf; IEEE e / sum.
+  // The accumulator layout: [key tile][row g: keys 2qd, 2qd + 1; row g + 8]
+  float m[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int kt = 0; kt < MAX_KT; ++kt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r0 + g + (e >> 1) * 8, key = kt * 8 + 2 * qd + (e & 1);
+      const float x = (kt < nkt && key < O && row < O)
+                          ? __fadd_rn(__fmul_rn(s[kt][e], scale), bs[row * O + key])
+                          : (key < O ? 0.f : -INFINITY);
+      s[kt][e] = x;
+      m[e >> 1] = fmaxf(m[e >> 1], x);
+    }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
+    m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 2));
+  }
+#pragma unroll
+  for (int kt = 0; kt < MAX_KT; ++kt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[kt][e] = expf(s[kt][e] - m[e >> 1]);
+      sum[e >> 1] += s[kt][e];
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+  }
+
+  // O = P V, 8 keys a k8 step.  The step's k index qd stands for key 2qd
+  // and qd + 4 for key 2qd + 1, so that a lane's A fragment is its own
+  // accumulators (rows g, g + 8; keys 2qd, 2qd + 1) with no shuffle; V's B
+  // fragments read the same keys, by scalar loads from V's [token][d] rows.
+  // p (not rounded: the input type is f32) and v are split before the
+  // product.
+  float o[MAX_DT][4];
+#pragma unroll
+  for (int dt = 0; dt < MAX_DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
+#pragma unroll
+  for (int kt = 0; kt < MAX_KT; ++kt) {
+    if (kt >= nkt) break;
+    uint32_t a_hi[4], a_lo[4];
+    split(__fdiv_rn(s[kt][0], sum[0]), a_hi[0], a_lo[0]);     // row g, key 2qd
+    split(__fdiv_rn(s[kt][2], sum[1]), a_hi[1], a_lo[1]);     // row g + 8, key 2qd
+    split(__fdiv_rn(s[kt][1], sum[0]), a_hi[2], a_lo[2]);     // row g, key 2qd + 1
+    split(__fdiv_rn(s[kt][3], sum[1]), a_hi[3], a_lo[3]);     // row g + 8, key 2qd + 1
+    const float* v0 = vs + (kt * 8 + 2 * qd) * ld + g;
+#pragma unroll
+    for (int dt = 0; dt < MAX_DT; ++dt) {
+      if (dt >= ndt) break;
+      uint32_t b0_hi, b0_lo, b1_hi, b1_lo;
+      split(v0[dt * 8], b0_hi, b0_lo);
+      split(v0[ld + dt * 8], b1_hi, b1_lo);
+      mma_3xtf32(o[dt], a_hi, a_lo, b0_hi, b1_hi, b0_lo, b1_lo);
+    }
+  }
+
+  __syncwarp();
+#pragma unroll
+  for (int dt = 0; dt < MAX_DT; ++dt) {
+    if (dt >= ndt) break;
+    const int col = dt * 8 + 2 * qd;
+    *reinterpret_cast<float2*>(qs + (r0 + g) * ld + col) = make_float2(o[dt][0], o[dt][1]);
+    *reinterpret_cast<float2*>(qs + (r0 + g + 8) * ld + col) = make_float2(o[dt][2], o[dt][3]);
+  }
+  __syncwarp();
+  switch (vout) {
+    case 4: store_rows<4>(ob, qs, out_token_stride, r0, O, d, ld, lane); break;
+    case 2: store_rows<2>(ob, qs, out_token_stride, r0, O, d, ld, lane); break;
+    default: store_rows<1>(ob, qs, out_token_stride, r0, O, d, ld, lane); break;
+  }
+}
+
+template <int VIN>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+window_attention_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, const float* __restrict__ bias,
+                             float* __restrict__ out, Strides st, int B, int h, int O, int d,
+                             int nW, float scale, int vout) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const tc::Item it = tc::item_of(blockIdx.x, B, h, nW);
+  const int lead = fetch<VIN>(smem_raw, it, q, k, v, bias, st, O, d);
+  tc::cp_async_commit();
+  tc::cp_async_wait_all();
+  __syncthreads();
+  if (int(threadIdx.x) / 32 * 16 < O)     // the warp has query rows
+    attend(reinterpret_cast<float*>(smem_raw),
+           reinterpret_cast<float*>(smem_raw + qkv_bytes(O, d)) + lead,
+           out + it.n * st.out[0] + it.head * st.out[1], st.out[2], O, d, scale, vout);
+}
+
+// The widest chunk, in f32 elements, that divides d and every stride of the
+// tensors and to whose bytes their bases are aligned.
+inline int chunk_width(int d, const void* const* ptrs, const long long* const* strides, int count) {
+  for (int vec = 4; vec > 1; vec /= 2) {
+    bool ok = d % vec == 0;
+    for (int i = 0; i < count && ok; ++i) {
+      ok = reinterpret_cast<uintptr_t>(ptrs[i]) % (4 * vec) == 0;
+      for (int j = 0; j < 3; ++j) ok = ok && strides[i][j] % vec == 0;
+    }
+    if (ok) return vec;
+  }
+  return 1;
+}
+
+template <int VIN>
+int launch_vec(const void* q, const void* k, const void* v, const void* bias, void* out,
+               const Strides& st, int n, int h, int O, int d, int nW, float scale, int vout,
+               cudaStream_t stream) {
+  const size_t smem = smem_bytes(O, d);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(window_attention_tf32_kernel<VIN>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           int(smem));
+    if (err != cudaSuccess) return int(err);
+  }
+  window_attention_tf32_kernel<VIN><<<n * h, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(bias), static_cast<float*>(out), st, n / nW, h, O, d, nW, scale,
+      vout);
+  return int(cudaGetLastError());
+}
+
+int launch(const void* q, const void* k, const void* v, const void* bias, void* out,
+           const Strides& st, int n, int h, int O, int d, int nW, float scale,
+           cudaStream_t stream) {
+  const void* in_ptrs[3] = {q, k, v};
+  const long long* in_strides[3] = {st.q, st.k, st.v};
+  const void* out_ptrs[1] = {out};
+  const long long* out_strides[1] = {st.out};
+  const int vin = chunk_width(d, in_ptrs, in_strides, 3);
+  const int vout = chunk_width(d, out_ptrs, out_strides, 1);
+  switch (vin) {
+    case 4: return launch_vec<4>(q, k, v, bias, out, st, n, h, O, d, nW, scale, vout, stream);
+    case 2: return launch_vec<2>(q, k, v, bias, out, st, n, h, O, d, nW, scale, vout, stream);
+    default: return launch_vec<1>(q, k, v, bias, out, st, n, h, O, d, nW, scale, vout, stream);
+  }
+}
+
+}  // namespace tf32
+
 bool valid_sizes(int n, int h, int O, int d, int nW) {
   return n > 0 && h > 0 && O > 0 && O <= MAX_TOKENS && d > 0 && d <= MAX_HEAD_DIM && nW > 0 &&
          n % nW == 0 && (long long)n * h <= 0x7fffffffLL;
@@ -566,6 +882,18 @@ extern "C" int window_attention_launch(const void* q, const void* k, const void*
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k, v, bias, out, st, n, h, O, d, nW, scale, s);
   return int(cudaErrorInvalidValue);
+}
+
+// The float32 tensor-core version (3xTF32): the same arguments, float32
+// only (dtype 0).
+extern "C" int window_attention_f32_launch(const void* q, const void* k, const void* v,
+                                           const void* bias, void* out,
+                                           const long long* strides, int n, int h, int O,
+                                           int d, int nW, float scale, int dtype,
+                                           void* stream) {
+  if (!valid_sizes(n, h, O, d, nW) || dtype != 0) return int(cudaErrorInvalidValue);
+  return tf32::launch(q, k, v, bias, out, unpack(strides), n, h, O, d, nW, scale,
+                      static_cast<cudaStream_t>(stream));
 }
 
 // The tensor-core version: the same arguments, bfloat16 only (dtype 1).

@@ -3,7 +3,8 @@
 Each source under `csrc/` becomes its own shared library with a plain C
 interface, compiled for `sm_90a` into `build/torch_kernels/` at the root of
 the checkout (listed in `.gitignore`).  The file name carries a hash of the
-source, so an edited source is rebuilt and an unchanged one is reused.
+source and of the headers under `csrc/` (`tf32.cuh`), so an edited source or
+header is rebuilt and an unchanged one is reused.
 `build_all` starts one `nvcc` per source at once and waits for all of them.
 """
 
@@ -35,8 +36,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    """The library of `csrc/<name>.cu`, named by a hash of the source and of
+    every header under `csrc/`, so that an edited header rebuilds too."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
 
 
 def _start(name: str) -> subprocess.Popen:

@@ -4,8 +4,8 @@ Counterpart of `panoswintransformerobjectdetection_tpu/ops/fused_attention.py`.
 For window n and head h it computes
 softmax(q[n, h] k[n, h]^T * scale + bias[n mod nW, h]) v[n, h], with the
 bias (nW, h, O, O) float32 shared by the batch.  On a CUDA tensor that is the
-hand-written kernel `csrc/window_attention.cu` (bfloat16 on the tensor
-cores, float32 on the CUDA cores); on a CPU tensor its plain twin
+hand-written kernel `csrc/window_attention.cu` (on the tensor cores: bf16
+for bfloat16, 3xTF32 for float32); on a CPU tensor its plain twin
 `window_attention_plain`.  Both follow the Pallas kernel's arithmetic
 (`_packed_kernel`): q.k in f32 from the inputs' values, then times `scale`,
 plus the bias; max, exp and e / sum in f32; p rounded to v's type; p.v in
@@ -33,12 +33,14 @@ MAX_TOKENS = 64        # O, tokens per window
 MAX_HEAD_DIM = 64      # d
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# The kernel's entries in `csrc/window_attention.cu`: CUDA cores for float32
-# (the first version, whose bfloat16 instantiation only `chip_smoke.py`
-# calls, to time the redesign against it), tensor cores for bfloat16.  Both
-# count as launches of K2 and take the same C arguments.
-ENTRIES = {torch.float32: "window_attention_launch",
+# The kernel's entries in `csrc/window_attention.cu`, both on the tensor
+# cores: 3xTF32 for float32, bfloat16 for bfloat16.  Both count as launches
+# of K2 and take the same C arguments.  `FIRST_VERSION` names the first
+# version, on the CUDA cores (float32 and bfloat16 by the dtype code), which
+# no wrapper calls: `chip_smoke.py` times the redesigns against it.
+ENTRIES = {torch.float32: "window_attention_f32_launch",
            torch.bfloat16: "window_attention_bf16_launch"}
+FIRST_VERSION = "window_attention_launch"
 LAUNCH_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
                    + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 

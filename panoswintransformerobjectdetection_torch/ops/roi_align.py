@@ -38,6 +38,7 @@ import torch
 
 from . import cuda_build
 from .autograd import backward_through_plain
+from .tf32 import tf32_split
 
 OUT_SIZE = 7         # the bbox head's bins a side, the default
 KERNEL_OUT_SIZES = (7, 14)   # the sizes K3 is built for, forward and backward: bbox and mask heads
@@ -449,11 +450,13 @@ def dense_crop_plain(feat: torch.Tensor, Wy: torch.Tensor, Wx: torch.Tensor) -> 
     return torch.einsum("bpxw,bpowc->bpoxc", Wx.float(), t.float()).to(feat.dtype)
 
 
-# K4's entries in `csrc/dense_crop.cu`: CUDA cores for float32 (the first
-# version, whose bfloat16 instantiation only `chip_smoke.py` calls, to time
-# the redesign against it), tensor cores for bfloat16.  Both count as
-# launches of K4 and take the same C arguments.
-CROP_ENTRIES = {torch.float32: "dense_crop_launch", torch.bfloat16: "dense_crop_bf16_launch"}
+# K4's entries in `csrc/dense_crop.cu`, both on the tensor cores: 3xTF32 for
+# float32, bfloat16 for bfloat16.  Both count as launches of K4 and take
+# the same C arguments.  `CROP_FIRST_VERSION` names the first version, on the
+# CUDA cores (float32 and bfloat16 by a dtype code), which no wrapper calls:
+# `chip_smoke.py` times the redesigns against it.
+CROP_ENTRIES = {torch.float32: "dense_crop_f32_launch", torch.bfloat16: "dense_crop_bf16_launch"}
+CROP_FIRST_VERSION = "dense_crop_launch"
 CROP_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
@@ -479,6 +482,17 @@ def crop_operands(feat: torch.Tensor, Wy: torch.Tensor):
     return tiles.contiguous(), _pad_last(Wy, 8).contiguous()
 
 
+def crop_f32_operands(feat: torch.Tensor, Wy: torch.Tensor, Wx: torch.Tensor):
+    """The float32 entry's operands: feat and Wy as `crop_operands` lays them
+    out, then Wy (2, B, P, o, Hp) and Wx (2, B, P, o, Wl), each its TF32 hi
+    stacked on its lo (`tf32.tf32_split`).  The lanes read Wy's A fragments
+    from shared memory by `ldmatrix`, rows (p, i) and columns h, and Wx's B
+    fragments from global memory, Wx[p, x, w] at (k = w, n = x), so both
+    keep their own layout."""
+    tiles, Wy = crop_operands(feat, Wy)
+    return tiles, tf32_split(Wy), tf32_split(Wx)
+
+
 def _dense_crop_forward(feat, Wy, Wx) -> torch.Tensor:
     """Launch K4 on CUDA tensors: the entry for their type (`CROP_ENTRIES`)."""
     dt = feat.dtype
@@ -494,14 +508,13 @@ def _dense_crop_forward(feat, Wy, Wx) -> torch.Tensor:
                          f"Wx {tuple(Wx.shape)}; o must be {OUT_SIZE}")
     if Wy.device != feat.device or Wx.device != feat.device:
         raise ValueError("dense_crop: feat, Wy and Wx on different devices")
-    Wx = Wx.contiguous()
     if dt == torch.bfloat16:
         feat, Wy = crop_operands(feat, Wy)
-        Cp = feat.shape[1] * CROP_CHANNEL_TILE
-        sizes = (B, P, Hl, Wy.shape[-1], Wl, Cp, o)
+        Wx = Wx.contiguous()
     else:
-        feat, Wy, Cp = feat.contiguous(), Wy.contiguous(), C
-        sizes = (B, P, Hl, Wl, C, o, 0)       # the CUDA-core entry, at dtype code 0 (float32)
+        feat, Wy, Wx = crop_f32_operands(feat, Wy, Wx)
+    Cp = feat.shape[1] * CROP_CHANNEL_TILE
+    sizes = (B, P, Hl, Wy.shape[-1], Wl, Cp, o)
     out = torch.empty((B, P, o, o, Cp), dtype=dt, device=feat.device)
     if out.numel():
         fn = cuda_build.function("dense_crop", CROP_ENTRIES[dt], CROP_ARGTYPES)

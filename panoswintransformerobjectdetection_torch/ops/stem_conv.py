@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_build
+from .tf32 import tf32_split
 
 # Stem BatchNorm epsilon, shared by the BatchNorm modules and every fold.
 BN_EPS = 1e-5
@@ -91,16 +92,9 @@ def tensor_core_layout(w0, w1, dtype):
     return w0k, w1k
 
 
-def tf32_round(t: torch.Tensor) -> torch.Tensor:
-    """float32 t rounded to TF32 as `cvt.rna.tf32.f32` rounds: to nearest,
-    ties away from zero, the low 13 mantissa bits cleared."""
-    bits = t.float().contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
 def tf32_split_layout(w0, w1):
-    """The float32 entry's operands, split for 3xTF32: hi = `tf32_round`(w)
-    and lo = `tf32_round`(w - hi).  w0k (4, c0p / 8, 32, 4), conv0's B
+    """The float32 entry's operands, split for 3xTF32 (`tf32.tf32_split`):
+    hi = TF32(w) and lo = TF32(w - hi).  w0k (4, c0p / 8, 32, 4), conv0's B
     fragments for `mma.sync.m16n8k8` in the order a lane loads them: entry
     [s, n, lane] holds, for lane = 4g + q, output channel co = 8n + g and
     im2col columns k = 8s + q and k + 4 (k = (dy * 3 + dx) * 3 + cin, zero
@@ -119,15 +113,12 @@ def tf32_split_layout(w0, w1):
     w0m[:c0, :27] = w0.float().permute(0, 2, 3, 1).reshape(c0, 27)
     # (n, g, s, j, q) -> (s, n, g, q, j), k = 8s + 4j + q
     w0m = w0m.reshape(c0p // 8, 8, 4, 2, 4).permute(2, 0, 1, 4, 3)
-    hi0 = tf32_round(w0m)
-    w0k = torch.cat([hi0, tf32_round(w0m - hi0)], dim=-1).reshape(4, c0p // 8, 32, 4)
+    w0k = torch.cat(tuple(tf32_split(w0m)), dim=-1).reshape(4, c0p // 8, 32, 4)
     wt = torch.zeros((9, c1p, c0p), dtype=torch.float32, device=w1.device)
     wt[:, :c1, :c0] = w1.float().permute(2, 3, 0, 1).reshape(9, c1, c0)
     # (tap, n, nb, r, cb, j, h, kh) -> (tap, cb, h, n, nb, kh, r, j)
     wt = wt.reshape(9, c1p // 64, 8, 8, c0p // 16, 4, 2, 2).permute(0, 4, 6, 1, 2, 7, 3, 5)
-    hi = tf32_round(wt)
-    lo = tf32_round(wt - hi)
-    return w0k.contiguous(), torch.stack([hi, lo], dim=3).contiguous()
+    return w0k.contiguous(), tf32_split(wt).movedim(0, 3).contiguous()
 
 
 def stem_weights(w0, b0, w1, b1, dtype) -> StemWeights:

@@ -15,13 +15,17 @@ order can flip the rounding of an h0 value and h1's own rounding adds one
 unit.  K3 must be exact at both types, in both its entries and its first
 version: kernel and twin do the same operations in the same order.  K3 at
 14 x 14 bins (the mask head) is held to the same.
-K2 float32 1e-5 * max(1, max|ref|) (sums in another order); bfloat16
-4 * 2**-8 * max|ref|, since another f32 summation order (the tensor cores'
-for bf16) can flip the bf16 rounding of p, which moves an output by about
-one unit.  K4 (`dense_crop`)
+K2 float32 1e-5 * max(1, max|ref|) (sums in another order): the float32
+entry runs both products on the tensor cores in 3xTF32, which also drops
+each product's lo.lo term (about 2**-22 of it), and its first version, on
+the CUDA cores, is held to the same; bfloat16 4 * 2**-8 * max|ref|, since
+another f32 summation order (the tensor cores' for bf16) can flip the bf16
+rounding of p, which moves an output by about one unit.  K4 (`dense_crop`)
 float32 1e-5 * max(1, max|ref|) * sqrt(Hl) (sums of Hl products in another
-order than cuBLAS takes them); bfloat16 2 * 2**-8 * max|ref| (one flip in
-the stage-one rounding and one in the result).  K3's backward float32
+order than cuBLAS takes them), for the 3xTF32 entry and the first version
+alike (`tests/test_torch_tf32_entries.py` emulates both f32 entries'
+arithmetic on the CPU); bfloat16 2 * 2**-8 * max|ref| (one flip in the
+stage-one rounding and one in the result).  K3's backward float32
 1e-5 * max(1, max|ref|) (atomic adds in any order); bfloat16 2 * 2**-8 *
 max|ref| (each pixel's f32 sum is rounded once; the bf16 entry adds w1
 times a sum over the bins j, the plain version each product, in another
@@ -221,6 +225,24 @@ def test_wrappers_refuse_bad_input(cuda_device):
     levels.num_levels = 1
     assert first(ctypes.byref(levels), rois.data_ptr(), out.data_ptr(), 1, 1, 4, 1, 1, 56.0, 14,
                  stream) != 0
+    # K2's 3xTF32 entry takes float32 only (dtype code 0), O and d up to 64,
+    # nW dividing n
+    q, k, v, bias = _attention_case(2, 1, 2, 2, 16, 8, torch.float32, cuda_device)
+    att = cuda_build.function("window_attention", fa.ENTRIES[torch.float32], fa.LAUNCH_ARGTYPES)
+    aout = torch.empty_like(q)
+    ptrs = [t.data_ptr() for t in (q, k, v, bias, aout)]
+    astrides = fa.launch_strides(q, k, v, bias, aout)
+    for n, O, d, nW, code in ((2, 16, 8, 2, 1), (2, 65, 8, 2, 0), (2, 16, 0, 2, 0),
+                              (2, 16, 72, 2, 0), (2, 16, 8, 3, 0)):
+        assert att(*ptrs, astrides, n, 2, O, d, nW, 1.0, code, stream) != 0
+    # K4's 3xTF32 entry: C a multiple of 16, Wy's padded height Hp a
+    # multiple of 4 and at least Hl, 7 bins, no empty sizes
+    crop = cuda_build.function("dense_crop", ra.CROP_ENTRIES[torch.float32], ra.CROP_ARGTYPES)
+    cbuf = torch.zeros(1 << 16, device=cuda_device)
+    for B, P, Hl, Hp, Wl, C, o in ((1, 2, 8, 8, 8, 20, 7), (1, 2, 8, 6, 8, 16, 7),
+                                   (1, 2, 12, 8, 8, 16, 7), (1, 2, 8, 8, 8, 16, 14),
+                                   (1, 0, 8, 8, 8, 16, 7), (1, 2, 8, 8, 0, 16, 7)):
+        assert crop(*[cbuf.data_ptr()] * 4, B, P, Hl, Hp, Wl, C, o, stream) != 0
     # the backward is built for 7 and 14 bins a side only
     with pytest.raises(ValueError, match="Queue 2"):
         ra.roi_align_backward(torch.zeros((1, 10, 10, 4), device=cuda_device), rois,
@@ -264,10 +286,11 @@ def test_roi_align_f32_entry(cuda_device, out_size, wide, C, offset):
 
 @pytest.mark.cuda
 def test_first_versions_still_callable(cuda_device):
-    """K1's and K3's first versions (`FIRST_VERSION`), which no wrapper calls
-    but `chip_smoke.py` times the redesigns against: K1 at f32 (dtype code
-    0) and bf16 (1) within its tolerances, K3 at f32 (7 and 14 bins) and
-    bf16 (7) exact."""
+    """The first versions, which no wrapper calls but `chip_smoke.py` times
+    the redesigns against: K1's and K3's (`FIRST_VERSION`), K1 at f32 (dtype
+    code 0) and bf16 (1) within its tolerances, K3 at f32 (7 and 14 bins) and
+    bf16 (7) exact; K2's (`fa.FIRST_VERSION`) and K4's
+    (`ra.CROP_FIRST_VERSION`) at f32 and bf16 within theirs."""
     stream = torch.cuda.current_stream().cuda_stream
     g = torch.Generator().manual_seed(3)
     c0, c1, B, H, W = 32, 64, 2, 37, 70
@@ -301,6 +324,33 @@ def test_first_versions_still_callable(cuda_device):
                                float(ra.FINEST_SCALE), o, stream), ra.FIRST_VERSION)
         torch.cuda.synchronize()
         assert torch.equal(out, ra.roi_align_plain(tf, tr, STRIDES, o))
+    att = cuda_build.function("window_attention", fa.FIRST_VERSION, fa.LAUNCH_ARGTYPES)
+    crop = cuda_build.function("dense_crop", ra.CROP_FIRST_VERSION, ra.CROP_ARGTYPES)
+    for code, dt in ((0, torch.float32), (1, torch.bfloat16)):
+        q, k, v, bias = _attention_case(4, 2, 5, 3, 49, 32, dt, cuda_device)
+        out = torch.empty_like(q)
+        before = fa.window_attention.launches
+        cuda_build.check(att(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                             out.data_ptr(), fa.launch_strides(q, k, v, bias, out), 10, 3, 49,
+                             32, 5, 32 ** -0.5, code, stream), fa.FIRST_VERSION)
+        torch.cuda.synchronize()
+        assert fa.window_attention.launches == before     # not counted: no wrapper launched it
+        ref = fa.window_attention_plain(q, k, v, bias, 32 ** -0.5)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=_attention_tol(ref, dt))
+        B, Hl, Wl, C, P = 2, 40, 24, 64, 19
+        feat = torch.randn((B, Hl, Wl, C), generator=g).to(dt).to(cuda_device)
+        Wy = (torch.randn((B, P, 7, Hl), generator=g) * 0.3).to(dt).to(cuda_device)
+        Wx = (torch.randn((B, P, 7, Wl), generator=g) * 0.3).to(dt).to(cuda_device)
+        out = torch.empty((B, P, 7, 7, C), dtype=dt, device=cuda_device)
+        before = ra.dense_crop.launches
+        cuda_build.check(crop(feat.data_ptr(), Wy.data_ptr(), Wx.data_ptr(), out.data_ptr(), B, P,
+                              Hl, Wl, C, 7, code, stream), ra.CROP_FIRST_VERSION)
+        torch.cuda.synchronize()
+        assert ra.dense_crop.launches == before
+        ref = ra.dense_crop_plain(feat, Wy, Wx).float()
+        scale = float(ref.abs().max())
+        tol = 1e-5 * max(1.0, scale) * Hl ** 0.5 if dt == torch.float32 else 2 * 2.0 ** -8 * scale
+        torch.testing.assert_close(out.float(), ref, rtol=0, atol=tol)
 
 
 def _attention_case(seed, B, nW, h, O, d, dtype, device):
@@ -322,7 +372,8 @@ def _attention_tol(ref, dtype):
 def test_window_attention_kernel_matches_twin(cuda_device, dtype, O, d):
     """An odd window count (nW = 5), ragged O against the warp's 32 keys and
     the tensor cores' 16 rows, d not a multiple of 16 (padded with zeros)
-    and of 8 (narrower loads)."""
+    and of 8 (narrower loads).  float32 runs the 3xTF32 entry, bfloat16 the
+    bf16 one, each at its type's tolerance, unchanged."""
     q, k, v, bias = _attention_case(0, 2, 5, 3, O, d, dtype, cuda_device)
     before = fa.window_attention.launches
     got = fa.window_attention(q, k, v, bias, d ** -0.5)
@@ -427,7 +478,10 @@ def test_dense_crop_kernel_matches_twin(cuda_device, dtype, shape):
     zeroes Wy for RoIs 18-35, one whole 18-RoI block, as the dense route
     does for the RoIs of other levels, next to dense blocks.  bf16 goes
     through the tensor-core entry; Hl = 400 is past the height up to which
-    that entry keeps Wy in shared memory, so it streams Wy's k-tiles."""
+    that entry keeps Wy in shared memory, so it streams Wy's k-tiles.  f32
+    goes through the 3xTF32 entry (k-tiles of 32 rows, Wy always streamed;
+    Hl 17, 33 and 9 leave a ragged last k-tile) at the f32 tolerance,
+    unchanged."""
     B, Hl, Wl, C, P, zero_block = shape
     g = torch.Generator().manual_seed(0)
     feat = torch.randn((B, Hl, Wl, C), generator=g).to(dtype).to(cuda_device)

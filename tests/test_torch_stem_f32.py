@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from panoswintransformerobjectdetection_torch.ops import stem_conv as tstem
+from panoswintransformerobjectdetection_torch.ops import tf32 as ttf32
 
 C0, C1 = 32, 64
 TOL = 1e-4        # times max(1, max|ref|), as for the f32 entry on the card
@@ -86,7 +87,7 @@ def test_tf32_split_layout():
         assert torch.equal(hi0, _tf32(w0)) and torch.equal(lo0, _tf32(w0 - hi0))
         for w in _padded_w0_from_layout(packed.w0k):         # zero padding
             assert not w[c0:].any() and not w[:, 27:].any()
-        assert torch.equal(tstem.tf32_round(w1), _tf32(w1))
+        assert torch.equal(ttf32.tf32_round(w1), _tf32(w1))
         hi, lo = _w1_from_layout(packed.w1k, c0, c1)
         assert torch.equal(hi, _tf32(w1)) and torch.equal(lo, _tf32(w1 - hi))
         assert ((hi + lo).double() - w1.double()).abs().le(2.0 ** -21 * w1.double().abs()).all()
@@ -133,9 +134,10 @@ def test_3xtf32_emulation_holds_the_f32_tolerance():
 
 def test_f32_entries_in_the_sources():
     """K1's float32 entry is a tensor-core kernel in TF32 (`wgmma`, operands
-    rounded to nearest, ties away); K3's float32 entry is its own symbol; both first
-    versions, which `chip_smoke.py` times the redesigns against, are still
-    declared; and no wrapper routes a type to a first version."""
+    rounded to nearest, ties away, by `tf32.cuh`); K3's float32 entry is its
+    own symbol; both first versions, which `chip_smoke.py` times the
+    redesigns against, are still declared; and no wrapper routes a type to a
+    first version."""
     from panoswintransformerobjectdetection_torch.ops import cuda_build
     from panoswintransformerobjectdetection_torch.ops import roi_align as ra
     stem_src = (cuda_build.CSRC_DIR / "stem_conv.cu").read_text()
@@ -148,4 +150,8 @@ def test_f32_entries_in_the_sources():
         assert module.FIRST_VERSION not in module.ENTRIES.values()
     tf32 = stem_src[stem_src.index("namespace tf32 {"):stem_src.index("}  // namespace tf32")]
     assert "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32" in tf32
-    assert "(bits + 0x1000u) & 0xffffe000u" in tf32
+    # the rounding, the split and mma_tf32 come from the header that K2's
+    # and K4's f32 entries share
+    assert '#include "tf32.cuh"' in stem_src
+    header = (cuda_build.CSRC_DIR / "tf32.cuh").read_text()
+    assert "(bits + 0x1000u) & 0xffffe000u" in header
